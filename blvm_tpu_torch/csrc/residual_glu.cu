@@ -1,0 +1,474 @@
+// K1: fused WaveNet residual-GLU block, forward, for Hopper (sm_90a).
+//
+// Replaces the TPU path blvm_tpu/models/wavenet/modules.py Conv1dResidualGLU.__call__
+// (k=2, need_skip=True), i.e. the block the cut Pallas kernel
+// blvm_tpu/ops/pallas/wavenet_block.py:_forward_kernel (commit 1788a18^) computed:
+//
+//   pre_t[t] = x[t] Wt0 + x[t+d] Wt1 + bt       pre_s[t] = x[t] Ws0 + x[t+d] Ws1 + bs
+//   act[t]   = tanh(pre_t[t]) * sigmoid(pre_s[t])
+//   rs[t]    = act[t] Wrs + brs = [r | s]
+//   o[t]     = (r[t] + x[t+d]) * sqrt(1/2)      s kept for the last skip_size output rows
+//
+// What bounds it on an H100: at the flagship width (C = half = R = S = 96) a block does
+// 2 * (4*C*half + half*(R+S)) = 110.6 kFLOP per output row against 3*C*2 = 576 bytes of
+// compulsory traffic in bf16 (x read once, o and s written once), ~192 FLOP/byte: below the
+// bf16 tensor-core ridge (~295 FLOP/byte) but far above the CUDA-core f32 FMA ridge
+// (~20 FLOP/byte). Both paths below remove the traffic of the plain version: the gate
+// pre-activations, the gated activation and the joint [r | s] output never reach device memory
+// (the plain version writes and re-reads each, ~10 tensors of (B, T, 96) per block).
+// The bf16 path at the instantiated widths (namespace mma, below) runs on the tensor cores; with
+// 16 rows a warp, every warp re-reads the block's weights from shared memory for each tile,
+// so shared-memory bandwidth and MMA issue bound it. wgmma, TMA staging and fusing the
+// 50-block stack are later work.
+//
+// FMA path (f32, and bf16 at other widths): f32 FMAs on the CUDA cores fed from shared memory,
+// bound by shared-memory loads and FMA issue. One thread block per (time tile of TT output
+// rows, batch row). The TT rows of
+// x[t] and x[t+d] are staged in shared memory as f32; gate weights are streamed through
+// shared memory in chunks of KC input channels (so f32 weights, 221 KB at C=96, never have to
+// fit at once); the activation tile stays in shared memory for the 1x1 [r | s] product.
+// Each of the 8 warps owns 4 output rows; lane l owns columns l, l+32, l+64, ...
+// Accumulation is f32 throughout; the compute dtype (f32 or bf16) is only the storage type
+// of x, weights and outputs, which are rounded once at the store.
+
+#include "common.cuh"
+
+namespace blvm {
+namespace {
+
+constexpr int TT = 32;              // output rows per thread block
+constexpr int KC = 32;              // input channels per staged weight chunk
+constexpr int THREADS = 256;        // 8 warps
+constexpr int ROWS = TT / (THREADS / 32);  // output rows per warp (4)
+constexpr int MAX_GATE_COLS = 4;    // half  <= 128
+constexpr int MAX_RS_COLS = 8;      // R + S <= 256
+constexpr int MAX_C = 256;
+
+size_t smem_bytes(int C, int half, int RS) {
+  size_t w = 4 * KC * half > KC * RS ? 4 * KC * half : KC * RS;
+  return sizeof(float) * (2 * (size_t)TT * C + (size_t)TT * half + w);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+residual_glu_kernel(const T* __restrict__ x, const T* __restrict__ w_t, const T* __restrict__ w_s,
+                    const T* __restrict__ b_t, const T* __restrict__ b_s, const T* __restrict__ w_rs,
+                    const T* __restrict__ b_rs, T* __restrict__ o, T* __restrict__ s, int T_in, int C,
+                    int half, int R, int S, int d, int skip_size) {
+  extern __shared__ float smem[];
+  const int RS = R + S;
+  float* x_old = smem;                   // [TT][C]  x[t]
+  float* x_cur = x_old + TT * C;         // [TT][C]  x[t+d]
+  float* act = x_cur + TT * C;           // [TT][half]
+  float* w = act + TT * half;            // gate chunk [4][KC][half] or rs chunk [KC][RS]
+
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * TT;
+  const int T_out = T_in - d;
+  const int lane = threadIdx.x & 31;
+  const int row0 = (threadIdx.x >> 5) * ROWS;
+  const T* xb = x + (size_t)b * T_in * C;
+
+  for (int i = threadIdx.x; i < TT * C; i += THREADS) {
+    const int r = i / C, c = i - r * C, t = t0 + r;
+    float vo = 0.f, vc = 0.f;
+    if (t < T_out) {
+      vo = to_f32(xb[(size_t)t * C + c]);
+      vc = to_f32(xb[(size_t)(t + d) * C + c]);
+    }
+    x_old[i] = vo;
+    x_cur[i] = vc;
+  }
+
+  // ---- gate: two k=2 dilated convs (tanh and sigmoid branches) --------------------------
+  float acc_t[ROWS][MAX_GATE_COLS], acc_s[ROWS][MAX_GATE_COLS];
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i)
+#pragma unroll
+    for (int j = 0; j < MAX_GATE_COLS; ++j) acc_t[i][j] = acc_s[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < C; k0 += KC) {
+    const int kc = min(KC, C - k0);
+    __syncthreads();  // x tiles written / previous chunk consumed
+    for (int i = threadIdx.x; i < 4 * kc * half; i += THREADS) {
+      const int m = i / (kc * half), rem = i - m * kc * half, k = rem / half, c = rem - k * half;
+      // m: 0 = tanh tap 0, 1 = tanh tap 1, 2 = sigmoid tap 0, 3 = sigmoid tap 1; weights (2, C, half)
+      const T* src = (m < 2 ? w_t : w_s) + ((size_t)(m & 1) * C + k0 + k) * half + c;
+      w[(m * KC + k) * half + c] = to_f32(*src);
+    }
+    __syncthreads();
+    for (int k = 0; k < kc; ++k) {
+      float xo[ROWS], xc[ROWS];
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) {
+        xo[i] = x_old[(row0 + i) * C + k0 + k];
+        xc[i] = x_cur[(row0 + i) * C + k0 + k];
+      }
+#pragma unroll
+      for (int j = 0; j < MAX_GATE_COLS; ++j) {
+        const int col = lane + 32 * j;
+        if (col < half) {
+          const float t0w = w[(0 * KC + k) * half + col], t1w = w[(1 * KC + k) * half + col];
+          const float s0w = w[(2 * KC + k) * half + col], s1w = w[(3 * KC + k) * half + col];
+#pragma unroll
+          for (int i = 0; i < ROWS; ++i) {
+            acc_t[i][j] = fmaf(xc[i], t1w, fmaf(xo[i], t0w, acc_t[i][j]));
+            acc_s[i][j] = fmaf(xc[i], s1w, fmaf(xo[i], s0w, acc_s[i][j]));
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < MAX_GATE_COLS; ++j) {
+    const int col = lane + 32 * j;
+    if (col < half) {
+      const float bt = to_f32(b_t[col]), bs = to_f32(b_s[col]);
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i)
+        act[(row0 + i) * half + col] = tanhf(acc_t[i][j] + bt) * sigmoidf(acc_s[i][j] + bs);
+    }
+  }
+
+  // ---- 1x1 conv to [r | s] ------------------------------------------------------------------
+  float acc[ROWS][MAX_RS_COLS];
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i)
+#pragma unroll
+    for (int j = 0; j < MAX_RS_COLS; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < half; k0 += KC) {
+    const int kc = min(KC, half - k0);
+    __syncthreads();  // act written / previous chunk consumed
+    for (int i = threadIdx.x; i < kc * RS; i += THREADS) {
+      const int k = i / RS, c = i - k * RS;
+      w[k * RS + c] = to_f32(w_rs[(size_t)(k0 + k) * RS + c]);  // rs kernel (1, half, R+S)
+    }
+    __syncthreads();
+    for (int k = 0; k < kc; ++k) {
+      float a[ROWS];
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) a[i] = act[(row0 + i) * half + k0 + k];
+#pragma unroll
+      for (int j = 0; j < MAX_RS_COLS; ++j) {
+        const int col = lane + 32 * j;
+        if (col < RS) {
+          const float wv = w[k * RS + col];
+#pragma unroll
+          for (int i = 0; i < ROWS; ++i) acc[i][j] = fmaf(a[i], wv, acc[i][j]);
+        }
+      }
+    }
+  }
+
+  // ---- epilogue: residual add and the skip rows -------------------------------------------
+  // sqrt(1/2) in the compute dtype, as the JAX block multiplies by it (a weakly typed constant
+  // takes the dtype of (r + x): 0.70703125 in bf16).
+  const float inv_std = to_f32(from_f32<T>(0.70710678118654752f));
+  const int skip_start = T_out - skip_size;
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const int r = row0 + i, t = t0 + r;
+    if (t >= T_out) continue;
+#pragma unroll
+    for (int j = 0; j < MAX_RS_COLS; ++j) {
+      const int col = lane + 32 * j;
+      if (col >= RS) continue;
+      const float v = acc[i][j] + to_f32(b_rs[col]);
+      if (col < R) {
+        o[((size_t)b * T_out + t) * R + col] = from_f32<T>((v + x_cur[r * C + col]) * inv_std);
+      } else if (t >= skip_start) {
+        s[((size_t)b * skip_size + (t - skip_start)) * S + (col - R)] = from_f32<T>(v);
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* x, const void* w_t, const void* w_s, const void* b_t, const void* b_s, const void* w_rs,
+           const void* b_rs, void* o, void* s, int B, int T_in, int C, int half, int R, int S, int d,
+           int skip_size, cudaStream_t stream) {
+  const size_t smem = smem_bytes(C, half, R + S);
+  cudaError_t err = cudaFuncSetAttribute(residual_glu_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int T_out = T_in - d;
+  dim3 grid((T_out + TT - 1) / TT, B);
+  residual_glu_kernel<T><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w_t), static_cast<const T*>(w_s),
+      static_cast<const T*>(b_t), static_cast<const T*>(b_s), static_cast<const T*>(w_rs),
+      static_cast<const T*>(b_rs), static_cast<T*>(o), static_cast<T*>(s), T_in, C, half, R, S, d, skip_size);
+  return (int)cudaGetLastError();
+}
+
+
+// ---- tensor-core path: bf16 at fixed widths ----------------------------------------------------
+//
+// The same block on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate), for bf16 at
+// the widths it is instantiated for (C = half = R = S = 96, the flagship; 32, for tests). The
+// gate is one GEMM of [x[t] | x[t+d]] (TT x 2C) with the four tap/branch kernels laid side by
+// side (2C x 2 half); tanh * sigmoid runs on the accumulator fragments (on the SFU's
+// tanh.approx, see gate()) and the gated activation
+// is repacked in registers as the A operand of the [r | s] GEMM, so it never leaves registers
+// (rounded to bf16 there, as the bf16 reference rounds it). Weights are staged once per thread
+// block into shared memory, transposed to [n][k] with 8 elements of padding per row so that the
+// fragment loads hit 32 distinct banks; blocks are persistent (one per SM) and walk over
+// (batch row, 128-row time tile) pairs, the next tile's x rows streaming into a second buffer
+// (cp.async) while the current one computes. Each of the 8 warps owns 16 rows of a tile.
+namespace mma {
+
+constexpr int WARPS = 8;
+constexpr int TT = 16 * WARPS;  // rows per tile
+
+template <int C, int HALF, int RS>
+struct Cfg {
+  static_assert(C % 16 == 0 && HALF % 32 == 0 && RS % 8 == 0 && RS > C, "mma path widths");
+  static constexpr int KG = 2 * C, KG_PAD = KG + 8, KR_PAD = HALF + 8, C_PAD = C + 8;
+  static constexpr int NTG = 2 * HALF / 8, NTH = HALF / 8, NTR = RS / 8, NTO = C / 8;
+  static constexpr int X_TILE = TT * C_PAD;  // one staged x tile (x[t] or x[t+d]) in elements
+  // weights + two buffers of (x[t], x[t+d]): the next tile's rows load while this one computes
+  static constexpr size_t smem = sizeof(__nv_bfloat16) * ((size_t)2 * HALF * KG_PAD + RS * KR_PAD + 4 * X_TILE);
+};
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) { return *reinterpret_cast<const uint32_t*>(p); }
+
+// 16-byte asynchronous copy global -> shared; zero-fills the destination when !valid
+__device__ __forceinline__ void cp_async16(__nv_bfloat16* dst, const __nv_bfloat16* src, bool valid) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// tanh(a) * sigmoid(b) on the SFU's tanh.approx.f32 (max relative error ~2^-11), with
+// sigmoid(b) = 0.5 tanh(b / 2) + 0.5. The result is rounded to bf16 (2^-9 relative) right
+// after, so the approximation stays below that rounding; the precise tanhf / expf and IEEE
+// division cost ~60 instructions a pair, which at 2 warps per scheduler took ~2.9 us a tile.
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float gate(float a, float b) {
+  return tanh_approx(a) * fmaf(0.5f, tanh_approx(0.5f * b), 0.5f);
+}
+
+// One warp's 16 rows of a tile: both GEMMs, the gate and the epilogue (no shared-memory writes).
+template <int C, int HALF, int RS>
+__device__ __forceinline__ void warp_tile(const __nv_bfloat16* wg, const __nv_bfloat16* wr, const __nv_bfloat16* xo,
+                                          const __nv_bfloat16* xc, const __nv_bfloat16* __restrict__ b_t,
+                                          const __nv_bfloat16* __restrict__ b_s, const __nv_bfloat16* __restrict__ b_rs,
+                                          __nv_bfloat16* __restrict__ o, __nv_bfloat16* __restrict__ s, int b, int t0,
+                                          int T_out, int skip_size, int r0, int g, int q, float inv_std) {
+  using K = Cfg<C, HALF, RS>;
+  constexpr int S = RS - C;
+  float acc[K::NTG][4];
+#pragma unroll
+  for (int j = 0; j < K::NTG; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < K::KG / 16; ++ks) {
+    const __nv_bfloat16* xa = (ks < C / 16 ? xo : xc) + (r0 + g) * K::C_PAD + (ks % (C / 16)) * 16 + 2 * q;
+    const uint32_t a0 = ld32(xa), a1 = ld32(xa + 8 * K::C_PAD), a2 = ld32(xa + 8), a3 = ld32(xa + 8 * K::C_PAD + 8);
+    uint32_t bf[K::NTG][2];  // all of this k-step's B fragments first: the loads overlap
+#pragma unroll
+    for (int j = 0; j < K::NTG; ++j) {
+      const __nv_bfloat16* wb = wg + (j * 8 + g) * K::KG_PAD + ks * 16 + 2 * q;
+      bf[j][0] = ld32(wb);
+      bf[j][1] = ld32(wb + 8);
+    }
+#pragma unroll
+    for (int j = 0; j < K::NTG; ++j) mma_bf16(acc[j], a0, a1, a2, a3, bf[j][0], bf[j][1]);
+  }
+
+  // gated activation, repacked as A fragments (16 x 16 per k-step) of the [r | s] GEMM
+  uint32_t act[HALF / 16][4];
+#pragma unroll
+  for (int j = 0; j < K::NTH; ++j) {
+    const int col = j * 8 + 2 * q;
+    const float bt0 = __bfloat162float(b_t[col]), bt1 = __bfloat162float(b_t[col + 1]);
+    const float bs0 = __bfloat162float(b_s[col]), bs1 = __bfloat162float(b_s[col + 1]);
+    constexpr int js = K::NTH;  // the sigmoid branch's tile of the same columns is j + NTH
+    act[j / 2][(j % 2) * 2 + 0] = pack(gate(acc[j][0] + bt0, acc[j + js][0] + bs0),
+                                       gate(acc[j][1] + bt1, acc[j + js][1] + bs1));
+    act[j / 2][(j % 2) * 2 + 1] = pack(gate(acc[j][2] + bt0, acc[j + js][2] + bs0),
+                                       gate(acc[j][3] + bt1, acc[j + js][3] + bs1));
+  }
+
+  float acc2[K::NTR][4];
+#pragma unroll
+  for (int j = 0; j < K::NTR; ++j) acc2[j][0] = acc2[j][1] = acc2[j][2] = acc2[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HALF / 16; ++kk) {
+    uint32_t bf[K::NTR][2];
+#pragma unroll
+    for (int j = 0; j < K::NTR; ++j) {
+      const __nv_bfloat16* wb = wr + (j * 8 + g) * K::KR_PAD + kk * 16 + 2 * q;
+      bf[j][0] = ld32(wb);
+      bf[j][1] = ld32(wb + 8);
+    }
+#pragma unroll
+    for (int j = 0; j < K::NTR; ++j) mma_bf16(acc2[j], act[kk][0], act[kk][1], act[kk][2], act[kk][3], bf[j][0], bf[j][1]);
+  }
+
+  const int skip_start = T_out - skip_size;
+#pragma unroll
+  for (int j = 0; j < K::NTR; ++j) {
+    const int col = j * 8 + 2 * q;
+    const float br0 = __bfloat162float(b_rs[col]), br1 = __bfloat162float(b_rs[col + 1]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + g + 8 * h, t = t0 + r;
+      if (t >= T_out) continue;
+      const float v0 = acc2[j][2 * h] + br0, v1 = acc2[j][2 * h + 1] + br1;
+      if (j < K::NTO) {
+        const float x0 = __bfloat162float(xc[r * K::C_PAD + col]), x1 = __bfloat162float(xc[r * K::C_PAD + col + 1]);
+        *reinterpret_cast<uint32_t*>(o + ((size_t)b * T_out + t) * C + col) = pack((v0 + x0) * inv_std, (v1 + x1) * inv_std);
+      } else if (t >= skip_start) {
+        *reinterpret_cast<uint32_t*>(s + ((size_t)b * skip_size + (t - skip_start)) * S + (col - C)) = pack(v0, v1);
+      }
+    }
+  }
+}
+
+template <int C, int HALF, int RS>
+__global__ void __launch_bounds__(WARPS * 32, 1)
+residual_glu_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w_t,
+                        const __nv_bfloat16* __restrict__ w_s, const __nv_bfloat16* __restrict__ b_t,
+                        const __nv_bfloat16* __restrict__ b_s, const __nv_bfloat16* __restrict__ w_rs,
+                        const __nv_bfloat16* __restrict__ b_rs, __nv_bfloat16* __restrict__ o,
+                        __nv_bfloat16* __restrict__ s, int B, int T_in, int d, int skip_size) {
+  using K = Cfg<C, HALF, RS>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* wg = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2 HALF][KG_PAD]: gate, n-major
+  __nv_bfloat16* wr = wg + 2 * HALF * K::KG_PAD;                      // [RS][KR_PAD]: rs kernel, n-major
+  __nv_bfloat16* xbuf = wr + RS * K::KR_PAD;  // 2 buffers x {[TT][C_PAD] x[t], [TT][C_PAD] x[t+d]}
+
+  // Gate columns n < HALF are the tanh branch, n >= HALF the sigmoid branch; rows k < C are tap 0.
+  // 16-byte loads of 8 consecutive n (the weights are (2, C, HALF) and (1, HALF, RS) row-major),
+  // unrolled so that several are in flight, each scattered into 8 rows of the [n][k] layout.
+  // Neighbouring lanes take neighbouring k (KG and HALF are multiples of 32), so each 2-byte
+  // store of a warp covers 64 contiguous bytes of one [n] row: no bank conflicts.
+  constexpr int NG = HALF / 8, NR = RS / 8;  // 8-column groups of a gate branch / of [r | s]
+#pragma unroll 4
+  for (int i = threadIdx.x; i < 2 * NG * K::KG; i += WARPS * 32) {
+    const int k = i % K::KG, group = i / K::KG, branch = group / NG, n = (group - branch * NG) * 8;
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(branch ? w_s : w_t) + k * NG + n / 8);
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) wg[(branch * HALF + n + u) * K::KG_PAD + k] = e[u];
+  }
+#pragma unroll 4
+  for (int i = threadIdx.x; i < NR * HALF; i += WARPS * 32) {
+    const int k = i % HALF, n = (i / HALF) * 8;
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(w_rs) + k * NR + n / 8);
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) wr[(n + u) * K::KR_PAD + k] = e[u];
+  }
+
+  const int T_out = T_in - d;
+  const int tiles_per_row = (T_out + TT - 1) / TT;
+  const int n_tiles = B * tiles_per_row;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int r0 = warp * 16;
+  const float inv_std = __bfloat162float(__float2bfloat16_rn(0.70710678118654752f));
+
+  // issue the copies of a tile's x[t] and x[t+d] rows into buffer `buf` (rows past T_out read as 0)
+  auto load_tile = [&](int tile, int buf) {
+    if (tile < n_tiles) {
+      const int b = tile / tiles_per_row, t0 = (tile - b * tiles_per_row) * TT;
+      const __nv_bfloat16* xb = x + (size_t)b * T_in * C;
+      __nv_bfloat16* xo = xbuf + buf * 2 * K::X_TILE;
+      for (int i = threadIdx.x; i < TT * (C / 8); i += WARPS * 32) {
+        const int r = i / (C / 8), v = i - r * (C / 8), t = t0 + r;
+        const bool valid = t < T_out;
+        cp_async16(xo + r * K::C_PAD + v * 8, xb + (valid ? (size_t)t * C + v * 8 : 0), valid);
+        cp_async16(xo + K::X_TILE + r * K::C_PAD + v * 8, xb + (valid ? (size_t)(t + d) * C + v * 8 : 0), valid);
+      }
+    }
+    cp_async_commit();  // an empty group past the last tile keeps the wait count uniform
+  };
+
+  load_tile(blockIdx.x, 0);
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
+    const int b = tile / tiles_per_row, t0 = (tile - b * tiles_per_row) * TT;
+    load_tile(tile + gridDim.x, buf ^ 1);  // the next tile's rows stream in during this one's math
+    cp_async_wait_one();                   // this tile's copies (all but the newest group) have landed
+    __syncthreads();                       // ... for every thread's copies; weights staged on the first pass
+    const __nv_bfloat16* xo = xbuf + buf * 2 * K::X_TILE;  // x[t]
+    const __nv_bfloat16* xc = xo + K::X_TILE;               // x[t+d]
+    if (t0 + r0 < T_out)  // else this warp's rows are all past the end
+      warp_tile<C, HALF, RS>(wg, wr, xo, xc, b_t, b_s, b_rs, o, s, b, t0, T_out, skip_size, r0, g, q, inv_std);
+    __syncthreads();  // every warp is done with buffer `buf` before the next pass refills it
+  }
+}
+
+template <int C, int HALF, int RS>
+int launch(const void* x, const void* w_t, const void* w_s, const void* b_t, const void* b_s, const void* w_rs,
+           const void* b_rs, void* o, void* s, int B, int T_in, int d, int skip_size, cudaStream_t stream) {
+  using K = Cfg<C, HALF, RS>;
+  static int n_sm = 0;
+  if (n_sm == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(residual_glu_mma_kernel<C, HALF, RS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)K::smem);
+    if (err != cudaSuccess) {
+      n_sm = 0;
+      return (int)err;
+    }
+  }
+  const int tiles = B * ((T_in - d + TT - 1) / TT);
+  const int grid = tiles < n_sm ? tiles : n_sm;
+  using bf = __nv_bfloat16;
+  residual_glu_mma_kernel<C, HALF, RS><<<grid, WARPS * 32, K::smem, stream>>>(
+      static_cast<const bf*>(x), static_cast<const bf*>(w_t), static_cast<const bf*>(w_s), static_cast<const bf*>(b_t),
+      static_cast<const bf*>(b_s), static_cast<const bf*>(w_rs), static_cast<const bf*>(b_rs), static_cast<bf*>(o),
+      static_cast<bf*>(s), B, T_in, d, skip_size);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace mma
+}  // namespace
+}  // namespace blvm
+
+// Limits the Python wrapper enforces before it calls in (returns cudaErrorInvalidValue otherwise).
+extern "C" int blvm_residual_glu(const void* x, const void* w_t, const void* w_s, const void* b_t,
+                                 const void* b_s, const void* w_rs, const void* b_rs, void* o, void* s, int B,
+                                 int T_in, int C, int half, int R, int S, int dilation, int skip_size, int dtype,
+                                 void* stream) {
+  using namespace blvm;
+  if (C > MAX_C || half > 32 * MAX_GATE_COLS || R + S > 32 * MAX_RS_COLS || R != C || dilation < 1 ||
+      T_in - dilation < 1 || skip_size < 1 || skip_size > T_in - dilation || B < 1 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    return launch<float>(x, w_t, w_s, b_t, b_s, w_rs, b_rs, o, s, B, T_in, C, half, R, S, dilation, skip_size, st);
+  // the tensor-core path needs its widths instantiated and 16-byte aligned x rows and weights
+  const bool aligned = ((uintptr_t)x | (uintptr_t)w_t | (uintptr_t)w_s | (uintptr_t)w_rs) % 16 == 0;
+  if (dtype == kBFloat16 && aligned && C == 96 && half == 96 && S == 96)
+    return mma::launch<96, 96, 192>(x, w_t, w_s, b_t, b_s, w_rs, b_rs, o, s, B, T_in, dilation, skip_size, st);
+  if (dtype == kBFloat16 && aligned && C == 32 && half == 32 && S == 32)
+    return mma::launch<32, 32, 64>(x, w_t, w_s, b_t, b_s, w_rs, b_rs, o, s, B, T_in, dilation, skip_size, st);
+  if (dtype == kBFloat16)
+    return launch<__nv_bfloat16>(x, w_t, w_s, b_t, b_s, w_rs, b_rs, o, s, B, T_in, C, half, R, S, dilation,
+                                 skip_size, st);
+  return (int)cudaErrorInvalidValue;
+}

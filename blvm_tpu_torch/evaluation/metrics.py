@@ -1,0 +1,165 @@
+"""Self-aggregating metric objects with exact weighted running means.
+
+Copy of the parts of ``blvm_tpu/evaluation/metrics.py`` the WaveNet test pass
+uses (numpy only; the JAX package cannot be imported without JAX). A metric is
+built fresh each step from host values and merged into an accumulator with
+``update``; running means are exact weighted means, not EMAs.
+
+  * ``reduce_by``: divisor of the summed values (e.g. the sum of sequence lengths).
+  * ``weight_by``: merge weight for the running mean (defaults to reduce_by).
+  * ``BitsPerDimMetric``: negated log-likelihoods divided by ln 2, running mean
+    with ``reduce_by = x_sl``, i.e. bits per frame.
+"""
+
+import math
+from copy import deepcopy
+from typing import List, Set
+
+import numpy as np
+
+
+def drop_padded_rows(mets: dict) -> dict:
+    """Remove zero-length padded example rows from a host-side step-metric dict,
+    so per-example means are not diluted by padding rows (frame-normalized
+    metrics are exact either way). Filters every array leaf whose leading dim,
+    or second dim for stacked per-layer arrays, is the batch size."""
+    x_sl = np.asarray(mets["x_sl"])
+    active = x_sl > 0
+    if bool(active.all()):
+        return mets
+    B = x_sl.shape[0]
+
+    def _filter(v):
+        if isinstance(v, (list, tuple)):
+            return type(v)(_filter(u) for u in v)
+        a = np.asarray(v)
+        if a.ndim >= 1 and a.shape[0] == B:
+            return a[active]
+        if a.ndim >= 2 and a.shape[1] == B:
+            return a[:, active]
+        return v
+
+    return {k: _filter(v) for k, v in mets.items()}
+
+
+def _to_host(x):
+    """Convert arrays to numpy; pass floats through."""
+    if x is None or isinstance(x, (int, float)):
+        return x
+    return np.asarray(x)
+
+
+def _sum_and_numel(values):
+    values = _to_host(values)
+    if isinstance(values, np.ndarray):
+        return float(values.sum()), int(values.size)
+    return float(values), 1
+
+
+def _resolve(x, default):
+    x = _to_host(x)
+    if isinstance(x, np.ndarray):
+        return float(x.sum())
+    return float(x) if x else default
+
+
+class Metric:
+    base_tags: Set[str] = set()
+    _str_value_fmt = "<.3"
+
+    def __init__(
+        self,
+        name: str,
+        tags: Set[str] = None,
+        get_best: str = None,
+        log_to_console: bool = True,
+        log_to_framework: bool = True,
+    ):
+        self.name = name
+        self.tags = self.base_tags if tags is None else (set(tags) | self.base_tags)
+        self.get_best = GET_BEST[get_best] if get_best is not None else GET_BEST["none"]
+        self.log_to_console = log_to_console
+        self.log_to_framework = log_to_framework
+
+    @property
+    def value(self):
+        raise NotImplementedError()
+
+    @property
+    def str_value(self):
+        return f"{self.value:{self._str_value_fmt}f}"
+
+    def update(self, metric: "Metric"):
+        raise NotImplementedError()
+
+    def copy(self):
+        return deepcopy(self)
+
+    def __repr__(self):
+        return f"{self.__class__.__name__}(name={self.name}, value={self.str_value})"
+
+
+def min_value(metrics: List[Metric]):
+    return min(metrics, key=lambda m: m.value)
+
+
+def max_value(metrics: List[Metric]):
+    return max(metrics, key=lambda m: m.value)
+
+
+def no_value(metrics: List[Metric]):
+    return None
+
+
+GET_BEST = dict(none=no_value, min=min_value, max=max_value)
+
+
+class RunningMeanMetric(Metric):
+    def __init__(self, values, name, tags=None, reduce_by=None, weight_by=None, get_best=None, log_to_console=True, log_to_framework=True):
+        """Exact weighted running mean: value = sum(values) / reduce_by, merged
+        across steps with weights ``weight_by`` (reference ``metrics.py:209-264``)."""
+        super().__init__(name=name, tags=tags, get_best=get_best, log_to_console=log_to_console, log_to_framework=log_to_framework)
+        value, numel = _sum_and_numel(values)
+        reduce_by = _resolve(reduce_by, numel)
+        self.weight_by = _resolve(weight_by, reduce_by)
+        self.running_mean = value / reduce_by
+
+    @property
+    def value(self):
+        return self.running_mean
+
+    def update(self, metric: Metric):
+        d = self.weight_by + metric.weight_by
+        w1 = self.weight_by / d
+        w2 = metric.weight_by / d
+        self.running_mean = self.running_mean * w1 + metric.running_mean * w2
+        self.weight_by = d
+
+
+class LossMetric(RunningMeanMetric):
+    base_tags = {"losses"}
+
+    def __init__(self, values, name="loss", tags=None, reduce_by=None, weight_by=None, get_best="min", **kwargs):
+        super().__init__(values=values, name=name, tags=tags, reduce_by=reduce_by, weight_by=weight_by, get_best=get_best, **kwargs)
+
+
+class LLMetric(RunningMeanMetric):
+    base_tags = {"log_likelihoods"}
+
+    def __init__(self, values, name="ll", tags=None, reduce_by=None, weight_by=None, get_best="max", **kwargs):
+        super().__init__(values=values, name=name, tags=tags, reduce_by=reduce_by, weight_by=weight_by, get_best=get_best, **kwargs)
+
+
+class BitsPerDimMetric(RunningMeanMetric):
+    """Nats to bits with a running mean over ``reduce_by`` frames: bits/frame
+    when reduce_by is the sum of sequence lengths."""
+
+    _str_value_fmt = "<5.3"
+
+    def __init__(self, values, name="bpd", tags=None, reduce_by=None, weight_by=None, get_best="min", **kwargs):
+        values = _to_host(values)
+        if isinstance(values, np.ndarray):
+            values = -values / math.log(2)
+        else:
+            values = -float(values) / math.log(2)
+        super().__init__(values=values, name=name, tags=tags, reduce_by=reduce_by, weight_by=weight_by, get_best=get_best, **kwargs)

@@ -1,0 +1,271 @@
+"""WaveNet building blocks, channels-last (port of ``blvm_tpu/models/wavenet/modules.py``).
+
+Layout is (B, T, C) at every public function, as in the JAX package. Dilated
+convs are VALID; the model left-pads the receptive field once. Parameters keep
+the flax names and layouts (WIO conv kernels ``(k, C_in, C_out)``, the separate
+``gate_kernel_t`` / ``gate_kernel_s`` branches and the joint ``rs_kernel``), so a
+JAX parameter tree loads without transposes (:mod:`blvm_tpu_torch.weights`).
+
+The residual-GLU block's k=2 path is :func:`residual_glu`: the K1 kernel
+(``csrc/residual_glu.cu``) for CUDA tensors, its plain twin
+:func:`residual_glu_plain` for CPU tensors.
+"""
+
+import math
+from typing import List, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from blvm_tpu_torch.modules.common import Dense, torch_uniform_
+from blvm_tpu_torch.ops import cuda
+from blvm_tpu_torch.ops.conv_arithmetic import compute_conv_attributes
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# K1's limits (csrc/residual_glu.cu): MAX_C, 32 * MAX_GATE_COLS, 32 * MAX_RS_COLS
+K1_MAX_CHANNELS, K1_MAX_HALF, K1_MAX_RES_PLUS_SKIP = 256, 128, 256
+
+
+def residual_glu_plain(x, gate_kernel_t, gate_kernel_s, gate_bias_t, gate_bias_s, rs_kernel, rs_bias,
+                       dilation: int, skip_size: int):
+    """The k=2 residual-GLU block as plain PyTorch, op for op the JAX block
+    (``blvm_tpu/models/wavenet/modules.py:146-202``), rounding to the compute
+    dtype of ``x`` after every op as JAX does.
+
+    Args:
+        x: (B, T_in, C) in the compute dtype; the kernels and biases in it too.
+        gate_kernel_t, gate_kernel_s: (2, C, half); gate_bias_t, gate_bias_s: (half,).
+        rs_kernel: (1, half, R + S); rs_bias: (R + S,). ``R == C``.
+    Returns ``o`` (B, T_in - dilation, R) and ``s`` (B, skip_size, S).
+    """
+    d = dilation
+    L = x.shape[1] - d
+
+    def branch(kernel, bias):
+        y0 = x @ kernel[0]
+        y1 = x @ kernel[1]
+        return y0[:, :L] + y1[:, d:] + bias
+
+    act = torch.tanh(branch(gate_kernel_t, gate_bias_t)) * torch.sigmoid(branch(gate_kernel_s, gate_bias_s))
+    rs = act @ rs_kernel[0] + rs_bias
+    R = x.shape[-1]
+    r, s = rs[..., :R], rs[..., R:]
+    s = s[:, -skip_size:]
+    inv_std = torch.tensor(math.sqrt(0.5), dtype=x.dtype)  # the JAX constant takes x's dtype
+    return (r + x[:, -L:]) * inv_std, s
+
+
+def residual_glu(x, gate_kernel_t, gate_kernel_s, gate_bias_t, gate_bias_s, rs_kernel, rs_bias,
+                 dilation: int, skip_size: int):
+    """K1: one k=2 residual-GLU block, same contract as :func:`residual_glu_plain`.
+
+    CPU tensors run the plain twin. CUDA tensors launch the hand-written kernel
+    ``csrc/residual_glu.cu`` (f32 accumulation, one rounding to the compute
+    dtype at the store), or raise for what it does not take.
+    """
+    args = (x, gate_kernel_t, gate_kernel_s, gate_bias_t, gate_bias_s, rs_kernel, rs_bias)
+    if not x.is_cuda:
+        return residual_glu_plain(*args, dilation=dilation, skip_size=skip_size)
+
+    B, T_in, C = x.shape
+    half = gate_kernel_t.shape[-1]
+    RS = rs_kernel.shape[-1]
+    R, S = C, RS - C
+    T_out = T_in - dilation
+    if x.dtype not in _DTYPE_CODES or any(t.dtype != x.dtype or t.device != x.device for t in args):
+        raise TypeError("residual_glu kernel: all tensors must share x's device and dtype (float32 or bfloat16)")
+    expected = [(2, C, half), (2, C, half), (half,), (half,), (1, half, RS), (RS,)]
+    if [tuple(t.shape) for t in args[1:]] != expected:
+        raise ValueError(f"residual_glu kernel: weight shapes {[tuple(t.shape) for t in args[1:]]}, expected {expected}")
+    if C > K1_MAX_CHANNELS or half > K1_MAX_HALF or RS > K1_MAX_RES_PLUS_SKIP or S < 1:
+        raise ValueError(
+            f"residual_glu kernel takes C <= {K1_MAX_CHANNELS}, half <= {K1_MAX_HALF}, "
+            f"1 <= S and R + S <= {K1_MAX_RES_PLUS_SKIP}; got C={C}, half={half}, R+S={RS}"
+        )
+    if dilation < 1 or T_out < 1 or not 1 <= skip_size <= T_out or not 1 <= B <= 65535:
+        raise ValueError(f"residual_glu kernel: bad geometry B={B}, T_in={T_in}, dilation={dilation}, skip_size={skip_size}")
+
+    args = [t.contiguous() for t in args]
+    o = torch.empty((B, T_out, R), dtype=x.dtype, device=x.device)
+    s = torch.empty((B, skip_size, S), dtype=x.dtype, device=x.device)
+    lib = cuda.library()
+    cuda.count_launch("residual_glu")
+    err = lib.blvm_residual_glu(
+        *(t.data_ptr() for t in args), o.data_ptr(), s.data_ptr(),
+        B, T_in, C, half, R, S, dilation, skip_size, _DTYPE_CODES[x.dtype], cuda.stream_handle(x),
+    )
+    cuda.check(err, "residual_glu")
+    return o, s
+
+
+class Conv1d(nn.Module):
+    """VALID 1-D conv over (B, T, C) with a WIO kernel ``(k, C_in, C_out)``.
+
+    ``dtype`` is the compute dtype; parameters stay f32 and are cast at use.
+    """
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 1, dilation: int = 1,
+                 use_bias: bool = True, dtype=None, device=None):
+        super().__init__()
+        self.dilation, self.dtype = dilation, dtype
+        self.kernel = nn.Parameter(torch.empty(kernel_size, in_features, features, device=device))
+        self.bias = nn.Parameter(torch.empty(features, device=device)) if use_bias else None
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        fan_in = self.kernel.shape[0] * self.kernel.shape[1]
+        torch_uniform_(self.kernel, fan_in, generator)
+        if self.bias is not None:
+            torch_uniform_(self.bias, fan_in, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kernel = self.kernel
+        if self.dtype is not None:
+            x, kernel = x.to(self.dtype), kernel.to(self.dtype)
+        if kernel.shape[0] == 1:
+            y = x @ kernel[0]
+        else:
+            # (k, C_in, C_out) -> torch's (C_out, C_in, k) over channels-first input
+            y = F.conv1d(x.transpose(1, 2), kernel.permute(2, 1, 0), dilation=self.dilation).transpose(1, 2)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
+
+class CausalConv1d(nn.Module):
+    """Causal conv: ``y[t]`` depends on ``x[:t]`` (not ``x[t]``), by dropping the
+    last input frame before a VALID conv; the caller left-pads the receptive field."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 1, device=None):
+        super().__init__()
+        self.Conv1d_0 = Conv1d(in_features, features, kernel_size=kernel_size, device=device)
+
+    def forward(self, x: torch.Tensor, pad_causal: bool = True) -> torch.Tensor:
+        if pad_causal:
+            x = x[:, :-1]
+        return self.Conv1d_0(x)
+
+
+class Conv1dResidualGLU(nn.Module):
+    """Dilated conv -> gated tanh -> 1x1 (res + skip) -> scaled residual add.
+
+    ``fuse_gate_dots`` (a TPU-only ablation) is accepted and ignored.
+    """
+
+    def __init__(self, res_channels: int, skip_channels: Optional[int] = None, gate_channels: Optional[int] = None,
+                 kernel_size: int = 2, dilation: int = 1, use_bias: bool = True, dtype=None,
+                 fuse_gate_dots: bool = False, need_skip: bool = True, in_features: Optional[int] = None,
+                 device=None):
+        super().__init__()
+        C_in = in_features or res_channels
+        self.res_channels = res_channels
+        self.skip_channels = skip_channels or res_channels
+        half = (gate_channels or 2 * res_channels) // 2
+        self.kernel_size, self.dilation, self.dtype, self.need_skip = kernel_size, dilation, dtype, need_skip
+        RS = res_channels + self.skip_channels
+        self.gate_kernel_t = nn.Parameter(torch.empty(kernel_size, C_in, half, device=device))
+        self.gate_kernel_s = nn.Parameter(torch.empty(kernel_size, C_in, half, device=device))
+        self.gate_bias_t = nn.Parameter(torch.empty(half, device=device))
+        self.gate_bias_s = nn.Parameter(torch.empty(half, device=device))
+        self.rs_kernel = nn.Parameter(torch.empty(1, half, RS, device=device))
+        self.rs_bias = nn.Parameter(torch.empty(RS, device=device)) if use_bias else None
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        k, C_in, half = self.gate_kernel_t.shape
+        for p in (self.gate_kernel_t, self.gate_kernel_s, self.gate_bias_t, self.gate_bias_s):
+            torch_uniform_(p, k * C_in, generator)
+        torch_uniform_(self.rs_kernel, half, generator)
+        if self.rs_bias is not None:
+            torch_uniform_(self.rs_bias, half, generator)
+
+    def forward(self, x: torch.Tensor, skip_size: int):
+        dtype = self.dtype or x.dtype
+        x = x.to(dtype)
+        w_t, w_s, w_rs = (p.to(dtype) for p in (self.gate_kernel_t, self.gate_kernel_s, self.rs_kernel))
+        b_t, b_s = self.gate_bias_t.to(dtype), self.gate_bias_s.to(dtype)
+        b_rs = self.rs_bias.to(dtype) if self.rs_bias is not None else torch.zeros(w_rs.shape[-1], dtype=dtype,
+                                                                                   device=x.device)
+        if self.kernel_size == 2 and self.need_skip:
+            return residual_glu(x, w_t, w_s, b_t, b_s, w_rs, b_rs, dilation=self.dilation, skip_size=skip_size)
+
+        # off the slice's path: k != 2 or a block whose skip is discarded (STCN)
+        def branch(kernel, bias):
+            y = F.conv1d(x.transpose(1, 2), kernel.permute(2, 1, 0), dilation=self.dilation).transpose(1, 2)
+            return y + bias
+
+        act = torch.tanh(branch(w_t, b_t)) * torch.sigmoid(branch(w_s, b_s))
+        R = self.res_channels
+        if self.need_skip:
+            rs = act @ w_rs[0] + b_rs
+            r, s = rs[..., :R], rs[..., R:][:, -skip_size:]
+        else:
+            r, s = act @ w_rs[0, :, :R] + b_rs[:R], None
+        inv_std = torch.tensor(math.sqrt(0.5), dtype=dtype)
+        return (r + x[:, -r.shape[1] :]) * inv_std, s
+
+
+class ResidualStack(nn.Module):
+    """``n_stacks`` repeats of ``n_layers`` residual blocks with dilations
+    ``1, base, base*2, ...``, skips collected from every block. Starts with a
+    1x1 ``in_transform`` conv (``Conv1d_0``), as the reference always does.
+
+    ``remat`` and ``fuse_gate_dots`` (XLA scheduling knobs) are accepted and ignored.
+    """
+
+    def __init__(self, n_layers: int, n_stacks: int, res_channels: int, skip_channels: Optional[int] = None,
+                 gate_channels: Optional[int] = None, kernel_size: int = 2, base_dilation: int = 2,
+                 remat: bool = False, dtype=None, fuse_gate_dots: bool = False, in_features: Optional[int] = None,
+                 device=None):
+        super().__init__()
+        self.n_layers, self.n_stacks, self.kernel_size, self.base_dilation = n_layers, n_stacks, kernel_size, base_dilation
+        self.Conv1d_0 = Conv1d(in_features or res_channels, res_channels, kernel_size=1, dtype=dtype, device=device)
+        self.blocks: List[Conv1dResidualGLU] = []
+        for i, dilation in enumerate(self.build_dilations(n_layers, n_stacks, base_dilation)):
+            block = Conv1dResidualGLU(res_channels, skip_channels, gate_channels, kernel_size, dilation,
+                                      dtype=dtype, device=device)
+            self.add_module(f"Conv1dResidualGLU_{i}", block)
+            self.blocks.append(block)
+
+    @staticmethod
+    def build_dilations(n_layers: int, n_stacks: int, base_dilation: int) -> Sequence[int]:
+        if base_dilation > 1:
+            return [1, *[base_dilation * 2**i for i in range(0, n_layers - 1)]] * n_stacks
+        return [1] * n_layers * n_stacks
+
+    @staticmethod
+    def compute_receptive_fields(n_layers: int, n_stacks: int, kernel_size: int, base_dilation: int):
+        n = n_layers * n_stacks
+        dilations = [1, *[base_dilation * 2**i for i in range(0, n_layers - 1)]] * n_stacks
+        attrs = compute_conv_attributes([kernel_size] * n, [0] * n, [1] * n, dilations, return_all=True)
+        return [a.receptive_field for a in attrs]
+
+    @property
+    def receptive_field(self) -> int:
+        return self.compute_receptive_fields(self.n_layers, self.n_stacks, self.kernel_size, self.base_dilation)[-1]
+
+    def forward(self, x: torch.Tensor, skip_size: int, collect_tails: bool = False) -> List[torch.Tensor]:
+        """Returns the per-block skips, each (B, skip_size, S), in block order.
+
+        ``collect_tails`` (the history tails that prime fast generation) comes with
+        ``generate``; it is accepted for the JAX signature and refused when set."""
+        if collect_tails:
+            raise NotImplementedError("collect_tails primes fast generation, which is not ported yet")
+        o = self.Conv1d_0(x)
+        skips = []
+        for block in self.blocks:
+            o, s = block(o, skip_size)
+            skips.append(s)
+        return skips
+
+
+class PointwiseTransform(nn.Module):
+    """Output head: ReLU -> Dense -> ReLU over (B, T, C)."""
+
+    def __init__(self, in_features: int, out_features: int, device=None):
+        super().__init__()
+        self.Dense_0 = Dense(in_features, out_features, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.Dense_0(torch.relu(x)))

@@ -1,0 +1,43 @@
+"""Shared NN building blocks (port of ``blvm_tpu/modules/common.py``).
+
+Parameters keep the flax names and layouts: ``kernel`` is ``(in, out)`` and
+``bias`` is ``(out,)``, so JAX parameter trees load without transposes.
+"""
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+
+def torch_uniform_(t: torch.Tensor, fan_in: int, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """U(-1/sqrt(fan_in), 1/sqrt(fan_in)) in place: PyTorch's default Linear/Conv
+    init for kernel and bias alike, which the JAX package also uses."""
+    bound = 1.0 / math.sqrt(fan_in)
+    with torch.no_grad():
+        return t.uniform_(-bound, bound, generator=generator)
+
+
+class Dense(nn.Module):
+    """``nn.Linear`` with a flax ``(in, out)`` kernel; ``dtype`` is the compute dtype."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True, dtype=None, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(in_features, features, device=device))
+        self.bias = nn.Parameter(torch.empty(features, device=device)) if use_bias else None
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        fan_in = self.kernel.shape[0]
+        torch_uniform_(self.kernel, fan_in, generator)
+        if self.bias is not None:
+            torch_uniform_(self.bias, fan_in, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.dtype or x.dtype
+        y = x.to(dtype) @ self.kernel.to(dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y

@@ -1,0 +1,70 @@
+"""Dense-parameterized likelihood heads (port of ``blvm_tpu/modules/distributions.py``).
+
+Only the DMoL head the WaveNet slice needs is ported so far;
+:func:`get_likelihood_head` raises ``NotImplementedError`` for the others.
+As in the JAX package, ``forward(x)`` returns the head's parameters and
+``log_prob`` / ``rsample`` / ``sample`` / ``mode`` act on them; sampling takes an
+explicit ``torch.Generator`` where JAX took a PRNG key.
+"""
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from blvm_tpu_torch.modules.common import Dense
+from blvm_tpu_torch.ops import likelihoods
+from blvm_tpu_torch.ops.variational import rsample_discretized_logistic_mixture
+
+
+class DiscretizedLogisticMixtureDense(nn.Module):
+    """DMoL head: ``Dense(num_mix * (2*y_dim + 1))`` split into mixture logits,
+    locations and log-scales, log-scales clamped below at ``log_epsilon``
+    (``blvm_tpu/modules/distributions.py:217-248``)."""
+
+    def __init__(self, in_features: int, y_dim: int, num_mix: int = 10, num_bins: int = 256,
+                 log_epsilon: float = -7.0, device=None):
+        super().__init__()
+        self.y_dim, self.num_mix, self.num_bins, self.log_epsilon = y_dim, num_mix, num_bins, log_epsilon
+        self.Dense_0 = Dense(in_features, num_mix * (2 * y_dim + 1), device=device)
+
+    def forward(self, x: torch.Tensor):
+        """Returns (logit_probs (*, M), locs (*, D, M), log_scales (*, D, M))."""
+        params = self.Dense_0(x)
+        logit_probs = params[..., : self.num_mix]
+        locs_log_scales = params[..., self.num_mix :].reshape(*params.shape[:-1], self.y_dim, 2 * self.num_mix)
+        locs, log_scales = locs_log_scales[..., : self.num_mix], locs_log_scales[..., self.num_mix :]
+        log_scales = torch.clamp_min(log_scales, self.log_epsilon)
+        return logit_probs, locs, log_scales
+
+    def log_prob(self, y: torch.Tensor, params) -> torch.Tensor:
+        """Per-frame log-mass ``(*,)``. With ``y_dim == 1`` (WaveNet) this goes
+        through :func:`likelihoods.dmol_log_prob`, i.e. the K2 kernel on CUDA."""
+        if self.y_dim == 1:
+            return likelihoods.dmol_log_prob(y, *params, num_bins=self.num_bins)
+        return likelihoods.discretized_logistic_mixture_ll(y, *params, num_bins=self.num_bins)
+
+    def rsample(self, generator: Optional[torch.Generator], params) -> torch.Tensor:
+        return rsample_discretized_logistic_mixture(generator, *params)
+
+    def sample(self, generator: Optional[torch.Generator], params) -> torch.Tensor:
+        with torch.no_grad():
+            return self.rsample(generator, params)
+
+    def mode(self, params) -> torch.Tensor:
+        """Location of the most probable component, ``(*, D)``."""
+        logit_probs, locs, _ = params
+        idx = logit_probs.argmax(dim=-1, keepdim=True)[..., None, :].expand(*locs.shape[:-1], 1)
+        return torch.gather(locs, -1, idx)[..., 0]
+
+
+def get_likelihood_head(name: str, in_features: int, y_dim: int, num_mix: int = 10, num_bins: int = 256,
+                        device=None, **kwargs) -> nn.Module:
+    """Build a likelihood head from its string name, as ``blvm_tpu`` does."""
+    name_l = name.lower()
+    if name_l in ("dmol", "discretized_logistic_mixture"):
+        return DiscretizedLogisticMixtureDense(in_features, y_dim=y_dim, num_mix=num_mix, num_bins=num_bins,
+                                               device=device, **kwargs)
+    if name_l in ("dl", "discretized_logistic", "gmm", "gaussian_mixture", "gaussian", "categorical", "bernoulli"):
+        raise NotImplementedError(f"likelihood {name!r} is not ported to blvm_tpu_torch yet (only DMoL)")
+    raise ValueError(f"Unknown likelihood {name!r}")

@@ -1,0 +1,126 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+All kernels in ``blvm_tpu_torch/csrc/*.cu`` compile with one ``nvcc`` call into
+one shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds instead of minutes). The build runs at first
+use into ``blvm_tpu_torch/_build/<hash of the sources and flags>/``, a directory
+the repository's ``.gitignore`` lists; a changed source gets a new directory.
+
+Every wrapper calls :func:`count_launch` right where it launches its kernel and
+nowhere else, so a run can show that its main path went through the kernels:
+``reset_launch_counts()`` before the run, ``launch_counts()`` after it.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
+LIB_NAME = "libblvm_kernels.so"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
+_launches: Dict[str, int] = {"residual_glu": 0, "dmol_log_prob": 0}
+build_log = ""  # nvcc's output of the build this process ran (register / shared-memory report)
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_SIGNATURES = {
+    # x, w_t, w_s, b_t, b_s, w_rs, b_rs, o, s, B, T_in, C, half, R, S, dilation, skip_size, dtype, stream
+    "blvm_residual_glu": [_P] * 9 + [_I] * 9 + [_P],
+    # y, logits, locs, log_scales, out, N, M, y/logit/loc/scale row strides, num_bins, stream
+    "blvm_dmol_log_prob": [_P] * 5 + [_L, _I, _L, _L, _L, _L, _I, _P],
+}
+
+
+def reset_launch_counts() -> None:
+    for name in _launches:
+        _launches[name] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(_launches)
+
+
+def count_launch(name: str) -> None:
+    _launches[name] += 1
+
+
+def _nvcc() -> str:
+    for candidate in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if candidate and os.path.exists(candidate):
+            return candidate
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and PATH)")
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")), sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def _build_dir() -> Path:
+    cu, cuh = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in cu + cuh:
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    return BUILD_ROOT / digest.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into the shared library unless it is already built."""
+    global build_log
+    out_dir = _build_dir()
+    lib_path = out_dir / LIB_NAME
+    if lib_path.exists():
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu, _ = _sources()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *map(str, cu)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}")
+    os.replace(tmp, lib_path)  # atomic: a concurrent builder never loads a half-written file
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise on the ``cudaGetLastError()`` code a C entry point returned."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+def stream_handle(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream

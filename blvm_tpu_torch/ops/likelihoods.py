@@ -1,0 +1,177 @@
+"""DMoL log-likelihood: the plain PyTorch version and the K2 kernel's wrapper.
+
+Port of the DMoL part of ``blvm_tpu/ops/likelihoods.py``. All likelihood math
+runs in at least float32 whatever the input dtype: bits/frame is the parity
+surface, so it never runs in bf16.
+
+:func:`discretized_logistic_mixture_ll` is the plain twin, op for op the JAX
+function. :func:`dmol_log_prob` is the per-frame entry point the WaveNet head
+calls: for CPU tensors it runs the twin, for CUDA tensors it launches the
+hand-written kernel ``csrc/dmol.cu`` (K2) or raises.
+"""
+
+import math
+
+import torch
+
+from blvm_tpu_torch.ops import cuda
+
+
+def reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim``; squeeze instead when that axis has size 1."""
+    if x.shape[dim] == 1:
+        return x.squeeze(dim)
+    return x.sum(dim)
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """Promote to at least float32 (bf16 -> f32; f32 stays; f64 stays f64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``); torch's ``F.softplus`` switches to
+    the identity above a threshold and would round differently."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _dmol_elementwise(y, loc, log_scale, num_bins: int):
+    """Per-element discretized-logistic log-mass with the PixelCNN++ edge cases
+    (``blvm_tpu/ops/likelihoods.py:_dmol_elementwise``): lowest bin, highest bin,
+    and the midpoint pdf where the bin's mass is at most 1e-5."""
+    centered_y = y - loc
+    inv_stdv = torch.exp(-log_scale)
+
+    half_bin = 1.0 / (num_bins - 1)
+    plus_in = inv_stdv * (centered_y + half_bin)
+    cdf_plus = torch.sigmoid(plus_in)
+    minus_in = inv_stdv * (centered_y - half_bin)
+    cdf_minus = torch.sigmoid(minus_in)
+    cdf_delta = cdf_plus - cdf_minus
+
+    log_cdf_plus = plus_in - _softplus(plus_in)
+    log_one_minus_cdf_minus = -_softplus(minus_in)
+
+    mid_in = inv_stdv * centered_y
+    log_pdf_mid = mid_in - log_scale - 2.0 * _softplus(mid_in)
+    log_prob_mid_safe = torch.where(
+        cdf_delta > 1e-5,
+        torch.log(torch.clamp_min(cdf_delta, 1e-10)),
+        log_pdf_mid - math.log(num_bins / 2.0),
+    )
+
+    log_prob = torch.where(y < 2.0 / num_bins - 1.0, log_cdf_plus, log_prob_mid_safe)
+    return torch.where(y > 1.0 - 2.0 / num_bins, log_one_minus_cdf_minus, log_prob)
+
+
+def discretized_logistic_mixture_ll(y, logit_probs, locs, log_scales, num_bins: int = 256, reduce_dim: int = -1):
+    """DMoL log-mass, the plain twin of K2.
+
+    Args:
+        y: targets ``(*, D)`` in [-1, 1].
+        logit_probs: mixture logits ``(*, M)``.
+        locs, log_scales: component parameters ``(*, D, M)``.
+    Returns ``(*,)``: the data dim reduced per component, then the mixture
+    normalized in log space.
+    """
+    y, logit_probs, locs, log_scales = (at_least_f32(t) for t in (y, logit_probs, locs, log_scales))
+    y = y[..., None].expand(*y.shape, logit_probs.shape[-1])
+    log_prob = _dmol_elementwise(y, locs, log_scales, num_bins)
+    log_prob = reduce(log_prob, reduce_dim - 1)  # reduce data dim per component
+    log_prob = log_prob + torch.log_softmax(logit_probs, dim=-1)
+    return torch.logsumexp(log_prob, dim=-1)
+
+
+def dmol_f32_error_bound(y, logit_probs, locs, log_scales, num_bins: int, atol: float = 1e-5) -> torch.Tensor:
+    """Per-frame bound on how far two correct float32 implementations of the DMoL
+    log-mass may differ, for comparing them (``(*,)``, computed in float64).
+
+    Elementwise float32 math rounds to within a few ulps, and two libms (XLA's
+    and PyTorch's, or CUDA's) differ in the last ulp of ``exp`` and ``sigmoid``.
+    That moves the result by ``atol`` (1e-5) where the mass is well conditioned,
+    but ``cdf_delta = sigmoid(a+) - sigmoid(a-)`` cancels: an ulp of a sigmoid
+    near 0.5 (6e-8) is 0.6 % of a ``cdf_delta`` just above its 1e-5 threshold,
+    which 2^16 bins reach at ordinary scales. The bound is
+    ``atol + 2 u (|lp| + sum_m w_m k_m)``: ``u = 2^-24``, ``w_m`` the mixture
+    responsibilities and ``k_m`` each component's condition number on its branch
+    of the ladder.
+    """
+    y, logit_probs, locs, log_scales = (t.detach().to(torch.float64) for t in (y, logit_probs, locs, log_scales))
+    y = y[..., None].expand(*y.shape, logit_probs.shape[-1])
+    comp = _dmol_elementwise(y, locs, log_scales, num_bins)[..., 0, :] + torch.log_softmax(logit_probs, dim=-1)
+    lp = torch.logsumexp(comp, dim=-1)
+    w = torch.exp(comp - lp[..., None])
+
+    centered, inv_stdv, half_bin = y - locs, torch.exp(-log_scales), 1.0 / (num_bins - 1)
+    plus, minus, mid = inv_stdv * (centered + half_bin), inv_stdv * (centered - half_bin), inv_stdv * centered
+    sp, sm = torch.sigmoid(plus), torch.sigmoid(minus)
+    delta = sp - sm
+    k = torch.where(
+        delta > 1e-5,
+        (sp + sm + plus.abs() * sp * (1 - sp) + minus.abs() * sm * (1 - sm)) / delta.clamp_min(1e-30),
+        1 + 3 * mid.abs() + log_scales.abs(),
+    )
+    k = torch.where(y < 2.0 / num_bins - 1.0, 1 + plus.abs(), k)
+    k = torch.where(y > 1.0 - 2.0 / num_bins, 1 + minus.abs(), k)
+    k = (w * k[..., 0, :]).sum(-1) + logit_probs.abs().amax(-1)
+    return atol + 2 * 2.0**-24 * (lp.abs() + k)
+
+
+def _row_view(t: torch.Tensor, row_dims: int):
+    """``(t, row_stride)`` for a tensor whose first ``row_dims`` dims index frames
+    and whose remaining elements lie contiguous within a frame. Strided views
+    with one uniform frame stride (slices of the head's Dense output) pass as
+    they are; anything else is made contiguous."""
+    inner = t.shape[row_dims:]
+    inner_contiguous = all(
+        t.stride(i) == math.prod(inner[i - row_dims + 1 :]) for i in range(row_dims, t.ndim) if t.shape[i] > 1
+    )
+    rows = [i for i in range(row_dims) if t.shape[i] > 1]
+    stride = t.stride(rows[-1]) if rows else math.prod(inner)
+    uniform = all(t.stride(a) == t.stride(b) * t.shape[b] for a, b in zip(rows, rows[1:]))
+    if not (inner_contiguous and uniform):
+        t = t.contiguous()
+        stride = math.prod(inner)
+    return t, stride
+
+
+def dmol_log_prob(y, logit_probs, locs, log_scales, num_bins: int) -> torch.Tensor:
+    """Per-frame DMoL log-mass ``(*,)`` in f32 for ``y (*, 1)``, ``logit_probs
+    (*, M)`` and ``locs``/``log_scales (*, 1, M)`` as the head returns them.
+
+    CPU tensors: the plain twin. CUDA tensors: the K2 kernel (``csrc/dmol.cu``).
+    """
+    if not y.is_cuda:
+        return discretized_logistic_mixture_ll(y, logit_probs, locs, log_scales, num_bins=num_bins)
+
+    lead = logit_probs.shape[:-1]
+    M = logit_probs.shape[-1]
+    if y.shape != (*lead, 1) or locs.shape != (*lead, 1, M) or log_scales.shape != locs.shape:
+        raise ValueError(
+            "dmol_log_prob kernel takes y (*, 1), logit_probs (*, M), locs/log_scales (*, 1, M); got "
+            f"{tuple(y.shape)}, {tuple(logit_probs.shape)}, {tuple(locs.shape)}, {tuple(log_scales.shape)}"
+        )
+    tensors = [y, logit_probs, locs, log_scales]
+    if any(t.device != y.device for t in tensors):
+        raise ValueError("dmol_log_prob: all inputs must lie on one CUDA device")
+    if any(t.dtype not in (torch.float32, torch.bfloat16) for t in tensors):
+        raise TypeError(f"dmol_log_prob kernel takes float32 or bfloat16, got {[t.dtype for t in tensors]}")
+    n_lead = len(lead)
+    views = [_row_view(at_least_f32(t), n_lead) for t in tensors]
+    N = math.prod(lead)
+    out = torch.empty(lead, dtype=torch.float32, device=y.device)
+    if N == 0:
+        return out
+    lib = cuda.library()
+    cuda.count_launch("dmol_log_prob")
+    err = lib.blvm_dmol_log_prob(
+        *(t.data_ptr() for t, _ in views),
+        out.data_ptr(),
+        N,
+        M,
+        *(stride for _, stride in views),
+        num_bins,
+        cuda.stream_handle(y),
+    )
+    cuda.check(err, "dmol_log_prob")
+    return out

@@ -1,0 +1,91 @@
+"""Parameter bridge between JAX (flax) parameter trees and the port's modules.
+
+The port's modules carry the flax names as attribute names
+(``res_stack.Conv1dResidualGLU_0.gate_kernel_t`` <-> flax
+``res_stack/Conv1dResidualGLU_0/gate_kernel_t``) and the flax layouts (WIO conv
+kernels, ``(in, out)`` Dense kernels), so moving parameters is renaming, never
+transposing. A tree is a nested dict of arrays, or a flat dict keyed
+``"a/b/c"`` as ``tests/parity/goldens/*.npz`` stores it.
+"""
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested or flat ``"a/b/c"``-keyed dict -> flat dict."""
+    flat = {}
+    for key, value in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(value, Mapping):
+            flat.update(flatten(value, path))
+        else:
+            flat[path] = value
+    return flat
+
+
+def unflatten(flat: Mapping[str, np.ndarray]) -> dict:
+    """Flat ``"a/b/c"``-keyed dict -> nested dict."""
+    tree: dict = {}
+    for path, value in flat.items():
+        node = tree
+        *parents, leaf = path.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return tree
+
+
+def _flax_params(model: nn.Module) -> Dict[str, nn.Parameter]:
+    return {name.replace(".", "/"): p for name, p in model.named_parameters()}
+
+
+def param_shapes(model: nn.Module) -> Dict[str, tuple]:
+    """Flax name -> shape of every parameter of ``model``."""
+    return {name: tuple(p.shape) for name, p in _flax_params(model).items()}
+
+
+def load_jax_params(model: nn.Module, tree: Mapping) -> nn.Module:
+    """Copy a JAX parameter tree into ``model`` in place; returns ``model``.
+
+    Raises ``KeyError`` on a missing or an extra name and ``ValueError`` on a
+    shape that differs, before anything is copied.
+    """
+    flat = flatten(tree)
+    params = _flax_params(model)
+    missing = sorted(set(params) - set(flat))
+    extra = sorted(set(flat) - set(params))
+    if missing or extra:
+        raise KeyError(f"parameter names differ: missing {missing}, unexpected {extra}")
+    wrong = {n: (np.shape(flat[n]), tuple(p.shape)) for n, p in params.items() if np.shape(flat[n]) != tuple(p.shape)}
+    if wrong:
+        raise ValueError(f"parameter shapes differ (given, expected): {wrong}")
+    with torch.no_grad():
+        for name, p in params.items():
+            p.copy_(torch.as_tensor(np.asarray(flat[name]), dtype=p.dtype))
+    return model
+
+
+def export_jax_params(model: nn.Module) -> dict:
+    """The model's parameters as a nested flax-named dict of float32 numpy arrays."""
+    return unflatten({name: p.detach().to("cpu", torch.float32).numpy() for name, p in _flax_params(model).items()})
+
+
+def random_jax_params(model: nn.Module, seed: int) -> Dict[str, np.ndarray]:
+    """Flax-layout parameters for ``model`` drawn with numpy from ``seed``:
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)), the torch-calibrated init both packages
+    use. A kernel's fan-in is the product of all but its output dim; a bias
+    takes its kernel's (``bias`` -> ``kernel``, ``gate_bias_t`` -> ``gate_kernel_t``)."""
+    rng = np.random.default_rng(seed)
+    shapes = param_shapes(model)
+    out = {}
+    for name, shape in shapes.items():
+        *parents, leaf = name.split("/")
+        kernel = "/".join([*parents, leaf.replace("bias", "kernel")])
+        fan_in = int(np.prod(shapes[kernel][:-1]))
+        bound = 1.0 / np.sqrt(fan_in)
+        out[name] = rng.uniform(-bound, bound, shape).astype(np.float32)
+    return out
