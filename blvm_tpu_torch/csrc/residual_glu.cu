@@ -32,6 +32,7 @@
 // of x, weights and outputs, which are rounded once at the store.
 
 #include "common.cuh"
+#include "mma_bf16.cuh"
 
 namespace blvm {
 namespace {
@@ -204,12 +205,11 @@ int launch(const void* x, const void* w_t, const void* w_s, const void* b_t, con
 
 // ---- tensor-core path: bf16 at fixed widths ----------------------------------------------------
 //
-// The same block on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate), for bf16 at
-// the widths it is instantiated for (C = half = R = S = 96, the flagship; 32, for tests). The
+// The same block on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate; the helpers
+// are in mma_bf16.cuh), for bf16 at the widths it is instantiated for (C = half = R = S = 96, the flagship; 32, for tests). The
 // gate is one GEMM of [x[t] | x[t+d]] (TT x 2C) with the four tap/branch kernels laid side by
 // side (2C x 2 half); tanh * sigmoid runs on the accumulator fragments (on the SFU's
-// tanh.approx, see gate()) and the gated activation
-// is repacked in registers as the A operand of the [r | s] GEMM, so it never leaves registers
+// tanh.approx) and the gated activation is repacked in registers as the A operand of the [r | s] GEMM, so it never leaves registers
 // (rounded to bf16 there, as the bf16 reference rounds it). Weights are staged once per thread
 // block into shared memory, transposed to [n][k] with 8 elements of padding per row so that the
 // fragment loads hit 32 distinct banks; blocks are persistent (one per SM) and walk over
@@ -229,43 +229,6 @@ struct Cfg {
   // weights + two buffers of (x[t], x[t+d]): the next tile's rows load while this one computes
   static constexpr size_t smem = sizeof(__nv_bfloat16) * ((size_t)2 * HALF * KG_PAD + RS * KR_PAD + 4 * X_TILE);
 };
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-// 16-byte asynchronous copy global -> shared; zero-fills the destination when !valid
-__device__ __forceinline__ void cp_async16(__nv_bfloat16* dst, const __nv_bfloat16* src, bool valid) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// tanh(a) * sigmoid(b) on the SFU's tanh.approx.f32 (max relative error ~2^-11), with
-// sigmoid(b) = 0.5 tanh(b / 2) + 0.5. The result is rounded to bf16 (2^-9 relative) right
-// after, so the approximation stays below that rounding; the precise tanhf / expf and IEEE
-// division cost ~60 instructions a pair, which at 2 warps per scheduler took ~2.9 us a tile.
-__device__ __forceinline__ float tanh_approx(float x) {
-  float y;
-  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ float gate(float a, float b) {
-  return tanh_approx(a) * fmaf(0.5f, tanh_approx(0.5f * b), 0.5f);
-}
 
 // One warp's 16 rows of a tile: both GEMMs, the gate and the epilogue (no shared-memory writes).
 template <int C, int HALF, int RS>

@@ -1,0 +1,552 @@
+// K1-bwd: backward of the fused WaveNet residual-GLU block (residual_glu.cu), for Hopper (sm_90a).
+//
+// Replaces the VJP of the cut Pallas kernel blvm_tpu/ops/pallas/wavenet_block.py:fused_residual_glu
+// (commit 1788a18^, _bwd :144-148), which recomputed the block from its saved inputs
+// (x and the cast weights) instead of saving activations. With pre_t, pre_s, act as in the
+// forward, dO (B, L, R) the gradient of o and dS (B, skip_size, S) that of s:
+//
+//   d_rs[t]  = [dO[t] sqrt(1/2) | dS[t - (L - skip_size)] or 0 above the skip window]
+//   d_act[t] = d_rs[t] Wrs^T
+//   d_pre_t  = d_act sigmoid(pre_s) (1 - tanh^2(pre_t))     d_pre_s = d_act tanh(pre_t) sigmoid'(pre_s)
+//   dx[r]    = d_pre[r] W0^T + d_pre[r - d] W1^T + dO[r - d] sqrt(1/2)   (W0 = [Wt0 | Ws0], W1 the tap-1 pair)
+//
+// Each row of dx takes d_pre from two output rows (r and r - d), so the backward runs in two
+// passes, race-free and without atomics: pass A recomputes the gate per output row and writes
+// d_pre = [d_pre_t | d_pre_s] (B, L, 2 half) and act (B, L, half); pass B gathers dx per input
+// row. The weight and bias gradients are sums over all B * L rows (x[t]^T d_pre, x[t+d]^T d_pre,
+// act^T d_rs and column sums): large plain products that the JAX backward left to XLA, so the
+// Python wrapper takes them with torch.matmul / sum on these outputs (f32 accumulation).
+//
+// What bounds it on an H100: at the flagship width (C = half = R = S = 96) the two passes do
+// 2 * (4 C half + half (R+S)) + 2 * 4 half C = 184 kFLOP per row and must read x, dO and dS and
+// write dx (768 bytes a row in bf16), ~240 FLOP/byte: close to the bf16 tensor-core ridge.
+// d_pre and act (576 bytes a row in bf16) make a round trip through device memory between the
+// passes and the weight-gradient products.
+//
+// Dtypes: f32 accumulation inside, rounded once at the store to x's dtype, as the forward.
+// bf16 at the widths instantiated below runs both passes on the tensor cores (mma.sync
+// m16n8k16, mma_bf16.cuh): persistent blocks, one per SM, the block's weights staged once in
+// shared memory, each warp 16 rows, its A fragments read straight from device memory. f32, and
+// bf16 at other widths, run on CUDA-core FMAs with the weights streamed through shared memory
+// in chunks, as the forward's FMA path.
+
+#include "common.cuh"
+#include "mma_bf16.cuh"
+
+namespace blvm {
+namespace {
+
+constexpr int TT = 32;              // rows per thread block (FMA path)
+constexpr int KC = 32;              // reduction elements per staged weight chunk
+constexpr int THREADS = 256;        // 8 warps
+constexpr int ROWS = TT / (THREADS / 32);
+constexpr int MAX_GATE_COLS = 4;    // half  <= 128
+constexpr int MAX_C_COLS = 8;       // C     <= 256
+constexpr int MAX_C = 256;
+constexpr int MAX_RS = 256;
+
+// ---- FMA path, pass A: recompute the gate, write d_pre and act -------------------------------
+size_t smem_a_bytes(int C, int half, int RS) {
+  return sizeof(float) * (2 * (size_t)TT * C + (size_t)TT * RS + 4 * (size_t)KC * half);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+glu_bwd_a_kernel(const T* __restrict__ x, const T* __restrict__ w_t, const T* __restrict__ w_s,
+                 const T* __restrict__ b_t, const T* __restrict__ b_s, const T* __restrict__ w_rs,
+                 const T* __restrict__ d_o, const T* __restrict__ d_s, T* __restrict__ d_pre, T* __restrict__ act,
+                 int T_in, int C, int half, int R, int S, int d, int skip_size) {
+  extern __shared__ float smem[];
+  const int RS = R + S;
+  float* x_old = smem;            // [TT][C]  x[t]
+  float* x_cur = x_old + TT * C;  // [TT][C]  x[t+d]
+  float* drs = x_cur + TT * C;    // [TT][RS] d_rs
+  float* w = drs + TT * RS;       // gate chunk [4][KC][half] or Wrs^T chunk [KC][half]
+
+  const int b = blockIdx.y, t0 = blockIdx.x * TT, T_out = T_in - d, skip_start = T_out - skip_size;
+  const int lane = threadIdx.x & 31, row0 = (threadIdx.x >> 5) * ROWS;
+  const float inv_std = to_f32(from_f32<T>(0.70710678118654752f));
+  const T* xb = x + (size_t)b * T_in * C;
+
+  for (int i = threadIdx.x; i < TT * C; i += THREADS) {
+    const int r = i / C, c = i - r * C, t = t0 + r;
+    x_old[i] = t < T_out ? to_f32(xb[(size_t)t * C + c]) : 0.f;
+    x_cur[i] = t < T_out ? to_f32(xb[(size_t)(t + d) * C + c]) : 0.f;
+  }
+  for (int i = threadIdx.x; i < TT * RS; i += THREADS) {
+    const int r = i / RS, c = i - r * RS, t = t0 + r;
+    float v = 0.f;
+    if (t < T_out) {
+      if (c < R)
+        v = to_f32(d_o[((size_t)b * T_out + t) * R + c]) * inv_std;
+      else if (t >= skip_start)
+        v = to_f32(d_s[((size_t)b * skip_size + (t - skip_start)) * S + (c - R)]);
+    }
+    drs[i] = v;
+  }
+
+  // gate pre-activations, as the forward
+  float acc_t[ROWS][MAX_GATE_COLS], acc_s[ROWS][MAX_GATE_COLS], acc_d[ROWS][MAX_GATE_COLS];
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i)
+#pragma unroll
+    for (int j = 0; j < MAX_GATE_COLS; ++j) acc_t[i][j] = acc_s[i][j] = acc_d[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < C; k0 += KC) {
+    const int kc = min(KC, C - k0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < 4 * kc * half; i += THREADS) {
+      const int m = i / (kc * half), rem = i - m * kc * half, k = rem / half, c = rem - k * half;
+      const T* src = (m < 2 ? w_t : w_s) + ((size_t)(m & 1) * C + k0 + k) * half + c;
+      w[(m * KC + k) * half + c] = to_f32(*src);
+    }
+    __syncthreads();
+    for (int k = 0; k < kc; ++k) {
+      float xo[ROWS], xc[ROWS];
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) {
+        xo[i] = x_old[(row0 + i) * C + k0 + k];
+        xc[i] = x_cur[(row0 + i) * C + k0 + k];
+      }
+#pragma unroll
+      for (int j = 0; j < MAX_GATE_COLS; ++j) {
+        const int col = lane + 32 * j;
+        if (col < half) {
+          const float t0w = w[(0 * KC + k) * half + col], t1w = w[(1 * KC + k) * half + col];
+          const float s0w = w[(2 * KC + k) * half + col], s1w = w[(3 * KC + k) * half + col];
+#pragma unroll
+          for (int i = 0; i < ROWS; ++i) {
+            acc_t[i][j] = fmaf(xc[i], t1w, fmaf(xo[i], t0w, acc_t[i][j]));
+            acc_s[i][j] = fmaf(xc[i], s1w, fmaf(xo[i], s0w, acc_s[i][j]));
+          }
+        }
+      }
+    }
+  }
+
+  // d_act = d_rs Wrs^T: Wrs (1, half, R+S) streamed in chunks of KC rows of its R+S axis
+  for (int k0 = 0; k0 < RS; k0 += KC) {
+    const int kc = min(KC, RS - k0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < kc * half; i += THREADS) {
+      const int j = i / kc, k = i - j * kc;
+      w[k * half + j] = to_f32(w_rs[(size_t)j * RS + k0 + k]);
+    }
+    __syncthreads();
+    for (int k = 0; k < kc; ++k) {
+      float a[ROWS];
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) a[i] = drs[(row0 + i) * RS + k0 + k];
+#pragma unroll
+      for (int j = 0; j < MAX_GATE_COLS; ++j) {
+        const int col = lane + 32 * j;
+        if (col < half) {
+          const float wv = w[k * half + col];
+#pragma unroll
+          for (int i = 0; i < ROWS; ++i) acc_d[i][j] = fmaf(a[i], wv, acc_d[i][j]);
+        }
+      }
+    }
+  }
+
+  // d_pre and act; the derivatives in the form autograd of the plain version takes
+#pragma unroll
+  for (int j = 0; j < MAX_GATE_COLS; ++j) {
+    const int col = lane + 32 * j;
+    if (col >= half) continue;
+    const float bt = to_f32(b_t[col]), bs = to_f32(b_s[col]);
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      const int t = t0 + row0 + i;
+      if (t >= T_out) continue;
+      const float th = tanhf(acc_t[i][j] + bt), sg = sigmoidf(acc_s[i][j] + bs), da = acc_d[i][j];
+      const size_t row = (size_t)b * T_out + t;
+      act[row * half + col] = from_f32<T>(th * sg);
+      d_pre[row * 2 * half + col] = from_f32<T>(da * sg * (1.f - th * th));
+      d_pre[row * 2 * half + half + col] = from_f32<T>(da * th * (sg * (1.f - sg)));
+    }
+  }
+}
+
+// ---- FMA path, pass B: dx[r] = d_pre[r] W0^T + d_pre[r - d] W1^T + dO[r - d] sqrt(1/2) ---------
+size_t smem_b_bytes(int C, int half) { return sizeof(float) * (2 * (size_t)TT * 2 * half + 4 * (size_t)KC * C); }
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+glu_bwd_b_kernel(const T* __restrict__ w_t, const T* __restrict__ w_s, const T* __restrict__ d_pre,
+                 const T* __restrict__ d_o, T* __restrict__ dx, int T_in, int C, int half, int d) {
+  extern __shared__ float smem[];
+  const int H2 = 2 * half;
+  float* dp_cur = smem;             // [TT][2 half]  d_pre[r]
+  float* dp_old = dp_cur + TT * H2;  // [TT][2 half]  d_pre[r - d]
+  float* w = dp_old + TT * H2;       // [4][KC][C]: Wt0, Ws0, Wt1, Ws1 transposed, a chunk of half
+
+  const int b = blockIdx.y, r0 = blockIdx.x * TT, T_out = T_in - d;
+  const int lane = threadIdx.x & 31, row0 = (threadIdx.x >> 5) * ROWS;
+  const float inv_std = to_f32(from_f32<T>(0.70710678118654752f));
+  const T* dpb = d_pre + (size_t)b * T_out * H2;
+
+  for (int i = threadIdx.x; i < TT * H2; i += THREADS) {
+    const int rr = i / H2, k = i - rr * H2, r = r0 + rr;
+    dp_cur[i] = r < T_out ? to_f32(dpb[(size_t)r * H2 + k]) : 0.f;
+    dp_old[i] = (r >= d && r < T_in) ? to_f32(dpb[(size_t)(r - d) * H2 + k]) : 0.f;
+  }
+
+  float acc[ROWS][MAX_C_COLS];
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i)
+#pragma unroll
+    for (int j = 0; j < MAX_C_COLS; ++j) acc[i][j] = 0.f;
+
+  for (int j0 = 0; j0 < half; j0 += KC) {
+    const int kc = min(KC, half - j0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < 4 * kc * C; i += THREADS) {
+      const int k = i % kc, rest = i / kc, c = rest % C, m = rest / C;  // m = 2 tap + branch
+      const T* src = (m & 1 ? w_s : w_t) + ((size_t)(m >> 1) * C + c) * half + j0 + k;
+      w[(m * KC + k) * C + c] = to_f32(*src);
+    }
+    __syncthreads();
+    for (int k = 0; k < kc; ++k) {
+      float at0[ROWS], as0[ROWS], at1[ROWS], as1[ROWS];
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) {
+        const int base = (row0 + i) * H2 + j0 + k;
+        at0[i] = dp_cur[base];
+        as0[i] = dp_cur[base + half];
+        at1[i] = dp_old[base];
+        as1[i] = dp_old[base + half];
+      }
+#pragma unroll
+      for (int j = 0; j < MAX_C_COLS; ++j) {
+        const int col = lane + 32 * j;
+        if (col < C) {
+          const float wt0 = w[(0 * KC + k) * C + col], ws0 = w[(1 * KC + k) * C + col];
+          const float wt1 = w[(2 * KC + k) * C + col], ws1 = w[(3 * KC + k) * C + col];
+#pragma unroll
+          for (int i = 0; i < ROWS; ++i)
+            acc[i][j] = fmaf(as1[i], ws1, fmaf(at1[i], wt1, fmaf(as0[i], ws0, fmaf(at0[i], wt0, acc[i][j]))));
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const int r = r0 + row0 + i;
+    if (r >= T_in) continue;
+#pragma unroll
+    for (int j = 0; j < MAX_C_COLS; ++j) {
+      const int col = lane + 32 * j;
+      if (col >= C) continue;
+      float v = acc[i][j];
+      if (r >= d) v += to_f32(d_o[((size_t)b * T_out + r - d) * C + col]) * inv_std;
+      dx[((size_t)b * T_in + r) * C + col] = from_f32<T>(v);
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* x, const void* w_t, const void* w_s, const void* b_t, const void* b_s, const void* w_rs,
+           const void* d_o, const void* d_s, void* d_pre, void* act, void* dx, int B, int T_in, int C, int half,
+           int R, int S, int d, int skip_size, cudaStream_t stream) {
+  const size_t smem_a = smem_a_bytes(C, half, R + S), smem_b = smem_b_bytes(C, half);
+  cudaError_t err = cudaFuncSetAttribute(glu_bwd_a_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(glu_bwd_b_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
+  if (err != cudaSuccess) return (int)err;
+  const int T_out = T_in - d;
+  glu_bwd_a_kernel<T><<<dim3((T_out + TT - 1) / TT, B), THREADS, smem_a, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w_t), static_cast<const T*>(w_s), static_cast<const T*>(b_t),
+      static_cast<const T*>(b_s), static_cast<const T*>(w_rs), static_cast<const T*>(d_o),
+      static_cast<const T*>(d_s), static_cast<T*>(d_pre), static_cast<T*>(act), T_in, C, half, R, S, d, skip_size);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  glu_bwd_b_kernel<T><<<dim3((T_in + TT - 1) / TT, B), THREADS, smem_b, stream>>>(
+      static_cast<const T*>(w_t), static_cast<const T*>(w_s), static_cast<const T*>(d_pre),
+      static_cast<const T*>(d_o), static_cast<T*>(dx), T_in, C, half, d);
+  return (int)cudaGetLastError();
+}
+
+// ---- tensor-core path: bf16 at fixed widths -------------------------------------------------------
+namespace mma {
+
+using bf = __nv_bfloat16;
+constexpr int WARPS = 8;
+constexpr int TT = 16 * WARPS;  // rows per tile
+
+// bf16 pair * s, rounded back to a bf16 pair
+__device__ __forceinline__ uint32_t scale2(uint32_t v, float s) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+  return pack(f.x * s, f.y * s);
+}
+
+// Pass A for one warp's 16 rows starting at output row t0 of batch row b.
+template <int C, int HALF, int RS>
+__device__ __forceinline__ void pass_a_warp(const bf* wg, const bf* wr, const bf* __restrict__ x,
+                                            const bf* __restrict__ b_t, const bf* __restrict__ b_s,
+                                            const bf* __restrict__ d_o, const bf* __restrict__ d_s,
+                                            bf* __restrict__ d_pre, bf* __restrict__ act, int b, int t0, int T_in,
+                                            int d, int skip_size, int g, int q, float inv_std) {
+  constexpr int S = RS - C, KG_PAD = 2 * C + 8, RS_PAD = RS + 8, NTG = 2 * HALF / 8, NTH = HALF / 8;
+  const int T_out = T_in - d, skip_start = T_out - skip_size;
+  const int ta = t0 + g, tb = ta + 8;  // the two rows whose fragments this lane holds
+  const bool va = ta < T_out, vb = tb < T_out;
+  const bf* xb = x + (size_t)b * T_in * C;
+
+  // gate pre-activations: [x[t] | x[t+d]] (16 x 2C) times the gate weights (2C x 2 HALF)
+  float acc[NTG][4];
+#pragma unroll
+  for (int j = 0; j < NTG; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < 2 * C / 16; ++ks) {
+    const int shift = ks < C / 16 ? 0 : d, k = (ks % (C / 16)) * 16 + 2 * q;
+    const bf* pa = xb + (size_t)(ta + shift) * C + k;
+    const bf* pb = xb + (size_t)(tb + shift) * C + k;
+    const uint32_t a0 = va ? ld32(pa) : 0u, a1 = vb ? ld32(pb) : 0u;
+    const uint32_t a2 = va ? ld32(pa + 8) : 0u, a3 = vb ? ld32(pb + 8) : 0u;
+#pragma unroll
+    for (int j = 0; j < NTG; ++j) {
+      const bf* wb = wg + (j * 8 + g) * KG_PAD + ks * 16 + 2 * q;
+      mma_bf16(acc[j], a0, a1, a2, a3, ld32(wb), ld32(wb + 8));
+    }
+  }
+
+  // d_act: d_rs (16 x RS, [dO sqrt(1/2) | dS or 0]) times Wrs^T (RS x HALF)
+  float accd[NTH][4];
+#pragma unroll
+  for (int j = 0; j < NTH; ++j) accd[j][0] = accd[j][1] = accd[j][2] = accd[j][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < RS / 16; ++ks) {
+    uint32_t a0 = 0u, a1 = 0u, a2 = 0u, a3 = 0u;
+    if (ks < C / 16) {
+      const bf* pa = d_o + ((size_t)b * T_out + ta) * C + ks * 16 + 2 * q;
+      const bf* pb = d_o + ((size_t)b * T_out + tb) * C + ks * 16 + 2 * q;
+      if (va) a0 = scale2(ld32(pa), inv_std), a2 = scale2(ld32(pa + 8), inv_std);
+      if (vb) a1 = scale2(ld32(pb), inv_std), a3 = scale2(ld32(pb + 8), inv_std);
+    } else {
+      const int k = (ks - C / 16) * 16 + 2 * q;
+      const bf* pa = d_s + ((size_t)b * skip_size + (ta - skip_start)) * S + k;
+      const bf* pb = d_s + ((size_t)b * skip_size + (tb - skip_start)) * S + k;
+      if (va && ta >= skip_start) a0 = ld32(pa), a2 = ld32(pa + 8);
+      if (vb && tb >= skip_start) a1 = ld32(pb), a3 = ld32(pb + 8);
+    }
+#pragma unroll
+    for (int j = 0; j < NTH; ++j) {
+      const bf* wb = wr + (j * 8 + g) * RS_PAD + ks * 16 + 2 * q;
+      mma_bf16(accd[j], a0, a1, a2, a3, ld32(wb), ld32(wb + 8));
+    }
+  }
+
+  // d_pre and act. tanh and sigmoid from one __expf each, so that 1 - tanh^2 = 4e / (1 + e)^2 and
+  // sigmoid' = e / (1 + e)^2 keep their relative precision where they are small (1 - tanh^2 from
+  // an approximate tanh near +-1 would not).
+#pragma unroll
+  for (int j = 0; j < NTH; ++j) {
+    const int col = j * 8 + 2 * q;
+    const float bt[2] = {__bfloat162float(b_t[col]), __bfloat162float(b_t[col + 1])};
+    const float bs[2] = {__bfloat162float(b_s[col]), __bfloat162float(b_s[col + 1])};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = h ? tb : ta;
+      if (t >= T_out) continue;
+      float va_[2], dt[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float pt = acc[j][2 * h + e] + bt[e], ps = acc[j + NTH][2 * h + e] + bs[e], da = accd[j][2 * h + e];
+        const float et = __expf(-2.f * fabsf(pt)), it = __fdividef(1.f, 1.f + et);
+        const float th = copysignf((1.f - et) * it, pt), dth = 4.f * et * it * it;
+        const float es = __expf(-fabsf(ps)), is = __fdividef(1.f, 1.f + es);
+        const float sg = ps >= 0.f ? is : es * is, dsg = es * is * is;
+        va_[e] = th * sg;
+        dt[e] = da * sg * dth;
+        ds[e] = da * th * dsg;
+      }
+      const size_t row = (size_t)b * T_out + t;
+      *reinterpret_cast<uint32_t*>(act + row * HALF + col) = pack(va_[0], va_[1]);
+      *reinterpret_cast<uint32_t*>(d_pre + row * 2 * HALF + col) = pack(dt[0], dt[1]);
+      *reinterpret_cast<uint32_t*>(d_pre + row * 2 * HALF + HALF + col) = pack(ds[0], ds[1]);
+    }
+  }
+}
+
+template <int C, int HALF, int RS>
+struct CfgA {
+  static_assert(C % 16 == 0 && HALF % 16 == 0 && RS % 16 == 0 && RS > C, "mma path widths");
+  static constexpr int KG_PAD = 2 * C + 8, RS_PAD = RS + 8;
+  static constexpr size_t smem = sizeof(bf) * ((size_t)2 * HALF * KG_PAD + (size_t)HALF * RS_PAD);
+};
+
+template <int C, int HALF, int RS>
+__global__ void __launch_bounds__(WARPS * 32, 1)
+pass_a_kernel(const bf* __restrict__ x, const bf* __restrict__ w_t, const bf* __restrict__ w_s,
+              const bf* __restrict__ b_t, const bf* __restrict__ b_s, const bf* __restrict__ w_rs,
+              const bf* __restrict__ d_o, const bf* __restrict__ d_s, bf* __restrict__ d_pre, bf* __restrict__ act,
+              int B, int T_in, int d, int skip_size) {
+  using K = CfgA<C, HALF, RS>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf* wg = reinterpret_cast<bf*>(smem_raw);  // [2 HALF][KG_PAD]: gate, n-major (as the forward stages it)
+  bf* wr = wg + 2 * HALF * K::KG_PAD;        // [HALF][RS_PAD]: Wrs as it lies, already n-major for d_rs Wrs^T
+
+  constexpr int NG = HALF / 8, KG = 2 * C;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < 2 * NG * KG; i += WARPS * 32) {
+    const int k = i % KG, group = i / KG, branch = group / NG, n = (group - branch * NG) * 8;
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(branch ? w_s : w_t) + k * NG + n / 8);
+    const bf* e = reinterpret_cast<const bf*>(&v);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) wg[(branch * HALF + n + u) * K::KG_PAD + k] = e[u];
+  }
+  for (int i = threadIdx.x; i < HALF * (RS / 8); i += WARPS * 32) {
+    const int n = i / (RS / 8), v = i - n * (RS / 8);
+    *reinterpret_cast<uint4*>(wr + n * K::RS_PAD + v * 8) = __ldg(reinterpret_cast<const uint4*>(w_rs) + i);
+  }
+  __syncthreads();
+
+  const int T_out = T_in - d, tiles_per_row = (T_out + TT - 1) / TT, n_tiles = B * tiles_per_row;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const float inv_std = __bfloat162float(__float2bfloat16_rn(0.70710678118654752f));
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int b = tile / tiles_per_row, t0 = (tile - b * tiles_per_row) * TT + warp * 16;
+    if (t0 < T_out)
+      pass_a_warp<C, HALF, RS>(wg, wr, x, b_t, b_s, d_o, d_s, d_pre, act, b, t0, T_in, d, skip_size, g, q, inv_std);
+  }
+}
+
+template <int C, int HALF>
+struct CfgB {
+  static constexpr int KB = 4 * HALF, KB_PAD = KB + 8;
+  static constexpr size_t smem = sizeof(bf) * (size_t)C * KB_PAD;
+};
+
+template <int C, int HALF>
+__global__ void __launch_bounds__(WARPS * 32, 1)
+pass_b_kernel(const bf* __restrict__ w_t, const bf* __restrict__ w_s, const bf* __restrict__ d_pre,
+              const bf* __restrict__ d_o, bf* __restrict__ dx, int B, int T_in, int d) {
+  using K = CfgB<C, HALF>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // [C][KB_PAD]: row c holds Wt0[c] | Ws0[c] | Wt1[c] | Ws1[c] (each HALF wide), n-major for d_pre W^T
+  bf* wb = reinterpret_cast<bf*>(smem_raw);
+  for (int i = threadIdx.x; i < 4 * C * (HALF / 8); i += WARPS * 32) {
+    const int seg = i % (HALF / 8), rest = i / (HALF / 8), c = rest % C, m = rest / C;  // m = 2 tap + branch
+    const uint4* src = reinterpret_cast<const uint4*>((m & 1 ? w_s : w_t) + ((size_t)(m >> 1) * C + c) * HALF) + seg;
+    *reinterpret_cast<uint4*>(wb + c * K::KB_PAD + m * HALF + seg * 8) = __ldg(src);
+  }
+  __syncthreads();
+
+  constexpr int H2 = 2 * HALF, NTO = C / 8;
+  const int T_out = T_in - d, tiles_per_row = (T_in + TT - 1) / TT, n_tiles = B * tiles_per_row;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const float inv_std = __bfloat162float(__float2bfloat16_rn(0.70710678118654752f));
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int b = tile / tiles_per_row, r0 = (tile - b * tiles_per_row) * TT + warp * 16;
+    if (r0 >= T_in) continue;
+    const int ra = r0 + g, rb = ra + 8;
+    const bf* dpb = d_pre + (size_t)b * T_out * H2;
+    float acc[NTO][4];
+#pragma unroll
+    for (int j = 0; j < NTO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < 4 * HALF / 16; ++ks) {
+      const bool cur = ks < H2 / 16;  // d_pre[r] (tap 0) or d_pre[r - d] (tap 1)
+      const int k = (cur ? ks : ks - H2 / 16) * 16 + 2 * q;
+      const int rowa = cur ? ra : ra - d, rowb = cur ? rb : rb - d;
+      const bool va = cur ? ra < T_out : (ra >= d && ra < T_in);
+      const bool vb = cur ? rb < T_out : (rb >= d && rb < T_in);
+      const bf* pa = dpb + (size_t)rowa * H2 + k;
+      const bf* pb = dpb + (size_t)rowb * H2 + k;
+      const uint32_t a0 = va ? ld32(pa) : 0u, a1 = vb ? ld32(pb) : 0u;
+      const uint32_t a2 = va ? ld32(pa + 8) : 0u, a3 = vb ? ld32(pb + 8) : 0u;
+#pragma unroll
+      for (int j = 0; j < NTO; ++j) {
+        const bf* w = wb + (j * 8 + g) * K::KB_PAD + ks * 16 + 2 * q;
+        mma_bf16(acc[j], a0, a1, a2, a3, ld32(w), ld32(w + 8));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NTO; ++j) {
+      const int col = j * 8 + 2 * q;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = h ? rb : ra;
+        if (r >= T_in) continue;
+        float v0 = acc[j][2 * h], v1 = acc[j][2 * h + 1];
+        if (r >= d) {
+          const float2 o = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(d_o + ((size_t)b * T_out + r - d) * C + col));
+          v0 += o.x * inv_std;
+          v1 += o.y * inv_std;
+        }
+        *reinterpret_cast<uint32_t*>(dx + ((size_t)b * T_in + r) * C + col) = pack(v0, v1);
+      }
+    }
+  }
+}
+
+template <int C, int HALF, int RS>
+int launch(const void* x, const void* w_t, const void* w_s, const void* b_t, const void* b_s, const void* w_rs,
+           const void* d_o, const void* d_s, void* d_pre, void* act, void* dx, int B, int T_in, int d, int skip_size,
+           cudaStream_t stream) {
+  static int n_sm = 0;
+  if (n_sm == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(pass_a_kernel<C, HALF, RS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)CfgA<C, HALF, RS>::smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(pass_b_kernel<C, HALF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)CfgB<C, HALF>::smem);
+    if (err != cudaSuccess) {
+      n_sm = 0;
+      return (int)err;
+    }
+  }
+  const int tiles_a = B * ((T_in - d + TT - 1) / TT), tiles_b = B * ((T_in + TT - 1) / TT);
+  pass_a_kernel<C, HALF, RS><<<tiles_a < n_sm ? tiles_a : n_sm, WARPS * 32, CfgA<C, HALF, RS>::smem, stream>>>(
+      static_cast<const bf*>(x), static_cast<const bf*>(w_t), static_cast<const bf*>(w_s), static_cast<const bf*>(b_t),
+      static_cast<const bf*>(b_s), static_cast<const bf*>(w_rs), static_cast<const bf*>(d_o),
+      static_cast<const bf*>(d_s), static_cast<bf*>(d_pre), static_cast<bf*>(act), B, T_in, d, skip_size);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  pass_b_kernel<C, HALF><<<tiles_b < n_sm ? tiles_b : n_sm, WARPS * 32, CfgB<C, HALF>::smem, stream>>>(
+      static_cast<const bf*>(w_t), static_cast<const bf*>(w_s), static_cast<const bf*>(d_pre),
+      static_cast<const bf*>(d_o), static_cast<bf*>(dx), B, T_in, d);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace mma
+}  // namespace
+}  // namespace blvm
+
+// Limits the Python wrapper enforces before it calls in (returns cudaErrorInvalidValue otherwise).
+// d_pre (B, T_in - d, 2 half) and act (B, T_in - d, half) are scratch outputs the wrapper keeps for
+// the weight gradients; dx is (B, T_in, C). All in x's dtype.
+extern "C" int blvm_residual_glu_bwd(const void* x, const void* w_t, const void* w_s, const void* b_t,
+                                     const void* b_s, const void* w_rs, const void* d_o, const void* d_s,
+                                     void* d_pre, void* act, void* dx, int B, int T_in, int C, int half, int R, int S,
+                                     int dilation, int skip_size, int dtype, void* stream) {
+  using namespace blvm;
+  if (C > MAX_C || half > 32 * MAX_GATE_COLS || R + S > MAX_RS || R != C || dilation < 1 || T_in - dilation < 1 ||
+      skip_size < 1 || skip_size > T_in - dilation || B < 1 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    return launch<float>(x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, d_pre, act, dx, B, T_in, C, half, R, S, dilation,
+                         skip_size, st);
+  // the tensor-core path reads 4-byte bf16 pairs and stages the weights with 16-byte loads
+  const bool aligned = ((uintptr_t)x | (uintptr_t)d_o | (uintptr_t)d_s | (uintptr_t)d_pre | (uintptr_t)act |
+                        (uintptr_t)dx) % 4 == 0 &&
+                       ((uintptr_t)w_t | (uintptr_t)w_s | (uintptr_t)w_rs) % 16 == 0;
+  if (dtype == kBFloat16 && aligned && C == 96 && half == 96 && S == 96)
+    return mma::launch<96, 96, 192>(x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, d_pre, act, dx, B, T_in, dilation,
+                                    skip_size, st);
+  if (dtype == kBFloat16 && aligned && C == 32 && half == 32 && S == 32)
+    return mma::launch<32, 32, 64>(x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, d_pre, act, dx, B, T_in, dilation,
+                                   skip_size, st);
+  if (dtype == kBFloat16)
+    return launch<__nv_bfloat16>(x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, d_pre, act, dx, B, T_in, C, half, R, S,
+                                 dilation, skip_size, st);
+  return (int)cudaErrorInvalidValue;
+}

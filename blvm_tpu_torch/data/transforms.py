@@ -1,9 +1,11 @@
-"""Host-side numpy transforms (the mu-law pair of ``blvm_tpu/data/transforms.py``).
+"""Host-side numpy transforms (the mu-law pair and ``RandomSegment`` of
+``blvm_tpu/data/transforms.py``).
 
 Numpy path only: the JAX package's optional C++ fast path (``blvm_tpu.native``)
 computes the same companding.
 """
 
+import hashlib
 import math
 from typing import Optional
 
@@ -44,3 +46,30 @@ class MuLawDecode(Transform):
     def forward(self, x):
         x = np.asarray(x)
         return np.sign(x) * (np.exp(np.abs(x) * self._divisor) - 1.0) / self.mu
+
+
+class RandomSegment(Transform):
+    def __init__(self, length: int, seed: Optional[int] = None):
+        """Randomly crop a segment of ``length`` from an example of shape (T, *).
+
+        With a ``ctx`` holding ``example_id`` (and ``epoch``) the crop is a pure
+        function of (seed, epoch, example_id), hashed with blake2b as the JAX
+        package does, so it does not depend on loading order and changes each
+        epoch. Calls without ``ctx`` draw from a sequential RNG.
+        """
+        self.length = length
+        self.seed = 0 if seed is None else int(seed)
+        self._rng = np.random.default_rng(seed)
+
+    def __call__(self, x, ctx: Optional[dict] = None):
+        high = max(x.shape[0] - self.length, 1)
+        if ctx and ctx.get("example_id") is not None:
+            key = f"{self.seed}|{ctx.get('epoch', 0)}|{ctx['example_id']}".encode()
+            digest = hashlib.blake2b(key, digest_size=8).digest()
+            start_idx = int(int.from_bytes(digest, "little") % high)
+        else:
+            start_idx = int(self._rng.integers(0, high))
+        return x[start_idx : start_idx + self.length]
+
+    def forward(self, x):
+        return self(x)

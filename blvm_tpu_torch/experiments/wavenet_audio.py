@@ -1,32 +1,39 @@
-"""WaveNet on audio: CLI, model construction and the rf-chunked test pass.
+"""WaveNet on audio: CLI, model construction, the training loop and the rf-chunked test pass.
 
 Port of ``experiments/experiment_wavenet_audio.py`` (``build_args`` and the
-model construction) and of ``experiments/common.py:make_rf_chunked_eval``. This
-slice is the evaluation half: it scores mu-law-encoded waveforms in
-receptive-field-overlapping chunks and reports loss, log-likelihood and
-bits/frame per source. Training and dataset loading come later.
+model construction) and of the parts of ``experiments/common.py`` it runs:
+``build_tx_and_lr``, the training loop (random segments, mu-law, the train
+step, loss/ll/bpd under the ``train`` source) and ``make_rf_chunked_eval`` (the
+test pass in receptive-field-overlapping chunks). Dataset loading from TIMIT
+files and checkpoints come later: the caller hands over the waveforms.
 
-The model-group flags keep the JAX driver's names and defaults, so the run
-specs of ``experiments/benchmarks.txt`` parse; flags this port does not use yet
-(``--dataset``, ``--epochs``, ...) are ignored with a warning.
+The model, training and optimizer flags keep the JAX driver's names and
+defaults, so the run specs of ``experiments/benchmarks.txt`` parse; flags this
+port does not use yet (``--dataset``, ``--test_every``, ...) are ignored with a
+warning. Models build on the card unless a device is given.
 
     args = build_args(argv)
-    model = build_model(args, device="cuda")
+    model = build_model(args)
+    state = train(model, args, [[(example_id, waveform), ...], ...], Tracker())
     values = evaluate(model, args, [make_batch(waveforms, args)], Tracker())
 """
 
 import argparse
+import json
 import time
 import warnings
-from typing import Iterable, List, Optional, Sequence, Tuple
+from typing import Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from blvm_tpu_torch.data.transforms import MuLawEncode
+from blvm_tpu_torch.data.transforms import MuLawEncode, RandomSegment
 from blvm_tpu_torch.evaluation.tracker import Tracker
 from blvm_tpu_torch.models.wavenet import WaveNet
 from blvm_tpu_torch.training.eval_step import make_eval_step
+from blvm_tpu_torch.training.optim import EpochSchedule, get_lr_schedule, get_optimizer
+from blvm_tpu_torch.training.train_state import TrainState
+from blvm_tpu_torch.training.train_step import make_train_step
 
 
 def str2bool(arg) -> bool:
@@ -39,11 +46,33 @@ def str2bool(arg) -> bool:
     raise argparse.ArgumentTypeError(f"Could not parse argument {arg} of type {type(arg)} as bool.")
 
 
+def float_or_str(arg: Union[float, str]) -> Union[float, str]:
+    try:
+        return float(arg)
+    except ValueError:
+        return arg
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     setup_group = parser.add_argument_group("setup")
     setup_group.add_argument("--seed", type=int, default=int(time.time_ns() % (2**31)))
     setup_group.add_argument("--bf16", type=str2bool, default=False, help="bfloat16 residual stack (likelihoods stay f32)")
+    # blvm_tpu/utils/argparsers.py:87-113 with the WaveNet driver's defaults (experiment_wavenet_audio.py:15-22)
+    train_group = parser.add_argument_group("training")
+    train_group.add_argument("--epochs", type=int, default=1000)
+    train_group.add_argument("--batch_size", type=int, default=0, help="batch size in number of examples")
+    train_group.add_argument("--batch_len", type=float_or_str, default=16000 * 16, help="batch size in total timesteps")
+    train_group.add_argument("--lr", type=float, default=3e-4)
+    train_group.add_argument("--accum_steps", type=int, default=1, help="gradient-accumulation microbatches per step")
+    train_group.add_argument("--accum_unroll", type=str2bool, default=False, help="accepted; only schedules XLA")
+    optim_group = parser.add_argument_group("optimizer")
+    optim_group.add_argument("--optimizer", type=str, default="Adam")
+    optim_group.add_argument("--optimizer_kwargs", type=json.loads, default=dict())
+    optim_group.add_argument("--max_grad_norm", type=float, default=float("inf"))
+    optim_group.add_argument("--max_grad_value", type=float, default=float("inf"))
+    optim_group.add_argument("--lr_scheduler", type=str, default="ExponentialLR")
+    optim_group.add_argument("--lr_scheduler_kwargs", type=json.loads, default=dict(gamma=1))
     model_group = parser.add_argument_group("model")
     model_group.add_argument("--n_layers", default=10, type=int, help="layers per stack")
     model_group.add_argument("--n_stacks", default=4, type=int)
@@ -69,8 +98,19 @@ def build_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return args
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the card when none is given; raises when asked for CUDA
+    where there is none (the port runs on the CPU only when asked)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: blvm_tpu_torch runs on the card unless given device='cpu'")
+    return device
+
+
 def build_model(args: argparse.Namespace, device=None) -> WaveNet:
-    """The WaveNet the JAX driver builds from the same flags."""
+    """The WaveNet the JAX driver builds from the same flags, on ``device``
+    (default: the card; raises where there is none)."""
+    device = resolve_device(device)
     return WaveNet(
         likelihood=args.likelihood,
         embedding_dim=None if args.input_embedding_dim == 1 else args.input_embedding_dim,
@@ -97,6 +137,72 @@ def make_batch(waveforms: List[np.ndarray], args: argparse.Namespace) -> Tuple[n
     for i, w in enumerate(waveforms):
         x[i, : len(w)] = encode(w) if encode is not None else w
     return x, x_sl
+
+
+def build_tx_and_lr(args: argparse.Namespace):
+    """``(tx, epoch_lr)`` from the optimizer and scheduler flags
+    (``experiments/common.py:build_tx_and_lr``). Torch-named schedulers are
+    epoch-denominated (:class:`EpochSchedule`); the loop sets the optimizer's
+    learning rate at the start of each epoch. ``tx`` waits for the parameters."""
+    lr = get_lr_schedule(args.lr_scheduler, args.lr, **args.lr_scheduler_kwargs) if args.lr_scheduler else args.lr
+    epoch_lr = lr if isinstance(lr, EpochSchedule) else None
+    tx = get_optimizer(
+        args.optimizer,
+        epoch_lr.init_value if epoch_lr is not None else lr,
+        clip_grad_norm=None if args.max_grad_norm == float("inf") else args.max_grad_norm,
+        clip_grad_value=None if args.max_grad_value == float("inf") else args.max_grad_value,
+        skip_nonfinite_updates=getattr(args, "skip_nonfinite_updates", False),
+        **args.optimizer_kwargs,
+    )
+    return tx, epoch_lr
+
+
+def make_train_batch(examples: Sequence[Tuple[int, np.ndarray]], args: argparse.Namespace, epoch: int,
+                     crop: Optional[RandomSegment]) -> Tuple[np.ndarray, np.ndarray]:
+    """The training pipeline of one batch: the ``crop`` of each ``(example_id,
+    waveform)`` (a pure function of seed, epoch and example id; none without
+    ``--random_segment_size``), then mu-law encoding and right-padding (:func:`make_batch`)."""
+    waveforms = [crop(np.asarray(w), ctx=dict(example_id=i, epoch=epoch)) if crop else np.asarray(w) for i, w in examples]
+    return make_batch(waveforms, args)
+
+
+def train(
+    model: WaveNet,
+    args: argparse.Namespace,
+    batches_per_epoch: Sequence[Sequence[Tuple[int, np.ndarray]]],
+    tracker: Tracker,
+    device=None,
+) -> TrainState:
+    """The training loop: ``--epochs`` passes over ``batches_per_epoch`` (each batch
+    a list of ``(example_id, waveform in [-1, 1])``), one train step a batch, the
+    step's loss/ll/bpd merged into ``tracker`` under the ``train`` source.
+
+    Runs on ``device`` (default: the card; raises where there is none), where the
+    model must already lie. Returns the final :class:`TrainState`.
+    """
+    device = resolve_device(device)
+    if next(model.parameters()).device.type != device.type:
+        raise ValueError(f"the model lies on {next(model.parameters()).device}, training was asked on {device}")
+    tx, epoch_lr = build_tx_and_lr(args)
+    state = TrainState.create(model=model, tx=tx, generator=torch.Generator(device=device).manual_seed(args.seed))
+    accum = int(args.accum_steps or 1)
+    train_step = make_train_step(
+        loss_fn,
+        accum=accum,
+        loss_weight=(lambda mb, mets: mb["x_sl"].sum()) if accum > 1 else None,
+        accum_unroll=args.accum_unroll,
+    )
+    crop = RandomSegment(args.random_segment_size, seed=args.seed) if args.random_segment_size else None
+    model.train()
+    for epoch in range(1, args.epochs + 1):
+        if epoch_lr is not None:
+            state.optimizer.learning_rate = epoch_lr.lr_at_epoch(epoch)
+        for examples in batches_per_epoch:
+            x, x_sl = make_train_batch(examples, args, epoch, crop)
+            batch = dict(x=torch.from_numpy(x).to(device), x_sl=torch.from_numpy(x_sl).to(device))
+            state, mets = train_step(state, batch, {})
+            tracker.update(model.build_metrics(_to_host(mets)), source="train")
+    return state
 
 
 def loss_fn(model, generator, batch, scalars):

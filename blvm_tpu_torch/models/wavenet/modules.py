@@ -6,9 +6,9 @@ the flax names and layouts (WIO conv kernels ``(k, C_in, C_out)``, the separate
 ``gate_kernel_t`` / ``gate_kernel_s`` branches and the joint ``rs_kernel``), so a
 JAX parameter tree loads without transposes (:mod:`blvm_tpu_torch.weights`).
 
-The residual-GLU block's k=2 path is :func:`residual_glu`: the K1 kernel
-(``csrc/residual_glu.cu``) for CUDA tensors, its plain twin
-:func:`residual_glu_plain` for CPU tensors.
+The residual-GLU block's k=2 path is :func:`residual_glu`: the K1 kernels
+(``csrc/residual_glu.cu`` forward, ``csrc/residual_glu_bwd.cu`` backward) for
+CUDA tensors, its plain twin :func:`residual_glu_plain` for CPU tensors.
 """
 
 import math
@@ -60,9 +60,11 @@ def residual_glu(x, gate_kernel_t, gate_kernel_s, gate_bias_t, gate_bias_s, rs_k
                  dilation: int, skip_size: int):
     """K1: one k=2 residual-GLU block, same contract as :func:`residual_glu_plain`.
 
-    CPU tensors run the plain twin. CUDA tensors launch the hand-written kernel
-    ``csrc/residual_glu.cu`` (f32 accumulation, one rounding to the compute
-    dtype at the store), or raise for what it does not take.
+    CPU tensors run the plain twin (autograd gives its gradient). CUDA tensors
+    go through :class:`ResidualGLUFunction`: the hand-written forward kernel
+    ``csrc/residual_glu.cu`` and, under autograd, the backward kernel
+    ``csrc/residual_glu_bwd.cu`` (f32 accumulation, one rounding to the compute
+    dtype at the store), or raise for what they do not take.
     """
     args = (x, gate_kernel_t, gate_kernel_s, gate_bias_t, gate_bias_s, rs_kernel, rs_bias)
     if not x.is_cuda:
@@ -71,7 +73,7 @@ def residual_glu(x, gate_kernel_t, gate_kernel_s, gate_bias_t, gate_bias_s, rs_k
     B, T_in, C = x.shape
     half = gate_kernel_t.shape[-1]
     RS = rs_kernel.shape[-1]
-    R, S = C, RS - C
+    S = RS - C
     T_out = T_in - dilation
     if x.dtype not in _DTYPE_CODES or any(t.dtype != x.dtype or t.device != x.device for t in args):
         raise TypeError("residual_glu kernel: all tensors must share x's device and dtype (float32 or bfloat16)")
@@ -85,18 +87,78 @@ def residual_glu(x, gate_kernel_t, gate_kernel_s, gate_bias_t, gate_bias_s, rs_k
         )
     if dilation < 1 or T_out < 1 or not 1 <= skip_size <= T_out or not 1 <= B <= 65535:
         raise ValueError(f"residual_glu kernel: bad geometry B={B}, T_in={T_in}, dilation={dilation}, skip_size={skip_size}")
+    return ResidualGLUFunction.apply(*args, dilation, skip_size)
 
-    args = [t.contiguous() for t in args]
-    o = torch.empty((B, T_out, R), dtype=x.dtype, device=x.device)
-    s = torch.empty((B, skip_size, S), dtype=x.dtype, device=x.device)
-    lib = cuda.library()
-    cuda.count_launch("residual_glu")
-    err = lib.blvm_residual_glu(
-        *(t.data_ptr() for t in args), o.data_ptr(), s.data_ptr(),
-        B, T_in, C, half, R, S, dilation, skip_size, _DTYPE_CODES[x.dtype], cuda.stream_handle(x),
-    )
-    cuda.check(err, "residual_glu")
-    return o, s
+
+class ResidualGLUFunction(torch.autograd.Function):
+    """K1 under autograd. ``forward`` launches the forward kernel and saves only
+    ``x`` and the (cast) weights, as the cut Pallas kernel's custom VJP saved
+    ``(x, wg, bg, w1, b1)``; ``backward`` launches the backward kernel, which
+    recomputes the gate from them (two passes: ``d_pre`` and ``act``, then
+    ``dx``), and takes the weight and bias gradients, sums over all ``B * L``
+    rows, as plain products on its outputs (cuBLAS, f32 accumulation), as the
+    JAX backward left them to XLA. Arguments were checked by :func:`residual_glu`."""
+
+    @staticmethod
+    def forward(ctx, x, w_t, w_s, b_t, b_s, w_rs, b_rs, dilation: int, skip_size: int):
+        args = [t.contiguous() for t in (x, w_t, w_s, b_t, b_s, w_rs, b_rs)]
+        x = args[0]
+        B, T_in, C = x.shape
+        half, S = w_t.shape[-1], w_rs.shape[-1] - C
+        o = torch.empty((B, T_in - dilation, C), dtype=x.dtype, device=x.device)
+        s = torch.empty((B, skip_size, S), dtype=x.dtype, device=x.device)
+        lib = cuda.library()
+        cuda.count_launch("residual_glu")
+        err = lib.blvm_residual_glu(
+            *(t.data_ptr() for t in args), o.data_ptr(), s.data_ptr(),
+            B, T_in, C, half, C, S, dilation, skip_size, _DTYPE_CODES[x.dtype], cuda.stream_handle(x),
+        )
+        cuda.check(err, "residual_glu")
+        ctx.save_for_backward(*args[:6])
+        ctx.geometry = (dilation, skip_size)
+        return o, s
+
+    @staticmethod
+    def backward(ctx, d_o, d_s):
+        x, w_t, w_s, b_t, b_s, w_rs = ctx.saved_tensors
+        dilation, skip_size = ctx.geometry
+        B, T_in, C = x.shape
+        half, S = w_t.shape[-1], w_rs.shape[-1] - C
+        L = T_in - dilation
+        d_o, d_s = d_o.to(x.dtype).contiguous(), d_s.to(x.dtype).contiguous()
+        d_pre = torch.empty((B, L, 2 * half), dtype=x.dtype, device=x.device)
+        act = torch.empty((B, L, half), dtype=x.dtype, device=x.device)
+        dx = torch.empty_like(x)
+        lib = cuda.library()
+        cuda.count_launch("residual_glu_bwd")
+        err = lib.blvm_residual_glu_bwd(
+            *(t.data_ptr() for t in (x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, d_pre, act, dx)),
+            B, T_in, C, half, C, S, dilation, skip_size, _DTYPE_CODES[x.dtype], cuda.stream_handle(x),
+        )
+        cuda.check(err, "residual_glu_bwd")
+
+        # weight and bias gradients: sums over all B * L rows, as GEMMs (a column sum is a
+        # product with a row of ones: one pass with f32 accumulation, where PyTorch's
+        # reduction over the long axis took ~4x longer on the card)
+        def col_sum(rows):
+            return (torch.ones(1, rows.shape[0], dtype=rows.dtype, device=rows.device) @ rows)[0]
+
+        d_pre_rows = d_pre.reshape(-1, 2 * half)
+        d_w0 = x[:, :L].reshape(-1, C).T @ d_pre_rows  # (C, 2 half): [tanh | sigmoid] branch, tap 0
+        d_w1 = x[:, dilation:].reshape(-1, C).T @ d_pre_rows  # tap 1
+        d_w_t = torch.stack([d_w0[:, :half], d_w1[:, :half]])
+        d_w_s = torch.stack([d_w0[:, half:], d_w1[:, half:]])
+        d_b = col_sum(d_pre_rows)
+        # the residual half of d_rs is dO sqrt(1/2): the constant (in x's dtype, as the forward
+        # multiplies by it) scales the small products instead of all of dO
+        inv_std = torch.tensor(math.sqrt(0.5), dtype=x.dtype)
+        d_o_rows, d_s_rows = d_o.reshape(-1, C), d_s.reshape(-1, S)
+        d_w_rs = torch.cat([
+            (act.reshape(-1, half).T @ d_o_rows) * inv_std,
+            act[:, L - skip_size :].reshape(-1, half).T @ d_s_rows,
+        ], dim=1)[None]
+        d_b_rs = torch.cat([col_sum(d_o_rows) * inv_std, col_sum(d_s_rows)])
+        return dx, d_w_t, d_w_s, d_b[:half], d_b[half:], d_w_rs, d_b_rs, None, None
 
 
 class Conv1d(nn.Module):

@@ -164,8 +164,7 @@ class WaveNet(BaseModel):
                 logits = logits[:, :-p]
 
         parameters = self.likelihood_head(logits)
-        predictions = self.likelihood_head.sample(generator, parameters)
-        predictions_mode = self.likelihood_head.mode(parameters)
+        predictions, predictions_mode = self.likelihood_head.sample_and_mode(generator, parameters)
 
         loss, log_prob, log_prob_twise = self.compute_loss(y, x_sl, parameters)
 

@@ -14,7 +14,7 @@ from torch import nn
 
 from blvm_tpu_torch.modules.common import Dense
 from blvm_tpu_torch.ops import likelihoods
-from blvm_tpu_torch.ops.variational import rsample_discretized_logistic_mixture
+from blvm_tpu_torch.ops.variational import dmol_mode, dmol_sample_and_mode, rsample_discretized_logistic_mixture
 
 
 class DiscretizedLogisticMixtureDense(nn.Module):
@@ -48,14 +48,21 @@ class DiscretizedLogisticMixtureDense(nn.Module):
         return rsample_discretized_logistic_mixture(generator, *params)
 
     def sample(self, generator: Optional[torch.Generator], params) -> torch.Tensor:
-        with torch.no_grad():
-            return self.rsample(generator, params)
+        return self.sample_and_mode(generator, params)[0]
 
     def mode(self, params) -> torch.Tensor:
         """Location of the most probable component, ``(*, D)``."""
         logit_probs, locs, _ = params
-        idx = logit_probs.argmax(dim=-1, keepdim=True)[..., None, :].expand(*locs.shape[:-1], 1)
-        return torch.gather(locs, -1, idx)[..., 0]
+        return dmol_mode(logit_probs, locs)
+
+    def sample_and_mode(self, generator: Optional[torch.Generator], params):
+        """``(sample, mode)``, each ``(*, D)``, without gradient. With ``y_dim == 1``
+        (WaveNet) this goes through :func:`dmol_sample_and_mode`, i.e. one launch
+        of the K3 kernel on CUDA."""
+        if self.y_dim == 1:
+            return dmol_sample_and_mode(generator, *params)
+        with torch.no_grad():
+            return self.rsample(generator, params), self.mode(params)
 
 
 def get_likelihood_head(name: str, in_features: int, y_dim: int, num_mix: int = 10, num_bins: int = 256,

@@ -1,10 +1,11 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-All kernels in ``blvm_tpu_torch/csrc/*.cu`` compile with one ``nvcc`` call into
-one shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds instead of minutes). The build runs at first
-use into ``blvm_tpu_torch/_build/<hash of the sources and flags>/``, a directory
-the repository's ``.gitignore`` lists; a changed source gets a new directory.
+Each kernel source ``blvm_tpu_torch/csrc/*.cu`` compiles with its own ``nvcc``
+process, all started together, and the objects link into one shared library
+with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
+takes seconds instead of minutes). The build runs at first use into
+``blvm_tpu_torch/_build/<hash of the sources and flags>/``, a directory the
+repository's ``.gitignore`` lists; a changed source gets a new directory.
 
 Every wrapper calls :func:`count_launch` right where it launches its kernel and
 nowhere else, so a run can show that its main path went through the kernels:
@@ -26,22 +27,27 @@ import torch
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 LIB_NAME = "libblvm_kernels.so"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
-_launches: Dict[str, int] = {"residual_glu": 0, "dmol_log_prob": 0}
+_launches: Dict[str, int] = {
+    "residual_glu": 0, "residual_glu_bwd": 0, "dmol_log_prob": 0, "dmol_log_prob_bwd": 0, "dmol_sample": 0,
+}
 build_log = ""  # nvcc's output of the build this process ran (register / shared-memory report)
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     # x, w_t, w_s, b_t, b_s, w_rs, b_rs, o, s, B, T_in, C, half, R, S, dilation, skip_size, dtype, stream
     "blvm_residual_glu": [_P] * 9 + [_I] * 9 + [_P],
+    # x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, d_pre, act, dx, B, T_in, C, half, R, S, dilation, skip_size, dtype, stream
+    "blvm_residual_glu_bwd": [_P] * 11 + [_I] * 9 + [_P],
     # y, logits, locs, log_scales, out, N, M, y/logit/loc/scale row strides, num_bins, stream
     "blvm_dmol_log_prob": [_P] * 5 + [_L, _I, _L, _L, _L, _L, _I, _P],
+    # y, logits, locs, log_scales, g, d_logits, d_locs, d_log_scales, N, M, 4 row strides, num_bins, stream
+    "blvm_dmol_log_prob_bwd": [_P] * 8 + [_L, _I, _L, _L, _L, _L, _I, _P],
+    # logits, locs, log_scales, u_cat, u_log, seed, sample, mode, N, M, 3 row strides, 4 uniform maps, stream
+    "blvm_dmol_sample": [_P] * 8 + [_L, _I, _L, _L, _L] + [_F] * 4 + [_P],
 }
 
 
@@ -82,7 +88,8 @@ def _build_dir() -> Path:
 
 
 def build() -> Path:
-    """Compile ``csrc/*.cu`` into the shared library unless it is already built."""
+    """Compile ``csrc/*.cu`` into the shared library unless it is already built:
+    one ``nvcc -c`` per source, run in parallel, then one link."""
     global build_log
     out_dir = _build_dir()
     lib_path = out_dir / LIB_NAME
@@ -90,15 +97,29 @@ def build() -> Path:
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}")
-    os.replace(tmp, lib_path)  # atomic: a concurrent builder never loads a half-written file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objects = [Path(tmp) / f"{src.stem}.o" for src in cu]
+        compiles = [
+            (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for cmd in ([nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", str(src), "-o", str(obj)]
+                        for src, obj in zip(cu, objects))
+        ]
+        logs, failed = [], []
+        for cmd, proc in compiles:
+            out, _ = proc.communicate()
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out}")
+        build_log = "".join(logs)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        lib_tmp = Path(tmp) / LIB_NAME
+        cmd = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", str(lib_tmp), *map(str, objects)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(lib_tmp, lib_path)  # atomic: a concurrent builder never loads a half-written file
     return lib_path
 
 

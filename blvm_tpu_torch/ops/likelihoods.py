@@ -7,7 +7,7 @@ surface, so it never runs in bf16.
 :func:`discretized_logistic_mixture_ll` is the plain twin, op for op the JAX
 function. :func:`dmol_log_prob` is the per-frame entry point the WaveNet head
 calls: for CPU tensors it runs the twin, for CUDA tensors it launches the
-hand-written kernel ``csrc/dmol.cu`` (K2) or raises.
+hand-written kernels ``csrc/dmol.cu`` (K2, forward and backward) or raises.
 """
 
 import math
@@ -117,6 +117,19 @@ def dmol_f32_error_bound(y, logit_probs, locs, log_scales, num_bins: int, atol: 
     return atol + 2 * 2.0**-24 * (lp.abs() + k)
 
 
+def dmol_branch_flips(y, locs, log_scales, num_bins: int) -> torch.Tensor:
+    """Per-frame ``(*,)`` mask of the frames where a component's ``cdf_delta`` lies
+    within float32 rounding (8 ulps of its two sigmoids) of the ladder's 1e-5
+    threshold, computed in float64: there two correct float32 implementations
+    may take different branches, so comparisons count these frames apart."""
+    y, locs, log_scales = (t.detach().to(torch.float64) for t in (y, locs, log_scales))
+    centered, inv_stdv, half_bin = y[..., None] - locs, torch.exp(-log_scales), 1.0 / (num_bins - 1)
+    sp, sm = torch.sigmoid(inv_stdv * (centered + half_bin)), torch.sigmoid(inv_stdv * (centered - half_bin))
+    near = (sp - sm - 1e-5).abs() <= 8 * 2.0**-24 * (sp + sm)
+    edge = (y < 2.0 / num_bins - 1.0) | (y > 1.0 - 2.0 / num_bins)  # (*, 1): the bin, not cdf_delta, decides
+    return near.flatten(-2).any(-1) & ~edge[..., 0]
+
+
 def _row_view(t: torch.Tensor, row_dims: int):
     """``(t, row_stride)`` for a tensor whose first ``row_dims`` dims index frames
     and whose remaining elements lie contiguous within a frame. Strided views
@@ -139,7 +152,9 @@ def dmol_log_prob(y, logit_probs, locs, log_scales, num_bins: int) -> torch.Tens
     """Per-frame DMoL log-mass ``(*,)`` in f32 for ``y (*, 1)``, ``logit_probs
     (*, M)`` and ``locs``/``log_scales (*, 1, M)`` as the head returns them.
 
-    CPU tensors: the plain twin. CUDA tensors: the K2 kernel (``csrc/dmol.cu``).
+    CPU tensors: the plain twin. CUDA tensors: :class:`DMoLLogProbFunction`, the
+    K2 kernels (``csrc/dmol.cu``, forward and backward). The kernels give ``y``
+    no gradient (the model detaches its targets) and refuse a ``y`` that wants one.
     """
     if not y.is_cuda:
         return discretized_logistic_mixture_ll(y, logit_probs, locs, log_scales, num_bins=num_bins)
@@ -156,22 +171,51 @@ def dmol_log_prob(y, logit_probs, locs, log_scales, num_bins: int) -> torch.Tens
         raise ValueError("dmol_log_prob: all inputs must lie on one CUDA device")
     if any(t.dtype not in (torch.float32, torch.bfloat16) for t in tensors):
         raise TypeError(f"dmol_log_prob kernel takes float32 or bfloat16, got {[t.dtype for t in tensors]}")
-    n_lead = len(lead)
-    views = [_row_view(at_least_f32(t), n_lead) for t in tensors]
-    N = math.prod(lead)
-    out = torch.empty(lead, dtype=torch.float32, device=y.device)
-    if N == 0:
+    if y.requires_grad:
+        raise ValueError("dmol_log_prob kernel gives the targets no gradient: pass y detached")
+    return DMoLLogProbFunction.apply(*(at_least_f32(t) for t in tensors), num_bins)
+
+
+class DMoLLogProbFunction(torch.autograd.Function):
+    """K2 under autograd: the forward kernel, and a backward kernel that
+    recomputes each frame's components and writes the gradients of the logits,
+    locs and log-scales (those autograd of the twin's where-ladder gives).
+    Arguments were checked by :func:`dmol_log_prob`; all are f32."""
+
+    @staticmethod
+    def forward(ctx, y, logit_probs, locs, log_scales, num_bins: int):
+        lead, M = logit_probs.shape[:-1], logit_probs.shape[-1]
+        out = torch.empty(lead, dtype=torch.float32, device=y.device)
+        ctx.save_for_backward(y, logit_probs, locs, log_scales)
+        ctx.num_bins = num_bins
+        N = math.prod(lead)
+        if N == 0:
+            return out
+        views = [_row_view(t, len(lead)) for t in (y, logit_probs, locs, log_scales)]
+        lib = cuda.library()
+        cuda.count_launch("dmol_log_prob")
+        err = lib.blvm_dmol_log_prob(
+            *(t.data_ptr() for t, _ in views), out.data_ptr(), N, M, *(stride for _, stride in views), num_bins,
+            cuda.stream_handle(y),
+        )
+        cuda.check(err, "dmol_log_prob")
         return out
-    lib = cuda.library()
-    cuda.count_launch("dmol_log_prob")
-    err = lib.blvm_dmol_log_prob(
-        *(t.data_ptr() for t, _ in views),
-        out.data_ptr(),
-        N,
-        M,
-        *(stride for _, stride in views),
-        num_bins,
-        cuda.stream_handle(y),
-    )
-    cuda.check(err, "dmol_log_prob")
-    return out
+
+    @staticmethod
+    def backward(ctx, g):
+        y, logit_probs, locs, log_scales = ctx.saved_tensors
+        lead, M = logit_probs.shape[:-1], logit_probs.shape[-1]
+        grads = [torch.empty(t.shape, dtype=torch.float32, device=y.device) for t in (logit_probs, locs, log_scales)]
+        N = math.prod(lead)
+        if N == 0:
+            return None, *grads, None
+        views = [_row_view(t, len(lead)) for t in (y, logit_probs, locs, log_scales)]
+        g = g.to(torch.float32).contiguous()
+        lib = cuda.library()
+        cuda.count_launch("dmol_log_prob_bwd")
+        err = lib.blvm_dmol_log_prob_bwd(
+            *(t.data_ptr() for t, _ in views), g.data_ptr(), *(t.data_ptr() for t in grads), N, M,
+            *(stride for _, stride in views), ctx.num_bins, cuda.stream_handle(y),
+        )
+        cuda.check(err, "dmol_log_prob_bwd")
+        return None, *grads, None

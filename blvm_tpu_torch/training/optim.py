@@ -1,0 +1,155 @@
+"""Optimizer chain and learning-rate schedules (port of ``blvm_tpu/training/optim.py``).
+
+The JAX package composes an optax chain: value clip -> global-norm clip ->
+optimizer, optionally under ``optax.apply_if_finite``. Here the same chain acts
+on the parameters' ``.grad`` in place before one ``torch.optim`` step:
+
+- the value clip is ``optax.clip``: each element into [-v, v];
+- the norm clip is ``optax.clip_by_global_norm``: ``g / ||g|| * max_norm`` only
+  when ``||g|| >= max_norm`` (``torch.nn.utils.clip_grad_norm_`` would divide
+  by ``||g|| + 1e-6`` and scale below the threshold too);
+- ``skip_nonfinite_updates`` is ``optax.apply_if_finite``: a non-finite gradient
+  leaves the parameters and the optimizer state (Adam's moments and step
+  count) untouched, so the step is skipped entirely.
+
+``torch.optim.Adam`` is optax's ``adam`` (eps outside the square root,
+``eps_root = 0``); the optimizer is a library call in the JAX package too.
+"""
+
+import math
+from typing import Callable, Iterable, Optional
+
+import torch
+
+MAX_CONSECUTIVE_ERRORS = 10_000  # the JAX package's apply_if_finite setting
+
+
+class EpochSchedule:
+    """A learning-rate schedule denominated in EPOCHS, matching the reference's
+    ``lr_scheduler.step()`` cadence (once per epoch, after the training section).
+
+    ``factor(n)`` is the decay multiplier after ``n`` ``step()`` calls (torch
+    ``get_last_lr`` semantics); the lr used DURING 1-indexed epoch ``k`` is
+    therefore ``lr0 * factor(k - 1)``.
+    """
+
+    def __init__(self, init_value: float, factor):
+        self.init_value = float(init_value)
+        self.factor = factor
+
+    def lr_at_epoch(self, epoch: int) -> float:
+        return self.init_value * float(self.factor(max(0, int(epoch) - 1)))
+
+
+def get_lr_schedule(name: Optional[str], learning_rate: float, **kwargs):
+    """Resolve an LR schedule by name; None -> constant learning rate.
+
+    Torch names (``MultiStepLR``, ``ExponentialLR``, ``StepLR``,
+    ``CosineAnnealingLR``, ``MultiplicativeLR``) return an :class:`EpochSchedule`:
+    the reference steps these once per EPOCH, so their milestones, step sizes and
+    ``T_max`` are epoch counts. The JAX package's per-optimizer-step optax
+    schedules are not ported and raise ``NotImplementedError``.
+    """
+    if name is None:
+        return learning_rate
+
+    def multistep(milestones=(), gamma=0.1):
+        milestones = sorted(int(m) for m in milestones)
+        return lambda n: gamma ** sum(1 for m in milestones if m <= n)
+
+    def exponential(gamma=1.0):
+        return lambda n: gamma**n
+
+    def steplr(step_size=1, gamma=0.1):
+        return lambda n: gamma ** (n // int(step_size))
+
+    def cosine(T_max, eta_min=0.0):
+        lr0 = learning_rate
+        return lambda n: (eta_min + 0.5 * (lr0 - eta_min) * (1 + math.cos(math.pi * n / T_max))) / lr0
+
+    torch_map = {
+        "MultiStepLR": multistep,
+        "ExponentialLR": exponential,
+        "MultiplicativeLR": lambda lr_lambda=1.0: exponential(lr_lambda),
+        "StepLR": steplr,
+        "CosineAnnealingLR": cosine,
+    }
+    if name in torch_map:
+        return EpochSchedule(learning_rate, torch_map[name](**kwargs))
+    raise NotImplementedError(f"LR schedule {name!r}: the per-step optax schedules are not ported to blvm_tpu_torch")
+
+
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """``optax.global_norm``: the L2 norm of all elements of all tensors."""
+    return torch.sqrt(sum(torch.sum(torch.square(t)) for t in tensors))
+
+
+class ClippedOptimizer:
+    """The chain bound to parameters: :meth:`step` clips the parameters' ``.grad``
+    in place (value, then global norm) and takes one optimizer step, or skips
+    it when ``skip_nonfinite_updates`` is set and a gradient is not finite."""
+
+    def __init__(self, params, learning_rate: float, clip_grad_norm: Optional[float],
+                 clip_grad_value: Optional[float], skip_nonfinite_updates: bool, **adam_kwargs):
+        self.params = list(params)
+        self.optimizer = torch.optim.Adam(self.params, lr=learning_rate, **adam_kwargs)
+        self.clip_grad_norm, self.clip_grad_value = clip_grad_norm, clip_grad_value
+        self.skip_nonfinite_updates = skip_nonfinite_updates
+        self.notfinite_count = 0  # consecutive skipped steps (apply_if_finite's state)
+        self.total_notfinite = 0
+
+    @property
+    def learning_rate(self) -> float:
+        return self.optimizer.param_groups[0]["lr"]
+
+    @learning_rate.setter
+    def learning_rate(self, value: float) -> None:
+        for group in self.optimizer.param_groups:
+            group["lr"] = value
+
+    def zero_grad(self) -> None:
+        self.optimizer.zero_grad(set_to_none=True)
+
+    def step(self) -> bool:
+        """Clip and step; returns whether the update was applied."""
+        grads = [p.grad for p in self.params if p.grad is not None]
+        if self.skip_nonfinite_updates:
+            finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all()) if grads else True
+            if not finite and self.notfinite_count < MAX_CONSECUTIVE_ERRORS:
+                self.notfinite_count += 1
+                self.total_notfinite += 1
+                return False
+            self.notfinite_count = 0
+        with torch.no_grad():
+            if self.clip_grad_value:
+                for g in grads:
+                    g.clamp_(-self.clip_grad_value, self.clip_grad_value)
+            if self.clip_grad_norm:
+                norm = global_norm(grads)
+                keep = norm < self.clip_grad_norm  # a device scalar: no host sync
+                for g in grads:
+                    g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * self.clip_grad_norm))
+        self.optimizer.step()
+        return True
+
+
+def get_optimizer(
+    name: str,
+    learning_rate: float,
+    clip_grad_norm: Optional[float] = None,
+    clip_grad_value: Optional[float] = None,
+    skip_nonfinite_updates: bool = False,
+    **kwargs,
+) -> Callable[[Iterable[torch.nn.Parameter]], ClippedOptimizer]:
+    """The chain value clip -> global-norm clip -> optimizer by name, optionally
+    skipping non-finite updates. Returns ``init(params) -> ClippedOptimizer``, as
+    an optax transformation waits for ``init(params)``. Adam (the drivers'
+    default, as ``Adam`` or optax's ``adam``) is the optimizer ported so far;
+    ``kwargs`` are ``torch.optim.Adam``'s."""
+    if name not in ("Adam", "adam"):
+        raise NotImplementedError(f"optimizer {name!r} is not ported to blvm_tpu_torch (only Adam)")
+
+    def init(params) -> ClippedOptimizer:
+        return ClippedOptimizer(params, learning_rate, clip_grad_norm, clip_grad_value, skip_nonfinite_updates, **kwargs)
+
+    return init

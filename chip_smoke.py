@@ -1,10 +1,10 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Drives the port's main path, the WaveNet test pass (bits/frame), at the
-flagship width of ``experiments/benchmarks.txt`` (5 x 10 residual blocks,
-C = 96, DMoL with 10 mixtures over 2^16 bins, bf16 residual stack) with random
-weights made by numpy from a seed, and checks the two hand-written kernels it
-runs against their plain PyTorch twins:
+Drives the port's two paths, the WaveNet test pass (bits/frame) and the
+WaveNet train step, at the flagship width of ``experiments/benchmarks.txt``
+(5 x 10 residual blocks, C = 96, DMoL with 10 mixtures over 2^16 bins, bf16
+residual stack) with random weights made by numpy from a seed, and checks the
+five hand-written kernels they run against their plain PyTorch twins:
 
   1. device: the card's name and power limit (nvidia-smi)
   2. numerics: TF32 and reduced-precision bf16 GEMM reductions off
@@ -19,12 +19,24 @@ runs against their plain PyTorch twins:
   7. one forward at B=8, T=16000, kernels against plain twins (bf16 and f32)
   8. timing of that forward and of each kernel against its twin (CUDA events,
      median of a different input per iteration, run in turns)
+  9. K1-bwd residual_glu backward vs autograd of the twin, same cases as 4
+ 10. K2-bwd dmol_log_prob backward at the head shapes of 5: kernel and f32 twin
+     both held to the float64 twin; frames near the ladder's threshold counted apart
+ 11. K3 dmol_sample: fed the twin's uniforms, equal to it; its own stream on 1M
+     frames by distribution (chi-square, Kolmogorov-Smirnov)
+ 12. the train slice: flags -> driver ``train`` -> 3 steps at B=8, T=16000 on
+     random crops, bf16, Adam; launch counts per step (50 K1, 50 K1-bwd, 1 K2,
+     1 K2-bwd, 1 K3); per-step losses and step-0 gradients against the twins;
+     one f32 step, kernels against twins
+ 13. timing of the train step and of K1-bwd, K2-bwd and K3 against their twins,
+     and a torch.profiler breakdown of the train step
 
-Every phase prints one line; any failure raises and exits non-zero before the
-last line. The second-to-last line is the kernels' JSON record, the last line
+Every phase prints one line (the profile a few); any failure raises and exits
+non-zero before the last line. The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
 """
 
+import contextlib
 import json
 import math
 import subprocess
@@ -40,6 +52,10 @@ FLAGSHIP_FLAGS = (
 )
 B, T = 8, 16000
 SEED = 0
+# the card's published peaks (H100 SXM data sheet, dense, at 700 W): the bound of a kernel is the
+# larger of its compulsory bytes over HBM bandwidth and its operations over the peak of their type
+HBM_BYTES_PER_S, BF16_PEAK, F32_PEAK = 3.35e12, 989e12, 67e12
+DMOL_OPS_PER_COMPONENT = 40  # f32 ops of one component of the ladder (a transcendental counted as one)
 
 
 def phase(tag, /, **values):
@@ -49,6 +65,27 @@ def phase(tag, /, **values):
 def require(cond, message):
     if not cond:
         raise AssertionError(message)
+
+
+def roofline(bytes_, flops, peak):
+    """``bound_ms`` and ``bound_by`` of work that must move ``bytes_`` and do ``flops``."""
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def rel_norm(a, b):
+    return ((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30)).item()
+
+
+class StepLog:
+    """A tracker that also keeps each step's metric values, in order."""
+
+    def __init__(self, tracker):
+        self.tracker, self.steps = tracker, []
+
+    def update(self, metrics, source):
+        self.tracker.update(metrics, source)
+        self.steps.append({m.name: m.value for m in metrics})
 
 
 def cuda_time_ms(fn, inputs, warmup=3):
@@ -101,8 +138,12 @@ def main():
     from blvm_tpu_torch import weights
     from blvm_tpu_torch.evaluation.tracker import Tracker
     from blvm_tpu_torch.experiments import wavenet_audio
+    from blvm_tpu_torch.data.transforms import RandomSegment
     from blvm_tpu_torch.models.wavenet import modules
-    from blvm_tpu_torch.ops import cuda, likelihoods
+    from blvm_tpu_torch.modules import distributions
+    from blvm_tpu_torch.ops import cuda, likelihoods, variational
+    from blvm_tpu_torch.training.train_state import TrainState
+    from blvm_tpu_torch.training.train_step import make_train_step
 
     dev = torch.device("cuda", 0)
 
@@ -133,9 +174,17 @@ def main():
     record = {
         "residual_glu": dict(name="residual_glu", route="cuda", source="blvm_tpu_torch/csrc/residual_glu.cu",
                              replaces="blvm_tpu/models/wavenet/modules.py:110"),
+        "residual_glu_bwd": dict(name="residual_glu_bwd", route="cuda", source="blvm_tpu_torch/csrc/residual_glu_bwd.cu",
+                                 replaces="1788a18^:blvm_tpu/ops/pallas/wavenet_block.py:144"),
         "dmol_log_prob": dict(name="dmol_log_prob", route="cuda", source="blvm_tpu_torch/csrc/dmol.cu",
                               replaces="blvm_tpu/ops/likelihoods.py:142"),
+        "dmol_log_prob_bwd": dict(name="dmol_log_prob_bwd", route="cuda", source="blvm_tpu_torch/csrc/dmol.cu",
+                                  replaces="blvm_tpu/ops/likelihoods.py:142"),
+        "dmol_sample": dict(name="dmol_sample", route="cuda", source="blvm_tpu_torch/csrc/dmol_sample.cu",
+                            replaces="blvm_tpu/ops/variational.py:149"),
     }
+    for entry in record.values():
+        entry["library_ms"] = None  # no single PyTorch call computes a residual-GLU block, the DMoL ladder or its sampler
 
     # 4. K1 against its twin at the flagship shapes
     args = wavenet_audio.build_args(FLAGSHIP_FLAGS.split())
@@ -213,8 +262,8 @@ def main():
     require(all(math.isfinite(values[k]) for k in ("loss", "ll", "bpd")), f"test pass not finite: {values}")
     require(counts["residual_glu"] == 50 * n_chunks, f"K1 launches {counts['residual_glu']} != 50 x {n_chunks} chunks")
     require(counts["dmol_log_prob"] == n_chunks, f"K2 launches {counts['dmol_log_prob']} != {n_chunks} chunks")
-    for name in record:
-        record[name]["launches"] = counts[name]
+    require(counts["dmol_sample"] == n_chunks, f"K3 launches {counts['dmol_sample']} != {n_chunks} chunks")
+    require(counts["residual_glu_bwd"] == counts["dmol_log_prob_bwd"] == 0, f"backward launches in a test pass: {counts}")
     phase("slice", utterances=list(map(int, lengths)), chunks=n_chunks, loss=f"{values['loss']:.6f}",
           ll=f"{values['ll']:.3f}", bpd=f"{values['bpd']:.6f}", launches=counts, seconds=f"{seconds:.2f}")
     # the same utterances in one rf-padded forward score the same frames: the chunked
@@ -234,8 +283,7 @@ def main():
         with torch.inference_mode():
             return m(xb[0], xb[1], generator=torch.Generator(device=dev).manual_seed(SEED))
 
-    plain = mock.patch.multiple  # swaps the wrappers for their twins inside a with-block
-    twins = dict(residual_glu=modules.residual_glu_plain)
+    plain = plain_path(modules, likelihoods, distributions, variational)
     x_np, x_sl_np = batch(0)
     xb = (torch.from_numpy(x_np).to(dev), torch.from_numpy(x_sl_np).to(dev))
     # bf16: one-ulp differences (2^-8) after every block move the head's parameters by
@@ -248,7 +296,7 @@ def main():
     weights.load_jax_params(models[False], params)
     for bf16, m in models.items():
         loss, mets, out = forward(m, xb)
-        with plain(modules, **twins), plain(likelihoods, dmol_log_prob=plain_dmol(likelihoods)):
+        with plain():
             loss_p, mets_p, out_p = forward(m, xb)
         tol = fwd_tol[bf16]
         frame_err = (out.log_prob_twise - out_p.log_prob_twise).abs()
@@ -269,7 +317,7 @@ def main():
         batches.append((torch.from_numpy(xn).to(dev), torch.from_numpy(sn).to(dev)))
 
     def run_plain(xb_):
-        with plain(modules, **twins), plain(likelihoods, dmol_log_prob=plain_dmol(likelihoods)):
+        with plain():
             forward(model, xb_)
 
     fwd = alternate(run_plain, lambda xb_: forward(model, xb_), batches)
@@ -281,7 +329,10 @@ def main():
     xs = [torch.randn(B, T + rf, 96, generator=gen, device=dev).to(torch.bfloat16) for _ in range(12)]
     k1 = alternate(lambda x_: modules.residual_glu_plain(x_, *w, dilation=64, skip_size=T),
                    lambda x_: modules.residual_glu(x_, *w, dilation=64, skip_size=T), xs)
-    record["residual_glu"].update(ms=k1["kernel"], plain_ms=k1["plain"])
+    L = T + rf - 64
+    record["residual_glu"].update(ms=k1["kernel"], plain_ms=k1["plain"], **roofline(
+        bytes_=2 * (B * (T + rf) * 96 + B * L * 96 + B * T * 96 + sum(t.numel() for t in w)),
+        flops=2 * B * L * (4 * 96 * 96 + 96 * 192), peak=BF16_PEAK))
     phase("time-K1", card=smi.replace(" ", "_"), shape=f"({B},{T + rf},96)", dilation=64, dtype="bf16",
           kernel_ms=f"{k1['kernel']:.4f}", plain_ms=f"{k1['plain']:.4f}")
 
@@ -292,9 +343,299 @@ def main():
                       torch.clamp_min(h[..., 2 * M :].reshape(B, T, 1, M) * 4 - 3, -7.0)))
     k2 = alternate(lambda a: likelihoods.discretized_logistic_mixture_ll(*a, num_bins=num_bins),
                    lambda a: likelihoods.dmol_log_prob(*a, num_bins=num_bins), heads)
-    record["dmol_log_prob"].update(ms=k2["kernel"], plain_ms=k2["plain"])
+    record["dmol_log_prob"].update(ms=k2["kernel"], plain_ms=k2["plain"], **roofline(
+        bytes_=4 * B * T * (1 + 3 * M + 1), flops=DMOL_OPS_PER_COMPONENT * B * T * M, peak=F32_PEAK))
     phase("time-K2", card=smi.replace(" ", "_"), frames=B * T, mixtures=M, kernel_ms=f"{k2['kernel']:.4f}",
           plain_ms=f"{k2['plain']:.4f}")
+
+    # 9. K1-bwd against autograd of its twin at the flagship shapes, the cases of phase 4
+    def glu_grads(fn, inputs, d, skip, d_o, d_s):
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        o, s = fn(*leaves, dilation=d, skip_size=skip)
+        torch.autograd.backward([o, s], [d_o, d_s])
+        return [leaf.grad for leaf in leaves]
+
+    # dx elementwise with phase 4's tolerances (f32: FMA order against cuBLAS's; bf16: the
+    # twin rounds every op of the forward and the backward to bf16, the kernel once at each
+    # store). The weight and bias gradients are sums over all B * L rows, held by their
+    # relative norm: f32 1e-5 (the order of the sums), bf16 2e-2 (a handful of roundings of
+    # 2^-8 on each term's path in the twin).
+    k1b_rel = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    k1b_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (1, 64, 512):
+            block = int(math.log2(d))
+            w = [torch.from_numpy(params[f"res_stack/Conv1dResidualGLU_{block}/{n}"]).to(dev, dtype) for n in block_names]
+            x = torch.randn(B, T + rf, 96, generator=gen, device=dev).to(dtype)
+            for skip in (T + rf - d, T):
+                d_o = torch.randn(B, T + rf - d, 96, generator=gen, device=dev).to(dtype)
+                d_s = torch.randn(B, skip, 96, generator=gen, device=dev).to(dtype)
+                got = glu_grads(modules.residual_glu, [x, *w], d, skip, d_o, d_s)
+                torch.cuda.synchronize()
+                ref = glu_grads(modules.residual_glu_plain, [x, *w], d, skip, d_o, d_s)
+                rtol, atol = k1_tol[dtype]
+                err = (got[0].float() - ref[0].float()).abs()
+                require(all(torch.isfinite(g).all() for g in got), f"K1-bwd {dtype} d={d}: not finite")
+                require((err - (atol + rtol * ref[0].float().abs())).max().item() <= 0,
+                        f"K1-bwd {dtype} d={d} skip={skip}: dx max err {err.max().item()} over tolerance")
+                rels = {n: rel_norm(a, b) for n, a, b in zip(block_names, got[1:], ref[1:])}
+                require(max(rels.values()) <= k1b_rel[dtype], f"K1-bwd {dtype} d={d} skip={skip}: {rels}")
+                k1b_err = max(k1b_err, err.max().item())
+                phase("K1-bwd", dtype=str(dtype).split(".")[1], dilation=d, skip_rows=skip,
+                      dx_max_abs_err=f"{err.max().item():.3g}", param_grad_max_rel=f"{max(rels.values()):.3g}")
+    record["residual_glu_bwd"]["max_abs_err"] = k1b_err
+
+    # 10. K2-bwd at the flagship head shapes with phase 5's edge rows: the gradient by the
+    # head's output (its strided logits, locs and log-scales) of a weighted sum of frames
+    head = torch.randn(B, T, 3 * M, generator=gen, device=dev) * 0.5
+    head[..., 2 * M :] = torch.clamp_min(head[..., 2 * M :] * 4 - 3, -7.0)
+    head[1, :4000, 2 * M :] = -7.0  # tiny scales: the midpoint branch
+
+    def split_head(h):
+        return h[..., :M], h[..., M : 2 * M].reshape(*h.shape[:-1], 1, M), h[..., 2 * M :].reshape(*h.shape[:-1], 1, M)
+
+    frame_weight = torch.rand(B, T, generator=gen, device=dev) + 0.5
+
+    def dmol_grad(fn, h, y_):
+        h = h.detach().requires_grad_(True)
+        (fn(y_, *split_head(h), num_bins=num_bins) * frame_weight.to(h.dtype)).sum().backward()
+        return h.grad.double()
+
+    plain_dmol = likelihoods.discretized_logistic_mixture_ll
+    got = dmol_grad(likelihoods.dmol_log_prob, head, y)
+    torch.cuda.synchronize()
+    twin = dmol_grad(plain_dmol, head, y)
+    ref = dmol_grad(plain_dmol, head.double(), y.double())
+    # frames whose cdf_delta lies within f32 rounding of the ladder's 1e-5 threshold may take
+    # another branch in any f32 implementation: counted, and left out of the comparison
+    flips = likelihoods.dmol_branch_flips(y, *split_head(head)[1:], num_bins)
+    keep = (~flips)[..., None]
+    err_k, err_t = ((got - ref).abs() * keep).amax().item(), ((twin - ref).abs() * keep).amax().item()
+    # two f32 implementations of the same formulas, rounded in another order: the kernel's
+    # error against float64 may be at most twice the f32 twin's, plus 1e-6 absolute
+    require(torch.isfinite(got).all(), "K2-bwd: not finite")
+    require(err_k <= 2 * err_t + 1e-6, f"K2-bwd: max err {err_k} vs the f32 twin's {err_t}")
+    record["dmol_log_prob_bwd"]["max_abs_err"] = err_k
+    phase("K2-bwd", frames=B * T, max_abs_err_vs_f64=f"{err_k:.3g}", twin_f32_max_abs_err=f"{err_t:.3g}",
+          mean_err=f"{((got - ref).abs() * keep).mean().item():.3g}",
+          twin_mean_err=f"{((twin - ref).abs() * keep).mean().item():.3g}",
+          branch_flip_frames=int(flips.sum().item()), edge_frames=int(((y == 1) | (y == -1)).sum().item()))
+
+    # 11. K3: fed the twin's uniforms it computes the twin's numbers; its own stream by distribution
+    logits_, locs_, scales_ = split_head(head)
+    uniforms = (torch.rand(B, T, M, generator=gen, device=dev), torch.rand(B, T, 1, generator=gen, device=dev))
+    sample, mode = variational.dmol_sample_and_mode(None, logits_, locs_, scales_, uniforms=uniforms)
+    torch.cuda.synchronize()
+    ref_sample = variational.rsample_discretized_logistic_mixture(None, logits_, locs_, scales_, uniforms=uniforms)
+    k3_err = (sample - ref_sample).abs().max().item()
+    # the same f32 ops in the same order: equal up to FMA contraction inside PyTorch's
+    # elementwise kernels (a few f32 ulps of |x| <= 1); the mode is a pick, equal exactly
+    require(k3_err <= 2.0**-22 and torch.equal(mode, variational.dmol_mode(logits_, locs_)), f"K3: err {k3_err}")
+    record["dmol_sample"]["max_abs_err"] = k3_err
+    n_stat = 1 << 20
+    stat_gen = torch.Generator(device=dev).manual_seed(SEED)
+    probs_logits = torch.tensor([0.5, -1.0, 2.0, 0.0, 1.0, -0.3, 0.7, -2.0, 1.5, 0.2], device=dev)
+    comp_locs = (torch.arange(M, dtype=torch.float32, device=dev) / 10).expand(n_stat, 1, M).contiguous()
+    # components 0.1 apart with a spread of ~1e-4: each sample names its component
+    s_, _ = variational.dmol_sample_and_mode(stat_gen, probs_logits.expand(n_stat, M).contiguous(), comp_locs,
+                                             torch.full((n_stat, 1, M), -9.0, device=dev))
+    counts_ = torch.bincount(torch.round(s_[:, 0] * 10).clamp(0, M - 1).long(), minlength=M).double()
+    expected_ = n_stat * torch.softmax(probs_logits.double(), 0)
+    chi2 = ((counts_ - expected_) ** 2 / expected_).sum().item()
+    mu, scale = 0.1, 0.05
+    s_, _ = variational.dmol_sample_and_mode(stat_gen, torch.zeros(n_stat, 1, device=dev),
+                                             torch.full((n_stat, 1, 1), mu, device=dev),
+                                             torch.full((n_stat, 1, 1), math.log(scale), device=dev))
+    xs = torch.sort(s_[:, 0].double())[0]
+    cdf = torch.sigmoid((xs - mu) / scale)
+    i = torch.arange(1, n_stat + 1, device=dev, dtype=torch.float64)
+    ks = torch.maximum(i / n_stat - cdf, cdf - (i - 1) / n_stat).max().item()
+    # p = 1e-3 critical values: chi-square with 9 degrees of freedom, Kolmogorov-Smirnov 1.95 / sqrt(n)
+    require(chi2 < 27.877 and ks < 1.95 / math.sqrt(n_stat), f"K3 by distribution: chi2 {chi2}, KS {ks}")
+    phase("K3", frames=B * T, supplied_uniforms_max_abs_err=f"{k3_err:.3g}", mode_equal=True, stream_frames=n_stat,
+          chi2_9dof=f"{chi2:.2f}", chi2_crit=27.877, ks=f"{ks:.5f}", ks_crit=f"{1.95 / math.sqrt(n_stat):.5f}")
+    del head, got, twin, ref
+
+    # 12. the train slice: flags -> driver -> model (on the card by default) -> weights bridge -> train
+    targs = wavenet_audio.build_args((FLAGSHIP_FLAGS + " --epochs 1 --batch_size 8 --lr 3e-4 --optimizer Adam").split())
+    tmodel = wavenet_audio.build_model(targs)
+    require(next(tmodel.parameters()).device.type == "cuda", "build_model did not build on the card")
+    rng = np.random.default_rng(targs.seed + 1)
+    utterances = [(i, synthetic_speech(int(n), rng)) for i, n in enumerate(rng.integers(20000, 48001, 3 * B))]
+    train_batches = [utterances[i * B : (i + 1) * B] for i in range(3)]
+
+    def run_train(plain_path_=False):
+        weights.load_jax_params(tmodel, params)
+        log = StepLog(Tracker())
+        with plain() if plain_path_ else contextlib.nullcontext():
+            cuda.reset_launch_counts()
+            t0 = time.time()
+            wavenet_audio.train(tmodel, targs, train_batches, log)
+            torch.cuda.synchronize()
+            return log.steps, cuda.launch_counts(), time.time() - t0
+
+    steps_k, counts, seconds = run_train()
+    expected = dict(residual_glu=150, residual_glu_bwd=150, dmol_log_prob=3, dmol_log_prob_bwd=3, dmol_sample=3)
+    require(counts == expected, f"train-step launches {counts}, expected {expected} (50/50/1/1/1 a step)")
+    for name in record:
+        record[name]["launches"] = counts[name]
+    steps_p, counts_p, _ = run_train(plain_path_=True)
+    require(not any(counts_p.values()), f"the plain path launched kernels: {counts_p}")
+    losses, losses_p = [st["loss"] for st in steps_k], [st["loss"] for st in steps_p]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, losses_p))
+    require(all(math.isfinite(v) for st in steps_k for v in st.values()), f"train metrics not finite: {steps_k}")
+    # phase 7's bf16 tolerance: per step, the Adam updates from both gradients stay this close
+    require(loss_rel <= 1e-3, f"train losses {losses} vs plain {losses_p}")
+    phase("train-slice", steps=3, B=B, T=T, losses=[f"{v:.6f}" for v in losses],
+          losses_plain=[f"{v:.6f}" for v in losses_p], loss_rel=f"{loss_rel:.3g}",
+          launches_per_step={k: v // 3 for k, v in counts.items()}, seconds=f"{seconds:.2f}")
+
+    # step-0 gradients of every parameter: bf16 kernels and bf16 twins both held to the f32
+    # twins (TF32 off); then one f32 step, kernels against twins
+    x0, sl0 = wavenet_audio.make_train_batch(train_batches[0], targs, 1, RandomSegment(T, seed=targs.seed))
+    x0, sl0 = torch.from_numpy(x0).to(dev), torch.from_numpy(sl0).to(dev)
+
+    def step0(m, plain_path_=False):
+        weights.load_jax_params(m, params)
+        m.zero_grad(set_to_none=True)
+        with plain() if plain_path_ else contextlib.nullcontext():
+            loss, _, _ = m(x0, sl0, generator=torch.Generator(device=dev).manual_seed(SEED))
+            loss.backward()
+        return {n: p.grad.detach().clone() for n, p in m.named_parameters()}, loss.item()
+
+    g_k, loss_k = step0(tmodel)
+    g_p, loss_p = step0(tmodel, plain_path_=True)
+    fmodel = wavenet_audio.build_model(argparse_copy(targs, bf16=False))
+    g_fk, loss_fk = step0(fmodel)
+    g_f, loss_f = step0(fmodel, plain_path_=True)
+    e_k = {n: rel_norm(g_k[n], g_f[n]) for n in g_f}
+    e_p = {n: rel_norm(g_p[n], g_f[n]) for n in g_f}
+    # bf16: the stack's roundings move every gradient away from the f32 one; the kernel path
+    # (one rounding at each store) may be at most twice as far as the twins (a rounding after
+    # every op), plus 5e-3 for the head's f32 parameters, which see the same bf16 skips
+    worst = max(g_f, key=lambda n: e_k[n] - 2 * e_p[n])
+    require(all(torch.isfinite(g).all() for g in g_k.values()), "step-0 gradients not finite")
+    require(all(e_k[n] <= 2 * e_p[n] + 5e-3 for n in g_f), f"step-0 gradient {worst}: {e_k[worst]} vs twin {e_p[worst]}")
+    e_f = {n: rel_norm(g_fk[n], g_f[n]) for n in g_f}
+    f32_loss_rel = abs(loss_fk - loss_f) / abs(loss_f)
+    # f32: the same math in another summation order through 50 blocks
+    require(f32_loss_rel <= 1e-5 and max(e_f.values()) <= 1e-4, f"f32 step: loss rel {f32_loss_rel}, grads {e_f}")
+    phase("train-grads", bf16_max_rel_vs_f32=f"{max(e_k.values()):.3g}", bf16_twin_max_rel_vs_f32=f"{max(e_p.values()):.3g}",
+          bf16_kernel_vs_twin_max_rel=f"{max(rel_norm(g_k[n], g_p[n]) for n in g_f):.3g}",
+          f32_loss_rel=f"{f32_loss_rel:.3g}", f32_grad_max_rel=f"{max(e_f.values()):.3g}", parameters=len(g_f))
+    del g_k, g_p, g_fk, g_f, fmodel
+    torch.cuda.empty_cache()
+
+    # 13. timing: the train step, then each backward kernel and the sampler against its twin
+    tx, _ = wavenet_audio.build_tx_and_lr(targs)
+    weights.load_jax_params(tmodel, params)
+    state = TrainState.create(model=tmodel, tx=tx, generator=torch.Generator(device=dev).manual_seed(SEED))
+    train_step = make_train_step(wavenet_audio.loss_fn)
+    crop = RandomSegment(T, seed=targs.seed)
+    step_batches = []
+    for i in range(8):
+        xb_, slb_ = wavenet_audio.make_train_batch(utterances[(i % 3) * B : (i % 3 + 1) * B], targs, i + 2, crop)
+        step_batches.append(dict(x=torch.from_numpy(xb_).to(dev), x_sl=torch.from_numpy(slb_).to(dev)))
+
+    def run_step(b_):
+        train_step(state, b_, {})
+
+    def run_step_plain(b_):
+        with plain():
+            train_step(state, b_, {})
+
+    ts = alternate(run_step_plain, run_step, step_batches)
+    phase("time-train-step", card=smi.replace(" ", "_"), B=B, T=T, bf16=True, kernel_ms=f"{ts['kernel']:.3f}",
+          plain_ms=f"{ts['plain']:.3f}", iterations=len(step_batches) * 2)
+
+    def backward_only(graph):
+        outputs, inputs, grad_outputs = graph
+        return torch.autograd.grad(outputs, inputs, grad_outputs, retain_graph=True)
+
+    def glu_graph(fn, x_):
+        leaves = [x_.requires_grad_(True)] + [t.detach().requires_grad_(True) for t in w6]
+        o, s = fn(*leaves, dilation=64, skip_size=T)
+        return (o, s), leaves, (torch.randn_like(o), torch.randn_like(s))
+
+    w6 = [torch.from_numpy(params[f"res_stack/Conv1dResidualGLU_6/{n}"]).to(dev, torch.bfloat16) for n in block_names]
+    graphs = []
+    for _ in range(8):
+        x_ = torch.randn(B, T + rf, 96, generator=gen, device=dev).to(torch.bfloat16)
+        graphs.append((glu_graph(modules.residual_glu_plain, x_.clone()), glu_graph(modules.residual_glu, x_.clone())))
+    k1b = alternate(lambda g_: backward_only(g_[0]), lambda g_: backward_only(g_[1]), graphs)
+    L = T + rf - 64
+    record["residual_glu_bwd"].update(ms=k1b["kernel"], plain_ms=k1b["plain"], **roofline(
+        bytes_=2 * (2 * B * (T + rf) * 96 + B * L * 96 + B * T * 96 + 2 * sum(t.numel() for t in w6)),
+        flops=2 * B * L * (4 * 96 * 96 + 96 * 192) + 2 * B * (T + rf) * 4 * 96 * 96
+        + 2 * B * L * (4 * 96 * 96 + 96 * 96) + 2 * B * T * 96 * 96,
+        peak=BF16_PEAK))
+    phase("time-K1-bwd", card=smi.replace(" ", "_"), shape=f"({B},{T + rf},96)", dilation=64, dtype="bf16",
+          kernel_ms=f"{k1b['kernel']:.4f}", plain_ms=f"{k1b['plain']:.4f}", includes="both passes + weight-gradient GEMMs")
+    del graphs
+
+    def dmol_graph(fn, h):  # the backward of K2 alone: gradients by its three (strided) inputs
+        inputs = list(split_head(h.requires_grad_(True)))
+        return fn(y, *inputs, num_bins=num_bins), inputs, frame_weight
+
+    dgraphs = []
+    for _ in range(8):
+        h = torch.randn(B, T, 3 * M, generator=gen, device=dev) * 0.5
+        h[..., 2 * M :] = torch.clamp_min(h[..., 2 * M :] * 4 - 3, -7.0)
+        dgraphs.append((dmol_graph(plain_dmol, h.clone()), dmol_graph(likelihoods.dmol_log_prob, h.clone())))
+    k2b = alternate(lambda g_: backward_only(g_[0]), lambda g_: backward_only(g_[1]), dgraphs)
+    record["dmol_log_prob_bwd"].update(ms=k2b["kernel"], plain_ms=k2b["plain"], **roofline(
+        bytes_=4 * B * T * (1 + 3 * M + 1 + 3 * M), flops=2 * DMOL_OPS_PER_COMPONENT * B * T * M, peak=F32_PEAK))
+    phase("time-K2-bwd", card=smi.replace(" ", "_"), frames=B * T, mixtures=M, kernel_ms=f"{k2b['kernel']:.4f}",
+          plain_ms=f"{k2b['plain']:.4f}")
+    heads = [[t.detach() for t in g_[1][1]] for g_ in dgraphs]
+    del dgraphs
+
+    def sample_plain(p_):
+        with torch.no_grad():
+            variational.rsample_discretized_logistic_mixture(None, *p_)
+            variational.dmol_mode(p_[0], p_[1])
+
+    k3 = alternate(sample_plain, lambda p_: variational.dmol_sample_and_mode(None, *p_), heads)
+    record["dmol_sample"].update(ms=k3["kernel"], plain_ms=k3["plain"], **roofline(
+        bytes_=4 * B * T * (3 * M + 2), flops=20 * B * T * M, peak=F32_PEAK))
+    phase("time-K3", card=smi.replace(" ", "_"), frames=B * T, mixtures=M, kernel_ms=f"{k3['kernel']:.4f}",
+          plain_ms=f"{k3['plain']:.4f}")
+
+    # where the train step's device time goes: torch.profiler over 3 steps, kernels by name
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for b_ in step_batches[:3]:
+            run_step(b_)
+        torch.cuda.synchronize()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    events = prof.key_averages()
+    host_names = {e.key for e in events if e.device_type == torch.autograd.DeviceType.CPU}  # ops, annotations
+    kernels_ = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
+                and e.key not in host_names]
+    busy_ms = sum(device_us(e) for e in kernels_) / 1e3 / 3
+    # the host's share: the step returns before the card finishes (no sync inside it), so
+    # the host clock around the call alone is the time to enqueue one step's work
+    torch.cuda.synchronize()
+    enqueue = []
+    for b_ in step_batches[3:8]:
+        t0 = time.perf_counter()
+        run_step(b_)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    launches = sum(e.count for e in kernels_) // 3
+    phase("profile-train-step", card=smi.replace(" ", "_"), device_ms_per_step=f"{busy_ms:.3f}",
+          step_ms=f"{ts['kernel']:.3f}", idle_share=f"{1 - busy_ms / ts['kernel']:.3f}" if busy_ms else "not measured",
+          host_enqueue_ms_per_step=f"{sorted(enqueue)[len(enqueue) // 2]:.3f}", kernel_launches_per_step=launches,
+          kernel_names=len(kernels_))
+    for e in sorted(kernels_, key=device_us, reverse=True)[:14]:
+        print(f"  {device_us(e) / 1e3 / 3:9.3f} ms/step {e.count // 3:5d} calls/step  {e.key[:90]}", flush=True)
+    host_ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    for e in sorted(host_ops, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
+        print(f"  host {e.self_cpu_time_total / 1e3 / 3:9.3f} ms/step {e.count // 3:5d} calls/step  {e.key[:80]}", flush=True)
 
     print(json.dumps({"kernels": list(record.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -308,9 +649,26 @@ def argparse_copy(args, **changes):
     return argparse.Namespace(**{**vars(args), **changes})
 
 
-def plain_dmol(likelihoods):
-    return lambda y, logit_probs, locs, log_scales, num_bins: likelihoods.discretized_logistic_mixture_ll(
-        y, logit_probs, locs, log_scales, num_bins=num_bins)
+def plain_path(modules, likelihoods, distributions, variational):
+    """``plain`` for ``with plain():``, inside which every kernel wrapper of the path is
+    swapped for its plain twin (autograd of the twins gives the backward)."""
+    def dmol(y, logit_probs, locs, log_scales, num_bins):
+        return likelihoods.discretized_logistic_mixture_ll(y, logit_probs, locs, log_scales, num_bins=num_bins)
+
+    def sample_and_mode(generator, logit_probs, locs, log_scales, uniforms=None):
+        with torch.no_grad():
+            return (variational.rsample_discretized_logistic_mixture(generator, logit_probs, locs, log_scales,
+                                                                     uniforms=uniforms),
+                    variational.dmol_mode(logit_probs, locs))
+
+    def plain():
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(modules, "residual_glu", modules.residual_glu_plain))
+        stack.enter_context(mock.patch.object(likelihoods, "dmol_log_prob", dmol))
+        stack.enter_context(mock.patch.object(distributions, "dmol_sample_and_mode", sample_and_mode))
+        return stack
+
+    return plain
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels against their plain twins, on the card.
+"""The hand-written CUDA kernels against their plain twins, on the card: K1 and
+K2 forward and backward (against autograd of the twins), K3 the sampler.
 
 Marked ``cuda``: they skip without a CUDA device (here, on CPU-only machines).
 On the card, where JAX is not installed, leave out the root conftest (it imports
@@ -8,11 +9,13 @@ holds the kernels to their twins at the flagship shapes; these tests cover the
 other widths, ragged tiles, strided inputs and the refusals.
 """
 
+import math
+
 import pytest
 import torch
 
 from blvm_tpu_torch.models.wavenet.modules import residual_glu, residual_glu_plain
-from blvm_tpu_torch.ops import cuda, likelihoods
+from blvm_tpu_torch.ops import cuda, likelihoods, variational
 
 # f32: the kernel's FMA order against cuBLAS's (a few ulps of O(1) values).
 # bf16: the kernel rounds once at the store, the twin after every op as JAX does:
@@ -105,3 +108,137 @@ def test_dmol_kernel_matches_twin_on_strided_head_output(cuda_device, num_bins):
     assert got.shape == (B, T) and torch.isfinite(got).all()
     err = (got - ref).abs().double()
     assert (err <= bound).all(), f"max err {err.max().item()}"
+
+
+# K1-bwd against autograd of the twin, relative to each gradient's norm. f32: FMA order
+# against cuBLAS's and sums over all rows in another order (1e-5). bf16: the twin rounds
+# every op of the forward and the backward to bf16 (2^-8 relative each), the kernel once
+# at each store; a handful of such roundings on a gradient's path (2e-2).
+K1_BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _glu_grads(fn, args, dilation, skip, seed=1):
+    leaves = [t.detach().requires_grad_(True) for t in args]
+    o, s = fn(*leaves, dilation=dilation, skip_size=skip)
+    g = torch.Generator(device=o.device).manual_seed(seed)
+    d_o = torch.randn(o.shape, generator=g, device=o.device).to(o.dtype)
+    d_s = torch.randn(s.shape, generator=g, device=o.device).to(o.dtype)
+    torch.autograd.backward([o, s], [d_o, d_s])
+    return [leaf.grad for leaf in leaves]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,T_in,C,half,S,dilation,skip",
+    [
+        (2, 100, 96, 96, 96, 1, 99),  # tensor-core widths (bf16), skip == T_out
+        (3, 700, 96, 96, 96, 512, 150),  # the largest dilation, a short tail of skip rows
+        (1, 77, 40, 24, 16, 3, 10),  # generic widths: the FMA path in both dtypes
+        (2, 40, 8, 128, 248, 5, 35),  # the limits: half = 128, R + S = 256
+        (3, 301, 32, 32, 32, 7, 100),  # the second tensor-core width, a ragged tile
+    ],
+)
+def test_residual_glu_backward_kernel_matches_autograd_of_twin(cuda_device, dtype, B, T_in, C, half, S, dilation, skip):
+    args = glu_inputs(B, T_in, C, half, S, dtype, cuda_device)
+    cuda.reset_launch_counts()
+    got = _glu_grads(residual_glu, args, dilation, skip)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts()["residual_glu_bwd"] == 1
+    ref = _glu_grads(residual_glu_plain, args, dilation, skip)
+    for name, a, b in zip(("x", "w_t", "w_s", "b_t", "b_s", "w_rs", "b_rs"), got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype and torch.isfinite(a).all(), name
+        rel = ((a.double() - b.double()).norm() / b.double().norm()).item()
+        assert rel <= K1_BWD_REL[dtype], (name, rel)
+
+
+@pytest.mark.cuda
+def test_dmol_backward_kernel_matches_autograd_of_twin(cuda_device):
+    """Gradients of the head's output through K2, against autograd of the f32 twin,
+    both held to the float64 twin: the kernel's error may be at most 2x the f32
+    twin's plus 1e-6, outside components whose branch of the ladder flips between
+    float32 and float64 (cdf_delta within rounding of its 1e-5 threshold)."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    B, T, M, num_bins = 3, 2000, 10, 2**16
+    head = torch.randn(B, T, 3 * M, generator=g, device=cuda_device) * 0.5
+    y = torch.rand(B, T, 1, generator=g, device=cuda_device) * 2 - 1
+    y[0, :200], y[0, 200:400] = -1.0, 1.0
+    weight = torch.rand(B, T, generator=g, device=cuda_device) + 0.5
+
+    def grad(fn, dtype):
+        h = head.detach().to(dtype).requires_grad_(True)
+        logits, locs = h[..., :M], h[..., M : 2 * M].reshape(B, T, 1, M)
+        log_scales = torch.clamp_min(h[..., 2 * M :].reshape(B, T, 1, M) * 4 - 3, -7.0)
+        (fn(y.to(dtype), logits, locs, log_scales, num_bins=num_bins) * weight.to(dtype)).sum().backward()
+        return h.grad.double()
+
+    cuda.reset_launch_counts()
+    got = grad(likelihoods.dmol_log_prob, torch.float32)
+    assert cuda.launch_counts()["dmol_log_prob_bwd"] == 1
+    twin = grad(likelihoods.discretized_logistic_mixture_ll, torch.float32)
+    ref = grad(likelihoods.discretized_logistic_mixture_ll, torch.float64)
+    flips = likelihoods.dmol_branch_flips(y, head[..., M : 2 * M].reshape(B, T, 1, M),
+                                          torch.clamp_min(head[..., 2 * M :].reshape(B, T, 1, M) * 4 - 3, -7.0),
+                                          num_bins)
+    keep = ~flips[..., None]
+    err_k, err_t = ((got - ref).abs() * keep).amax(), ((twin - ref).abs() * keep).amax()
+    assert torch.isfinite(got).all() and err_k <= 2 * err_t + 1e-6, (err_k.item(), err_t.item())
+
+
+@pytest.mark.cuda
+def test_dmol_sampler_kernel_with_supplied_uniforms_equals_twin(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    B, T, M = 2, 3000, 10
+    head = torch.randn(B, T, 3 * M, generator=g, device=cuda_device)
+    logits, locs = head[..., :M], head[..., M : 2 * M].reshape(B, T, 1, M)  # strided, as the head gives them
+    log_scales = torch.clamp_min(head[..., 2 * M :].reshape(B, T, 1, M) - 3, -7.0)
+    uniforms = (torch.rand(B, T, M, generator=g, device=cuda_device), torch.rand(B, T, 1, generator=g, device=cuda_device))
+    cuda.reset_launch_counts()
+    sample, mode = variational.dmol_sample_and_mode(None, logits, locs, log_scales, uniforms=uniforms)
+    assert cuda.launch_counts()["dmol_sample"] == 1
+    ref = variational.rsample_discretized_logistic_mixture(None, logits, locs, log_scales, uniforms=uniforms)
+    assert torch.equal(sample, ref) and torch.equal(mode, variational.dmol_mode(logits, locs))
+
+
+@pytest.mark.cuda
+def test_dmol_sampler_kernel_own_stream_by_distribution(cuda_device):
+    """Component frequencies against softmax(logits) (chi-square, 9 dof, p = 1e-3)
+    over 1M frames; a fresh generator state draws fresh numbers."""
+    N, M = 1 << 20, 10
+    logits = torch.tensor([0.5, -1.0, 2.0, 0.0, 1.0, -0.3, 0.7, -2.0, 1.5, 0.2], device=cuda_device)
+    locs = (torch.arange(M, dtype=torch.float32, device=cuda_device) / 10).expand(N, 1, M).contiguous()
+    log_scales = torch.full((N, 1, M), -9.0, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    s1, _ = variational.dmol_sample_and_mode(gen, logits.expand(N, M).contiguous(), locs, log_scales)
+    s2, _ = variational.dmol_sample_and_mode(gen, logits.expand(N, M).contiguous(), locs, log_scales)
+    assert not torch.equal(s1, s2)
+    counts = torch.bincount(torch.round(s1[:, 0] * 10).clamp(0, M - 1).long(), minlength=M).double()
+    p = torch.softmax(logits.double(), 0)
+    assert ((counts - N * p) ** 2 / (N * p)).sum().item() < 27.877
+
+
+@pytest.mark.cuda
+def test_training_through_the_kernels_has_gradients(cuda_device):
+    """On CUDA tensors the loss carries a gradient through K1-bwd and K2-bwd (the
+    forward kernels alone left it without one)."""
+    from blvm_tpu_torch import weights
+    from blvm_tpu_torch.models import WaveNet
+
+    model = WaveNet(n_layers=3, n_stacks=2, res_channels=32, num_mix=3, num_bins=256, bf16=True, device=cuda_device)
+    weights.load_jax_params(model, weights.random_jax_params(model, 0))
+    x = torch.rand(2, 300, device=cuda_device) * 2 - 1
+    cuda.reset_launch_counts()
+    loss, _, _ = model(x, torch.tensor([300, 211], device=cuda_device))
+    loss.backward()
+    counts = cuda.launch_counts()
+    assert counts["residual_glu"] == counts["residual_glu_bwd"] == 6
+    assert counts["dmol_log_prob"] == counts["dmol_log_prob_bwd"] == counts["dmol_sample"] == 1
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_targets_that_want_a_gradient(cuda_device):
+    y = torch.zeros(4, 1, device=cuda_device, requires_grad=True)
+    with pytest.raises(ValueError):
+        likelihoods.dmol_log_prob(y, torch.zeros(4, 2, device=cuda_device), torch.zeros(4, 1, 2, device=cuda_device),
+                                  torch.zeros(4, 1, 2, device=cuda_device), num_bins=256)

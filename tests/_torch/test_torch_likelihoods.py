@@ -67,6 +67,24 @@ def test_dmol_ladder_branches_are_exercised():
     assert (delta <= 1e-5).any() and (delta > 1e-5).any()
 
 
+def test_dmol_branch_flips_marks_only_frames_at_the_threshold():
+    """A component whose cdf_delta is 1e-5 to float64 precision flags its frame;
+    the same frame with the component on its target does not, nor does an edge
+    bin, where the bin and not cdf_delta picks the branch."""
+    num_bins = 256
+    h = 1.0 / (num_bins - 1)
+    lo, hi = 0.0, 20.0  # cdf_delta(c) = sigmoid(c + h) - sigmoid(c - h) falls with c > 0: bisect for 1e-5
+    for _ in range(200):
+        mid = (lo + hi) / 2
+        lo, hi = (mid, hi) if torch.sigmoid(torch.tensor(mid + h, dtype=torch.float64)) - torch.sigmoid(
+            torch.tensor(mid - h, dtype=torch.float64)) > 1e-5 else (lo, mid)
+    y = torch.tensor([[0.3], [0.3], [-1.0]], dtype=torch.float64)
+    locs = y[..., None].expand(3, 1, 2).clone()  # a second, well-conditioned component in every frame
+    locs[[0, 2], 0, 0] -= lo
+    flips = likelihoods.dmol_branch_flips(y.float(), locs.float(), torch.zeros(3, 1, 2), num_bins)
+    assert flips.tolist() == [True, False, False]
+
+
 def test_dmol_log_prob_wrapper_on_cpu_is_the_twin():
     """On CPU tensors the K2 wrapper runs the plain twin, bit for bit."""
     t = [torch.from_numpy(a) for a in dmol_inputs("random", 65536, n=64)]

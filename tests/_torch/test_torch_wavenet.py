@@ -111,7 +111,7 @@ def test_test_pass_split_eval_matches_whole_batch():
             "--num_mix 3 --random_segment_size 40 --seed 0 --dataset timit --epochs 3").split()
     with pytest.warns(UserWarning, match="--dataset"):
         args = wavenet_audio.build_args(argv)
-    model = wavenet_audio.build_model(args)
+    model = wavenet_audio.build_model(args, device="cpu")
     weights.load_jax_params(model, weights.random_jax_params(model, args.seed))
     rng = np.random.default_rng(4)
     batch = wavenet_audio.make_batch([rng.uniform(-0.5, 0.5, n) for n in (150, 97, 121)], args)
