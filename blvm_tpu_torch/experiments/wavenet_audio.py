@@ -1,39 +1,45 @@
-"""WaveNet on audio: CLI, model construction, the training loop and the rf-chunked test pass.
+"""WaveNet on audio: CLI, model construction, the training loop, the rf-chunked test pass and generation.
 
-Port of ``experiments/experiment_wavenet_audio.py`` (``build_args`` and the
-model construction) and of the parts of ``experiments/common.py`` it runs:
-``build_tx_and_lr``, the training loop (random segments, mu-law, the train
-step, loss/ll/bpd under the ``train`` source) and ``make_rf_chunked_eval`` (the
-test pass in receptive-field-overlapping chunks). Dataset loading from TIMIT
-files and checkpoints come later: the caller hands over the waveforms.
+Port of ``experiments/experiment_wavenet_audio.py`` (``build_args``, the
+model construction and its ``post_eval_hook``, which generates audio) and of the
+parts of ``experiments/common.py`` it runs: ``build_tx_and_lr``, the training
+loop (random segments, mu-law, the train step, loss/ll/bpd under the ``train``
+source) and ``make_rf_chunked_eval`` (the test pass in
+receptive-field-overlapping chunks). Dataset loading from TIMIT files and
+checkpoints come later: the caller hands over the waveforms.
 
 The model, training and optimizer flags keep the JAX driver's names and
 defaults, so the run specs of ``experiments/benchmarks.txt`` parse; flags this
 port does not use yet (``--dataset``, ``--test_every``, ...) are ignored with a
-warning. Models build on the card unless a device is given.
+warning. ``--generate_every`` drives :func:`make_generation_hook`: every that
+many epochs it writes two generated 16000-frame wav files. Models build on the
+card unless a device is given.
 
     args = build_args(argv)
     model = build_model(args)
     state = train(model, args, [[(example_id, waveform), ...], ...], Tracker())
     values = evaluate(model, args, [make_batch(waveforms, args)], Tracker())
+    make_generation_hook(model, args)(epoch, run_dir)
 """
 
 import argparse
 import json
 import time
 import warnings
+from pathlib import Path
 from typing import Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from blvm_tpu_torch.data.transforms import MuLawEncode, RandomSegment
+from blvm_tpu_torch.data.transforms import MuLawDecode, MuLawEncode, RandomSegment
 from blvm_tpu_torch.evaluation.tracker import Tracker
 from blvm_tpu_torch.models.wavenet import WaveNet
 from blvm_tpu_torch.training.eval_step import make_eval_step
 from blvm_tpu_torch.training.optim import EpochSchedule, get_lr_schedule, get_optimizer
 from blvm_tpu_torch.training.train_state import TrainState
 from blvm_tpu_torch.training.train_step import make_train_step
+from blvm_tpu_torch.utils.audio import save_wav
 
 
 def str2bool(arg) -> bool:
@@ -265,3 +271,32 @@ def evaluate(
             mets, _ = eval_step(model, generator, batch, {})
             tracker.update(model.build_metrics(_to_host(mets)), source=source)
     return tracker.values[source]
+
+
+def make_generation_hook(model: WaveNet, args: argparse.Namespace):
+    """The driver's generation hook (``experiments/experiment_wavenet_audio.py:74-90``):
+    ``hook(epoch, run_dir, generator=None)`` does nothing unless ``--generate_every``
+    is positive and divides ``epoch``; then it generates 2 x 16000 frames where the
+    model lies (the card unless it lies on the CPU), decodes them under
+    ``--input_coding mu_law`` and writes ``run_dir/audio/epoch{epoch:04d}_generated_{i}.wav``.
+    ``generator`` defaults to one seeded with the epoch, as JAX keys it
+    (``PRNGKey(epoch)``). Returns the paths written."""
+    decode = MuLawDecode(bits=args.num_bits) if args.input_coding == "mu_law" else None
+
+    def hook(epoch: int, run_dir, generator: Optional[torch.Generator] = None) -> List[Path]:
+        if args.generate_every <= 0 or epoch % args.generate_every != 0:
+            return []
+        device = resolve_device(next(model.parameters()).device)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(epoch)
+        samples = model.generate(2, 16000, generator=generator).cpu().numpy()
+        if decode is not None:
+            samples = decode(samples)
+        audio_dir = Path(run_dir) / "audio"
+        audio_dir.mkdir(parents=True, exist_ok=True)
+        paths = [audio_dir / f"epoch{epoch:04d}_generated_{i}.wav" for i in range(samples.shape[0])]
+        for path, wav in zip(paths, samples):
+            save_wav(path, wav)
+        return paths
+
+    return hook

@@ -307,19 +307,21 @@ class ResidualStack(nn.Module):
     def receptive_field(self) -> int:
         return self.compute_receptive_fields(self.n_layers, self.n_stacks, self.kernel_size, self.base_dilation)[-1]
 
-    def forward(self, x: torch.Tensor, skip_size: int, collect_tails: bool = False) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, skip_size: int, collect_tails: bool = False):
         """Returns the per-block skips, each (B, skip_size, S), in block order.
 
-        ``collect_tails`` (the history tails that prime fast generation) comes with
-        ``generate``; it is accepted for the JAX signature and refused when set."""
-        if collect_tails:
-            raise NotImplementedError("collect_tails primes fast generation, which is not ported yet")
+        ``collect_tails`` (priming fast generation): also return each block's history
+        tail, the last ``dilation`` frames of its input, whose final column is
+        time-aligned with the stack's final output column; they seed the circular
+        buffers of ``WaveNet.generate``'s frame loop. Returns ``(skips, tails)``."""
         o = self.Conv1d_0(x)
-        skips = []
+        skips, tails = [], []
         for block in self.blocks:
+            if collect_tails:
+                tails.append(o[:, -block.dilation :])
             o, s = block(o, skip_size)
             skips.append(s)
-        return skips
+        return (skips, tails) if collect_tails else skips
 
 
 class PointwiseTransform(nn.Module):

@@ -44,8 +44,17 @@ class DiscretizedLogisticMixtureDense(nn.Module):
             return likelihoods.dmol_log_prob(y, *params, num_bins=self.num_bins)
         return likelihoods.discretized_logistic_mixture_ll(y, *params, num_bins=self.num_bins)
 
-    def rsample(self, generator: Optional[torch.Generator], params) -> torch.Tensor:
-        return rsample_discretized_logistic_mixture(generator, *params)
+    def rsample(self, generator: Optional[torch.Generator], params, uniforms=None, seed=None, step: int = 0):
+        """A sample ``(*, D)``. CPU tensors: the plain twin, reparameterized (autograd
+        gives its gradient). CUDA tensors with ``y_dim == 1`` (WaveNet): one launch of
+        K3 (:func:`dmol_sample_and_mode`, its ``uniforms`` / ``seed`` / ``step``), which
+        has no backward, so parameters that need a gradient raise."""
+        if self.y_dim == 1 and params[0].is_cuda:
+            if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+                raise ValueError("DMoL rsample on CUDA runs the K3 kernel, which has no backward: "
+                                 "sample under torch.no_grad() or from detached parameters")
+            return dmol_sample_and_mode(generator, *params, uniforms=uniforms, seed=seed, step=step)[0]
+        return rsample_discretized_logistic_mixture(generator, *params, uniforms=uniforms)
 
     def sample(self, generator: Optional[torch.Generator], params) -> torch.Tensor:
         return self.sample_and_mode(generator, params)[0]

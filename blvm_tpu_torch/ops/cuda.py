@@ -33,6 +33,7 @@ _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 _launches: Dict[str, int] = {
     "residual_glu": 0, "residual_glu_bwd": 0, "dmol_log_prob": 0, "dmol_log_prob_bwd": 0, "dmol_sample": 0,
+    "wavenet_decode": 0,
 }
 build_log = ""  # nvcc's output of the build this process ran (register / shared-memory report)
 
@@ -46,8 +47,11 @@ _SIGNATURES = {
     "blvm_dmol_log_prob": [_P] * 5 + [_L, _I, _L, _L, _L, _L, _I, _P],
     # y, logits, locs, log_scales, g, d_logits, d_locs, d_log_scales, N, M, 4 row strides, num_bins, stream
     "blvm_dmol_log_prob_bwd": [_P] * 8 + [_L, _I, _L, _L, _L, _L, _I, _P],
-    # logits, locs, log_scales, u_cat, u_log, seed, sample, mode, N, M, 3 row strides, 4 uniform maps, stream
-    "blvm_dmol_sample": [_P] * 8 + [_L, _I, _L, _L, _L] + [_F] * 4 + [_P],
+    # logits, locs, log_scales, u_cat, u_log, seed, step, sample, mode, N, M, 3 row strides, 4 uniform maps, stream
+    "blvm_dmol_sample": [_P] * 6 + [_L] + [_P] * 2 + [_L, _I, _L, _L, _L] + [_F] * 4 + [_P],
+    # 12 weights, dilations, offsets, buffers, x, seed, u_cat, u_log; B, L, C, half, S, M, D, x_cols, frame;
+    # variance_scale, log_eps, 4 uniform maps; dtype, stream
+    "blvm_wavenet_decode": [_P] * 19 + [_I] * 9 + [_F] * 6 + [_I, _P],
 }
 
 

@@ -9,10 +9,11 @@ distribution, or feed them the same uniforms, never bit for bit.
 :func:`dmol_sample_and_mode` is the entry point the DMoL head calls: for CPU
 tensors the twin and the plain mode, for CUDA tensors one launch of the
 hand-written kernel ``csrc/dmol_sample.cu`` (K3), or it raises.
+:class:`FrameKeys` is the sampling stream of one generation, frame by frame.
 """
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -20,6 +21,9 @@ from blvm_tpu_torch.ops import cuda
 from blvm_tpu_torch.ops.likelihoods import at_least_f32, _row_view
 
 CATEGORICAL_EPS, LOGISTIC_EPS = 1e-5, 1e-8
+# the affine maps of the kernels' uniforms, (cat_low, cat_scale, logistic_low, logistic_scale): U[eps, 1 - eps)
+# as ``_uniform`` computes it, ``low + (high - low) * u``
+UNIFORM_MAPS = (CATEGORICAL_EPS, (1.0 - CATEGORICAL_EPS) - CATEGORICAL_EPS, LOGISTIC_EPS, (1.0 - LOGISTIC_EPS) - LOGISTIC_EPS)
 
 
 def _uniform(generator: Optional[torch.Generator], like: torch.Tensor, low: float, high: float,
@@ -74,14 +78,18 @@ def dmol_mode(logit_probs, locs):
 
 
 def dmol_sample_and_mode(generator: Optional[torch.Generator], logit_probs, locs, log_scales,
-                         uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                         uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                         seed: Optional[torch.Tensor] = None, step: int = 0):
     """``(sample (*, D), mode (*, D))`` of a DMoL, without gradient.
 
     CPU tensors: :func:`rsample_discretized_logistic_mixture` and :func:`dmol_mode`.
     CUDA tensors (``D == 1``): one launch of K3, which draws its uniforms from a
     Philox generator keyed from ``generator`` (two int64 drawn on the device, no
-    host sync), or takes ``uniforms`` as the twin does.
+    host sync), or from ``seed`` (such a key, drawn once for many calls) at
+    ``step``, or takes ``uniforms`` as the twin does.
     """
+    if seed is not None and not logit_probs.is_cuda:
+        raise ValueError("a Philox seed keys the kernel's stream: CUDA tensors only")
     if not logit_probs.is_cuda:
         with torch.no_grad():
             return (rsample_discretized_logistic_mixture(generator, logit_probs, locs, log_scales, uniforms=uniforms),
@@ -104,7 +112,11 @@ def dmol_sample_and_mode(generator: Optional[torch.Generator], logit_probs, locs
     if N == 0:
         return sample, mode
     if uniforms is None:
-        seed, u_cat, u_logistic = torch.randint(0, 2**62, (2,), generator=generator, dtype=torch.int64, device=dev), None, None
+        if seed is None:
+            seed = torch.randint(0, 2**62, (2,), generator=generator, dtype=torch.int64, device=dev)
+        elif seed.shape != (2,) or seed.dtype != torch.int64 or seed.device != dev:
+            raise ValueError(f"seed must be an int64[2] on {dev}, got {seed.dtype}{tuple(seed.shape)} on {seed.device}")
+        u_cat = u_logistic = None
     else:
         seed = None
         u_cat, u_logistic = (u.detach().to(dev, torch.float32).contiguous() for u in uniforms)
@@ -114,9 +126,44 @@ def dmol_sample_and_mode(generator: Optional[torch.Generator], logit_probs, locs
     cuda.count_launch("dmol_sample")
     err = lib.blvm_dmol_sample(
         *(t.data_ptr() for t, _ in views), *(t.data_ptr() if t is not None else None for t in (u_cat, u_logistic, seed)),
-        sample.data_ptr(), mode.data_ptr(), N, M, *(stride for _, stride in views),
-        CATEGORICAL_EPS, (1.0 - CATEGORICAL_EPS) - CATEGORICAL_EPS, LOGISTIC_EPS, (1.0 - LOGISTIC_EPS) - LOGISTIC_EPS,
+        step, sample.data_ptr(), mode.data_ptr(), N, M, *(stride for _, stride in views), *UNIFORM_MAPS,
         cuda.stream_handle(logit_probs),
     )
     cuda.check(err, "dmol_sample")
     return sample, mode
+
+
+class FrameKeys:
+    """The sampling stream of one generation, frame by frame: the port's
+    ``jax.random.split(key, n_frames)``.
+
+    With ``uniforms`` (``u_cat (n_frames, B, M)``, ``u_log (n_frames, B, 1)`` in [0, 1))
+    frame f samples from their row f, on any device. Otherwise, on CUDA, one Philox
+    key (``seed``, a device int64[2]) is drawn once from ``generator`` and frame f
+    samples at step f of its stream, so K3 (a frame of the windowed path, or the
+    primed first frame) and K4 (a frame of the decode loop) draw the same numbers
+    for the same frame; on the CPU frame f draws from ``generator`` in frame order.
+    """
+
+    def __init__(self, generator: Optional[torch.Generator], device: torch.device,
+                 uniforms: Optional[Sequence[torch.Tensor]] = None):
+        self.generator, self.seed, self.uniforms = generator, None, None
+        if uniforms is not None:
+            u_cat, u_log = (u.detach().to(device, torch.float32).contiguous() for u in uniforms)
+            if u_cat.ndim != 3 or u_log.shape != (*u_cat.shape[:2], 1):
+                raise ValueError(f"uniforms must be (n_frames, B, M) and (n_frames, B, 1), got "
+                                 f"{tuple(u_cat.shape)}, {tuple(u_log.shape)}")
+            self.uniforms = (u_cat, u_log)
+        elif device.type == "cuda":
+            self.seed = torch.randint(0, 2**62, (2,), generator=generator, dtype=torch.int64, device=device)
+
+    def at(self, step: int, frames: int = 1) -> dict:
+        """The sampler's keyword arguments for generation step ``step``, which emits
+        frames ``step * frames`` to ``(step + 1) * frames - 1``: the uniforms shaped
+        as the head's ``(B, frames, M)`` and ``(B, frames, 1)``, or the seed and step."""
+        if self.uniforms is not None:
+            f0 = step * frames
+            return dict(uniforms=tuple(u[f0 : f0 + frames].transpose(0, 1) for u in self.uniforms))
+        if self.seed is not None:
+            return dict(seed=self.seed, step=step)
+        return {}

@@ -1,10 +1,11 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Drives the port's two paths, the WaveNet test pass (bits/frame) and the
-WaveNet train step, at the flagship width of ``experiments/benchmarks.txt``
-(5 x 10 residual blocks, C = 96, DMoL with 10 mixtures over 2^16 bins, bf16
-residual stack) with random weights made by numpy from a seed, and checks the
-five hand-written kernels they run against their plain PyTorch twins:
+Drives the port's three paths, the WaveNet test pass (bits/frame), the WaveNet
+train step and WaveNet generation (2 x 16000 frames, Fast-WaveNet), at the
+flagship width of ``experiments/benchmarks.txt`` (5 x 10 residual blocks, C =
+96, DMoL with 10 mixtures over 2^16 bins, bf16 residual stack) with random
+weights made by numpy from a seed, and checks the six hand-written kernels they
+run against their plain PyTorch twins:
 
   1. device: the card's name and power limit (nvidia-smi)
   2. numerics: TF32 and reduced-precision bf16 GEMM reductions off
@@ -30,9 +31,22 @@ five hand-written kernels they run against their plain PyTorch twins:
      one f32 step, kernels against twins
  13. timing of the train step and of K1-bwd, K2-bwd and K3 against their twins,
      and a torch.profiler breakdown of the train step
+ 14. K4 wavenet_decode vs the plain frame loop over 256 frames, f32 and bf16, from a
+     zero history and a speech prefix, fed the same uniforms: the loop fed the
+     kernel's frames (teacher forcing) and running free
+ 15. the fast path (K4) vs the windowed path (K1 x 50 + K3 a frame) over 16 frames
+     from one generator state
+ 16. 2 x 16000 frames by K4 from supplied uniforms, held to the rf-padded forward of
+     the generated waveform and K3 fed the same uniforms (every frame at once)
+ 17. timing of 2 x 16000 frames, bf16 and f32, with launch counts per generation
+     (K4 x 15999, K1 x 50 and K3 x 1 for the prime); the plain loop and the windowed
+     path per frame; a torch.profiler breakdown of a generation
+ 18. the driver's generation hook writes two 16000-sample wav files under
+     blvm_tpu_torch/_build/generation_hook/ (gitignored)
 
-Every phase prints one line (the profile a few); any failure raises and exits
-non-zero before the last line. The second-to-last line is the kernels' JSON record, the last line
+Every phase prints one line (the profiles a few); any failure raises and exits
+non-zero before the last line (phases 14-18 print all their numbers first). The
+second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
 """
 
@@ -42,6 +56,8 @@ import math
 import subprocess
 import sys
 import time
+import wave
+from pathlib import Path
 from unittest import mock
 
 import torch
@@ -52,6 +68,9 @@ FLAGSHIP_FLAGS = (
 )
 B, T = 8, 16000
 SEED = 0
+# generation: the JAX driver's 2 x 16000 frames (experiments/experiment_wavenet_audio.py:80); K4 against its
+# twin over 256 frames; the windowed oracle over 16 frames (8 timed)
+GEN_B, N_GEN, N_K4, N_NAIVE, N_NAIVE_TIME = 2, 16000, 256, 16, 8
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W): the bound of a kernel is the
 # larger of its compulsory bytes over HBM bandwidth and its operations over the peak of their type
 HBM_BYTES_PER_S, BF16_PEAK, F32_PEAK = 3.35e12, 989e12, 67e12
@@ -182,9 +201,12 @@ def main():
                                   replaces="blvm_tpu/ops/likelihoods.py:142"),
         "dmol_sample": dict(name="dmol_sample", route="cuda", source="blvm_tpu_torch/csrc/dmol_sample.cu",
                             replaces="blvm_tpu/ops/variational.py:149"),
+        "wavenet_decode": dict(name="wavenet_decode", route="cuda", source="blvm_tpu_torch/csrc/wavenet_decode.cu",
+                               replaces="blvm_tpu/models/wavenet/wavenet.py:279"),
     }
     for entry in record.values():
-        entry["library_ms"] = None  # no single PyTorch call computes a residual-GLU block, the DMoL ladder or its sampler
+        # no single PyTorch call computes a residual-GLU block, the DMoL ladder, its sampler or a decode step
+        entry["library_ms"] = None
 
     # 4. K1 against its twin at the flagship shapes
     args = wavenet_audio.build_args(FLAGSHIP_FLAGS.split())
@@ -263,7 +285,8 @@ def main():
     require(counts["residual_glu"] == 50 * n_chunks, f"K1 launches {counts['residual_glu']} != 50 x {n_chunks} chunks")
     require(counts["dmol_log_prob"] == n_chunks, f"K2 launches {counts['dmol_log_prob']} != {n_chunks} chunks")
     require(counts["dmol_sample"] == n_chunks, f"K3 launches {counts['dmol_sample']} != {n_chunks} chunks")
-    require(counts["residual_glu_bwd"] == counts["dmol_log_prob_bwd"] == 0, f"backward launches in a test pass: {counts}")
+    require(counts["residual_glu_bwd"] == counts["dmol_log_prob_bwd"] == counts["wavenet_decode"] == 0,
+            f"backward or decode launches in a test pass: {counts}")
     phase("slice", utterances=list(map(int, lengths)), chunks=n_chunks, loss=f"{values['loss']:.6f}",
           ll=f"{values['ll']:.3f}", bpd=f"{values['bpd']:.6f}", launches=counts, seconds=f"{seconds:.2f}")
     # the same utterances in one rf-padded forward score the same frames: the chunked
@@ -476,8 +499,8 @@ def main():
 
     steps_k, counts, seconds = run_train()
     expected = dict(residual_glu=150, residual_glu_bwd=150, dmol_log_prob=3, dmol_log_prob_bwd=3, dmol_sample=3)
-    require(counts == expected, f"train-step launches {counts}, expected {expected} (50/50/1/1/1 a step)")
-    for name in record:
+    require(counts == {**expected, "wavenet_decode": 0}, f"train-step launches {counts}, expected {expected} (50/50/1/1/1 a step)")
+    for name in expected:
         record[name]["launches"] = counts[name]
     steps_p, counts_p, _ = run_train(plain_path_=True)
     require(not any(counts_p.values()), f"the plain path launched kernels: {counts_p}")
@@ -637,10 +660,215 @@ def main():
     for e in sorted(host_ops, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
         print(f"  host {e.self_cpu_time_total / 1e3 / 3:9.3f} ms/step {e.count // 3:5d} calls/step  {e.key[:80]}", flush=True)
 
+    generation_phases(record, smi, args, models, dev)
+
     print(json.dumps({"kernels": list(record.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def generation_phases(record, smi, args, models, dev):
+    """Phases 14-18, the generation path: K4 against its twin, the fast path against the
+    windowed oracle and against the forward, timing, the driver's hook. Each check is
+    printed before any raises, so one run shows every number."""
+    import numpy as np
+
+    from blvm_tpu_torch.experiments import wavenet_audio
+    from blvm_tpu_torch.ops import cuda, variational
+    from blvm_tpu_torch.ops.generation import WaveNetDecoder
+
+    failures = []
+
+    def expect(cond, message):
+        if not cond:
+            failures.append(message)
+            print(f"  FAIL: {message}", flush=True)
+
+    card = smi.replace(" ", "_")
+    rf, M = models[True].receptive_field, args.num_mix
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def uniforms(n):
+        return torch.rand(n, GEN_B, M, generator=gen, device=dev), torch.rand(n, GEN_B, 1, generator=gen, device=dev)
+
+    rng = np.random.default_rng(SEED + 3)
+    speech, _ = wavenet_audio.make_batch([synthetic_speech(rf, rng) for _ in range(GEN_B)], args)  # mu-law coded
+    histories = {"zero": torch.zeros(GEN_B, rf, 1, device=dev), "speech": torch.from_numpy(speech).to(dev)[..., None]}
+    dtype_name = {True: "bf16", False: "f32"}
+
+    # 14. K4 against the plain loop, fed the same uniforms. Teacher forcing (the loop fed the
+    # kernel's frames) holds each frame from the same history: f32 the order of the sums (1e-5);
+    # bf16 both round where JAX rounds, and a one-ulp difference after another summation order,
+    # amplified by the gate, stays within the JAX suite's 5e-2 (tests/models/test_wavenet.py:276).
+    # Free-running, f32 is held to the same 1e-5 over all 256 frames; bf16 is reported (an ulp
+    # that flips a Gumbel pick sends the two trajectories apart for good).
+    k4_tol = {False: 1e-5, True: 5e-2}
+    k4_err = 0.0
+    for bf16, m in models.items():
+        for name, hist in histories.items():
+            keys = variational.FrameKeys(None, dev, uniforms(N_K4))
+            with torch.no_grad():
+                tails, pred0 = m._prime(hist, keys)
+                cuda.reset_launch_counts()
+                got = WaveNetDecoder(m, tails).run(hist[:, -1, 0], pred0.reshape(-1), N_K4, keys)
+                torch.cuda.synchronize()
+                launches = cuda.launch_counts()["wavenet_decode"]
+                forced = m._generate_fast_plain(hist[:, -1:], pred0, tails, N_K4, keys, forced=got)
+                free = m._generate_fast_plain(hist[:, -1:], pred0, tails, N_K4, keys)
+            err = (got - forced).abs().max().item()
+            free_err = (got - free).abs().amax(0)
+            over = (free_err > k4_tol[bf16]).nonzero()
+            agree = int(over[0]) if len(over) else N_K4
+            expect(launches == N_K4 - 1, f"K4 launches {launches} != {N_K4 - 1}")
+            expect(bool(torch.isfinite(got).all()) and got.abs().max().item() <= 1, f"K4 {name}: not finite or outside [-1, 1]")
+            expect(err <= k4_tol[bf16], f"K4 {dtype_name[bf16]} {name}: teacher-forced max err {err} over {k4_tol[bf16]}")
+            if not bf16:
+                expect(agree == N_K4, f"K4 f32 {name}: free-running err {free_err.max().item()} over 1e-5 from frame {agree}")
+            k4_err = max(k4_err, err)
+            phase("K4", dtype=dtype_name[bf16], history=name, frames=N_K4, launches=launches,
+                  forced_max_abs_err=f"{err:.3g}", tolerance=k4_tol[bf16], free_max_abs_err=f"{free_err.max().item():.3g}",
+                  free_frames_before_divergence=agree)
+    record["wavenet_decode"]["max_abs_err"] = k4_err
+
+    # 15. the fast path against the windowed oracle from one generator state: one Philox key a
+    # generation, stepped by the frame, so K4 and K3 draw the same numbers for the same frame.
+    # Frame 0 comes from the same priming forward in both: equal. f32: the JAX suite's 1e-5.
+    # bf16: the windowed path's K1 rounds once at each store where K4 rounds after every op as
+    # JAX does, so the two differ by bf16 ulps from frame 1 on: reported, held by phase 16.
+    for bf16, m in models.items():
+        cuda.reset_launch_counts()
+        fast = m.generate(GEN_B, N_NAIVE, generator=torch.Generator(device=dev).manual_seed(SEED))
+        naive = m.generate(GEN_B, N_NAIVE, fast=False, generator=torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        counts = cuda.launch_counts()
+        err = (fast - naive).abs().amax(0)
+        expect(counts["residual_glu"] == 50 * (N_NAIVE + 1) and counts["dmol_sample"] == N_NAIVE + 1
+               and counts["wavenet_decode"] == N_NAIVE - 1, f"fast-vs-naive launches {counts}")
+        expect(err[0].item() == 0, f"fast-vs-naive {dtype_name[bf16]}: frame 0 differs by {err[0].item()}")
+        if not bf16:
+            expect(err.max().item() <= 1e-5, f"fast-vs-naive f32: max err {err.max().item()} over 1e-5")
+        phase("generate-fast-vs-naive", dtype=dtype_name[bf16], frames=N_NAIVE, max_abs_err=f"{err.max().item():.3g}",
+              tolerance=1e-5 if not bf16 else "reported", frames_within_5e_2=int((err <= 5e-2).sum().item()),
+              per_frame=[f"{v:.2g}" for v in err.tolist()])
+
+    # 16. teacher forcing over the whole generation: the rf-padded forward of the generated
+    # waveform (K1, zero history) and K3 fed the generation's uniforms must give back every
+    # frame. f32: the forward's sums in another order than K4's (1e-5); a frame whose Gumbel pick
+    # sits within f32 rounding of a tie may flip (at most 1e-4 of the frames). bf16: K1 rounds
+    # once at each store, K4 after every op; frames within 5e-2 counted, at least 0.9 of them
+    # (a misaligned buffer or a wrong tap leaves a few percent).
+    tf_tol, tf_share = {False: 1e-5, True: 5e-2}, {False: 1 - 1e-4, True: 0.9}
+    for bf16, m in models.items():
+        u = uniforms(N_GEN)
+        with torch.no_grad():
+            x = m.generate(GEN_B, N_GEN, uniforms=u)
+            _, _, out = m(x, torch.full((GEN_B,), N_GEN, dtype=torch.int32, device=dev))
+            again, _ = variational.dmol_sample_and_mode(None, *out.parameters,
+                                                        uniforms=(u[0].transpose(0, 1), u[1].transpose(0, 1)))
+        err = (again[..., 0] - x).abs()
+        share = (err <= tf_tol[bf16]).double().mean().item()
+        expect(bool(torch.isfinite(x).all()) and x.shape == (GEN_B, N_GEN), "teacher-forced: generated shape/finite")
+        expect(share >= tf_share[bf16], f"teacher-forced {dtype_name[bf16]}: share {share} below {tf_share[bf16]}")
+        phase("generate-teacher-forced", dtype=dtype_name[bf16], frames=GEN_B * N_GEN, tolerance=tf_tol[bf16],
+              share_within=f"{share:.6f}", required=tf_share[bf16], frames_outside=int((err > tf_tol[bf16]).sum().item()),
+              max_abs_err=f"{err.max().item():.3g}", median_abs_err=f"{err.median().item():.3g}")
+
+    # 17. timing, 2 x 16000 frames; the launch counts of a generation (the generation path's main run)
+    def generate_timed(m, n, fast=True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = m.generate(GEN_B, n, fast=fast, generator=torch.Generator(device=dev).manual_seed(SEED))
+        enqueued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return x, time.perf_counter() - t0, enqueued
+
+    def plain_loop_ms(m, n):
+        keys = variational.FrameKeys(torch.Generator(device=dev).manual_seed(SEED), dev)
+        hist = histories["zero"]
+        with torch.no_grad():
+            tails, pred0 = m._prime(hist, keys)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m._generate_fast_plain(hist[:, -1:], pred0, tails, n, keys)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / (n - 1)
+
+    gen_ms = {}
+    for bf16 in (True, False):
+        m = models[bf16]
+        generate_timed(m, 64)  # warm-up
+        plain_a = plain_loop_ms(m, N_K4)
+        cuda.reset_launch_counts()
+        x, seconds, enqueued = generate_timed(m, N_GEN)
+        counts = cuda.launch_counts()
+        _, seconds_b, _ = generate_timed(m, N_GEN)
+        plain_b = plain_loop_ms(m, N_K4)
+        expected = dict(residual_glu=50, residual_glu_bwd=0, dmol_log_prob=0, dmol_log_prob_bwd=0, dmol_sample=1,
+                        wavenet_decode=N_GEN - 1)
+        expect(counts == expected, f"generation launches {counts}, expected {expected}")
+        expect(bool(torch.isfinite(x).all()) and x.shape == (GEN_B, N_GEN) and x.abs().max().item() <= 1,
+               "generation: shape, finite, [-1, 1]")
+        _, naive_s, _ = generate_timed(m, N_NAIVE_TIME, fast=False)
+        total = min(seconds, seconds_b)
+        gen_ms[bf16] = dict(frame_ms=total * 1e3 / N_GEN, plain_ms=min(plain_a, plain_b), counts=counts)
+        phase("time-generate", card=card, dtype=dtype_name[bf16], sequences=GEN_B, frames=N_GEN,
+              total_ms=f"{total * 1e3:.1f}", runs_ms=[f"{seconds * 1e3:.1f}", f"{seconds_b * 1e3:.1f}"],
+              frames_per_s=f"{N_GEN / total:.1f}", us_per_frame=f"{total * 1e6 / N_GEN:.2f}",
+              host_enqueue_us_per_frame=f"{enqueued * 1e6 / N_GEN:.2f}",
+              plain_loop_us_per_frame=[f"{plain_a * 1e3:.1f}", f"{plain_b * 1e3:.1f}"],
+              naive_ms_per_frame=f"{naive_s * 1e3 / N_NAIVE_TIME:.3f}", launches=counts)
+
+    # the bound of one K4 launch: every weight read once, each block's slot read and written, at
+    # the card's HBM rate; one multiply-add a weight a sequence at the bf16 peak
+    m = models[True]
+    stack_params = sum(p.numel() for p in m.res_stack.parameters())
+    f32_params = sum(p.numel() for mod in (m.causal, m.out_transform, m.likelihood_head) for p in mod.parameters())
+    slot_bytes = GEN_B * len(m.res_stack.blocks) * m.res_channels * 2 * 2
+    record["wavenet_decode"].update(ms=gen_ms[True]["frame_ms"], plain_ms=gen_ms[True]["plain_ms"],
+                                    launches=gen_ms[True]["counts"]["wavenet_decode"], **roofline(
+                                        bytes_=2 * stack_params + 4 * f32_params + slot_bytes,
+                                        flops=2 * GEN_B * (stack_params + f32_params), peak=BF16_PEAK))
+
+    # where a generated frame's time goes: torch.profiler over 600 frames, kernels by name
+    from torch.profiler import ProfilerActivity, profile
+
+    n_prof = 600
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, prof_s, prof_enqueued = generate_timed(m, n_prof)
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    events = prof.key_averages()
+    host_names = {e.key for e in events if e.device_type == torch.autograd.DeviceType.CPU}
+    kernels_ = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
+                and e.key not in host_names]
+    busy_us = sum(device_us(e) for e in kernels_)
+    decode = [e for e in kernels_ if "wavenet_decode" in e.key]
+    phase("profile-generate", card=card, dtype="bf16", frames=n_prof, wall_us_per_frame=f"{prof_s * 1e6 / n_prof:.2f}",
+          device_us_per_frame=f"{busy_us / n_prof:.2f}",
+          k4_device_us_per_launch=f"{device_us(decode[0]) / decode[0].count:.2f}" if decode else "not measured",
+          idle_share=f"{1 - busy_us / (prof_s * 1e6):.3f}" if busy_us else "not measured",
+          host_enqueue_us_per_frame=f"{prof_enqueued * 1e6 / n_prof:.2f}")
+    for e in sorted(kernels_, key=device_us, reverse=True)[:6]:
+        print(f"  {device_us(e) / n_prof:9.3f} us/frame {e.count:6d} calls  {e.key[:90]}", flush=True)
+
+    # 18. the driver's generation hook, on the card: two 16000-sample wav files in the build directory
+    out_dir = Path(__file__).resolve().parent / "blvm_tpu_torch" / "_build" / "generation_hook"
+    hook = wavenet_audio.make_generation_hook(models[True], argparse_copy(args, generate_every=5))
+    skipped = hook(4, out_dir)
+    paths = hook(5, out_dir)
+    shapes = []
+    for path in paths:
+        with wave.open(str(path)) as f:
+            shapes.append((f.getnchannels(), f.getsampwidth(), f.getframerate(), f.getnframes()))
+            pcm = np.frombuffer(f.readframes(f.getnframes()), "<i2")
+        expect(shapes[-1] == (1, 2, 16000, 16000) and np.abs(pcm).max() > 0, f"hook wav {path}: {shapes[-1]}")
+    expect(skipped == [] and len(paths) == 2, f"hook cadence: epoch 4 wrote {skipped}, epoch 5 {paths}")
+    phase("generation-hook", files=[str(p.relative_to(out_dir.parents[2])) for p in paths], wav=shapes)
+
+    require(not failures, f"generation phases failed: {failures}")
 
 
 def argparse_copy(args, **changes):

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain twins, on the card: K1 and
-K2 forward and backward (against autograd of the twins), K3 the sampler.
+K2 forward and backward (against autograd of the twins), K3 the sampler, K4 the
+Fast-WaveNet decode step.
 
 Marked ``cuda``: they skip without a CUDA device (here, on CPU-only machines).
 On the card, where JAX is not installed, leave out the root conftest (it imports
@@ -14,8 +15,12 @@ import math
 import pytest
 import torch
 
+from blvm_tpu_torch import weights
+from blvm_tpu_torch.models import WaveNet
 from blvm_tpu_torch.models.wavenet.modules import residual_glu, residual_glu_plain
+from blvm_tpu_torch.modules.distributions import DiscretizedLogisticMixtureDense
 from blvm_tpu_torch.ops import cuda, likelihoods, variational
+from blvm_tpu_torch.ops.generation import WaveNetDecoder
 
 # f32: the kernel's FMA order against cuBLAS's (a few ulps of O(1) values).
 # bf16: the kernel rounds once at the store, the twin after every op as JAX does:
@@ -221,9 +226,6 @@ def test_dmol_sampler_kernel_own_stream_by_distribution(cuda_device):
 def test_training_through_the_kernels_has_gradients(cuda_device):
     """On CUDA tensors the loss carries a gradient through K1-bwd and K2-bwd (the
     forward kernels alone left it without one)."""
-    from blvm_tpu_torch import weights
-    from blvm_tpu_torch.models import WaveNet
-
     model = WaveNet(n_layers=3, n_stacks=2, res_channels=32, num_mix=3, num_bins=256, bf16=True, device=cuda_device)
     weights.load_jax_params(model, weights.random_jax_params(model, 0))
     x = torch.rand(2, 300, device=cuda_device) * 2 - 1
@@ -242,3 +244,86 @@ def test_kernel_wrappers_refuse_targets_that_want_a_gradient(cuda_device):
     with pytest.raises(ValueError):
         likelihoods.dmol_log_prob(y, torch.zeros(4, 2, device=cuda_device), torch.zeros(4, 1, 2, device=cuda_device),
                                   torch.zeros(4, 1, 2, device=cuda_device), num_bins=256)
+
+
+def decode_case(device, C, bf16, n_frames, seed=0, **kwargs):
+    """A WaveNet of two 10-block stacks at width ``C``, primed on a uniform-noise
+    history, and its uniforms: ``(model, keys, x_last, pred0, tails)``."""
+    model = WaveNet(n_layers=10, n_stacks=2, res_channels=C, num_mix=10, num_bins=2**16, bf16=bf16, device=device,
+                    **kwargs)
+    weights.load_jax_params(model, weights.random_jax_params(model, seed))
+    g = torch.Generator(device=device).manual_seed(seed)
+    uniforms = (torch.rand(n_frames, 2, 10, generator=g, device=device), torch.rand(n_frames, 2, 1, generator=g, device=device))
+    keys = variational.FrameKeys(None, device, uniforms)
+    x = torch.rand(2, model.receptive_field, 1, generator=g, device=device) * 2 - 1
+    with torch.no_grad():
+        tails, pred0 = model._prime(x, keys)
+    return model, keys, x[:, -1:], pred0, tails
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("C", [96, 32])
+def test_wavenet_decode_kernel_matches_plain_loop(cuda_device, C, bf16):
+    """K4 with supplied uniforms against the plain loop fed the kernel's own frames
+    (teacher forcing: each frame from the same history, so differences do not
+    compound). f32: the order of the sums (1e-5). bf16: both round where JAX rounds;
+    a one-ulp difference after a dot's other summation order, amplified by the gate,
+    stays within the JAX suite's 5e-2."""
+    n = 48
+    model, keys, x_last, pred0, tails = decode_case(cuda_device, C, bf16, n)
+    cuda.reset_launch_counts()
+    with torch.no_grad():
+        got = WaveNetDecoder(model, tails).run(x_last.reshape(-1), pred0.reshape(-1), n, keys)
+        torch.cuda.synchronize()
+        assert cuda.launch_counts()["wavenet_decode"] == n - 1
+        ref = model._generate_fast_plain(x_last, pred0, tails, n, keys, forced=got)
+    assert got.shape == (2, n) and torch.isfinite(got).all() and got.abs().max() <= 1
+    torch.testing.assert_close(got, ref, rtol=0, atol=5e-2 if bf16 else 1e-5)
+
+
+@pytest.mark.cuda
+def test_wavenet_decode_kernel_refuses_what_it_does_not_take(cuda_device):
+    model, keys, x_last, pred0, tails = decode_case(cuda_device, 32, False, 8)
+    with pytest.raises(ValueError):
+        WaveNetDecoder(model, tails[:-1])  # a block without its buffer
+    with pytest.raises(ValueError):
+        WaveNetDecoder(model, [t[:, :1] for t in tails])  # buffers shorter than their dilation
+    decoder = WaveNetDecoder(model, tails)
+    with pytest.raises(ValueError):
+        decoder.run(x_last.reshape(-1), pred0.reshape(-1), 9, keys)  # more frames than rows of uniforms
+    for C, kwargs in ((264, {}), (8, dict(n_stack_frames=2))):  # C above the kernel's limit; two frames a step
+        other = WaveNet(n_layers=2, n_stacks=1, res_channels=C, num_mix=2, device=cuda_device, **kwargs)
+        with pytest.raises(ValueError):
+            WaveNetDecoder(other, [torch.zeros(2, d, C, device=cuda_device) for d in (1, 2)])
+
+
+@pytest.mark.cuda
+def test_generate_on_the_card_launches_k4_and_matches_the_windowed_path(cuda_device):
+    """One Philox key a generation, stepped by the frame: K4 and the windowed path (K1
+    x 20 and K3 a frame) draw the same numbers for the same frame (f32, 1e-5)."""
+    model, *_ = decode_case(cuda_device, 32, False, 1)
+    cuda.reset_launch_counts()
+    fast = model.generate(2, 12, generator=torch.Generator(device=cuda_device).manual_seed(4))
+    counts = cuda.launch_counts()
+    assert counts["wavenet_decode"] == 11 and counts["residual_glu"] == 20 and counts["dmol_sample"] == 1
+    naive = model.generate(2, 12, fast=False, generator=torch.Generator(device=cuda_device).manual_seed(4))
+    torch.testing.assert_close(fast, naive, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_dmol_rsample_on_the_card_runs_k3_and_refuses_a_gradient(cuda_device):
+    head = DiscretizedLogisticMixtureDense(8, y_dim=1, num_mix=4, device=cuda_device)
+    h = torch.randn(6, 8, device=cuda_device)
+    cuda.reset_launch_counts()
+    with torch.no_grad():
+        sample = head.rsample(None, head(h))
+    assert cuda.launch_counts()["dmol_sample"] == 1 and sample.shape == (6, 1)
+    with pytest.raises(ValueError):
+        head.rsample(None, head(h))  # the head's parameters want a gradient; K3 has none
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    u = (torch.rand(6, 4, generator=g, device=cuda_device), torch.rand(6, 1, generator=g, device=cuda_device))
+    with torch.no_grad():
+        params = head(h)
+        assert torch.equal(head.rsample(None, params, uniforms=u),
+                           variational.rsample_discretized_logistic_mixture(None, *params, uniforms=u))

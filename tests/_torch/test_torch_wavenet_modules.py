@@ -92,8 +92,22 @@ def test_causal_conv_drops_last_frame_exactly():
         np.testing.assert_array_equal(causal(x, pad_causal=False)[0, :, 0].numpy(), [3, 5, 7, 9, 11])
 
 
-def test_residual_stack_refuses_collect_tails():
-    """History tails prime fast generation, which the port does not have yet."""
-    stack = ResidualStack(n_layers=2, n_stacks=1, res_channels=4)
-    with pytest.raises(NotImplementedError):
-        stack(torch.zeros(1, 8, 4), 4, collect_tails=True)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_residual_stack_collect_tails_matches_jax(bf16):
+    """The history tails that prime fast generation: each block's last ``dilation``
+    input frames, in the stack dtype, beside the skips of the one output column."""
+    C, B, T = 8, 2, 24
+    stack = ResidualStack(n_layers=3, n_stacks=2, res_channels=C, dtype=torch.bfloat16 if bf16 else None)
+    params = weights.random_jax_params(stack, seed=12)
+    weights.load_jax_params(stack, params)
+    x = np.random.default_rng(10).normal(size=(B, T, C)).astype(np.float32)
+
+    jstack = JaxStack(n_layers=3, n_stacks=2, res_channels=C, dtype=jnp.bfloat16 if bf16 else None)
+    jskips, jtails = jax.jit(lambda p, x_: jstack.apply({"params": p}, x_, 1, collect_tails=True))(
+        weights.unflatten(params), jnp.asarray(x))
+    with torch.no_grad():
+        skips, tails = stack(torch.from_numpy(x), 1, collect_tails=True)
+    assert [tuple(t.shape) for t in tails] == [(B, d, C) for d in (1, 2, 4, 1, 2, 4)]
+    assert all(t.dtype == (torch.bfloat16 if bf16 else torch.float32) for t in tails)
+    for got, ref in zip(tails + skips, list(jtails) + list(jskips)):
+        np.testing.assert_allclose(np32(got), np32(ref), rtol=0, atol=TOL[bf16])
