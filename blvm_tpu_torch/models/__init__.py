@@ -1,3 +1,4 @@
+from blvm_tpu_torch.models.lstm import LSTMAudio
 from blvm_tpu_torch.models.wavenet import WaveNet
 
-__all__ = ["WaveNet"]
+__all__ = ["LSTMAudio", "WaveNet"]

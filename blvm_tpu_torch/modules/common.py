@@ -1,11 +1,11 @@
-"""Shared NN building blocks (port of ``blvm_tpu/modules/common.py``).
+"""Shared NN building blocks, Dense and MLP (port of ``blvm_tpu/modules/common.py``).
 
 Parameters keep the flax names and layouts: ``kernel`` is ``(in, out)`` and
 ``bias`` is ``(out,)``, so JAX parameter trees load without transposes.
 """
 
 import math
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
@@ -41,3 +41,23 @@ class Dense(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
+
+
+class MLP(nn.Module):
+    """Dense layers ``Dense_0 .. Dense_{n-1}`` with ``activation`` between them and,
+    unless ``activate_final`` is False, after the last (``blvm_tpu/modules/common.py:47``;
+    the flax default activation is tanh). ``dtype`` is every layer's compute dtype."""
+
+    def __init__(self, in_features: int, features: Sequence[int], activation: Callable = torch.tanh,
+                 activate_final: bool = True, dtype=None, device=None):
+        super().__init__()
+        self.activation, self.activate_final, self.n_layers = activation, activate_final, len(features)
+        for i, (fan_in, feat) in enumerate(zip([in_features, *features[:-1]], features)):
+            setattr(self, f"Dense_{i}", Dense(fan_in, feat, dtype=dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_layers):
+            x = getattr(self, f"Dense_{i}")(x)
+            if i < self.n_layers - 1 or self.activate_final:
+                x = self.activation(x)
+        return x

@@ -1,0 +1,77 @@
+"""Recurrent cores (port of ``blvm_tpu/modules/recurrent.py``; the LSTM so far).
+
+As in the JAX package, the input projection ``x @ W_ih + b_ih`` of every step is
+one time-parallel product, and only ``h @ W_hh`` runs inside the recurrence, which
+is :func:`blvm_tpu_torch.ops.recurrent.lstm_recurrence`: the K5 kernel on CUDA
+tensors, its plain twin on CPU tensors. Parameters keep the flax names and
+layouts (``w_ih_{l}`` ``(D, 4H)``, ``b_ih_{l}``, ``w_hh_{l}`` ``(H, 4H)``,
+``b_hh_{l}``) and torch's U(-1/sqrt(H), 1/sqrt(H)) init.
+"""
+
+import math
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from blvm_tpu_torch.ops import recurrent as recurrent_ops
+
+
+class LSTM(nn.Module):
+    """Stacked unidirectional LSTM over ``(B, T, D)`` with per-example lengths.
+
+    ``forward`` returns ``(outputs (B, T, H), (h_n, c_n))``, ``h_n`` and ``c_n`` of
+    shape ``(num_layers, B, H)``: the state at each sequence's true end; outputs past
+    a sequence's length are zero. ``dtype`` is the compute dtype (inputs, weights and
+    state are cast to it, as JAX casts them); ``unroll`` only schedules XLA in the JAX
+    package and is accepted and ignored. Dropout between layers, when not
+    ``deterministic``, draws from ``generator``.
+    """
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1, dropout: float = 0.0, dtype=None,
+                 unroll: int = 1, device=None):
+        super().__init__()
+        del unroll
+        self.hidden_size, self.num_layers, self.dropout, self.dtype = hidden_size, num_layers, dropout, dtype
+        G = 4 * hidden_size
+        for layer in range(num_layers):  # flax's creation order: w_ih, b_ih, w_hh, b_hh
+            in_features = input_size if layer == 0 else hidden_size
+            self.register_parameter(f"w_ih_{layer}", nn.Parameter(torch.empty(in_features, G, device=device)))
+            self.register_parameter(f"b_ih_{layer}", nn.Parameter(torch.empty(G, device=device)))
+            self.register_parameter(f"w_hh_{layer}", nn.Parameter(torch.empty(hidden_size, G, device=device)))
+            self.register_parameter(f"b_hh_{layer}", nn.Parameter(torch.empty(G, device=device)))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        bound = 1.0 / math.sqrt(self.hidden_size)
+        with torch.no_grad():
+            for p in self.parameters():
+                p.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                initial_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        B, H = x.shape[0], self.hidden_size
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        if initial_state is None:
+            h_0 = c_0 = torch.zeros((self.num_layers, B, H), dtype=x.dtype, device=x.device)
+        else:
+            h_0, c_0 = (s.to(x.dtype) for s in initial_state)
+        if mask is not None:
+            mask = mask.to(x.dtype)
+
+        h_ns, c_ns = [], []
+        layer_in = x
+        for layer in range(self.num_layers):
+            w_ih, b_ih, w_hh, b_hh = (getattr(self, f"{n}_{layer}") for n in ("w_ih", "b_ih", "w_hh", "b_hh"))
+            if self.dtype is not None:
+                w_ih, b_ih, w_hh, b_hh = (w.to(self.dtype) for w in (w_ih, b_ih, w_hh, b_hh))
+            xw = layer_in @ w_ih + b_ih  # (B, T, 4H): the time-parallel input projection
+            layer_in, h_n, c_n = recurrent_ops.lstm_recurrence(xw, w_hh, b_hh, mask, h_0[layer], c_0[layer])
+            h_ns.append(h_n)
+            c_ns.append(c_n)
+            if self.dropout > 0 and layer < self.num_layers - 1 and not deterministic:
+                keep = torch.rand(layer_in.shape, generator=generator, device=layer_in.device) < 1.0 - self.dropout
+                layer_in = torch.where(keep, layer_in / (1.0 - self.dropout), 0.0)
+        return layer_in, (torch.stack(h_ns), torch.stack(c_ns))

@@ -33,7 +33,7 @@ _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 _launches: Dict[str, int] = {
     "residual_glu": 0, "residual_glu_bwd": 0, "dmol_log_prob": 0, "dmol_log_prob_bwd": 0, "dmol_sample": 0,
-    "wavenet_decode": 0,
+    "wavenet_decode": 0, "lstm_recurrence": 0, "lstm_recurrence_bwd": 0,
 }
 build_log = ""  # nvcc's output of the build this process ran (register / shared-memory report)
 
@@ -52,6 +52,10 @@ _SIGNATURES = {
     # 12 weights, dilations, offsets, buffers, x, seed, u_cat, u_log; B, L, C, half, S, M, D, x_cols, frame;
     # variance_scale, log_eps, 4 uniform maps; dtype, stream
     "blvm_wavenet_decode": [_P] * 19 + [_I] * 9 + [_F] * 6 + [_I, _P],
+    # xw, w_hh, b_hh, mask, h0, c0, out, h_n, c_n, gates, h_prev, c_prev; B, T, H, dtype, stream
+    "blvm_lstm_recurrence": [_P] * 12 + [_I] * 4 + [_P],
+    # w_hh, mask, gates, c_prev, d_out, d_h_n, d_c_n, d_gates, d_h0, d_c0; B, T, H, dtype, stream
+    "blvm_lstm_recurrence_bwd": [_P] * 10 + [_I] * 4 + [_P],
 }
 
 

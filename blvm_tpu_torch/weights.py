@@ -8,6 +8,7 @@ transposing. A tree is a nested dict of arrays, or a flat dict keyed
 ``"a/b/c"`` as ``tests/parity/goldens/*.npz`` stores it.
 """
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -74,18 +75,30 @@ def export_jax_params(model: nn.Module) -> dict:
     return unflatten({name: p.detach().to("cpu", torch.float32).numpy() for name, p in _flax_params(model).items()})
 
 
+# a recurrent core's parameter names: w_ih, b_ih, w_hh, b_hh, each with an optional _{layer}
+_RECURRENT = re.compile(r"[wb]_(?:ih|hh)(_\d+)?")
+
+
 def random_jax_params(model: nn.Module, seed: int) -> Dict[str, np.ndarray]:
     """Flax-layout parameters for ``model`` drawn with numpy from ``seed``:
     U(-1/sqrt(fan_in), 1/sqrt(fan_in)), the torch-calibrated init both packages
     use. A kernel's fan-in is the product of all but its output dim; a bias
-    takes its kernel's (``bias`` -> ``kernel``, ``gate_bias_t`` -> ``gate_kernel_t``)."""
+    takes its kernel's (``bias`` -> ``kernel``, ``gate_bias_t`` -> ``gate_kernel_t``).
+    A recurrent core's parameters (``w_ih``, ``b_ih``, ``w_hh``, ``b_hh``, with or
+    without a ``_{layer}`` suffix) all take U(-1/sqrt(H), 1/sqrt(H)), H the rows of
+    the sibling ``w_hh`` (``blvm_tpu/modules/recurrent.py:32-38``)."""
     rng = np.random.default_rng(seed)
     shapes = param_shapes(model)
     out = {}
     for name, shape in shapes.items():
         *parents, leaf = name.split("/")
-        kernel = "/".join([*parents, leaf.replace("bias", "kernel")])
-        fan_in = int(np.prod(shapes[kernel][:-1]))
+        recurrent = _RECURRENT.fullmatch(leaf)
+        if recurrent:
+            fan_in = shapes["/".join([*parents, f"w_hh{recurrent.group(1) or ''}"])][0]
+        else:
+            kernel = "/".join([*parents, leaf.replace("bias", "kernel")])
+            fan_in = int(np.prod(shapes[kernel][:-1]))
         bound = 1.0 / np.sqrt(fan_in)
         out[name] = rng.uniform(-bound, bound, shape).astype(np.float32)
     return out
+

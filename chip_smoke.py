@@ -1,11 +1,13 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Drives the port's three paths, the WaveNet test pass (bits/frame), the WaveNet
-train step and WaveNet generation (2 x 16000 frames, Fast-WaveNet), at the
-flagship width of ``experiments/benchmarks.txt`` (5 x 10 residual blocks, C =
-96, DMoL with 10 mixtures over 2^16 bins, bf16 residual stack) with random
-weights made by numpy from a seed, and checks the six hand-written kernels they
-run against their plain PyTorch twins:
+Drives the port's paths with random weights made by numpy from a seed: the
+WaveNet test pass (bits/frame), the WaveNet train step and WaveNet generation
+(2 x 16000 frames, Fast-WaveNet) at the flagship width of
+``experiments/benchmarks.txt`` (5 x 10 residual blocks, C = 96, DMoL with 10
+mixtures over 2^16 bins, bf16 residual stack), and LSTMAudio's test pass, train
+step and generation at the width of its s=64 run spec (H = 256, one layer, 64
+frames a stack, the same DMoL head, f32), and checks the eight hand-written
+kernels they run against their plain PyTorch twins:
 
   1. device: the card's name and power limit (nvidia-smi)
   2. numerics: TF32 and reduced-precision bf16 GEMM reductions off
@@ -43,11 +45,29 @@ run against their plain PyTorch twins:
      path per frame; a torch.profiler breakdown of a generation
  18. the driver's generation hook writes two 16000-sample wav files under
      blvm_tpu_torch/_build/generation_hook/ (gitignored)
+ 19. K5 lstm_recurrence vs its twin, f32 and bf16: H=256, B=10 utterances of
+     300-1125 stacks; H=32; a given (h0, c0). f32 free-running, bf16 teacher-forced
+ 20. K5-bwd vs autograd of the twin at the same cases (dxw, dW_hh, db_hh, dh0, dc0)
+ 21. the LSTM test pass: flags of benchmarks.txt:10 -> driver -> model -> weights
+     bridge, 6 mu-law utterances of 24k-72k samples, whole and --split_eval
+     (chunks of 16 stacks, s_n carried); 1 K5, 1 K2, 1 K3 a forward; bits/frame
+     against the twins
+ 22. the LSTM train slice: 3 Adam steps through the driver's train on 10
+     utterances a step; 1 K5, 1 K5-bwd, 1 K2, 1 K2-bwd, 1 K3 a step, none on the
+     plain path; losses and step-0 gradients against the twins
+ 23. generation through the LSTM driver's hook: 2 x 250 stacks (2 x 16000 frames),
+     250 K5 and 250 K3 launches, two wav files under
+     blvm_tpu_torch/_build/lstm_generation_hook/; the rollout at the mode against
+     the forward's DMoL mode with the generated prefix fed back
+ 24. timing: K5 and K5-bwd against their twins and torch.nn.LSTM (cuDNN, the
+     yardstick; the port never calls it), K5 at the s=1 shape (T' = 16000), the
+     train step, the test pass and a generation, a torch.profiler breakdown
 
 Every phase prints one line (the profiles a few); any failure raises and exits
-non-zero before the last line (phases 14-18 print all their numbers first). The
-second-to-last line is the kernels' JSON record, the last line
-``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
+non-zero before the last line (phases 14-24 print all their numbers first). A
+``[total]`` line gives the run's seconds; the second-to-last line is the
+kernels' JSON record, the last line ``{"ok": true, "device": {...}}``. Exits
+non-zero without CUDA.
 """
 
 import contextlib
@@ -75,6 +95,12 @@ GEN_B, N_GEN, N_K4, N_NAIVE, N_NAIVE_TIME = 2, 16000, 256, 16, 8
 # larger of its compulsory bytes over HBM bandwidth and its operations over the peak of their type
 HBM_BYTES_PER_S, BF16_PEAK, F32_PEAK = 3.35e12, 989e12, 67e12
 DMOL_OPS_PER_COMPONENT = 40  # f32 ops of one component of the ladder (a transcendental counted as one)
+# LSTMAudio: the s=64 run spec of experiments/benchmarks.txt:10 (the driver's defaults fill in --num_bits 16,
+# --num_mix 10, f32); K5 at 10 utterances of up to 1125 stacks (72k samples)
+LSTM_FLAGS = (
+    "--likelihood DMoL --input_coding mu_law --batch_len 32 --hidden_size 256 --num_layers 1 --stack_size 64 --seed 0"
+)
+LSTM_B, LSTM_T = 10, 1125
 
 
 def phase(tag, /, **values):
@@ -160,11 +186,12 @@ def main():
     from blvm_tpu_torch.data.transforms import RandomSegment
     from blvm_tpu_torch.models.wavenet import modules
     from blvm_tpu_torch.modules import distributions
-    from blvm_tpu_torch.ops import cuda, likelihoods, variational
+    from blvm_tpu_torch.ops import cuda, likelihoods, recurrent, variational
     from blvm_tpu_torch.training.train_state import TrainState
     from blvm_tpu_torch.training.train_step import make_train_step
 
     dev = torch.device("cuda", 0)
+    t_start = time.time()
 
     # 1. device
     smi = subprocess.run(
@@ -207,6 +234,11 @@ def main():
     for entry in record.values():
         # no single PyTorch call computes a residual-GLU block, the DMoL ladder, its sampler or a decode step
         entry["library_ms"] = None
+    # K5's yardstick, torch.nn.LSTM (cuDNN), is timed in phase 24
+    record["lstm_recurrence"] = dict(name="lstm_recurrence", route="cuda", source="blvm_tpu_torch/csrc/lstm.cu",
+                                     replaces="blvm_tpu/modules/recurrent.py:92")
+    record["lstm_recurrence_bwd"] = dict(name="lstm_recurrence_bwd", route="cuda", source="blvm_tpu_torch/csrc/lstm.cu",
+                                         replaces="blvm_tpu/modules/recurrent.py:92")
 
     # 4. K1 against its twin at the flagship shapes
     args = wavenet_audio.build_args(FLAGSHIP_FLAGS.split())
@@ -306,7 +338,7 @@ def main():
         with torch.inference_mode():
             return m(xb[0], xb[1], generator=torch.Generator(device=dev).manual_seed(SEED))
 
-    plain = plain_path(modules, likelihoods, distributions, variational)
+    plain = plain_path(modules, likelihoods, distributions, variational, recurrent)
     x_np, x_sl_np = batch(0)
     xb = (torch.from_numpy(x_np).to(dev), torch.from_numpy(x_sl_np).to(dev))
     # bf16: one-ulp differences (2^-8) after every block move the head's parameters by
@@ -499,7 +531,8 @@ def main():
 
     steps_k, counts, seconds = run_train()
     expected = dict(residual_glu=150, residual_glu_bwd=150, dmol_log_prob=3, dmol_log_prob_bwd=3, dmol_sample=3)
-    require(counts == {**expected, "wavenet_decode": 0}, f"train-step launches {counts}, expected {expected} (50/50/1/1/1 a step)")
+    require(counts == {**dict.fromkeys(counts, 0), **expected},
+            f"train-step launches {counts}, expected {expected} (50/50/1/1/1 a step)")
     for name in expected:
         record[name]["launches"] = counts[name]
     steps_p, counts_p, _ = run_train(plain_path_=True)
@@ -661,6 +694,10 @@ def main():
         print(f"  host {e.self_cpu_time_total / 1e3 / 3:9.3f} ms/step {e.count // 3:5d} calls/step  {e.key[:80]}", flush=True)
 
     generation_phases(record, smi, args, models, dev)
+    del models, model, tmodel, state
+    torch.cuda.empty_cache()
+    lstm_phases(record, smi, dev)
+    phase("total", seconds=f"{time.time() - t_start:.1f}")
 
     print(json.dumps({"kernels": list(record.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -806,7 +843,7 @@ def generation_phases(record, smi, args, models, dev):
         plain_b = plain_loop_ms(m, N_K4)
         expected = dict(residual_glu=50, residual_glu_bwd=0, dmol_log_prob=0, dmol_log_prob_bwd=0, dmol_sample=1,
                         wavenet_decode=N_GEN - 1)
-        expect(counts == expected, f"generation launches {counts}, expected {expected}")
+        expect(counts == {**dict.fromkeys(counts, 0), **expected}, f"generation launches {counts}, expected {expected}")
         expect(bool(torch.isfinite(x).all()) and x.shape == (GEN_B, N_GEN) and x.abs().max().item() <= 1,
                "generation: shape, finite, [-1, 1]")
         _, naive_s, _ = generate_timed(m, N_NAIVE_TIME, fast=False)
@@ -871,14 +908,488 @@ def generation_phases(record, smi, args, models, dev):
     require(not failures, f"generation phases failed: {failures}")
 
 
+def lstm_phases(record, smi, dev):
+    """Phases 19-24, the LSTMAudio paths at the width of ``experiments/benchmarks.txt:10``:
+    K5 and K5-bwd against their twins, the test pass (whole and with carried state), the
+    train step, generation through the driver's hook, and their times. Each check is printed
+    before any raises, so one run shows every number."""
+    import numpy as np
+
+    from blvm_tpu_torch import weights
+    from blvm_tpu_torch.evaluation.tracker import Tracker
+    from blvm_tpu_torch.experiments import common, lstm_audio
+    from blvm_tpu_torch.models.wavenet import modules
+    from blvm_tpu_torch.modules import distributions
+    from blvm_tpu_torch.ops import cuda, likelihoods, recurrent, variational
+    from blvm_tpu_torch.ops.sequence import split_sequence
+    from blvm_tpu_torch.training.train_state import TrainState
+    from blvm_tpu_torch.training.train_step import make_train_step
+
+    failures = []
+
+    def expect(cond, message):
+        if not cond:
+            failures.append(message)
+            print(f"  FAIL: {message}", flush=True)
+
+    card = smi.replace(" ", "_")
+    plain = plain_path(modules, likelihoods, distributions, variational, recurrent)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    dtype_name = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+    def k5_inputs(B_, T_, H, lengths=None, state=False):
+        """xw at the scale of the benchmark's (a Dense of ReLU features plus a bias), W_hh and
+        b_hh from the init's U(-1/sqrt(H), 1/sqrt(H)), the mask of ``lengths``, f32."""
+        bound = 1 / math.sqrt(H)
+        xw = torch.randn(B_, T_, 4 * H, generator=gen, device=dev) * 0.7
+        w_hh = (torch.rand(H, 4 * H, generator=gen, device=dev) * 2 - 1) * bound
+        b_hh = (torch.rand(4 * H, generator=gen, device=dev) * 2 - 1) * bound
+        lengths = torch.full((B_,), T_, device=dev) if lengths is None else lengths
+        mask = (torch.arange(T_, device=dev)[None] < lengths[:, None]).float()
+        h0, c0 = ((torch.randn(B_, H, generator=gen, device=dev) * 0.5 if state else torch.zeros(B_, H, device=dev))
+                  for _ in range(2))
+        return [xw, w_hh, b_hh, mask, h0, c0]
+
+    def cast(a, dtype):
+        return [t if i == 3 else t.to(dtype) for i, t in enumerate(a)]
+
+    # 19. K5 against its twin: the s=64 benchmark shape (B=10 utterances of 300-1125 stacks),
+    # a small H, a given (h0, c0)
+    k5_cases = {
+        "H256_B10_ragged": k5_inputs(LSTM_B, LSTM_T, 256, torch.randint(LSTM_T * 4 // 15, LSTM_T + 1, (LSTM_B,), generator=gen,
+                                                                        device=dev)),
+        "H32_B3": k5_inputs(3, 64, 32),
+        "H256_B4_given_state": k5_inputs(4, 200, 256, state=True),
+    }
+
+    def twin_step(a, saved, dtype):
+        """One twin step in ``dtype`` from the kernel's carried state at every t: the activated
+        gates, the output, the next carried (h, c)."""
+        xw, w_hh, b_hh, mask, h0, c0 = (t.to(dtype) for t in a)
+        h_prev, c_prev = (t.to(dtype) for t in saved[4:])
+        i, f, g, o = (xw + h_prev @ w_hh + b_hh).chunk(4, dim=-1)
+        act = torch.cat([torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)], dim=-1)
+        c_new = torch.sigmoid(f) * c_prev + torch.sigmoid(i) * torch.tanh(g)
+        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        m = mask[..., None].to(dtype)
+        return act, h_new * m, m * h_new + (1 - m) * h_prev, m * c_new + (1 - m) * c_prev
+
+    def teacher_forced(a, saved, atol, rtol, dtype=None):
+        """The kernel's activated gates, output and next carried state against one twin step
+        (in the kernel's dtype) from the kernel's carried state at every t: ``(max abs err,
+        worst excess over atol + rtol |twin|)``. With ``dtype=torch.float32`` the values in
+        place of the kernel's are that step computed in f32 and rounded once, at the end, to
+        the kernel's dtype: what a kernel that kept f32 inside a step would give."""
+        out, h_n, c_n, gates, h_prev, c_prev = saved
+        kdtype = a[0].dtype
+        act, out_t, h_next, c_next = twin_step(a, saved, kdtype)
+        if dtype is not None:
+            gates, out, h_next_k, c_next_k = (t.to(kdtype) for t in twin_step(a, saved, dtype))
+            h_n, c_n = h_next_k[:, -1], c_next_k[:, -1]
+            h_prev, c_prev = torch.cat([h_prev[:, :1], h_next_k[:, :-1]], 1), torch.cat([c_prev[:, :1], c_next_k[:, :-1]], 1)
+        pairs = [(gates, act), (out, out_t), (h_prev[:, 1:], h_next[:, :-1]), (c_prev[:, 1:], c_next[:, :-1]),
+                 (h_n, h_next[:, -1]), (c_n, c_next[:, -1])]
+        errs = [(k_.float() - t_.float()).abs() for k_, t_ in pairs]
+        return (max(e_.max().item() for e_ in errs),
+                max((e_ - atol - rtol * t_.float().abs()).max().item() for e_, (_, t_) in zip(errs, pairs)))
+
+    # f32 (TF32 off): the kernel and the twin differ only in the products' summation order:
+    # 1e-5 absolute on O(1) values, free-running over every step. bf16: both round where JAX
+    # rounds, so one step from the same state differs only where the dots' order flips a
+    # rounding: held teacher-forced (one twin step from the kernel's state) to about two bf16
+    # ulps (2^-9 absolute plus 2^-7 relative), and reported free-running. The same step in f32,
+    # rounded once at the end, is reported against that tolerance too: it shows whether the
+    # check tells a kernel that rounds where XLA rounds from one that does not.
+    k5_tol = {torch.float32: (1e-5, 0.0), torch.bfloat16: (2.0**-9, 2.0**-7)}
+    k5_err, k5_bf16 = 0.0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, a32 in k5_cases.items():
+            a = cast(a32, dtype)
+            with torch.no_grad():
+                cuda.reset_launch_counts()
+                got = recurrent.lstm_recurrence(*a)
+                saved = recurrent._forward(*a, save=True)
+                torch.cuda.synchronize()
+                launches = cuda.launch_counts()["lstm_recurrence"]
+                ref = recurrent.lstm_recurrence_plain(*a)
+            free = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, ref))
+            atol, rtol = k5_tol[dtype]
+            with torch.no_grad():
+                tf_err, tf_excess = teacher_forced(a, saved, atol, rtol)
+            same = all(torch.equal(x, y) for x, y in zip(got, saved[:3]))
+            expect(launches == 2 and all(bool(torch.isfinite(t).all()) for t in got), f"K5 {name}: launches/finite")
+            expect(same, f"K5 {dtype_name[dtype]} {name}: the saving launch differs from the plain launch")
+            expect(tf_excess <= 0, f"K5 {dtype_name[dtype]} {name}: teacher-forced err {tf_err} over tolerance")
+            extra = {}
+            if dtype == torch.float32:
+                expect(free <= atol, f"K5 f32 {name}: free-running err {free} over {atol}")
+                if name == "H256_B10_ragged":  # the main path's shape
+                    k5_err = free
+            else:
+                with torch.no_grad():
+                    once_err, once_excess = teacher_forced(a, saved, atol, rtol, dtype=torch.float32)
+                k5_bf16[name] = tf_err
+                extra = dict(f32_rounded_once_max_abs_err=f"{once_err:.3g}", f32_rounded_once_within=once_excess <= 0)
+            phase("K5", dtype=dtype_name[dtype], case=name, shape=tuple(a[0].shape), free_max_abs_err=f"{free:.3g}",
+                  teacher_forced_max_abs_err=f"{tf_err:.3g}", launches=launches, **extra)
+    phase("K5-bf16", teacher_forced_max_abs_err={k: f"{v:.3g}" for k, v in k5_bf16.items()},
+          tolerance="2^-9 + 2^-7 |twin|", note="the kernels line's max_abs_err is f32 free-running at the main path's shape")
+    record["lstm_recurrence"]["max_abs_err"] = k5_err
+
+    # 20. K5-bwd against autograd of the twin: the gradient of sum(out w) + 0.3 sum(h_n) - 0.7 sum(c_n)
+    # by xw, W_hh, b_hh, h0, c0 as relative norms. f32: the sums' order over T steps (1e-5). bf16:
+    # the kernel computes the backward in f32 from the bf16 forward, the twin rounds every op;
+    # both held to autograd of the f32 twin: the kernel no further than twice the bf16 twin plus 1e-3.
+    grad_names = ("dxw", "dW_hh", "db_hh", "dh0", "dc0")
+
+    def k5_grads(fn, a, w_out):
+        leaves = [t if i == 3 else t.detach().requires_grad_(True) for i, t in enumerate(a)]
+        out, h_n, c_n = fn(*leaves)
+        ((out.float() * w_out).sum() + 0.3 * h_n.float().sum() - 0.7 * c_n.float().sum()).backward()
+        return [leaves[i].grad for i in (0, 1, 2, 4, 5)]
+
+    k5b_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, a32 in k5_cases.items():
+            a = cast(a32, dtype)
+            w_out = torch.randn(a[0].shape[:2] + (a[1].shape[0],), generator=gen, device=dev)
+            cuda.reset_launch_counts()
+            got = k5_grads(recurrent.lstm_recurrence, a, w_out)
+            torch.cuda.synchronize()
+            counts = cuda.launch_counts()
+            ref = k5_grads(recurrent.lstm_recurrence_plain, a, w_out)
+            rels = {n: rel_norm(x, y) for n, x, y in zip(grad_names, got, ref)}
+            expect(counts["lstm_recurrence"] == 1 and counts["lstm_recurrence_bwd"] == 1, f"K5-bwd launches {counts}")
+            expect(all(bool(torch.isfinite(g_).all()) for g_ in got), f"K5-bwd {name}: not finite")
+            if dtype == torch.float32:
+                expect(max(rels.values()) <= 1e-5, f"K5-bwd f32 {name}: {rels}")
+                k5b_err = max(k5b_err, max((x - y).abs().max().item() for x, y in zip(got, ref)))
+                phase("K5-bwd", dtype="f32", case=name, max_rel_vs_twin=f"{max(rels.values()):.3g}",
+                      **{n: f"{v:.3g}" for n, v in rels.items()})
+            else:
+                f32 = k5_grads(recurrent.lstm_recurrence_plain, [t.float() for t in a], w_out)
+                e_k = {n: rel_norm(x, y) for n, x, y in zip(grad_names, got, f32)}
+                e_p = {n: rel_norm(x, y) for n, x, y in zip(grad_names, ref, f32)}
+                expect(all(e_k[n] <= 2 * e_p[n] + 1e-3 for n in grad_names), f"K5-bwd bf16 {name}: {e_k} vs twin {e_p}")
+                phase("K5-bwd", dtype="bf16", case=name, kernel_max_rel_vs_f32=f"{max(e_k.values()):.3g}",
+                      twin_max_rel_vs_f32=f"{max(e_p.values()):.3g}", kernel_vs_twin=f"{max(rels.values()):.3g}")
+    record["lstm_recurrence_bwd"]["max_abs_err"] = k5b_err
+
+    # 21. the test pass: flags of benchmarks.txt:10 -> driver -> model on the card -> weights bridge,
+    # over 6 synthetic mu-law utterances, whole and with --split_eval (chunks of 16 stacks, s_n carried)
+    args = lstm_audio.build_args(LSTM_FLAGS.split())
+    model = lstm_audio.build_model(args)
+    require(next(model.parameters()).device.type == "cuda", "lstm_audio.build_model did not build on the card")
+    params = weights.random_jax_params(model, args.seed)
+    weights.load_jax_params(model, params)
+    rng = np.random.default_rng(args.seed + 19)
+    lengths = rng.integers(24000, 72001, 6)
+    x_np, x_sl_np = common.make_batch([synthetic_speech(int(n), rng) for n in lengths], args)
+    n_chunks = len(split_sequence(x_np, x_sl_np, length=16 * args.stack_size, overlap=0)[0])
+
+    def test_pass(split, plain_path_=False):
+        with plain() if plain_path_ else contextlib.nullcontext():
+            cuda.reset_launch_counts()
+            t0 = time.time()
+            values = lstm_audio.evaluate(model, argparse_copy(args, split_eval=split), [(x_np, x_sl_np)], Tracker(),
+                                         generator=torch.Generator(device=dev).manual_seed(SEED))
+            torch.cuda.synchronize()
+            return values, cuda.launch_counts(), time.time() - t0
+
+    for split in (False, True):
+        values, counts, seconds = test_pass(split)
+        values_p, counts_p, _ = test_pass(split, plain_path_=True)
+        forwards = n_chunks if split else 1
+        expected = dict(lstm_recurrence=forwards * args.num_layers, dmol_log_prob=forwards, dmol_sample=forwards)
+        expect(counts == {**dict.fromkeys(counts, 0), **expected},
+               f"test pass split={split}: launches {counts}, expected {expected}")
+        expect(not any(counts_p.values()), f"the plain test pass launched kernels: {counts_p}")
+        bpd_rel = abs(values["bpd"] - values_p["bpd"]) / abs(values_p["bpd"])
+        finite = all(math.isfinite(values[k]) for k in ("loss", "ll", "bpd"))
+        # f32 throughout: only the summation orders of K5, K2 and the products differ
+        expect(finite and bpd_rel <= 1e-5, f"test pass split={split}: {values} vs twins {values_p}")
+        phase("lstm-test-pass", split_eval=split, utterances=list(map(int, lengths)), forwards=forwards,
+              loss=f"{values['loss']:.6f}", bpd=f"{values['bpd']:.6f}", bpd_plain=f"{values_p['bpd']:.6f}",
+              bpd_rel=f"{bpd_rel:.3g}", launches_per_forward={k: v // forwards for k, v in counts.items() if v},
+              seconds=f"{seconds:.2f}")
+
+    # 22. the train slice: 3 Adam steps through the driver's train, each on ~10 utterances
+    # (~512k samples, the --batch_len 32 budget), f32 as the benchmark runs it
+    targs = argparse_copy(args, epochs=1, lr=3e-4)
+    rng = np.random.default_rng(args.seed + 22)
+    utterances = [(i, synthetic_speech(int(n), rng)) for i, n in enumerate(rng.integers(40000, 64001, 3 * LSTM_B))]
+    train_batches = [utterances[i * LSTM_B : (i + 1) * LSTM_B] for i in range(3)]
+
+    def run_train(plain_path_=False):
+        weights.load_jax_params(model, params)
+        log = StepLog(Tracker())
+        with plain() if plain_path_ else contextlib.nullcontext():
+            cuda.reset_launch_counts()
+            t0 = time.time()
+            common.train(model, targs, train_batches, log)
+            torch.cuda.synchronize()
+            return log.steps, cuda.launch_counts(), time.time() - t0
+
+    steps_k, counts, seconds = run_train()
+    steps_p, counts_p, seconds_p = run_train(plain_path_=True)
+    expected = dict(lstm_recurrence=3, lstm_recurrence_bwd=3, dmol_log_prob=3, dmol_log_prob_bwd=3, dmol_sample=3)
+    expect(counts == {**dict.fromkeys(counts, 0), **expected},
+           f"LSTM train-step launches {counts}, expected {expected} (1/1/1/1/1 a step)")
+    expect(not any(counts_p.values()), f"the plain train path launched kernels: {counts_p}")
+    for name in ("lstm_recurrence", "lstm_recurrence_bwd"):
+        record[name]["launches"] = counts[name]
+    losses, losses_p = [st["loss"] for st in steps_k], [st["loss"] for st in steps_p]
+    loss_rel = max(abs(a_ - b_) / abs(b_) for a_, b_ in zip(losses, losses_p))
+    expect(all(math.isfinite(v) for st in steps_k for v in st.values()), f"LSTM train metrics not finite: {steps_k}")
+    expect(loss_rel <= 1e-5, f"LSTM train losses {losses} vs plain {losses_p}")
+    phase("lstm-train-slice", steps=3, utterances_per_step=LSTM_B,
+          samples_per_step=[sum(len(w) for _, w in b_) for b_ in train_batches], losses=[f"{v:.6f}" for v in losses],
+          losses_plain=[f"{v:.6f}" for v in losses_p], loss_rel=f"{loss_rel:.3g}",
+          launches_per_step={k: v // 3 for k, v in counts.items() if v}, seconds=f"{seconds:.2f}",
+          seconds_plain=f"{seconds_p:.2f}")
+
+    x0, sl0 = common.make_batch([w for _, w in train_batches[0]], targs)
+    x0, sl0 = torch.from_numpy(x0).to(dev), torch.from_numpy(sl0).to(dev)
+
+    def step0(plain_path_=False):
+        weights.load_jax_params(model, params)
+        model.zero_grad(set_to_none=True)
+        model.train()
+        with plain() if plain_path_ else contextlib.nullcontext():
+            loss, _, _ = model(x0, sl0, generator=torch.Generator(device=dev).manual_seed(SEED))
+            loss.backward()
+        return {n: p.grad.detach().clone() for n, p in model.named_parameters()}, loss.item()
+
+    g_k, loss_k = step0()
+    g_p, loss_p = step0(plain_path_=True)
+    e = {n: rel_norm(g_k[n], g_p[n]) for n in g_p}
+    # f32: the same math with the sums in another order, through ~1000 steps of BPTT
+    expect(all(torch.isfinite(g_).all() for g_ in g_k.values()) and max(e.values()) <= 1e-4,
+           f"LSTM step-0 gradients vs twins: {e}")
+    phase("lstm-train-grads", loss=f"{loss_k:.6f}", loss_plain=f"{loss_p:.6f}", max_rel=f"{max(e.values()):.3g}",
+          worst=max(e, key=e.get), parameters=len(e))
+    del g_k, g_p
+
+    # 23. generation through the driver's hook: 2 x 16000 frames = 2 x 250 stacks, one K5 (T=1)
+    # and one K3 launch a stack; then the rollout at the mode against the forward's DMoL mode
+    # with the generated prefix fed back (the oracle of tests/models/test_lstm_audio.py:179)
+    model.eval()
+    out_dir = Path(__file__).resolve().parent / "blvm_tpu_torch" / "_build" / "lstm_generation_hook"
+    hook = lstm_audio.make_generation_hook(model, argparse_copy(args, generate_every=5))
+    cuda.reset_launch_counts()
+    t0 = time.time()
+    paths = hook(5, out_dir)
+    torch.cuda.synchronize()
+    hook_s = time.time() - t0
+    counts = cuda.launch_counts()
+    n_stacks = args.generate_frames // args.stack_size
+    expected = dict(lstm_recurrence=n_stacks * args.num_layers, dmol_sample=n_stacks)
+    expect(counts == {**dict.fromkeys(counts, 0), **expected},
+           f"generation launches {counts}, expected {expected}")
+    shapes = []
+    for path in paths:
+        with wave.open(str(path)) as f:
+            shapes.append((f.getnchannels(), f.getsampwidth(), f.getframerate(), f.getnframes()))
+            pcm = np.frombuffer(f.readframes(f.getnframes()), "<i2")
+        expect(shapes[-1] == (1, 2, 16000, 16000) and np.abs(pcm).max() > 0, f"LSTM hook wav {path}: {shapes[-1]}")
+    expect(len(paths) == 2, f"LSTM hook wrote {paths}")
+    phase("lstm-generation-hook", stacks=n_stacks, launches=counts, seconds=f"{hook_s:.2f}",
+          files=[str(p.relative_to(out_dir.parents[2])) for p in paths], wav=shapes)
+
+    S = args.stack_size
+    (mode_gen, _), _ = model.generate(n_samples=GEN_B, max_timesteps=n_stacks, use_mode=True)
+    seq = torch.cat([torch.zeros(GEN_B, S, device=dev), mode_gen, torch.zeros(GEN_B, S, device=dev)], dim=1)
+    with torch.no_grad():
+        _, _, out = model(seq, torch.full((GEN_B,), seq.shape[1], dtype=torch.int32, device=dev))
+    err = (out.reconstruction_mode[:, : n_stacks * S, 0] - mode_gen).abs()
+    share = (err <= 1e-5).double().mean().item()
+    # f32: K5 with T=1 a stack against K5 over the whole sequence (the same sums); a frame whose
+    # argmax sits within f32 rounding of a tie may pick another component: at most 1e-3 of them
+    expect(bool(torch.isfinite(mode_gen).all()) and share >= 1 - 1e-3, f"LSTM mode rollout: share {share}")
+    phase("lstm-generate-mode-oracle", frames=GEN_B * n_stacks * S, share_within_1e5=f"{share:.6f}",
+          max_abs_err=f"{err.max().item():.3g}", frames_outside=int((err > 1e-5).sum().item()))
+
+    # 24. times: K5 and K5-bwd against their twins and the yardstick torch.nn.LSTM (cuDNN, on
+    # pack_padded_sequence, the same weights in PyTorch's layout; the port never calls it)
+    H = args.hidden_size
+    lengths_k5 = torch.randint(LSTM_T * 4 // 15, LSTM_T + 1, (LSTM_B,), generator=gen, device=dev)
+    layer_inputs = [torch.relu(torch.randn(LSTM_B, LSTM_T, H, generator=gen, device=dev)) for _ in range(3)]
+    lstm_mod = model.lstm
+    w_ih, b_ih, w_hh, b_hh = (getattr(lstm_mod, f"{n}_0").detach() for n in ("w_ih", "b_ih", "w_hh", "b_hh"))
+    mask = (torch.arange(LSTM_T, device=dev)[None] < lengths_k5[:, None]).float()
+    zeros = torch.zeros(LSTM_B, H, device=dev)
+    xws = [e_ @ w_ih + b_ih for e_ in layer_inputs]
+    cudnn = torch.nn.LSTM(H, H, batch_first=True).to(dev)
+    with torch.no_grad():
+        cudnn.weight_ih_l0.copy_(w_ih.T)
+        cudnn.weight_hh_l0.copy_(w_hh.T)
+        cudnn.bias_ih_l0.copy_(b_ih)
+        cudnn.bias_hh_l0.copy_(b_hh)
+    packed = [torch.nn.utils.rnn.pack_padded_sequence(e_, lengths_k5.cpu(), batch_first=True, enforce_sorted=False)
+              for e_ in layer_inputs]
+    with torch.no_grad():
+        ref_out, _ = torch.nn.utils.rnn.pad_packed_sequence(cudnn(packed[0])[0], batch_first=True,
+                                                            total_length=LSTM_T)
+        ours = recurrent.lstm_recurrence(xws[0], w_hh, b_hh, mask, zeros, zeros)[0]
+    cudnn_err = (ref_out - ours).abs().max().item()
+    expect(cudnn_err <= 1e-4, f"the yardstick torch.nn.LSTM computes another function: max err {cudnn_err}")
+
+    def k5_fwd(xw):
+        with torch.no_grad():
+            recurrent.lstm_recurrence(xw, w_hh, b_hh, mask, zeros, zeros)
+
+    def k5_plain(xw):
+        with torch.no_grad():
+            recurrent.lstm_recurrence_plain(xw, w_hh, b_hh, mask, zeros, zeros)
+
+    def library(pk):
+        with torch.no_grad():
+            cudnn(pk)
+
+    k5 = alternate(k5_plain, k5_fwd, xws)
+    k5_lib = alternate(lambda p_: library(p_[0]), lambda p_: k5_fwd(p_[1]), list(zip(packed, xws)))
+    layer_ms = sorted(cuda_time_ms(lambda e_: k5_fwd(e_ @ w_ih + b_ih), layer_inputs))[1]
+    steps = int(lengths_k5.sum().item())
+    G = 4 * H
+    record["lstm_recurrence"].update(ms=k5["kernel"], plain_ms=k5["plain"], library_ms=k5_lib["plain"], **roofline(
+        bytes_=4 * (LSTM_B * LSTM_T * (G + 1 + H) + H * G + G + 4 * LSTM_B * H), flops=2 * steps * H * G,
+        peak=F32_PEAK))
+    phase("time-K5", card=card, shape=f"({LSTM_B},{LSTM_T},{G})", H=H, dtype="f32", stacks=steps,
+          kernel_ms=f"{k5['kernel']:.4f}", kernel_ms_turn2=f"{k5_lib['kernel']:.4f}", plain_ms=f"{k5['plain']:.4f}",
+          cudnn_lstm_ms=f"{k5_lib['plain']:.4f}", layer_ms=f"{layer_ms:.4f}",
+          us_per_step=f"{k5['kernel'] * 1e3 / LSTM_T:.3f}", cudnn_max_abs_err=f"{cudnn_err:.3g}")
+
+    # the s=1 shape (benchmarks.txt:9): T' = 16000 steps, the chain's latency per step
+    xw_s1 = [torch.randn(LSTM_B, 16000, G, generator=gen, device=dev) * 0.7]
+    mask_s1 = torch.ones(LSTM_B, 16000, device=dev)
+    pk_s1 = [torch.nn.utils.rnn.pack_padded_sequence(torch.relu(torch.randn(LSTM_B, 16000, H, generator=gen,
+                                                                            device=dev)),
+                                                     torch.full((LSTM_B,), 16000), batch_first=True)]
+    s1 = sorted(cuda_time_ms(lambda xw: recurrent.lstm_recurrence(xw, w_hh, b_hh, mask_s1, zeros, zeros), xw_s1 * 3))
+    s1_lib = sorted(cuda_time_ms(library, pk_s1 * 3))
+    phase("time-K5-s1", card=card, shape=f"({LSTM_B},16000,{G})", kernel_ms=f"{s1[1]:.3f}",
+          us_per_step=f"{s1[1] * 1e3 / 16000:.3f}", cudnn_lstm_ms=f"{s1_lib[1]:.3f}",
+          cudnn_us_per_step=f"{s1_lib[1] * 1e3 / 16000:.3f}")
+    del xw_s1, pk_s1
+
+    def bwd_graph(fn, xw, wh, bh):
+        leaves = [xw.detach().requires_grad_(True), wh.detach().requires_grad_(True), bh.detach().requires_grad_(True)]
+        out_, h_n, c_n = fn(leaves[0], leaves[1], leaves[2], mask, zeros, zeros)
+        return (out_, h_n, c_n), leaves, (torch.randn_like(out_), torch.zeros_like(h_n), torch.zeros_like(c_n))
+
+    def lib_graph(e_):
+        leaves = [e_.detach().requires_grad_(True)] + list(cudnn.parameters())
+        pk = torch.nn.utils.rnn.pack_padded_sequence(leaves[0], lengths_k5.cpu(), batch_first=True,
+                                                     enforce_sorted=False)
+        out_ = cudnn(pk)[0].data
+        return (out_,), leaves, (torch.randn_like(out_),)
+
+    def backward_only(graph):
+        outputs, inputs, grad_outputs = graph
+        return torch.autograd.grad(outputs, inputs, grad_outputs, retain_graph=True)
+
+    graphs = [(bwd_graph(recurrent.lstm_recurrence_plain, xw, w_hh, b_hh), bwd_graph(recurrent.lstm_recurrence, xw,
+                                                                                    w_hh, b_hh)) for xw in xws]
+    k5b = alternate(lambda g_: backward_only(g_[0]), lambda g_: backward_only(g_[1]), graphs)
+    lib_graphs = [(lib_graph(e_), g_[1]) for e_, g_ in zip(layer_inputs, graphs)]
+    k5b_lib = alternate(lambda g_: backward_only(g_[0]), lambda g_: backward_only(g_[1]), lib_graphs)
+
+    def layer_graph(e_):
+        """Our layer as cuDNN's autograd sees it: the input projection and K5, differentiated by
+        the input and all four parameters."""
+        leaves = [t.detach().requires_grad_(True) for t in (e_, w_ih, b_ih, w_hh, b_hh)]
+        out_ = recurrent.lstm_recurrence(leaves[0] @ leaves[1] + leaves[2], leaves[3], leaves[4], mask, zeros, zeros)[0]
+        return (out_,), leaves, (torch.randn_like(out_),)
+
+    layer_graphs = [layer_graph(e_) for e_ in layer_inputs]
+    layer_bwd_ms = sorted(cuda_time_ms(backward_only, layer_graphs))[1]
+    # operations at the data's steps: the chain (dgates @ W_hh^T) and dW_hh = h_prev^T dgates over
+    # the rows the lengths cover (the padded rows' dgates are zero)
+    record["lstm_recurrence_bwd"].update(ms=k5b["kernel"], plain_ms=k5b["plain"], library_ms=k5b_lib["plain"],
+                                         **roofline(bytes_=4 * (LSTM_B * LSTM_T * (3 * H + G + 1 + G + H)
+                                                                + 2 * H * G + G + 2 * LSTM_B * H),
+                                                    flops=2 * steps * H * G + 2 * steps * H * G, peak=F32_PEAK))
+    phase("time-K5-bwd", card=card, shape=f"({LSTM_B},{LSTM_T},{G})", dtype="f32", kernel_ms=f"{k5b['kernel']:.4f}",
+          kernel_ms_turn2=f"{k5b_lib['kernel']:.4f}", plain_ms=f"{k5b['plain']:.4f}",
+          cudnn_lstm_bwd_ms=f"{k5b_lib['plain']:.4f}", layer_bwd_ms=f"{layer_bwd_ms:.4f}",
+          includes="kernel: K5-bwd + the dW_hh and db_hh GEMMs; cuDNN and layer: also dx, dW_ih, db_ih")
+    del graphs, lib_graphs, layer_graphs
+
+    # the train step, kernels against twins in turns, on the batches of phase 22
+    tx, _ = common.build_tx_and_lr(targs)
+    weights.load_jax_params(model, params)
+    model.train()
+    state = TrainState.create(model=model, tx=tx, generator=torch.Generator(device=dev).manual_seed(SEED))
+    train_step = make_train_step(common.loss_fn)
+    step_batches = []
+    for b_ in train_batches:
+        xb_, slb_ = common.make_batch([w for _, w in b_], targs)
+        step_batches.append(dict(x=torch.from_numpy(xb_).to(dev), x_sl=torch.from_numpy(slb_).to(dev)))
+
+    def run_step(b_):
+        train_step(state, b_, {})
+
+    def run_step_plain(b_):
+        with plain():
+            train_step(state, b_, {})
+
+    ts = alternate(run_step_plain, run_step, step_batches)
+    samples = sum(int(b_["x_sl"].sum()) for b_ in step_batches) / len(step_batches)
+    phase("time-lstm-train-step", card=card, utterances=LSTM_B, samples=int(samples), kernel_ms=f"{ts['kernel']:.3f}",
+          plain_ms=f"{ts['plain']:.3f}", samples_per_s=f"{samples / ts['kernel'] * 1e3:.0f}")
+
+    # the test pass (one whole-batch forward of phase 21's utterances) and a generation
+    model.eval()
+    eval_s = []
+    for _ in range(3):
+        _, _, s_ = test_pass(False)
+        eval_s.append(s_)
+    gen_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.generate(n_samples=GEN_B, max_timesteps=n_stacks, generator=torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        gen_s.append(time.perf_counter() - t0)
+    scored = int(x_sl_np.sum())
+    phase("time-lstm-test-pass-and-generate", card=card, test_pass_samples=scored,
+          test_pass_s=[f"{v:.4f}" for v in eval_s], test_samples_per_s=f"{scored / min(eval_s):.0f}",
+          generate_stacks=n_stacks, generate_s=[f"{v:.4f}" for v in gen_s],
+          generate_frames_per_s=f"{GEN_B * n_stacks * S / min(gen_s):.0f}")
+
+    # where the train step's device time goes: torch.profiler over the 3 steps
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for b_ in step_batches:
+            run_step(b_)
+        torch.cuda.synchronize()
+
+    def device_us(e_):
+        return getattr(e_, "self_device_time_total", None) or getattr(e_, "self_cuda_time_total", 0)
+
+    events = prof.key_averages()
+    host_names = {e_.key for e_ in events if e_.device_type == torch.autograd.DeviceType.CPU}
+    kernels_ = [e_ for e_ in events if e_.device_type == torch.autograd.DeviceType.CUDA and device_us(e_) > 0
+                and e_.key not in host_names]
+    busy_ms = sum(device_us(e_) for e_ in kernels_) / 1e3 / 3
+    phase("profile-lstm-train-step", card=card, device_ms_per_step=f"{busy_ms:.3f}", step_ms=f"{ts['kernel']:.3f}",
+          idle_share=f"{1 - busy_ms / ts['kernel']:.3f}" if busy_ms else "not measured",
+          kernel_launches_per_step=sum(e_.count for e_ in kernels_) // 3)
+    for e_ in sorted(kernels_, key=device_us, reverse=True)[:10]:
+        print(f"  {device_us(e_) / 1e3 / 3:9.3f} ms/step {e_.count // 3:5d} calls/step  {e_.key[:90]}", flush=True)
+
+    require(not failures, f"LSTM phases failed: {failures}")
+
+
 def argparse_copy(args, **changes):
     import argparse
 
     return argparse.Namespace(**{**vars(args), **changes})
 
 
-def plain_path(modules, likelihoods, distributions, variational):
-    """``plain`` for ``with plain():``, inside which every kernel wrapper of the path is
+def plain_path(modules, likelihoods, distributions, variational, recurrent):
+    """``plain`` for ``with plain():``, inside which every kernel wrapper of the paths is
     swapped for its plain twin (autograd of the twins gives the backward)."""
     def dmol(y, logit_probs, locs, log_scales, num_bins):
         return likelihoods.discretized_logistic_mixture_ll(y, logit_probs, locs, log_scales, num_bins=num_bins)
@@ -894,6 +1405,7 @@ def plain_path(modules, likelihoods, distributions, variational):
         stack.enter_context(mock.patch.object(modules, "residual_glu", modules.residual_glu_plain))
         stack.enter_context(mock.patch.object(likelihoods, "dmol_log_prob", dmol))
         stack.enter_context(mock.patch.object(distributions, "dmol_sample_and_mode", sample_and_mode))
+        stack.enter_context(mock.patch.object(recurrent, "lstm_recurrence", recurrent.lstm_recurrence_plain))
         return stack
 
     return plain

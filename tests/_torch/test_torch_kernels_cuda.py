@@ -11,15 +11,16 @@ other widths, ragged tiles, strided inputs and the refusals.
 """
 
 import math
+from unittest import mock
 
 import pytest
 import torch
 
 from blvm_tpu_torch import weights
-from blvm_tpu_torch.models import WaveNet
+from blvm_tpu_torch.models import LSTMAudio, WaveNet
 from blvm_tpu_torch.models.wavenet.modules import residual_glu, residual_glu_plain
 from blvm_tpu_torch.modules.distributions import DiscretizedLogisticMixtureDense
-from blvm_tpu_torch.ops import cuda, likelihoods, variational
+from blvm_tpu_torch.ops import cuda, likelihoods, recurrent, variational
 from blvm_tpu_torch.ops.generation import WaveNetDecoder
 
 # f32: the kernel's FMA order against cuBLAS's (a few ulps of O(1) values).
@@ -327,3 +328,115 @@ def test_dmol_rsample_on_the_card_runs_k3_and_refuses_a_gradient(cuda_device):
         params = head(h)
         assert torch.equal(head.rsample(None, params, uniforms=u),
                            variational.rsample_discretized_logistic_mixture(None, *params, uniforms=u))
+
+
+def _k5_inputs(B, T, H, device, ragged=True, state=False, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    bound = 1 / math.sqrt(H)
+    xw = torch.randn(B, T, 4 * H, generator=g) * 0.7
+    w_hh, b_hh = ((torch.rand(*shape, generator=g) * 2 - 1) * bound for shape in ((H, 4 * H), (4 * H,)))
+    lengths = torch.randint(1, T + 1, (B,), generator=g) if ragged else torch.full((B,), T)
+    mask = (torch.arange(T)[None] < lengths[:, None]).float()
+    h0, c0 = ((torch.randn(B, H, generator=g) * 0.5) if state else torch.zeros(B, H) for _ in range(2))
+    return [t.to(device) for t in (xw, w_hh, b_hh, mask, h0, c0)]
+
+
+K5_SHAPES = [
+    (10, 120, 256, True, False),  # the benchmark's width, ragged
+    (3, 50, 32, False, True),  # a small H, a given state
+    (2, 1, 256, False, True),  # one step, as generation launches it
+    (40, 30, 256, True, True),  # more sequences than resident clusters: several a cluster
+    (5, 20, 8, True, False),  # the smallest H, one unit a CTA
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,ragged,state", K5_SHAPES)
+def test_lstm_recurrence_kernel_matches_twin(cuda_device, dtype, B, T, H, ragged, state):
+    """K5 against its twin. f32: the products' summation order only, free-running (1e-5).
+    bf16: both round where JAX rounds, so one twin step from the kernel's carried state at
+    every t (teacher forcing) differs only where the dots' order flips a rounding: within
+    about two bf16 ulps (2^-9 absolute plus 2^-7 relative)."""
+    a = _k5_inputs(B, T, H, cuda_device, ragged, state)
+    a = [t if i == 3 else t.to(dtype) for i, t in enumerate(a)]
+    cuda.reset_launch_counts()
+    with torch.no_grad():
+        got = recurrent.lstm_recurrence(*a)
+        out, h_n, c_n, gates, h_prev, c_prev = recurrent._forward(*a, save=True)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts()["lstm_recurrence"] == 2
+    assert all(torch.equal(x, y) for x, y in zip(got, (out, h_n, c_n)))
+    xw, w_hh, b_hh, mask, _, _ = a
+    if dtype == torch.float32:
+        for x, y in zip(got, recurrent.lstm_recurrence_plain(*a)):
+            torch.testing.assert_close(x, y, atol=1e-5, rtol=0)
+    i, f, g, o = (xw + h_prev @ w_hh + b_hh).chunk(4, dim=-1)
+    c_new = torch.sigmoid(f) * c_prev + torch.sigmoid(i) * torch.tanh(g)
+    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    m = mask.to(dtype)[..., None]
+    tol = dict(atol=1e-5, rtol=0) if dtype == torch.float32 else dict(atol=2.0**-9, rtol=2.0**-7)
+    torch.testing.assert_close(gates.float(), torch.cat([torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                                                         torch.sigmoid(o)], dim=-1).float(), **tol)
+    torch.testing.assert_close(out.float(), (h_new * m).float(), **tol)
+    torch.testing.assert_close(c_n.float(), (m * c_new + (1 - m) * c_prev)[:, -1].float(), **tol)
+    if ragged:
+        assert not out[mask == 0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,ragged,state", K5_SHAPES)
+def test_lstm_recurrence_backward_kernel_matches_autograd_of_twin(cuda_device, B, T, H, ragged, state):
+    """K5-bwd (and the dW_hh, db_hh products) against autograd of the twin in f32, relative
+    to each gradient's norm: the sums over T steps in another order (1e-5)."""
+    a = _k5_inputs(B, T, H, cuda_device, ragged, state, seed=1)
+    w_out = torch.randn(B, T, H, generator=torch.Generator().manual_seed(2)).to(cuda_device)
+
+    def grads(fn):
+        leaves = [t if i == 3 else t.detach().requires_grad_(True) for i, t in enumerate(a)]
+        out, h_n, c_n = fn(*leaves)
+        ((out * w_out).sum() + 0.3 * h_n.sum() - 0.7 * c_n.sum()).backward()
+        return [leaves[i].grad for i in (0, 1, 2, 4, 5)]
+
+    cuda.reset_launch_counts()
+    got = grads(recurrent.lstm_recurrence)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts()["lstm_recurrence_bwd"] == 1
+    for x, y in zip(got, grads(recurrent.lstm_recurrence_plain)):
+        assert ((x - y).norm() / y.norm().clamp_min(1e-30)).item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_lstm_recurrence_kernel_refuses_what_it_does_not_take(cuda_device):
+    a = _k5_inputs(2, 5, 264, cuda_device)
+    with pytest.raises(ValueError, match="multiple of 8 up to 256"):
+        recurrent.lstm_recurrence(*a)
+    a = _k5_inputs(2, 5, 32, cuda_device)
+    with pytest.raises(TypeError, match="all float32 or all bfloat16"):
+        recurrent.lstm_recurrence(a[0].bfloat16(), *a[1:])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        recurrent.lstm_recurrence(*a[:4], a[4].cpu(), a[5])
+
+
+@pytest.mark.cuda
+def test_lstm_audio_on_the_card_launches_k5(cuda_device):
+    """A small LSTMAudio on the card: the forward launches K5 once a layer, the backward
+    K5-bwd once a layer, a generation K5 once a stack a layer, and the forward's loss
+    equals the plain path's."""
+    model = LSTMAudio(stack_size=8, hidden_size=32, num_layers=2, num_mix=3, device=cuda_device)
+    weights.load_jax_params(model, weights.random_jax_params(model, 0))
+    x = torch.rand(3, 200, generator=torch.Generator().manual_seed(0)).to(cuda_device) * 2 - 1
+    x_sl = torch.tensor([200, 150, 61], device=cuda_device)
+    cuda.reset_launch_counts()
+    loss, _, _ = model(x, x_sl)
+    loss.backward()
+    counts = cuda.launch_counts()
+    assert counts["lstm_recurrence"] == 2 and counts["lstm_recurrence_bwd"] == 2 and counts["dmol_log_prob_bwd"] == 1
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+    with mock.patch.object(recurrent, "lstm_recurrence", recurrent.lstm_recurrence_plain), torch.no_grad():
+        plain_loss, _, _ = model(x, x_sl)
+    torch.testing.assert_close(loss.detach(), plain_loss, rtol=1e-5, atol=0)
+    cuda.reset_launch_counts()
+    (gen, _), _ = model.generate(2, 6, generator=torch.Generator(device=cuda_device).manual_seed(0))
+    assert gen.shape == (2, 48) and cuda.launch_counts()["lstm_recurrence"] == 12
+    assert cuda.launch_counts()["dmol_sample"] == 6
