@@ -1,7 +1,7 @@
 """Self-aggregating metric objects with exact weighted running means.
 
-Copy of the parts of ``blvm_tpu/evaluation/metrics.py`` the WaveNet test pass
-uses (numpy only; the JAX package cannot be imported without JAX). A metric is
+Copy of the parts of ``blvm_tpu/evaluation/metrics.py`` the ported test passes
+use (numpy only; the JAX package cannot be imported without JAX). A metric is
 built fresh each step from host values and merged into an accumulator with
 ``update``; running means are exact weighted means, not EMAs.
 
@@ -150,6 +150,13 @@ class LLMetric(RunningMeanMetric):
         super().__init__(values=values, name=name, tags=tags, reduce_by=reduce_by, weight_by=weight_by, get_best=get_best, **kwargs)
 
 
+class KLMetric(RunningMeanMetric):
+    base_tags = {"kl_divergences"}
+
+    def __init__(self, values, name="kl", tags=None, reduce_by=None, weight_by=None, get_best=None, **kwargs):
+        super().__init__(values=values, name=name, tags=tags, reduce_by=reduce_by, weight_by=weight_by, get_best=get_best, **kwargs)
+
+
 class BitsPerDimMetric(RunningMeanMetric):
     """Nats to bits with a running mean over ``reduce_by`` frames: bits/frame
     when reduce_by is the sum of sequence lengths."""
@@ -163,3 +170,20 @@ class BitsPerDimMetric(RunningMeanMetric):
         else:
             values = -float(values) / math.log(2)
         super().__init__(values=values, name=name, tags=tags, reduce_by=reduce_by, weight_by=weight_by, get_best=get_best, **kwargs)
+
+
+class LatestMeanMetric(Metric):
+    """The mean of the latest step's values; ``update`` replaces it (a schedule's value)."""
+
+    def __init__(self, values, name, tags=None, reduce_by=None, get_best=None, log_to_console=True, log_to_framework=True):
+        super().__init__(name=name, tags=tags, get_best=get_best, log_to_console=log_to_console, log_to_framework=log_to_framework)
+        value, numel = _sum_and_numel(values)
+        reduce_by = _resolve(reduce_by, numel)
+        self.latest = value / reduce_by
+
+    @property
+    def value(self):
+        return self.latest
+
+    def update(self, metric: Metric):
+        self.latest = metric.latest

@@ -5,7 +5,7 @@ encoding (mu-law, right-padding), ``build_tx_and_lr``, the training loop
 (:func:`train`: random segments, mu-law, the train step, loss/ll/bpd under the
 ``train`` source), the test pass (:func:`evaluate`, whole or in a family's chunks)
 and the wav-writing half of the generation hook. Each family's driver
-(``wavenet_audio.py``, ``lstm_audio.py``) adds its model flags, its model and its
+(``wavenet_audio.py``, ``lstm_audio.py``, ``vrnn_audio.py``) adds its model flags, its model and its
 chunked test pass. Dataset loading from TIMIT files and checkpoints come later:
 the caller hands over the waveforms. Entry points run on the card unless given
 ``device="cpu"``.
@@ -187,13 +187,14 @@ def evaluate(
     source: str = "test",
     generator: Optional[torch.Generator] = None,
     chunked: Optional[Callable] = None,
+    forward_kwargs: Optional[dict] = None,
 ) -> dict:
     """The test pass: score every ``(x, x_sl)`` batch (already encoded, as
     :func:`make_batch` returns) and return the source's summary (loss, ll, bpd).
 
     ``chunked``, a family's ``state_carry_eval(eval_step, model, generator, x, x_sl,
     scalars, tracker, source)``, scores each batch in its chunks; without it each
-    batch is one forward.
+    batch is one forward, given ``forward_kwargs`` besides ``x`` and ``x_sl``.
     """
     model.eval()
     eval_step = make_eval_step(loss_fn)
@@ -202,7 +203,8 @@ def evaluate(
         if chunked is not None:
             chunked(eval_step, model, generator, x, x_sl, {}, tracker, source)
         else:
-            batch = dict(x=torch.from_numpy(x).to(device), x_sl=torch.from_numpy(x_sl).to(device))
+            batch = dict(x=torch.from_numpy(x).to(device), x_sl=torch.from_numpy(x_sl).to(device),
+                         kwargs=dict(forward_kwargs or {}))
             mets, _ = eval_step(model, generator, batch, {})
             tracker.update(model.build_metrics(to_host(mets)), source=source)
     return tracker.values[source]

@@ -1,4 +1,5 @@
 from blvm_tpu_torch.models.lstm import LSTMAudio
+from blvm_tpu_torch.models.vrnn import VRNNAudio
 from blvm_tpu_torch.models.wavenet import WaveNet
 
-__all__ = ["LSTMAudio", "WaveNet"]
+__all__ = ["LSTMAudio", "VRNNAudio", "WaveNet"]

@@ -1,6 +1,7 @@
-"""Dense-parameterized likelihood heads (port of ``blvm_tpu/modules/distributions.py``).
+"""Dense-parameterized distribution heads (port of ``blvm_tpu/modules/distributions.py``).
 
-Only the DMoL head the WaveNet slice needs is ported so far;
+Ported so far: the DMoL head (WaveNet, LSTMAudio, VRNN) and the diagonal
+Gaussian head (the VRNN's latent prior and posterior);
 :func:`get_likelihood_head` raises ``NotImplementedError`` for the others.
 As in the JAX package, ``forward(x)`` returns the head's parameters and
 ``log_prob`` / ``rsample`` / ``sample`` / ``mode`` act on them; sampling takes an
@@ -9,12 +10,56 @@ explicit ``torch.Generator`` where JAX took a PRNG key.
 
 from typing import Optional
 
+import math
+
 import torch
 from torch import nn
 
 from blvm_tpu_torch.modules.common import Dense
 from blvm_tpu_torch.ops import likelihoods
-from blvm_tpu_torch.ops.variational import dmol_mode, dmol_sample_and_mode, rsample_discretized_logistic_mixture
+from blvm_tpu_torch.ops.variational import (
+    dmol_mode,
+    dmol_sample_and_mode,
+    rsample_discretized_logistic_mixture,
+    rsample_gaussian,
+)
+
+
+def sd_beta(initial_sd: float, epsilon: float) -> float:
+    """The softplus slope that maps 0 to ``initial_sd`` once ``epsilon`` is added."""
+    return math.log(2.0) / (initial_sd - epsilon)
+
+
+class DiagonalGaussianDense(nn.Module):
+    """Diagonal Gaussian head: ``Dense(2 * y_dim)`` split into ``mu`` and a raw scale,
+    ``sd = softplus_beta(raw, log 2 / (initial_sd - epsilon)) + epsilon``
+    (``blvm_tpu/modules/distributions.py:90-113``)."""
+
+    def __init__(self, in_features: int, y_dim: int, initial_sd: float = 1.0, epsilon: float = 1e-6, device=None):
+        super().__init__()
+        self.y_dim, self.initial_sd, self.epsilon = y_dim, initial_sd, epsilon
+        self.Dense_0 = Dense(in_features, 2 * y_dim, device=device)
+
+    @property
+    def beta(self) -> float:
+        return sd_beta(self.initial_sd, self.epsilon)
+
+    def forward(self, x: torch.Tensor):
+        """Returns ``(mu (*, y_dim), sd (*, y_dim))``."""
+        mu, raw = self.Dense_0(x).chunk(2, dim=-1)
+        sd = likelihoods.softplus_beta(raw, self.beta)
+        if self.epsilon > 0:
+            sd = sd + self.epsilon
+        return mu, sd
+
+    def log_prob(self, y: torch.Tensor, params, reduce_dim: Optional[int] = None) -> torch.Tensor:
+        return likelihoods.gaussian_ll(y, params[0], params[1], epsilon=0, reduce_dim=reduce_dim)
+
+    def rsample(self, generator: Optional[torch.Generator], params, eps: Optional[torch.Tensor] = None):
+        return rsample_gaussian(generator, params[0], params[1], eps)
+
+    def mode(self, params) -> torch.Tensor:
+        return params[0]
 
 
 class DiscretizedLogisticMixtureDense(nn.Module):
@@ -81,6 +126,8 @@ def get_likelihood_head(name: str, in_features: int, y_dim: int, num_mix: int = 
     if name_l in ("dmol", "discretized_logistic_mixture"):
         return DiscretizedLogisticMixtureDense(in_features, y_dim=y_dim, num_mix=num_mix, num_bins=num_bins,
                                                device=device, **kwargs)
-    if name_l in ("dl", "discretized_logistic", "gmm", "gaussian_mixture", "gaussian", "categorical", "bernoulli"):
-        raise NotImplementedError(f"likelihood {name!r} is not ported to blvm_tpu_torch yet (only DMoL)")
+    if name_l == "gaussian":
+        return DiagonalGaussianDense(in_features, y_dim=y_dim, device=device, **kwargs)
+    if name_l in ("dl", "discretized_logistic", "gmm", "gaussian_mixture", "categorical", "bernoulli"):
+        raise NotImplementedError(f"likelihood {name!r} is not ported to blvm_tpu_torch yet (only DMoL and Gaussian)")
     raise ValueError(f"Unknown likelihood {name!r}")

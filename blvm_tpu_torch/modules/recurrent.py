@@ -1,11 +1,13 @@
-"""Recurrent cores (port of ``blvm_tpu/modules/recurrent.py``; the LSTM so far).
+"""Recurrent cores (port of ``blvm_tpu/modules/recurrent.py``; the LSTM and the GRU cell so far).
 
 As in the JAX package, the input projection ``x @ W_ih + b_ih`` of every step is
 one time-parallel product, and only ``h @ W_hh`` runs inside the recurrence, which
 is :func:`blvm_tpu_torch.ops.recurrent.lstm_recurrence`: the K5 kernel on CUDA
 tensors, its plain twin on CPU tensors. Parameters keep the flax names and
 layouts (``w_ih_{l}`` ``(D, 4H)``, ``b_ih_{l}``, ``w_hh_{l}`` ``(H, 4H)``,
-``b_hh_{l}``) and torch's U(-1/sqrt(H), 1/sqrt(H)) init.
+``b_hh_{l}``) and torch's U(-1/sqrt(H), 1/sqrt(H)) init. :class:`GRUCell` is one
+step of torch's GRU (gate order r, z, n; the reset gate multiplies ``h W_hn + b_hn``),
+the cell the VRNN runs inside K8.
 """
 
 import math
@@ -75,3 +77,31 @@ class LSTM(nn.Module):
                 keep = torch.rand(layer_in.shape, generator=generator, device=layer_in.device) < 1.0 - self.dropout
                 layer_in = torch.where(keep, layer_in / (1.0 - self.dropout), 0.0)
         return layer_in, (torch.stack(h_ns), torch.stack(c_ns))
+
+
+class GRUCell(nn.Module):
+    """One GRU step with torch's gate math (``blvm_tpu/modules/recurrent.py:117-145``):
+    ``forward(x (*, D), h (*, H)) -> h'``. Parameters ``w_ih (D, 3H)``, ``b_ih``,
+    ``w_hh (H, 3H)``, ``b_hh``; U(-1/sqrt(H), 1/sqrt(H)) init, ``w_hh`` orthogonal
+    under ``orthogonal_hh`` (as the VRNN and SRNN cells have it)."""
+
+    def __init__(self, input_size: int, hidden_size: int, orthogonal_hh: bool = False, device=None):
+        super().__init__()
+        self.hidden_size, self.orthogonal_hh = hidden_size, orthogonal_hh
+        G = 3 * hidden_size  # flax's creation order: w_ih, b_ih, w_hh, b_hh
+        self.w_ih = nn.Parameter(torch.empty(input_size, G, device=device))
+        self.b_ih = nn.Parameter(torch.empty(G, device=device))
+        self.w_hh = nn.Parameter(torch.empty(hidden_size, G, device=device))
+        self.b_hh = nn.Parameter(torch.empty(G, device=device))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        bound = 1.0 / math.sqrt(self.hidden_size)
+        with torch.no_grad():
+            for p in self.parameters():
+                p.uniform_(-bound, bound, generator=generator)
+            if self.orthogonal_hh:
+                nn.init.orthogonal_(self.w_hh, generator=generator)
+
+    def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        return recurrent_ops.gru_update(x @ self.w_ih + self.b_ih, h @ self.w_hh + self.b_hh, h)

@@ -1,9 +1,10 @@
-"""DMoL log-likelihood: the plain PyTorch version and the K2 kernel's wrapper.
+"""Log-likelihoods: the Gaussian, and the DMoL's plain PyTorch version and the K2 kernel's wrapper.
 
-Port of the DMoL part of ``blvm_tpu/ops/likelihoods.py``. All likelihood math
-runs in at least float32 whatever the input dtype: bits/frame is the parity
-surface, so it never runs in bf16.
+Port of the Gaussian and DMoL parts of ``blvm_tpu/ops/likelihoods.py``. All
+likelihood math runs in at least float32 whatever the input dtype: bits/frame is
+the parity surface, so it never runs in bf16.
 
+:func:`gaussian_ll` is op for op the JAX function (the VRNN's latent heads).
 :func:`discretized_logistic_mixture_ll` is the plain twin, op for op the JAX
 function. :func:`dmol_log_prob` is the per-frame entry point the WaveNet head
 calls: for CPU tensors it runs the twin, for CUDA tensors it launches the
@@ -11,6 +12,7 @@ hand-written kernels ``csrc/dmol.cu`` (K2, forward and backward) or raises.
 """
 
 import math
+from typing import Optional
 
 import torch
 
@@ -29,10 +31,29 @@ def at_least_f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
+def gaussian_ll(y, mu, sd, epsilon: float = 1e-6, reduce_dim: Optional[int] = -1) -> torch.Tensor:
+    """Elementwise Gaussian log-likelihood, reduced over ``reduce_dim`` (None or 0: not reduced).
+
+    ``sd`` is clamped below at ``epsilon`` with a straight-through gradient: the
+    clamp moves the value, not the gradient (``blvm_tpu/ops/likelihoods.py:44-56``).
+    """
+    y, mu, sd = at_least_f32(y), at_least_f32(mu), at_least_f32(sd)
+    if epsilon:
+        sd = sd + (torch.clamp_min(sd, epsilon) - sd).detach()
+    log_prob = -((y - mu) ** 2) / (2.0 * sd**2) - torch.log(sd) - 0.5 * math.log(2.0 * math.pi)
+    return reduce(log_prob, reduce_dim) if reduce_dim else log_prob
+
+
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus`` (``logaddexp(x, 0)``); torch's ``F.softplus`` switches to
     the identity above a threshold and would round differently."""
     return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def softplus_beta(x: torch.Tensor, beta: float) -> torch.Tensor:
+    """``softplus(beta x) / beta`` with JAX's softplus: torch's ``Softplus(beta)``, the
+    Gaussian heads' calibrated scale (``blvm_tpu/modules/distributions.py:38-40``)."""
+    return _softplus(beta * x) / beta
 
 
 def _dmol_elementwise(y, loc, log_scale, num_bins: int):

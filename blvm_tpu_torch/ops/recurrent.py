@@ -13,6 +13,7 @@ JAX step (in bf16 every op rounds, as XLA rounds it). :func:`lstm_recurrence` is
 the entry point: for CPU tensors the twin (autograd gives its gradient); for CUDA
 tensors one launch of ``csrc/lstm.cu``'s forward, under autograd
 :class:`LSTMRecurrenceFunction` with the backward kernel, or it raises.
+:func:`gru_update` is the GRU's gate math, shared by ``GRUCell`` and K8's twin.
 """
 
 from typing import Optional, Tuple
@@ -24,6 +25,17 @@ from blvm_tpu_torch.ops import cuda
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # csrc/lstm.cu: a CTA of the 8-CTA cluster keeps its 2 H^2 bytes of W_hh (f32) in shared memory
 K5_CLUSTER, K5_MAX_HIDDEN = 8, 256
+
+
+def gru_update(gi: torch.Tensor, gh: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """The GRU's new state from ``gi = x W_ih + b_ih`` and ``gh = h W_hh + b_hh``
+    (gate order r, z, n; torch's placement of the reset gate on ``h W_hn + b_hn``)."""
+    i_r, i_z, i_n = gi.chunk(3, dim=-1)
+    h_r, h_z, h_n = gh.chunk(3, dim=-1)
+    r = torch.sigmoid(i_r + h_r)
+    z = torch.sigmoid(i_z + h_z)
+    n = torch.tanh(i_n + r * h_n)
+    return (1.0 - z) * n + z * h
 
 
 def lstm_recurrence_plain(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, mask: Optional[torch.Tensor],

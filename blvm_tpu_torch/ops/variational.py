@@ -1,11 +1,14 @@
-"""DMoL sampling (port of the DMoL sampler of ``blvm_tpu/ops/variational.py``).
+"""Variational math: Gaussian KL and free nats, the Gaussian and DMoL samplers
+(port of ``blvm_tpu/ops/variational.py``).
 
 Where JAX threads a PRNG key, these take an explicit ``torch.Generator`` (on the
 tensors' device; ``None`` uses PyTorch's default generator). The two frameworks
 draw different numbers from the same seed, so tests compare these samplers by
-distribution, or feed them the same uniforms, never bit for bit.
+distribution, or feed them the same noise, never bit for bit.
 
-:func:`rsample_discretized_logistic_mixture` is the plain twin;
+:func:`kl_divergence_gaussian`, :func:`kl_divergence_gaussian_mc`,
+:func:`discount_free_nats` and :func:`rsample_gaussian` are op for op the JAX
+functions. :func:`rsample_discretized_logistic_mixture` is the plain twin of K3;
 :func:`dmol_sample_and_mode` is the entry point the DMoL head calls: for CPU
 tensors the twin and the plain mode, for CUDA tensors one launch of the
 hand-written kernel ``csrc/dmol_sample.cu`` (K3), or it raises.
@@ -13,17 +16,52 @@ hand-written kernel ``csrc/dmol_sample.cu`` (K3), or it raises.
 """
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
 from blvm_tpu_torch.ops import cuda
-from blvm_tpu_torch.ops.likelihoods import at_least_f32, _row_view
+from blvm_tpu_torch.ops.likelihoods import at_least_f32, gaussian_ll, _row_view
 
 CATEGORICAL_EPS, LOGISTIC_EPS = 1e-5, 1e-8
 # the affine maps of the kernels' uniforms, (cat_low, cat_scale, logistic_low, logistic_scale): U[eps, 1 - eps)
 # as ``_uniform`` computes it, ``low + (high - low) * u``
 UNIFORM_MAPS = (CATEGORICAL_EPS, (1.0 - CATEGORICAL_EPS) - CATEGORICAL_EPS, LOGISTIC_EPS, (1.0 - LOGISTIC_EPS) - LOGISTIC_EPS)
+
+
+def kl_divergence_gaussian(mu_q, sd_q, mu_p, sd_p):
+    """Elementwise analytic KL(q || p) between diagonal Gaussians, not reduced."""
+    return torch.log(sd_p) - torch.log(sd_q) + (sd_q**2 + (mu_q - mu_p) ** 2) / (2.0 * sd_p**2) - 0.5
+
+
+def kl_divergence_gaussian_mc(mu_q, sd_q, mu_p, sd_p, z, epsilon: float = 0.0, reduce_dim: Optional[int] = None):
+    """Elementwise single-sample Monte Carlo estimate of KL(q || p) at ``z``."""
+    return gaussian_ll(z, mu_q, sd_q, epsilon, reduce_dim) - gaussian_ll(z, mu_p, sd_p, epsilon, reduce_dim)
+
+
+def discount_free_nats(kld: torch.Tensor, free_nats: Optional[float] = None,
+                       shared_dims: Union[Sequence[int], int, None] = None) -> torch.Tensor:
+    """Free bits: elementwise ``max(kld, budget)``, the budget ``free_nats`` split
+    equally over the elements of ``shared_dims`` when given (``free_nats / Z`` per
+    element with ``shared_dims=-1``)."""
+    if free_nats is None or (isinstance(free_nats, (int, float)) and free_nats == 0):
+        return kld
+    if isinstance(shared_dims, int):
+        shared_dims = (shared_dims,)
+    budget = free_nats / math.prod(kld.shape[d] for d in shared_dims) if shared_dims is not None else free_nats
+    return torch.maximum(kld, torch.as_tensor(budget, dtype=kld.dtype, device=kld.device))
+
+
+def gaussian_noise(generator: Optional[torch.Generator], shape, like: torch.Tensor) -> torch.Tensor:
+    """Standard normal noise of ``shape`` in ``like``'s dtype and device, drawn from ``generator``."""
+    return torch.randn(shape, generator=generator, dtype=like.dtype, device=like.device)
+
+
+def rsample_gaussian(generator: Optional[torch.Generator], mu, sd, eps: Optional[torch.Tensor] = None):
+    """Reparameterized Gaussian sample ``mu + sd * eps``, ``eps`` drawn from ``generator`` unless given."""
+    if eps is None:
+        eps = gaussian_noise(generator, mu.shape, mu)
+    return mu + sd * eps
 
 
 def _uniform(generator: Optional[torch.Generator], like: torch.Tensor, low: float, high: float,

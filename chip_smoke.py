@@ -6,8 +6,10 @@ WaveNet test pass (bits/frame), the WaveNet train step and WaveNet generation
 ``experiments/benchmarks.txt`` (5 x 10 residual blocks, C = 96, DMoL with 10
 mixtures over 2^16 bins, bf16 residual stack), and LSTMAudio's test pass, train
 step and generation at the width of its s=64 run spec (H = 256, one layer, 64
-frames a stack, the same DMoL head, f32), and checks the eight hand-written
-kernels they run against their plain PyTorch twins:
+frames a stack, the same DMoL head, f32), and the VRNN's test pass and generation
+at the width of its s=64 z=256 run spec (H = Z = 256, r_dim 512, 64 frames a stack,
+the same DMoL head, f32), and checks the nine hand-written kernels they run against
+their plain PyTorch twins:
 
   1. device: the card's name and power limit (nvidia-smi)
   2. numerics: TF32 and reduced-precision bf16 GEMM reductions off
@@ -62,9 +64,26 @@ kernels they run against their plain PyTorch twins:
  24. timing: K5 and K5-bwd against their twins and torch.nn.LSTM (cuDNN, the
      yardstick; the port never calls it), K5 at the s=1 shape (T' = 16000), the
      train step, the test pass and a generation, a torch.profiler breakdown
+ 25. K8 vrnn_cell vs its twin in inference mode: the spec width at B=6 utterances of
+     24k-72k samples (up to 1125 stacks); H=32 with a given h0. Teacher-forced (a twin
+     step from the kernel's state at every t) and free-running
+ 26. K8 in prior mode (generation) vs its twin: T'=1 sampled and at the mode, T'=64;
+     a VRNN forward on the card that needs a gradient raises (no K8 backward yet)
+ 27. the VRNN test pass: flags of benchmarks.txt:17 -> driver -> model -> weights
+     bridge, the utterances of 25, whole and --split_eval (chunks of 16 stacks, h_n
+     carried); 1 K8, 1 K2, 1 K3 a forward; bits/frame against the twins, same noise
+ 28. generation through the VRNN driver's hook: 2 x 2000 stacks (2 x 128000 frames),
+     2000 K8 and 2000 K3 launches, two wav files under
+     blvm_tpu_torch/_build/vrnn_generation_hook/; a rollout from given noise and
+     uniforms against the twins fed the same noise and the kernel's frames
+ 29. timing: K8 and its twin a launch and a step at the test pass's shape and at T'=1,
+     a T'=1 call split into the wrapper's host time and the device time of its
+     kernels, K8's own trace of a step by stage and phase, the test pass whole
+     and split, a generation, torch.profiler breakdowns of a test pass and of 200
+     generated stacks
 
 Every phase prints one line (the profiles a few); any failure raises and exits
-non-zero before the last line (phases 14-24 print all their numbers first). A
+non-zero before the last line (phases 14-29 print all their numbers first). A
 ``[total]`` line gives the run's seconds; the second-to-last line is the
 kernels' JSON record, the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero without CUDA.
@@ -101,6 +120,13 @@ LSTM_FLAGS = (
     "--likelihood DMoL --input_coding mu_law --batch_len 32 --hidden_size 256 --num_layers 1 --stack_size 64 --seed 0"
 )
 LSTM_B, LSTM_T = 10, 1125
+# VRNN: the s=64 z=256 run spec of experiments/benchmarks.txt:17 (the driver's defaults fill in the residual
+# posterior, h conditioned on x and x on h, r_dim = 512; f32); K8 at 6 utterances of up to 1125 stacks
+VRNN_FLAGS = (
+    "--likelihood DMoL --input_coding mu_law --batch_len 64 --free_nats_start_value 2 --free_nats_steps 100000 "
+    "--hidden_size 256 --latent_size 256 --stack_frames 64 --num_bits 16 --num_mix 10 --seed 0"
+)
+VRNN_B, VRNN_T = 6, 1125
 
 
 def phase(tag, /, **values):
@@ -239,6 +265,9 @@ def main():
                                      replaces="blvm_tpu/modules/recurrent.py:92")
     record["lstm_recurrence_bwd"] = dict(name="lstm_recurrence_bwd", route="cuda", source="blvm_tpu_torch/csrc/lstm.cu",
                                          replaces="blvm_tpu/modules/recurrent.py:92")
+    # no single PyTorch call computes the VRNN cell
+    record["vrnn_cell"] = dict(name="vrnn_cell", route="cuda", source="blvm_tpu_torch/csrc/vrnn_cell.cu",
+                               replaces="blvm_tpu/models/vrnn.py:77", library_ms=None)
 
     # 4. K1 against its twin at the flagship shapes
     args = wavenet_audio.build_args(FLAGSHIP_FLAGS.split())
@@ -697,6 +726,8 @@ def main():
     del models, model, tmodel, state
     torch.cuda.empty_cache()
     lstm_phases(record, smi, dev)
+    torch.cuda.empty_cache()
+    vrnn_phases(record, smi, dev)
     phase("total", seconds=f"{time.time() - t_start:.1f}")
 
     print(json.dumps({"kernels": list(record.values())}), flush=True)
@@ -1382,6 +1413,348 @@ def lstm_phases(record, smi, dev):
     require(not failures, f"LSTM phases failed: {failures}")
 
 
+def vrnn_phases(record, smi, dev):
+    """Phases 25-29, the VRNN paths at the width of ``experiments/benchmarks.txt:17``: K8
+    against its twin (inference and prior mode), the test pass (whole and with carried
+    state), generation through the driver's hook, and their times. Each check is printed
+    before any raises, so one run shows every number."""
+    import numpy as np
+
+    from blvm_tpu_torch import weights
+    from blvm_tpu_torch.evaluation.tracker import Tracker
+    from blvm_tpu_torch.experiments import common, vrnn_audio
+    from blvm_tpu_torch.models import vrnn as vrnn_model
+    from blvm_tpu_torch.models.wavenet import modules
+    from blvm_tpu_torch.modules import distributions
+    from blvm_tpu_torch.ops import cuda, likelihoods, recurrent, variational
+    from blvm_tpu_torch.ops import vrnn as vrnn_ops
+    from blvm_tpu_torch.ops.padding import get_modulo_length
+    from blvm_tpu_torch.ops.sequence import split_sequence
+
+    failures = []
+
+    def expect(cond, message):
+        if not cond:
+            failures.append(message)
+            print(f"  FAIL: {message}", flush=True)
+
+    card = smi.replace(" ", "_")
+    plain = plain_path(modules, likelihoods, distributions, variational, recurrent)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    args = vrnn_audio.build_args(VRNN_FLAGS.split())
+    model = vrnn_audio.build_model(args)
+    require(next(model.parameters()).device.type == "cuda", "vrnn_audio.build_model did not build on the card")
+    params = weights.random_jax_params(model, args.seed)
+    weights.load_jax_params(model, params)
+    model.eval()
+    cell = model.vrnn.cell
+    S, Z, R = args.stack_frames, args.latent_size, cell.r_dim
+    rng = np.random.default_rng(args.seed + 25)
+    lengths = rng.integers(VRNN_T * S // 3, VRNN_T * S + 1, VRNN_B)  # 24k-72k samples
+    lengths[0] = VRNN_T * S  # the longest utterance fills all 1125 stacks
+    x_np, x_sl_np = common.make_batch([synthetic_speech(int(n), rng) for n in lengths], args)
+    x_dev, x_sl_dev = torch.from_numpy(x_np).to(dev), torch.from_numpy(x_sl_np).to(dev)
+    with torch.no_grad():
+        enc = model.vrnn.encoder(x_dev[..., None])  # (6, 1125, 256): K8's input on the test pass
+    cell_kw = dict(residual_posterior=cell.residual_posterior, condition_h_on_x=cell.condition_h_on_x,
+                   sd_beta=cell.prior_head.beta, sd_epsilon=cell.prior_head.epsilon)
+
+    def teacher_forced(w, x, h0, eps, got, **kw):
+        """One twin step at every t from the kernel's state entering it (all B T' rows at once)."""
+        B_, T_ = x.shape[:2]
+        h_prev = torch.cat([h0[:, None], got.h[:, :-1]], dim=1).reshape(B_ * T_, -1)
+        one = vrnn_ops.vrnn_cell_plain(w, x.reshape(B_ * T_, 1, -1), h_prev,
+                                       None if eps is None else eps.reshape(B_ * T_, 1, -1), **kw)
+        return [None if t is None else t.reshape(B_, T_, -1) for t in one]
+
+    def errors(got, ref):
+        return {name: (a - b).abs().max().item() for name, a, b in zip(got._fields, got, ref) if b is not None}
+
+    def within(got, ref, atol, rtol):
+        return all(bool(((a - b).abs() <= atol + rtol * b.abs()).all()) for a, b in zip(got, ref) if b is not None)
+
+    # 25. K8 against its twin at the test pass's shape and at H = 32 with a given h0. Teacher-forced
+    # (one twin step from the kernel's state at every t): the products' summation order only, 1e-5
+    # absolute plus 1e-5 relative. Free-running over every step: those differences re-enter the chain
+    # each step; the chain does not amplify them (the f32 twin against the f64 twin on the CPU at this
+    # width stayed within 1e-6 over 1125 steps), so 1e-4 absolute plus 1e-5 relative.
+    small = vrnn_model.VRNNCell(32, 32, 8, 64, residual_posterior=False, device=dev)
+    weights.load_jax_params(small, weights.random_jax_params(small, SEED + 25))
+    k8_cases = {
+        "spec_B6_T1125": (cell.cell_weights(), enc, torch.zeros(VRNN_B, R, device=dev),
+                          torch.randn(VRNN_B, VRNN_T, Z, generator=gen, device=dev), cell_kw),
+        "H32_given_h0": (small.cell_weights(), torch.randn(3, 40, 32, generator=gen, device=dev) * 0.5,
+                         torch.randn(3, 64, generator=gen, device=dev) * 0.3,
+                         torch.randn(3, 40, 8, generator=gen, device=dev),
+                         dict(cell_kw, residual_posterior=False)),
+    }
+    k8_err = 0.0
+    for name, (w, x, h0, eps, kw) in k8_cases.items():
+        w = [t.detach() for t in w]
+        with torch.no_grad():
+            cuda.reset_launch_counts()
+            got = vrnn_ops.vrnn_cell(w, x, h0, eps, inference=True, **kw)
+            torch.cuda.synchronize()
+            launches = cuda.launch_counts()["vrnn_cell"]
+            free = vrnn_ops.vrnn_cell_plain(w, x, h0, eps, inference=True, **kw)
+            forced = teacher_forced(w, x, h0, eps, got, inference=True, **kw)
+        e_free, e_forced = errors(got, free), errors(got, forced)
+        expect(launches == 1 and all(bool(torch.isfinite(t).all()) for t in got), f"K8 {name}: launches/finite")
+        expect(within(got, forced, 1e-5, 1e-5), f"K8 {name}: teacher-forced {e_forced}")
+        expect(within(got, free, 1e-4, 1e-5), f"K8 {name}: free-running {e_free}")
+        if name == "spec_B6_T1125":
+            k8_err = max(e_free.values())
+        phase("K8", mode="inference", case=name, shape=tuple(x.shape), launches=launches,
+              free_max_abs_err=f"{max(e_free.values()):.3g}", teacher_forced_max_abs_err=f"{max(e_forced.values()):.3g}",
+              worst=max(e_free, key=e_free.get))
+    record["vrnn_cell"]["max_abs_err"] = k8_err
+
+    # 26. prior mode (generation): T' = 1 a launch, with noise and at the mode, and T' = 64 steps
+    # with the inputs given; the twin at 1e-5 absolute plus 1e-5 relative
+    w = [t.detach() for t in cell.cell_weights()]
+    for name, (x, use_mode) in {"T1_sampled": (enc[:2, :1], False), "T1_mode": (enc[:2, :1], True),
+                                "T64_sampled": (enc[:2, :64], False)}.items():
+        h0 = torch.randn(2, R, generator=gen, device=dev) * 0.1
+        eps = torch.randn(2, x.shape[1], Z, generator=gen, device=dev)
+        with torch.no_grad():
+            cuda.reset_launch_counts()
+            got = vrnn_ops.vrnn_cell(w, x, h0, eps, inference=False, use_mode=use_mode, **cell_kw)
+            torch.cuda.synchronize()
+            launches = cuda.launch_counts()["vrnn_cell"]
+            ref = vrnn_ops.vrnn_cell_plain(w, x, h0, eps, inference=False, use_mode=use_mode, **cell_kw)
+        e_ = errors(got, ref)
+        expect(launches == 1 and got.enc_mu is None and within(got, ref, 1e-5, 1e-5), f"K8 prior {name}: {e_}")
+        phase("K8", mode="prior", case=name, shape=tuple(x.shape), use_mode=use_mode, max_abs_err=f"{max(e_.values()):.3g}")
+
+    # the card's VRNN has no backward yet: a forward that would need a gradient raises
+    try:
+        model(x_dev[:1, :640], x_sl_dev[:1].clamp_max(640))
+        raised = False
+    except NotImplementedError:
+        raised = True
+    expect(raised, "a VRNN forward on the card that needs a gradient did not raise")
+    phase("K8-no-backward", raises=raised)
+
+    # 27. the test pass: flags of benchmarks.txt:17 -> driver -> model on the card -> weights bridge,
+    # whole and with --split_eval (h_n carried), kernels against the twins with the same noise (the
+    # latent noise drawn from one generator seeded alike for both runs)
+    chunk = get_modulo_length(args.random_segment_size or 16 * S, S)
+    n_chunks = len(split_sequence(x_np, x_sl_np, length=chunk, overlap=0)[0])
+
+    def seeded_noise():
+        g_ = torch.Generator(device=dev).manual_seed(SEED + 27)
+        return mock.patch.object(vrnn_model, "gaussian_noise",
+                                 lambda _, shape, like: torch.randn(shape, generator=g_, dtype=like.dtype,
+                                                                    device=like.device))
+
+    def test_pass(split, plain_path_=False):
+        with plain() if plain_path_ else contextlib.nullcontext(), seeded_noise():
+            cuda.reset_launch_counts()
+            t0 = time.time()
+            values = vrnn_audio.evaluate(model, argparse_copy(args, split_eval=split), [(x_np, x_sl_np)], Tracker(),
+                                         generator=torch.Generator(device=dev).manual_seed(SEED))
+            torch.cuda.synchronize()
+            return values, cuda.launch_counts(), time.time() - t0
+
+    path_launches = 0
+    for split in (False, True):
+        values, counts, seconds = test_pass(split)
+        values_p, counts_p, seconds_p = test_pass(split, plain_path_=True)
+        forwards = n_chunks if split else 1
+        expected = dict(vrnn_cell=forwards, dmol_log_prob=forwards, dmol_sample=forwards)
+        expect(counts == {**dict.fromkeys(counts, 0), **expected},
+               f"VRNN test pass split={split}: launches {counts}, expected {expected}")
+        expect(not any(counts_p.values()), f"the plain VRNN test pass launched kernels: {counts_p}")
+        path_launches += counts["vrnn_cell"]
+        bpd_rel = abs(values["bpd"] - values_p["bpd"]) / abs(values_p["bpd"])
+        finite = all(math.isfinite(values[k]) for k in ("loss", "elbo", "rec", "kl", "bpd"))
+        # f32 throughout: only the summation orders of K8, K2 and the products differ
+        expect(finite and bpd_rel <= 1e-5, f"VRNN test pass split={split}: {values} vs twins {values_p}")
+        phase("vrnn-test-pass", split_eval=split, utterances=list(map(int, lengths)), forwards=forwards,
+              loss=f"{values['loss']:.6f}", bpd=f"{values['bpd']:.6f}", bpd_plain=f"{values_p['bpd']:.6f}",
+              bpd_rel=f"{bpd_rel:.3g}", kl=f"{values['kl']:.3f}", rec=f"{values['rec']:.3f}",
+              launches_per_forward={k: v // forwards for k, v in counts.items() if v}, seconds=f"{seconds:.2f}",
+              plain_seconds=f"{seconds_p:.2f}")
+
+    # 28. generation through the driver's hook: 2 x 2000 stacks of 64 (--generate_frames 128000), one
+    # K8 (prior mode, T' = 1) and one K3 launch a stack; then the rollout from given noise and uniforms
+    # against the twins fed the same noise and the kernel's frames (every stack at once)
+    out_dir = Path(__file__).resolve().parent / "blvm_tpu_torch" / "_build" / "vrnn_generation_hook"
+    hook = vrnn_audio.make_generation_hook(model, argparse_copy(args, generate_every=5))
+    cuda.reset_launch_counts()
+    t0 = time.time()
+    paths = hook(5, out_dir)
+    torch.cuda.synchronize()
+    hook_s = time.time() - t0
+    counts = cuda.launch_counts()
+    n_stacks = args.generate_frames // S
+    expected = dict(vrnn_cell=n_stacks, dmol_sample=n_stacks)
+    expect(counts == {**dict.fromkeys(counts, 0), **expected}, f"VRNN generation launches {counts}, expected {expected}")
+    path_launches += counts["vrnn_cell"]
+    shapes = []
+    for path in paths:
+        with wave.open(str(path)) as f:
+            shapes.append((f.getnchannels(), f.getsampwidth(), f.getframerate(), f.getnframes()))
+            pcm = np.frombuffer(f.readframes(f.getnframes()), "<i2")
+        expect(shapes[-1] == (1, 2, 16000, n_stacks * S) and np.abs(pcm).max() > 0, f"VRNN hook wav {path}: {shapes[-1]}")
+    expect(len(paths) == 2, f"VRNN hook wrote {paths}")
+    phase("vrnn-generation-hook", stacks=n_stacks, launches=counts, seconds=f"{hook_s:.2f}",
+          files=[str(p_.relative_to(out_dir.parents[2])) for p_ in paths], wav=shapes)
+    record["vrnn_cell"]["launches"] = path_launches
+
+    eps_g = torch.randn(n_stacks, GEN_B, Z, generator=gen, device=dev)
+    u_g = (torch.rand(n_stacks * S, GEN_B, 10, generator=gen, device=dev),
+           torch.rand(n_stacks * S, GEN_B, 1, generator=gen, device=dev))
+    (frames, _), _ = model.generate(n_samples=GEN_B, max_timesteps=n_stacks, eps=eps_g, uniforms=u_g)
+    with torch.no_grad():
+        stacks_in = torch.cat([torch.zeros(GEN_B, S, device=dev), frames[:, :-S, 0]], dim=1)  # each step's input stack
+        enc_g = model.vrnn.encoder(stacks_in[..., None])
+        outs = vrnn_ops.vrnn_cell_plain(w, enc_g, torch.zeros(GEN_B, R, device=dev), eps_g.transpose(0, 1),
+                                        inference=False, **cell_kw)
+        dec_params = model.vrnn.likelihood(model.vrnn.decoder(torch.cat([outs.phi_z, outs.h], dim=-1)))
+        twin_frames = variational.rsample_discretized_logistic_mixture(
+            None, *dec_params, uniforms=tuple(u.transpose(0, 1) for u in u_g))
+    err = (twin_frames - frames).abs()
+    share = (err <= 1e-5).double().mean().item()
+    # f32: the twins fed the kernel's frames and the same noise; a frame whose Gumbel pick sits within
+    # f32 rounding of a tie may pick another component: at most 1e-3 of them
+    expect(bool(torch.isfinite(frames).all()) and share >= 1 - 1e-3, f"VRNN rollout vs twins: share {share}")
+    phase("vrnn-generate-vs-twins", frames=GEN_B * n_stacks * S, share_within_1e5=f"{share:.6f}",
+          max_abs_err=f"{err.max().item():.3g}", frames_outside=int((err > 1e-5).sum().item()))
+    del twin_frames, dec_params, outs, u_g
+
+    # 29. times: K8 against its twin at the test pass's shape (a launch, a step) and at T' = 1 (a
+    # generation's launch, also split into host and device time); the test pass; a generation;
+    # torch.profiler breakdowns
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(e_):
+        return getattr(e_, "self_device_time_total", None) or getattr(e_, "self_cuda_time_total", 0)
+
+    def device_kernels(prof):
+        events = prof.key_averages()
+        host_names = {e_.key for e_ in events if e_.device_type == torch.autograd.DeviceType.CPU}
+        return [e_ for e_ in events if e_.device_type == torch.autograd.DeviceType.CUDA and device_us(e_) > 0
+                and e_.key not in host_names]
+
+    eps_t = [torch.randn(VRNN_B, VRNN_T, Z, generator=gen, device=dev) for _ in range(3)]
+
+    def k8(eps_):
+        with torch.no_grad():
+            vrnn_ops.vrnn_cell(w, enc, torch.zeros(VRNN_B, R, device=dev), eps_, inference=True, **cell_kw)
+
+    def k8_plain(eps_):
+        with torch.no_grad():
+            vrnn_ops.vrnn_cell_plain(w, enc, torch.zeros(VRNN_B, R, device=dev), eps_, inference=True, **cell_kw)
+
+    t8 = alternate(k8_plain, k8, eps_t)
+    H_ = args.hidden_size
+    X_ = enc.shape[-1]
+    macs = (R * H_ + 2 * H_ * H_ + H_ * 2 * Z) + ((R + X_) * H_ + 2 * H_ * H_ + H_ * 2 * Z) + (Z * H_ + 3 * H_ * H_) \
+        + (X_ + H_) * 3 * R + R * 3 * R  # a row-step, the hoisted products included
+    n_weights = sum(t.numel() for t in w)
+    rows = VRNN_B * VRNN_T
+    record["vrnn_cell"].update(ms=t8["kernel"], plain_ms=t8["plain"], **roofline(
+        bytes_=4 * (n_weights + rows * (X_ + Z) + VRNN_B * R + rows * (R + H_ + 5 * Z)), flops=2 * rows * macs,
+        peak=F32_PEAK))
+    x1 = enc[:GEN_B, :1]
+    eps1 = [torch.randn(GEN_B, 1, Z, generator=gen, device=dev) for _ in range(20)]
+
+    def k8_step(eps_):
+        with torch.no_grad():
+            vrnn_ops.vrnn_cell(w, x1, torch.zeros(GEN_B, R, device=dev), eps_, inference=False, **cell_kw)
+
+    def k8_step_plain(eps_):
+        with torch.no_grad():
+            vrnn_ops.vrnn_cell_plain(w, x1, torch.zeros(GEN_B, R, device=dev), eps_, inference=False, **cell_kw)
+
+    t1 = alternate(k8_step_plain, k8_step, eps1)
+
+    def t1_split(fn):
+        """A T' = 1 call's host time (the calls enqueued back to back, no wait between them: the
+        card runs behind the host) and the device time of all its kernels, and of K8's alone."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for e_ in eps1:
+            fn(e_)
+        host = (time.perf_counter() - t0) * 1e6 / len(eps1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for e_ in eps1:
+                fn(e_)
+            torch.cuda.synchronize()
+        kernels_ = device_kernels(prof)
+        k8_us = sum(device_us(e_) for e_ in kernels_ if "vrnn_cell_kernel" in e_.key)
+        return host, sum(device_us(e_) for e_ in kernels_) / len(eps1), k8_us / len(eps1)
+
+    split_k, split_p = t1_split(k8_step), t1_split(k8_step_plain)
+    phase("time-K8", card=card, shape=f"({VRNN_B},{VRNN_T})", R=R, H=H_, Z=Z, dtype="f32",
+          kernel_ms=f"{t8['kernel']:.4f}", plain_ms=f"{t8['plain']:.4f}", us_per_step=f"{t8['kernel'] * 1e3 / VRNN_T:.3f}",
+          bound_ms=f"{record['vrnn_cell']['bound_ms']:.4f}", bound_by=record["vrnn_cell"]["bound_by"],
+          prior_T1_us_per_launch=f"{t1['kernel'] * 1e3:.2f}", prior_T1_plain_us=f"{t1['plain'] * 1e3:.2f}",
+          T1_host_us=f"{split_k[0]:.2f}", T1_device_us=f"{split_k[1]:.2f}", T1_K8_device_us=f"{split_k[2]:.2f}",
+          T1_plain_host_us=f"{split_p[0]:.2f}", T1_plain_device_us=f"{split_p[1]:.2f}")
+
+    # where a step's time goes inside K8: the kernel's own trace (SM cycles of each stage's phases as its
+    # first CTA sees them, converted at the loop's clock rate), over 3 launches at the spec shape and 20 at T' = 1
+    stage_names = ("L1+gh", "L2", "L3", "heads+z", "phi1", "phi2", "phi3", "phi4", "gru")
+    for label, (x_, h_, eps_list, kw) in {
+            "K8-trace": (enc, torch.zeros(VRNN_B, R, device=dev), eps_t, dict(inference=True)),
+            "K8-trace-T1": (x1, torch.zeros(GEN_B, R, device=dev), eps1, dict(inference=False))}.items():
+        trace = torch.zeros(vrnn_ops.trace_size(), dtype=torch.int64, device=dev)
+        with torch.no_grad():
+            for e_ in eps_list:
+                vrnn_ops.vrnn_cell(w, x_, h_, e_, trace=trace, **kw, **cell_kw)
+        torch.cuda.synchronize()
+        per_step = vrnn_ops.read_trace(trace) / (len(eps_list) * x_.shape[1]) / 1e3  # us a step
+        phase(label, card=card, steps=len(eps_list) * x_.shape[1], us_per_step=f"{per_step.sum().item():.3f}",
+              inputs_us=f"{per_step[:, 0].sum().item():.3f}", products_us=f"{per_step[:, 1].sum().item():.3f}",
+              finish_us=f"{per_step[:, 2].sum().item():.3f}", barrier_us=f"{per_step[:, 3].sum().item():.3f}",
+              by_stage={n_: f"{v_:.2f}" for n_, v_ in zip(stage_names, per_step.sum(1).tolist())})
+
+    test_s = {False: [], True: []}
+    for split in (False, True):
+        for _ in range(3 if not split else 2):
+            test_s[split].append(test_pass(split)[2])
+    gen_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.generate(n_samples=GEN_B, max_timesteps=n_stacks, generator=torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        gen_s.append(time.perf_counter() - t0)
+    scored = int(x_sl_np.sum())
+    phase("time-vrnn-test-pass-and-generate", card=card, test_pass_samples=scored,
+          test_pass_s=[f"{v:.4f}" for v in test_s[False]], split_eval_s=[f"{v:.4f}" for v in test_s[True]],
+          test_samples_per_s=f"{scored / min(test_s[False]):.0f}", generate_stacks=n_stacks,
+          generate_s=[f"{v:.4f}" for v in gen_s], ms_per_stack=f"{min(gen_s) * 1e3 / n_stacks:.3f}",
+          generate_frames_per_s=f"{GEN_B * n_stacks * S / min(gen_s):.0f}")
+
+    # where the time goes: torch.profiler over one whole-batch test pass and over 200 generated stacks
+    def profiled(fn, label, per, unit):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels_ = device_kernels(prof)
+        busy_ms = sum(device_us(e_) for e_ in kernels_) / 1e3
+        phase(label, card=card, wall_ms=f"{wall_ms:.3f}", device_ms=f"{busy_ms:.3f}",
+              idle_share=f"{1 - busy_ms / wall_ms:.3f}" if busy_ms else "not measured",
+              kernel_launches=sum(e_.count for e_ in kernels_), **{f"wall_ms_per_{unit}": f"{wall_ms / per:.4f}"})
+        for e_ in sorted(kernels_, key=device_us, reverse=True)[:8]:
+            print(f"  {device_us(e_) / 1e3 / per:9.4f} ms/{unit} {e_.count // per:5d} calls/{unit}  {e_.key[:90]}",
+                  flush=True)
+
+    profiled(lambda: test_pass(False), "profile-vrnn-test-pass", 1, "pass")
+    profiled(lambda: model.generate(n_samples=GEN_B, max_timesteps=200,
+                                    generator=torch.Generator(device=dev).manual_seed(SEED)),
+             "profile-vrnn-generate", 200, "stack")
+
+    require(not failures, f"VRNN phases failed: {failures}")
+
+
 def argparse_copy(args, **changes):
     import argparse
 
@@ -1400,8 +1773,11 @@ def plain_path(modules, likelihoods, distributions, variational, recurrent):
                                                                      uniforms=uniforms),
                     variational.dmol_mode(logit_probs, locs))
 
+    from blvm_tpu_torch.ops import vrnn as vrnn_ops
+
     def plain():
         stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(vrnn_ops, "vrnn_cell", vrnn_ops.vrnn_cell_plain))
         stack.enter_context(mock.patch.object(modules, "residual_glu", modules.residual_glu_plain))
         stack.enter_context(mock.patch.object(likelihoods, "dmol_log_prob", dmol))
         stack.enter_context(mock.patch.object(distributions, "dmol_sample_and_mode", sample_and_mode))

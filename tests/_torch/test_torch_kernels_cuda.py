@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain twins, on the card: K1 and
 K2 forward and backward (against autograd of the twins), K3 the sampler, K4 the
-Fast-WaveNet decode step.
+Fast-WaveNet decode step, K5 the LSTM recurrence forward and backward, K8 the
+VRNN cell.
 
 Marked ``cuda``: they skip without a CUDA device (here, on CPU-only machines).
 On the card, where JAX is not installed, leave out the root conftest (it imports
@@ -17,10 +18,11 @@ import pytest
 import torch
 
 from blvm_tpu_torch import weights
-from blvm_tpu_torch.models import LSTMAudio, WaveNet
+from blvm_tpu_torch.models import LSTMAudio, VRNNAudio, WaveNet
 from blvm_tpu_torch.models.wavenet.modules import residual_glu, residual_glu_plain
 from blvm_tpu_torch.modules.distributions import DiscretizedLogisticMixtureDense
 from blvm_tpu_torch.ops import cuda, likelihoods, recurrent, variational
+from blvm_tpu_torch.ops import vrnn as vrnn_ops
 from blvm_tpu_torch.ops.generation import WaveNetDecoder
 
 # f32: the kernel's FMA order against cuBLAS's (a few ulps of O(1) values).
@@ -440,3 +442,122 @@ def test_lstm_audio_on_the_card_launches_k5(cuda_device):
     (gen, _), _ = model.generate(2, 6, generator=torch.Generator(device=cuda_device).manual_seed(0))
     assert gen.shape == (2, 48) and cuda.launch_counts()["lstm_recurrence"] == 12
     assert cuda.launch_counts()["dmol_sample"] == 6
+
+
+# (B, T', X, H, Z, R, inference, residual_posterior, condition_h_on_x, use_mode)
+K8_CASES = [
+    (3, 20, 256, 256, 256, 512, True, True, True, False),  # the s=64 spec's width
+    (11, 9, 16, 16, 4, 32, True, False, True, False),  # more rows than a stage's pass of 8
+    (2, 16, 32, 32, 8, 64, True, True, False, False),  # GRUCell(phi) alone
+    (2, 1, 256, 256, 256, 512, False, True, True, False),  # a generation step, sampled
+    (2, 1, 256, 256, 256, 512, False, True, True, True),  # a generation step at the mode
+    # widths that no grid divides evenly: 1-2 MLP units, 2-3 GRU units and 0-1 latent units a CTA
+    (4, 12, 64, 200, 16, 300, True, True, True, False),
+]
+
+
+def _k8_inputs(B, T, X, H, Z, R, cond, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+
+    def u(*shape, fan_in):
+        return (torch.rand(*shape, generator=g) * 2 - 1) / fan_in**0.5
+
+    def mlp(d_in, n):
+        out = []
+        for i in range(n):
+            fan = d_in if i == 0 else H
+            out += [u(fan, H, fan_in=fan), u(H, fan_in=fan)]
+        return out
+
+    w = (mlp(R, 3) + [u(H, 2 * Z, fan_in=H), u(2 * Z, fan_in=H)] + mlp(R + X, 3) + [u(H, 2 * Z, fan_in=H),
+                                                                                   u(2 * Z, fan_in=H)]
+         + mlp(Z, 4) + [u(X + H if cond else H, 3 * R, fan_in=R), u(3 * R, fan_in=R), u(R, 3 * R, fan_in=R),
+                        u(3 * R, fan_in=R)])
+    x = torch.randn(B, T, X, generator=g) * 0.5
+    h0 = torch.randn(B, R, generator=g) * 0.3
+    eps = torch.randn(B, T, Z, generator=g)
+    return [t.to(device) for t in w], x.to(device), h0.to(device), eps.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,X,H,Z,R,inference,residual,cond,use_mode", K8_CASES)
+def test_vrnn_cell_kernel_matches_twin(cuda_device, B, T, X, H, Z, R, inference, residual, cond, use_mode):
+    """K8 against its twin, free-running over every step in f32: the products' summation
+    order only (the chain does not amplify it), 1e-5 absolute plus 1e-5 relative."""
+    w, x, h0, eps = _k8_inputs(B, T, X, H, Z, R, cond, cuda_device)
+    kwargs = dict(inference=inference, residual_posterior=residual, condition_h_on_x=cond, use_mode=use_mode,
+                  sd_beta=0.6931478, sd_epsilon=1e-6)
+    cuda.reset_launch_counts()
+    with torch.no_grad():
+        got = vrnn_ops.vrnn_cell(w, x, h0, eps, **kwargs)
+        torch.cuda.synchronize()
+        assert cuda.launch_counts()["vrnn_cell"] == 1
+        ref = vrnn_ops.vrnn_cell_plain(w, x, h0, eps, **kwargs)
+    for name, a, b in zip(got._fields, got, ref):
+        if b is None:
+            assert a is None and not inference
+            continue
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5, msg=name)
+
+
+@pytest.mark.cuda
+def test_vrnn_cell_kernel_trace_accounts_for_the_loop(cuda_device):
+    """The kernel's trace: the same outputs with it as without; its phases, non-negative, sum to
+    the loop's cycles but for the few outside any phase."""
+    w, x, h0, eps = _k8_inputs(3, 30, 64, 64, 16, 128, True, cuda_device)
+    kwargs = dict(inference=True, residual_posterior=True, condition_h_on_x=True, sd_beta=0.6931478,
+                  sd_epsilon=1e-6)
+    trace = torch.zeros(vrnn_ops.trace_size(), dtype=torch.int64, device=cuda_device)
+    with torch.no_grad():
+        plain = vrnn_ops.vrnn_cell(w, x, h0, eps, **kwargs)
+        traced = vrnn_ops.vrnn_cell(w, x, h0, eps, trace=trace, **kwargs)
+    assert all(torch.equal(a, b) for a, b in zip(plain, traced))
+    cycles = trace.cpu()
+    assert (cycles >= 0).all() and 0.95 * cycles[-2] <= cycles[:-2].sum() <= cycles[-2] and cycles[-1] > 0
+    assert vrnn_ops.read_trace(trace).shape == (9, 4)
+
+
+@pytest.mark.cuda
+def test_vrnn_cell_kernel_refuses_what_it_does_not_take(cuda_device):
+    w, x, h0, eps = _k8_inputs(2, 3, 32, 32, 8, 64, True, cuda_device)
+    kwargs = dict(inference=True, residual_posterior=True, condition_h_on_x=True, sd_beta=0.6931478,
+                  sd_epsilon=1e-6)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        vrnn_ops.vrnn_cell(w, x.requires_grad_(True), h0, eps, **kwargs)
+    with torch.no_grad():
+        with pytest.raises(TypeError, match="float32"):
+            vrnn_ops.vrnn_cell(w, x.double(), h0, eps, **kwargs)
+        with pytest.raises(ValueError, match="eps"):
+            vrnn_ops.vrnn_cell(w, x, h0, eps[:, :2], **kwargs)
+        # at the spec's width each CTA keeps B x 12 floats of h W_hh in shared memory beside its ~70 KB
+        # of weights and 32 KB of staged inputs: 4096 rows (192 KB more) overflow the 227 KB a CTA can have
+        w, x, h0, eps = _k8_inputs(4096, 1, 256, 256, 256, 512, True, cuda_device)
+        with pytest.raises(RuntimeError, match="do not fit"):
+            vrnn_ops.vrnn_cell(w, x, h0, eps, **kwargs)
+
+
+@pytest.mark.cuda
+def test_vrnn_audio_on_the_card_launches_k8(cuda_device):
+    """A small VRNNAudio on the card: a forward launches K8, K2 and K3 once each and its loss
+    equals the plain path's (same noise); a generation launches K8 and K3 once a stack; a
+    forward that would need a gradient raises."""
+    model = VRNNAudio(input_size=8, hidden_size=32, latent_size=8, residual_posterior=True, device=cuda_device)
+    weights.load_jax_params(model, weights.random_jax_params(model, 0))
+    x = torch.rand(3, 200, generator=torch.Generator().manual_seed(0)).to(cuda_device) * 2 - 1
+    x_sl = torch.tensor([200, 150, 61], device=cuda_device)
+    eps = torch.randn(3, 25, 8, generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    cuda.reset_launch_counts()
+    with torch.no_grad():
+        loss, _, out = model(x, x_sl, eps=eps)
+        counts = cuda.launch_counts()
+        with mock.patch.object(vrnn_ops, "vrnn_cell", vrnn_ops.vrnn_cell_plain):
+            plain_loss, _, plain_out = model(x, x_sl, eps=eps)
+    assert (counts["vrnn_cell"], counts["dmol_log_prob"], counts["dmol_sample"]) == (1, 1, 1)
+    torch.testing.assert_close(loss, plain_loss, rtol=1e-5, atol=0)
+    torch.testing.assert_close(out.h_n, plain_out.h_n, rtol=1e-5, atol=1e-5)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        model(x, x_sl)
+    cuda.reset_launch_counts()
+    (gen, _), _ = model.generate(2, 6, generator=torch.Generator(device=cuda_device).manual_seed(0))
+    assert gen.shape == (2, 48, 1) and torch.isfinite(gen).all()
+    assert cuda.launch_counts()["vrnn_cell"] == 6 and cuda.launch_counts()["dmol_sample"] == 6
