@@ -35,19 +35,17 @@
 // No tensor cores: the JAX step is f32, and TF32 or bf16 products would break parity. Given a trace
 // buffer, the first CTA adds up the SM cycles of each stage's phases (inputs in, products, finish and
 // store, barrier), so a run can see where a step's time goes; without one it costs a branch a phase.
+//
+// Save mode, for a forward that will be differentiated (K8-bwd, vrnn_cell_bwd.cu, reads what it keeps):
+// the nine MLP activations of every step go to a (B, T', 9H + 2Z + 4R) buffer instead of one step's
+// scratch, and stage 4 adds both heads' raw sd pre-activations, stage 9 the GRU's r, u, n and gh_n.
 
-#include "common.cuh"
+#include "vrnn_common.cuh"
 
 namespace blvm {
 namespace vrnn {
 
-constexpr int NT = 256;       // threads a CTA
-constexpr int NW = NT / 32;   // warps a CTA
-constexpr int BC = 8;         // batch rows a pass of a stage (accumulators a lane)
-constexpr int NWEIGHTS = 28;  // prior 8, posterior 8, phi 8, GRU 4 (see blvm_vrnn_cell)
-constexpr int MAX_SEGS = 5;
 constexpr int NSTAGES = 9;
-constexpr int NPHASES = 4;  // of a stage, in the trace: inputs in, products, finish and store, barrier
 constexpr int NTRACE = NSTAGES * NPHASES + 2;  // and the loop's SM cycles and nanoseconds, to convert
 
 struct Params {
@@ -63,119 +61,17 @@ struct Params {
   float* q_sd;
   float* p_mu;
   float* p_sd;
-  float* scratch;  // 9 activation buffers (B, H): prior L1-L3, posterior L1-L3, phi L1-L3
+  // the activations of prior L1, posterior L1, prior L2, posterior L2, prior L3, posterior L3, phi L1-L3 (H
+  // each) of row b at step t from act + b act_rs + t act_ts; in save mode (act_ts > 0) followed by raw_p,
+  // raw_q (Z each), r, u, n, gh_n (R each)
+  float* act;
+  int64_t act_rs, act_ts;
   unsigned int* barrier;
   long long* trace;  // null, or NTRACE sums: SM cycles of each (stage, phase) as CTA 0 sees them, the totals
   int B, T, R, H, Z;
-  int inference, residual, use_mode;
+  int inference, residual, use_mode, save;
   float sd_beta, sd_eps;
 };
-
-// columns [col0, col0 + n) of the K x ld matrix w, with their biases b[col0 ...]; `region` picks the input
-struct Seg {
-  const float* w;
-  const float* b;
-  int ld, col0, n, region;
-};
-
-struct Stage {
-  Seg seg[MAX_SEGS];
-  int nseg, K, ncols;
-  float* ws;  // ncols x K in shared memory, column after column
-  float* bs;  // ncols
-};
-
-__device__ __forceinline__ int part_lo(int n, int c, int parts) { return (int)((long long)n * c / parts); }
-
-// All CTAs meet (they are co-resident: a cooperative launch). The CTA's stores are ordered before the
-// arrival by the CTA barrier and a gpu-scope release fence; the arrival is a fire-and-forget reduction on
-// one counter; the acquire load that sees every arrival orders the CTA's later loads after them.
-__device__ __forceinline__ void grid_sync(unsigned int* counter, unsigned int& target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    target += gridDim.x;
-    asm volatile("fence.acq_rel.gpu;\n\tred.relaxed.gpu.global.add.u32 [%0], 1;" ::"l"(counter) : "memory");
-    unsigned int seen;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(seen) : "l"(counter) : "memory");
-    } while ((int)(seen - target) < 0);
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ long long now_ns() {
-  long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// the partial products of a stage: res[c][b] = sum_k act[region(c)][b][k] ws[c][k] for its ncols columns
-__device__ void stage_products(const Stage& st, const float* act, float* res) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int K = st.K, ncols = st.ncols;
-  for (int c = warp; c < ncols; c += NW) {
-    int s = 0, first = 0;
-    while (c >= first + st.seg[s].n) first += st.seg[s++].n;
-    const float* a = act + st.seg[s].region * BC * K;
-    const float* wc = st.ws + (size_t)c * K;
-    float acc[BC];
-#pragma unroll
-    for (int b = 0; b < BC; ++b) acc[b] = 0.0f;
-#pragma unroll 4
-    for (int k = lane; k < K; k += 32) {
-      const float wv = wc[k];
-#pragma unroll
-      for (int b = 0; b < BC; ++b) acc[b] = fmaf(a[b * K + k], wv, acc[b]);
-    }
-    float mine = 0.0f;
-#pragma unroll
-    for (int b = 0; b < BC; ++b) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], off);
-      if (lane == b) mine = acc[b];
-    }
-    if (lane < BC) res[c * BC + lane] = mine;
-  }
-}
-
-// Rows [b0, b0 + BC) of one or two (B, K) inputs (row stride `stride`; s1 may be null) into act's
-// regions 0 and 1, zeros past B. Each thread issues all its loads (up to 2 x 2 x BC) before it stores
-// any, so a stage waits out one L2 latency, not one a load.
-__device__ __forceinline__ void load_stage(float* act, const float* s0, const float* s1, int64_t stride, int K,
-                                           int b0, int B) {
-  const int nb = min(BC, B - b0);
-  for (int k0 = threadIdx.x; k0 < K; k0 += 2 * NT) {
-    float v0[2][BC], v1[2][BC];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int k = k0 + j * NT;
-#pragma unroll
-      for (int b = 0; b < BC; ++b) {
-        const bool ok = k < K && b < nb;
-        const int64_t o = (int64_t)(b0 + b) * stride + k;
-        v0[j][b] = ok ? __ldcg(s0 + o) : 0.0f;
-        v1[j][b] = ok && s1 ? __ldcg(s1 + o) : 0.0f;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int k = k0 + j * NT;
-      if (k < K) {
-#pragma unroll
-        for (int b = 0; b < BC; ++b) {
-          act[b * K + k] = v0[j][b];
-          if (s1) act[(BC + b) * K + k] = v1[j][b];
-        }
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float relu(float v) { return fmaxf(v, 0.0f); }
-
-__device__ __forceinline__ float softplus_sd(float raw, float beta, float eps) {
-  return __fadd_rn(__fdiv_rn(softplusf(__fmul_rn(beta, raw)), beta), eps);
-}
 
 __global__ void __launch_bounds__(NT, 1) vrnn_cell_kernel(const Params p) {
   extern __shared__ float smem[];
@@ -188,42 +84,32 @@ __global__ void __launch_bounds__(NT, 1) vrnn_cell_kernel(const Params p) {
 
   // the stages' column segments, in the order their columns lie in shared memory
   Stage st[NSTAGES];
-  auto seg = [](const float* w, const float* b, int ld, int col0, int n, int region) {
-    Seg s;
-    s.w = w;
-    s.b = b;
-    s.ld = ld;
-    s.col0 = col0;
-    s.n = n;
-    s.region = region;
-    return s;
-  };
   const float* const* w = p.w;
   st[0].K = R;
   st[0].nseg = 5;
-  st[0].seg[0] = seg(w[0], w[1], H, hlo, nh, 0);   // prior L1
-  st[0].seg[1] = seg(w[8], w[9], H, hlo, nq, 0);   // posterior L1, h rows
-  for (int g = 0; g < 3; ++g) st[0].seg[2 + g] = seg(w[26], w[27], G, g * R + rlo, nr, 0);  // W_hh r, z, n
+  st[0].seg[0] = make_seg(w[0], w[1], H, hlo, nh, 0);   // prior L1
+  st[0].seg[1] = make_seg(w[8], w[9], H, hlo, nq, 0);   // posterior L1, h rows
+  for (int g = 0; g < 3; ++g) st[0].seg[2 + g] = make_seg(w[26], w[27], G, g * R + rlo, nr, 0);  // W_hh r, z, n
   for (int l = 1; l < 3; ++l) {  // prior and posterior L2, L3
     st[l].K = H;
     st[l].nseg = 2;
-    st[l].seg[0] = seg(w[2 * l], w[2 * l + 1], H, hlo, nh, 0);
-    st[l].seg[1] = seg(w[8 + 2 * l], w[9 + 2 * l], H, hlo, nq, 1);
+    st[l].seg[0] = make_seg(w[2 * l], w[2 * l + 1], H, hlo, nh, 0);
+    st[l].seg[1] = make_seg(w[8 + 2 * l], w[9 + 2 * l], H, hlo, nq, 1);
   }
   st[3].K = H;  // heads: mu and sd columns of latent units [zlo, zlo + nz)
   st[3].nseg = 4;
-  st[3].seg[0] = seg(w[6], w[7], 2 * Z, zlo, nz, 0);
-  st[3].seg[1] = seg(w[6], w[7], 2 * Z, Z + zlo, nz, 0);
-  st[3].seg[2] = seg(w[14], w[15], 2 * Z, zlo, p.inference ? nz : 0, 1);
-  st[3].seg[3] = seg(w[14], w[15], 2 * Z, Z + zlo, p.inference ? nz : 0, 1);
+  st[3].seg[0] = make_seg(w[6], w[7], 2 * Z, zlo, nz, 0);
+  st[3].seg[1] = make_seg(w[6], w[7], 2 * Z, Z + zlo, nz, 0);
+  st[3].seg[2] = make_seg(w[14], w[15], 2 * Z, zlo, p.inference ? nz : 0, 1);
+  st[3].seg[3] = make_seg(w[14], w[15], 2 * Z, Z + zlo, p.inference ? nz : 0, 1);
   for (int l = 0; l < 4; ++l) {  // phi L1-L4
     st[4 + l].K = l == 0 ? Z : H;
     st[4 + l].nseg = 1;
-    st[4 + l].seg[0] = seg(w[16 + 2 * l], w[17 + 2 * l], H, hlo, nh, 0);
+    st[4 + l].seg[0] = make_seg(w[16 + 2 * l], w[17 + 2 * l], H, hlo, nh, 0);
   }
   st[8].K = H;  // W_ih's phi rows: r, z, n of GRU units [rlo, rlo + nr)
   st[8].nseg = 3;
-  for (int g = 0; g < 3; ++g) st[8].seg[g] = seg(w[24], w[25], G, g * R + rlo, nr, 0);
+  for (int g = 0; g < 3; ++g) st[8].seg[g] = make_seg(w[24], w[25], G, g * R + rlo, nr, 0);
 
   // shared memory: every stage's weight columns and biases, the input rows, the products, gh
   float* cursor = smem;
@@ -269,18 +155,8 @@ __global__ void __launch_bounds__(NT, 1) vrnn_cell_kernel(const Params p) {
   }
   __syncthreads();
 
-  float* a1p = p.scratch;  // activation buffers (B, H), each written in one stage and read in the next
-  float* a1q = a1p + (size_t)B * H;
-  float* a2p = a1q + (size_t)B * H;
-  float* a2q = a2p + (size_t)B * H;
-  float* a3p = a2q + (size_t)B * H;
-  float* a3q = a3p + (size_t)B * H;
-  float* f1 = a3q + (size_t)B * H;
-  float* f2 = f1 + (size_t)B * H;
-  float* f3 = f2 + (size_t)B * H;
-  float* const pin[3] = {a1p, a2p, a3p};
-  float* const qin[3] = {a1q, a2q, a3q};
-  float* const fbuf[4] = {f1, f2, f3, nullptr};
+  const int64_t ars = p.act_rs;  // the activations' row stride
+  const int64_t raw_off = (int64_t)9 * H, gate_off = raw_off + 2 * Z;  // save mode: raw sd, then r, u, n, gh_n
   unsigned int target = 0;
   long long* const trace = cta == 0 && tid == 0 ? p.trace : nullptr;
   const long long ns_begin = trace ? now_ns() : 0, cycles_begin = trace ? clock64() : 0;
@@ -294,6 +170,13 @@ __global__ void __launch_bounds__(NT, 1) vrnn_cell_kernel(const Params p) {
   };
 
   for (int t = 0; t < T; ++t) {
+    // activation buffers, each written in one stage and read in the next: step t's in save mode
+    float* const at = p.act + (int64_t)t * p.act_ts;
+    float* const a1p = at;
+    float* const a1q = at + H;
+    float* const pin[3] = {at, at + 2 * H, at + 4 * H};
+    float* const qin[3] = {at + H, at + 3 * H, at + 5 * H};
+    float* const fbuf[4] = {at + 6 * H, at + 7 * H, at + 8 * H, nullptr};
     // h entering step t: h0, or the state after step t - 1
     const float* h_in = t == 0 ? p.h0 : p.h_out + (int64_t)(t - 1) * R;
     const int64_t h_stride = t == 0 ? R : (int64_t)T * R;
@@ -316,10 +199,10 @@ __global__ void __launch_bounds__(NT, 1) vrnn_cell_kernel(const Params p) {
         if (row >= B) continue;
         const float v = res[c * BC + b];
         if (c < nh) {
-          __stcg(a1p + (int64_t)row * H + hlo + c, relu(v + s0.bs[c]));
+          __stcg(a1p + (int64_t)row * ars + hlo + c, relu(v + s0.bs[c]));
         } else if (c < nh + nq) {
           const int j = c - nh;
-          __stcg(a1q + (int64_t)row * H + hlo + j, relu((v + side[b * nq + j]) + s0.bs[c]));
+          __stcg(a1q + (int64_t)row * ars + hlo + j, relu((v + side[b * nq + j]) + s0.bs[c]));
         } else {
           const int gj = c - nh - nq;  // gate g = gj / nr, unit rlo + gj % nr
           gh[(size_t)row * 3 * nr + gj] = v + s0.bs[c];
@@ -335,7 +218,7 @@ __global__ void __launch_bounds__(NT, 1) vrnn_cell_kernel(const Params p) {
     for (int l = 1; l < 3; ++l) {
       const Stage& sl = st[l];
       for (int b0 = 0; b0 < B; b0 += BC) {
-        load_stage(act, pin[l - 1], p.inference ? qin[l - 1] : nullptr, H, H, b0, B);
+        load_stage(act, pin[l - 1], p.inference ? qin[l - 1] : nullptr, ars, H, b0, B);
         __syncthreads();
         tick(l, 0);
         stage_products(sl, act, res);
@@ -346,9 +229,9 @@ __global__ void __launch_bounds__(NT, 1) vrnn_cell_kernel(const Params p) {
           if (row >= B) continue;
           const float v = relu(res[c * BC + b] + sl.bs[c]);
           if (c < nh)
-            __stcg(pin[l] + (int64_t)row * H + hlo + c, v);
+            __stcg(pin[l] + (int64_t)row * ars + hlo + c, v);
           else
-            __stcg(qin[l] + (int64_t)row * H + hlo + c - nh, v);
+            __stcg(qin[l] + (int64_t)row * ars + hlo + c - nh, v);
         }
         __syncthreads();
         tick(l, 2);
@@ -364,7 +247,7 @@ __global__ void __launch_bounds__(NT, 1) vrnn_cell_kernel(const Params p) {
         float sv = 0.0f;  // e of one (row, latent unit), issued first
         if (p.eps && tid < BC * nz && b0 + tid / nz < B)
           sv = __ldg(p.eps + ((int64_t)(b0 + tid / nz) * T + t) * Z + zlo + tid % nz);
-        load_stage(act, a3p, p.inference ? a3q : nullptr, H, H, b0, B);
+        load_stage(act, pin[2], p.inference ? qin[2] : nullptr, ars, H, b0, B);
         if (tid < BC * nz) side[tid] = sv;
         __syncthreads();
         tick(3, 0);
@@ -376,11 +259,15 @@ __global__ void __launch_bounds__(NT, 1) vrnn_cell_kernel(const Params p) {
           if (row >= B) continue;
           const int64_t o = ((int64_t)row * T + t) * Z + zlo + j;
           const float mu_p = res[j * BC + b] + s3.bs[j];
-          const float sd_p = softplus_sd(res[(nz + j) * BC + b] + s3.bs[nz + j], p.sd_beta, p.sd_eps);
+          const float raw_p = res[(nz + j) * BC + b] + s3.bs[nz + j];
+          const float sd_p = softplus_sd(raw_p, p.sd_beta, p.sd_eps);
+          if (p.save) __stcg(at + (int64_t)row * ars + raw_off + zlo + j, raw_p);
           float zv;
           if (p.inference) {
             float mu_q = res[(2 * nz + j) * BC + b] + s3.bs[2 * nz + j];
-            const float sd_q = softplus_sd(res[(3 * nz + j) * BC + b] + s3.bs[3 * nz + j], p.sd_beta, p.sd_eps);
+            const float raw_q = res[(3 * nz + j) * BC + b] + s3.bs[3 * nz + j];
+            const float sd_q = softplus_sd(raw_q, p.sd_beta, p.sd_eps);
+            if (p.save) __stcg(at + (int64_t)row * ars + raw_off + Z + zlo + j, raw_q);
             if (p.residual) mu_q = mu_q + mu_p;
             zv = __fadd_rn(mu_q, __fmul_rn(sd_q, side[b * nz + j]));
             __stcg(p.q_mu + o, mu_q);
@@ -403,9 +290,9 @@ __global__ void __launch_bounds__(NT, 1) vrnn_cell_kernel(const Params p) {
     for (int l = 0; l < 4; ++l) {
       const Stage& sl = st[4 + l];
       const float* src = l == 0 ? p.z + (int64_t)t * Z : fbuf[l - 1];
-      const int64_t stride = l == 0 ? (int64_t)T * Z : H;
+      const int64_t stride = l == 0 ? (int64_t)T * Z : ars;
       float* dst = l == 3 ? p.phi + (int64_t)t * H : fbuf[l];
-      const int64_t dst_stride = l == 3 ? (int64_t)T * H : H;
+      const int64_t dst_stride = l == 3 ? (int64_t)T * H : ars;
       for (int b0 = 0; b0 < B; b0 += BC) {
         load_stage(act, src, nullptr, stride, sl.K, b0, B);
         __syncthreads();
@@ -467,6 +354,13 @@ __global__ void __launch_bounds__(NT, 1) vrnn_cell_kernel(const Params p) {
           const float n = tanhf(__fadd_rn(gi[2], __fmul_rn(r, ghr[2 * nr + u])));
           const float h_new = __fadd_rn(__fmul_rn(1.0f - zg, n), __fmul_rn(zg, h));
           __stcg(p.h_out + ((int64_t)row * T + t) * R + unit, h_new);
+          if (p.save) {
+            float* sv = at + (int64_t)row * ars + gate_off + unit;
+            __stcg(sv, r);
+            __stcg(sv + R, zg);
+            __stcg(sv + 2 * R, n);
+            __stcg(sv + 3 * R, ghr[2 * nr + u]);
+          }
         }
         __syncthreads();
         tick(8, 2);
@@ -505,7 +399,8 @@ size_t smem_bytes(int NB, int B, int R, int H, int Z) {
 // its head W (H, 2Z), b; the posterior's the same with W0 the h rows (R, H) of (R + X, H); phi's W0 (Z, H),
 // b0, W1, b1, W2, b2, W3, b3; the GRU's W_ih phi rows (H, 3R), b_ih, W_hh (R, 3R), b_hh. outputs: 7 device
 // pointers h (B, T, R), z, phi (B, T, H), q_mu, q_sd, p_mu, p_sd (B, T, Z); q_mu and q_sd null in prior
-// mode. scratch: 9 B H floats; barrier: one uint32 (zeroed here); trace: null, or 38 int64 sums the kernel adds
+// mode. act: 9 B H floats of scratch, or with `save` the (B, T, 9H + 2Z + 4R) buffer K8-bwd reads (see
+// Params::act); barrier: one uint32 (zeroed here); trace: null, or 38 int64 sums the kernel adds
 // to (the SM cycles of each stage's four phases as CTA 0 sees them, then the loop's cycles and nanoseconds).
 // The grid is one CTA an SM, or one a unit where a layer has fewer units than the card has SMs.
 // Returns a cudaError_t; cudaErrorInvalidValue for shapes it does not take (among them more than
@@ -513,45 +408,25 @@ size_t smem_bytes(int NB, int B, int R, int H, int Z) {
 // fetches at most one or two of a stage's side inputs), cudaErrorCooperativeLaunchTooLarge when the
 // grid's weights cannot all be resident.
 extern "C" int blvm_vrnn_cell(const void* const* weights, const void* h0, const void* xpost, const void* xg,
-                              const void* eps, void* const* outputs, void* scratch, void* barrier, void* trace,
+                              const void* eps, void* const* outputs, void* act, void* barrier, void* trace,
                               int B, int T,
-                              int R, int H, int Z, int inference, int residual, int use_mode, float sd_beta,
+                              int R, int H, int Z, int inference, int residual, int use_mode, int save, float sd_beta,
                               float sd_eps, void* stream) {
   using namespace blvm::vrnn;
   if (B < 1 || T < 1 || R < 1 || H < 1 || Z < 1 || (inference && (!xpost || !eps || !outputs[3] || !outputs[4])) ||
       (!inference && !use_mode && !eps))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // the SM count and the residency of a grid, asked once per device and shared-memory size (a
-  // generation launches K8 once a stack)
-  static int cached_dev = -1, sms = 0, per_sm = 0, smem_optin = 0;
-  static size_t cached_smem = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static LaunchCache cache;
+  cudaError_t err = query_device(cache);
   if (err != cudaSuccess) return (int)err;
-  if (dev != cached_dev) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return (int)err;
-    cached_dev = dev;
-    cached_smem = 0;
-  }
   const int units = R > H ? (R > Z ? R : Z) : (H > Z ? H : Z);
-  const int NB = sms < units ? sms : units;
+  const int NB = cache.sms < units ? cache.sms : units;
   if ((H + NB - 1) / NB > NT / BC || (Z + NB - 1) / NB > NT / BC || 4 * ((R + NB - 1) / NB) > 2 * NT / BC)
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(NB, B, R, H, Z);
-  if (smem > (size_t)smem_optin) return (int)cudaErrorCooperativeLaunchTooLarge;
-  if (smem != cached_smem) {
-    err = cudaFuncSetAttribute(vrnn_cell_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, vrnn_cell_kernel, NT, smem);
-    if (err != cudaSuccess) {
-      cudaGetLastError();
-      return (int)err;
-    }
-    cached_smem = smem;
-  }
-  if ((long long)per_sm * sms < NB) return (int)cudaErrorCooperativeLaunchTooLarge;
+  err = prepare_cooperative(cache, (const void*)vrnn_cell_kernel, smem, NB);
+  if (err != cudaSuccess) return (int)err;
 
   Params p;
   const float* const* w = reinterpret_cast<const float* const*>(weights);
@@ -568,7 +443,10 @@ extern "C" int blvm_vrnn_cell(const void* const* weights, const void* h0, const 
   p.q_sd = o[4];
   p.p_mu = o[5];
   p.p_sd = o[6];
-  p.scratch = static_cast<float*>(scratch);
+  p.act = static_cast<float*>(act);
+  const int64_t save_width = (int64_t)9 * H + 2 * Z + 4 * R;
+  p.act_rs = save ? (int64_t)T * save_width : (int64_t)9 * H;
+  p.act_ts = save ? save_width : 0;
   p.barrier = static_cast<unsigned int*>(barrier);
   p.trace = static_cast<long long*>(trace);
   p.B = B;
@@ -579,6 +457,7 @@ extern "C" int blvm_vrnn_cell(const void* const* weights, const void* h0, const 
   p.inference = inference;
   p.residual = residual;
   p.use_mode = use_mode;
+  p.save = save;
   p.sd_beta = sd_beta;
   p.sd_eps = sd_eps;
   err = cudaMemsetAsync(barrier, 0, sizeof(unsigned int), st);

@@ -2,8 +2,9 @@
 
 The setup, training and optimizer flags with the JAX drivers' names, the batch
 encoding (mu-law, right-padding), ``build_tx_and_lr``, the training loop
-(:func:`train`: random segments, mu-law, the train step, loss/ll/bpd under the
-``train`` source), the test pass (:func:`evaluate`, whole or in a family's chunks)
+(:func:`train`: random segments, mu-law, the family's annealers stepped once a step
+(:func:`make_scalar_schedules`), the train step, the step's metrics under the ``train``
+source), the test pass (:func:`evaluate`, whole or in a family's chunks)
 and the wav-writing half of the generation hook. Each family's driver
 (``wavenet_audio.py``, ``lstm_audio.py``, ``vrnn_audio.py``) adds its model flags, its model and its
 chunked test pass. Dataset loading from TIMIT files and checkpoints come later:
@@ -16,7 +17,7 @@ import json
 import time
 import warnings
 from pathlib import Path
-from typing import Callable, Iterable, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -128,19 +129,35 @@ def make_train_batch(examples: Sequence[Tuple[int, np.ndarray]], args: argparse.
     return make_batch(waveforms, args)
 
 
+def make_scalar_schedules(annealers: Dict[str, object]) -> Callable[[], Dict[str, torch.Tensor]]:
+    """``step_schedules()`` steps every annealer once and returns ``{name: value}``
+    (``experiments/common.py:make_scalar_schedules``): each value a float32 host scalar,
+    as JAX hands the jitted step ``np.float32`` values, so the forward computes with it in
+    float32 and a 0 is a value, not the absent default."""
+
+    def step_schedules():
+        return {name: torch.tensor(a.step(), dtype=torch.float32) for name, a in annealers.items()}
+
+    return step_schedules
+
+
 def train(
     model: torch.nn.Module,
     args: argparse.Namespace,
     batches_per_epoch: Sequence[Sequence[Tuple[int, np.ndarray]]],
     tracker: Tracker,
     device=None,
+    annealers: Optional[Dict[str, object]] = None,
 ) -> TrainState:
     """The training loop: ``--epochs`` passes over ``batches_per_epoch`` (each batch
     a list of ``(example_id, waveform in [-1, 1])``), one train step a batch, the
-    step's loss/ll/bpd merged into ``tracker`` under the ``train`` source.
+    step's metrics merged into ``tracker`` under the ``train`` source.
 
-    Runs on ``device`` (default: the card; raises where there is none), where the
-    model must already lie. Returns the final :class:`TrainState`.
+    ``annealers`` (the VRNN's beta and free nats, :func:`make_scalar_schedules`) are
+    stepped once before each train step and their values handed to the forward as keyword
+    arguments (:func:`loss_fn`); without any the forward sees none, as WaveNet's and
+    LSTMAudio's do. Runs on ``device`` (default: the card; raises where there is none),
+    where the model must already lie. Returns the final :class:`TrainState`.
     """
     device = resolve_device(device)
     if next(model.parameters()).device.type != device.type:
@@ -157,6 +174,7 @@ def train(
         accum_unroll=args.accum_unroll,
     )
     crop = RandomSegment(args.random_segment_size, seed=args.seed) if args.random_segment_size else None
+    schedules = make_scalar_schedules(annealers or {})
     model.train()
     for epoch in range(1, args.epochs + 1):
         if epoch_lr is not None:
@@ -164,14 +182,16 @@ def train(
         for examples in batches_per_epoch:
             x, x_sl = make_train_batch(examples, args, epoch, crop)
             batch = dict(x=torch.from_numpy(x).to(device), x_sl=torch.from_numpy(x_sl).to(device))
-            state, mets = train_step(state, batch, {})
+            state, mets = train_step(state, batch, schedules())
             tracker.update(model.build_metrics(to_host(mets)), source="train")
     return state
 
 
 def loss_fn(model, generator, batch, scalars):
-    """The drivers' loss function: one forward, ``(loss, (mets, outputs))``."""
-    loss, mets, outputs = model(batch["x"], batch["x_sl"], generator=generator, **batch.get("kwargs", {}))
+    """The drivers' loss function: one forward, given ``batch["kwargs"]`` and the step's
+    ``scalars`` (the annealers' values, e.g. the VRNN's ``beta`` and ``free_nats``) as
+    keyword arguments: ``(loss, (mets, outputs))``."""
+    loss, mets, outputs = model(batch["x"], batch["x_sl"], generator=generator, **batch.get("kwargs", {}), **scalars)
     return loss, (mets, outputs)
 
 

@@ -1,17 +1,19 @@
-"""VRNN on audio: CLI, model construction, annealers, the state-carry test pass and generation.
+"""VRNN on audio: CLI, model construction, annealers, training, the state-carry test pass and generation.
 
 Port of ``experiments/experiment_vrnn_audio.py``: its flags (so the VRNN run specs
-of ``experiments/benchmarks.txt`` parse), its model, its beta and free-nats
-annealers, its chunked test pass with the GRU state carried from chunk to chunk
-(``:116-137``) and its generation hook. The test pass uses the scalars the JAX
-runner gives every evaluation, ``beta = 1`` and ``free_nats = 0`` (the true ELBO).
-The batch encoding and the whole-batch test pass are the shared
-:mod:`blvm_tpu_torch.experiments.common`. ``--scan_unroll`` only schedules XLA and
-``--dropout`` is parsed but unused, as in the JAX driver. Models build on the card
-unless a device is given; the VRNN's training step waits for K8's backward.
+of ``experiments/benchmarks.txt`` parse), its model, its training loop with the beta
+and free-nats annealers stepped once a train step (``:90-109``), its chunked test pass
+with the GRU state carried from chunk to chunk (``:116-137``) and its generation hook.
+The test pass uses the scalars the JAX runner gives every evaluation, ``beta = 1`` and
+``free_nats = 0`` (the true ELBO). The batch encoding, the train step and the
+whole-batch test pass are the shared :mod:`blvm_tpu_torch.experiments.common`.
+``--scan_unroll`` only schedules XLA and ``--dropout`` is parsed but unused, as in the
+JAX driver. Models build on the card unless a device is given; on the card a train
+step runs K8 in save mode forward and K8-bwd backward.
 
     args = build_args(argv)
     model = build_model(args)
+    state = train(model, args, batches_per_epoch, tracker)
     values = evaluate(model, args, [common.make_batch(waveforms, args)], Tracker())
     make_generation_hook(model, args)(epoch, run_dir)
 """
@@ -29,6 +31,7 @@ from blvm_tpu_torch.models.vrnn import VRNNAudio
 from blvm_tpu_torch.ops.padding import get_modulo_length
 from blvm_tpu_torch.ops.sequence import split_sequence
 from blvm_tpu_torch.training.annealers import CosineAnnealer
+from blvm_tpu_torch.training.train_state import TrainState
 
 # the scalars of every evaluation (blvm_tpu experiments/common.py:768-771)
 EVAL_SCALARS = dict(beta=1.0, free_nats=0.0)
@@ -96,6 +99,15 @@ def build_annealers(args: argparse.Namespace) -> dict:
         free_nats=CosineAnnealer(anneal_steps=args.free_nats_steps // 2, constant_steps=args.free_nats_steps // 2,
                                  start_value=args.free_nats_start_value, end_value=0.0),
     )
+
+
+def train(model: VRNNAudio, args: argparse.Namespace, batches_per_epoch: Sequence[Sequence[Tuple[int, np.ndarray]]],
+          tracker: Tracker, device=None) -> TrainState:
+    """The driver's training loop (:func:`common.train`) with :func:`build_annealers`: beta
+    and free nats stepped once a train step and handed to the forward, their values logged
+    under the ``train`` source (``VRNNAudio.build_metrics``). Returns the final
+    :class:`TrainState`."""
+    return common.train(model, args, batches_per_epoch, tracker, device=device, annealers=build_annealers(args))
 
 
 def make_state_carry_eval(model: VRNNAudio, args: argparse.Namespace):

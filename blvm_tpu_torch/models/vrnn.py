@@ -2,7 +2,8 @@
 
 The cell (prior and posterior MLPs with Gaussian heads, ``z = mu + sd eps``, the phi
 MLP, a GRU cell) runs over all steps in :func:`blvm_tpu_torch.ops.vrnn.vrnn_cell`:
-its plain twin on the CPU, one launch of the K8 kernel on the card. As in the JAX
+its plain twin on the CPU, one launch of the K8 kernel on the card, and where a
+gradient is needed K8 in save mode and one K8-bwd launch in the backward. As in the JAX
 package the scan has no length mask (padding steps run too; only the ELBO masks
 them), the decoder reads ``[phi_z, h]`` with ``h`` shifted by one step, and ``h_n`` is
 the state *entering* the last step (the reference's stale ``h_n``, ``vrnn.py:226-229``).

@@ -34,6 +34,7 @@ _lib_lock = threading.Lock()
 _launches: Dict[str, int] = {
     "residual_glu": 0, "residual_glu_bwd": 0, "dmol_log_prob": 0, "dmol_log_prob_bwd": 0, "dmol_sample": 0,
     "wavenet_decode": 0, "lstm_recurrence": 0, "lstm_recurrence_bwd": 0, "vrnn_cell": 0,
+    "vrnn_cell_bwd": 0,
 }
 build_log = ""  # nvcc's output of the build this process ran (register / shared-memory report)
 
@@ -56,9 +57,12 @@ _SIGNATURES = {
     "blvm_lstm_recurrence": [_P] * 12 + [_I] * 4 + [_P],
     # w_hh, mask, gates, c_prev, d_out, d_h_n, d_c_n, d_gates, d_h0, d_c0; B, T, H, dtype, stream
     "blvm_lstm_recurrence_bwd": [_P] * 10 + [_I] * 4 + [_P],
-    # weights[28], h0, xpost, xg, eps, outputs[7], scratch, barrier, trace; B, T, R, H, Z, inference, residual,
-    # use_mode; sd_beta, sd_eps; stream
-    "blvm_vrnn_cell": [_P] * 9 + [_I] * 8 + [_F] * 2 + [_P],
+    # weights[28], h0, xpost, xg, eps, outputs[7], act, barrier, trace; B, T, R, H, Z, inference, residual,
+    # use_mode, save; sd_beta, sd_eps; stream
+    "blvm_vrnn_cell": [_P] * 9 + [_I] * 9 + [_F] * 2 + [_P],
+    # weights[28], h0, eps, h, phi, save, grads[7], dpre, dh0, barrier, trace; B, T, R, H, Z, residual; sd_beta;
+    # stream
+    "blvm_vrnn_cell_bwd": [_P] * 11 + [_I] * 6 + [_F] + [_P],
 }
 
 

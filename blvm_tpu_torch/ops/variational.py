@@ -49,7 +49,9 @@ def discount_free_nats(kld: torch.Tensor, free_nats: Optional[float] = None,
     if isinstance(shared_dims, int):
         shared_dims = (shared_dims,)
     budget = free_nats / math.prod(kld.shape[d] for d in shared_dims) if shared_dims is not None else free_nats
-    return torch.maximum(kld, torch.as_tensor(budget, dtype=kld.dtype, device=kld.device))
+    # the budget as a 0-dim tensor where it is (a host scalar stays on the host: the op reads it there, so a
+    # CUDA kld needs no blocking copy); maximum, not clamp_min, splits a tie's gradient 0.5/0.5 as JAX's does
+    return torch.maximum(kld, torch.as_tensor(budget, dtype=kld.dtype))
 
 
 def gaussian_noise(generator: Optional[torch.Generator], shape, like: torch.Tensor) -> torch.Tensor:

@@ -79,6 +79,14 @@ def export_jax_params(model: nn.Module) -> dict:
 _RECURRENT = re.compile(r"[wb]_(?:ih|hh)(_\d+)?")
 
 
+def _orthogonal_rows(rng: np.random.Generator, shape) -> np.ndarray:
+    """``jax.nn.initializers.orthogonal()`` for an ``(H, 3H)`` kernel: the QR of a normal
+    ``(3H, H)`` draw, Q's columns signed by diag(R), transposed, so ``W W^T = I_H``."""
+    rows, cols = shape
+    q, r = np.linalg.qr(rng.standard_normal((cols, rows)))
+    return (q * np.sign(np.diag(r))).T
+
+
 def random_jax_params(model: nn.Module, seed: int) -> Dict[str, np.ndarray]:
     """Flax-layout parameters for ``model`` drawn with numpy from ``seed``:
     U(-1/sqrt(fan_in), 1/sqrt(fan_in)), the torch-calibrated init both packages
@@ -86,11 +94,18 @@ def random_jax_params(model: nn.Module, seed: int) -> Dict[str, np.ndarray]:
     takes its kernel's (``bias`` -> ``kernel``, ``gate_bias_t`` -> ``gate_kernel_t``).
     A recurrent core's parameters (``w_ih``, ``b_ih``, ``w_hh``, ``b_hh``, with or
     without a ``_{layer}`` suffix) all take U(-1/sqrt(H), 1/sqrt(H)), H the rows of
-    the sibling ``w_hh`` (``blvm_tpu/modules/recurrent.py:32-38``)."""
+    the sibling ``w_hh`` (``blvm_tpu/modules/recurrent.py:32-38``), except the ``w_hh``
+    of a module with ``orthogonal_hh`` set (the VRNN's ``GRUCell``), which is orthogonal
+    as flax draws it (``blvm_tpu/modules/recurrent.py:132``)."""
     rng = np.random.default_rng(seed)
     shapes = param_shapes(model)
+    orthogonal = {f"{name.replace('.', '/')}/w_hh" for name, m in model.named_modules()
+                  if getattr(m, "orthogonal_hh", False)}
     out = {}
     for name, shape in shapes.items():
+        if name in orthogonal:
+            out[name] = _orthogonal_rows(rng, shape).astype(np.float32)
+            continue
         *parents, leaf = name.split("/")
         recurrent = _RECURRENT.fullmatch(leaf)
         if recurrent:
@@ -101,4 +116,3 @@ def random_jax_params(model: nn.Module, seed: int) -> Dict[str, np.ndarray]:
         bound = 1.0 / np.sqrt(fan_in)
         out[name] = rng.uniform(-bound, bound, shape).astype(np.float32)
     return out
-

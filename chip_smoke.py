@@ -6,9 +6,9 @@ WaveNet test pass (bits/frame), the WaveNet train step and WaveNet generation
 ``experiments/benchmarks.txt`` (5 x 10 residual blocks, C = 96, DMoL with 10
 mixtures over 2^16 bins, bf16 residual stack), and LSTMAudio's test pass, train
 step and generation at the width of its s=64 run spec (H = 256, one layer, 64
-frames a stack, the same DMoL head, f32), and the VRNN's test pass and generation
-at the width of its s=64 z=256 run spec (H = Z = 256, r_dim 512, 64 frames a stack,
-the same DMoL head, f32), and checks the nine hand-written kernels they run against
+frames a stack, the same DMoL head, f32), and the VRNN's test pass, generation and
+train step at the width of its s=64 z=256 run spec (H = Z = 256, r_dim 512, 64 frames a
+stack, the same DMoL head, f32), and checks the ten hand-written kernels they run against
 their plain PyTorch twins:
 
   1. device: the card's name and power limit (nvidia-smi)
@@ -68,7 +68,7 @@ their plain PyTorch twins:
      24k-72k samples (up to 1125 stacks); H=32 with a given h0. Teacher-forced (a twin
      step from the kernel's state at every t) and free-running
  26. K8 in prior mode (generation) vs its twin: T'=1 sampled and at the mode, T'=64;
-     a VRNN forward on the card that needs a gradient raises (no K8 backward yet)
+     a VRNN forward and backward on the card launch K8 (save mode) and K8-bwd once each
  27. the VRNN test pass: flags of benchmarks.txt:17 -> driver -> model -> weights
      bridge, the utterances of 25, whole and --split_eval (chunks of 16 stacks, h_n
      carried); 1 K8, 1 K2, 1 K3 a forward; bits/frame against the twins, same noise
@@ -81,9 +81,22 @@ their plain PyTorch twins:
      kernels, K8's own trace of a step by stage and phase, the test pass whole
      and split, a generation, torch.profiler breakdowns of a test pass and of 200
      generated stacks
+ 30. K8-bwd vrnn_cell_bwd (through VRNNCellFunction) and autograd of the f32 twin, both
+     held to autograd of the f64 twin over every gradient (xpost, xg, h0, 28 weights):
+     the train shape (19 utterances, ~1000 stacks, ragged, orthogonal w_hh), H=32 with a
+     given h0, h not conditioned on x; K8-bwd alone against its f64 twin
+ 31. the VRNN train slice: flags of benchmarks.txt:17 -> driver -> model -> weights
+     bridge -> vrnn_audio.train with its annealers, 3 Adam steps on 19 utterances of
+     40k-64k samples; 1 K8, 1 K8-bwd, 1 K2, 1 K2-bwd, 1 K3 a step, none on the plain
+     path; losses against the twins fed the same noise, beta and free nats against the
+     annealers; step-0 gradients, kernels and f32 twins held to the f64 twins
+ 32. timing: K8 in save mode against K8 without it at the train shape, K8-bwd alone and
+     the cell's backward against autograd of the twin, K8-bwd's trace by stage and
+     phase, the train step (in turns with the twins) with its host enqueue time and a
+     torch.profiler breakdown
 
 Every phase prints one line (the profiles a few); any failure raises and exits
-non-zero before the last line (phases 14-29 print all their numbers first). A
+non-zero before the last line (phases 14-32 print all their numbers first). A
 ``[total]`` line gives the run's seconds; the second-to-last line is the
 kernels' JSON record, the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero without CUDA.
@@ -127,6 +140,9 @@ VRNN_FLAGS = (
     "--hidden_size 256 --latent_size 256 --stack_frames 64 --num_bits 16 --num_mix 10 --seed 0"
 )
 VRNN_B, VRNN_T = 6, 1125
+# the VRNN train step: the --batch_len 64 budget (1,024,000 samples, packed as a sum of lengths) in 19
+# utterances of 40k-64k samples a step, up to 1000 stacks
+VRNN_TRAIN_B, VRNN_BUDGET, VRNN_TRAIN_LENGTHS = 19, 64 * 16000, (40000, 64000)
 
 
 def phase(tag, /, **values):
@@ -268,6 +284,8 @@ def main():
     # no single PyTorch call computes the VRNN cell
     record["vrnn_cell"] = dict(name="vrnn_cell", route="cuda", source="blvm_tpu_torch/csrc/vrnn_cell.cu",
                                replaces="blvm_tpu/models/vrnn.py:77", library_ms=None)
+    record["vrnn_cell_bwd"] = dict(name="vrnn_cell_bwd", route="cuda", source="blvm_tpu_torch/csrc/vrnn_cell_bwd.cu",
+                                   replaces="blvm_tpu/models/vrnn.py:77", library_ms=None)
 
     # 4. K1 against its twin at the flagship shapes
     args = wavenet_audio.build_args(FLAGSHIP_FLAGS.split())
@@ -728,6 +746,8 @@ def main():
     lstm_phases(record, smi, dev)
     torch.cuda.empty_cache()
     vrnn_phases(record, smi, dev)
+    torch.cuda.empty_cache()
+    vrnn_train_phases(record, smi, dev)
     phase("total", seconds=f"{time.time() - t_start:.1f}")
 
     print(json.dumps({"kernels": list(record.values())}), flush=True)
@@ -1526,14 +1546,14 @@ def vrnn_phases(record, smi, dev):
         expect(launches == 1 and got.enc_mu is None and within(got, ref, 1e-5, 1e-5), f"K8 prior {name}: {e_}")
         phase("K8", mode="prior", case=name, shape=tuple(x.shape), use_mode=use_mode, max_abs_err=f"{max(e_.values()):.3g}")
 
-    # the card's VRNN has no backward yet: a forward that would need a gradient raises
-    try:
-        model(x_dev[:1, :640], x_sl_dev[:1].clamp_max(640))
-        raised = False
-    except NotImplementedError:
-        raised = True
-    expect(raised, "a VRNN forward on the card that needs a gradient did not raise")
-    phase("K8-no-backward", raises=raised)
+    # a VRNN forward on the card that needs a gradient runs K8 in save mode, its backward K8-bwd, once each
+    cuda.reset_launch_counts()
+    model(x_dev[:1, :640], x_sl_dev[:1].clamp_max(640))[0].backward()
+    torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    model.zero_grad(set_to_none=True)
+    expect((counts["vrnn_cell"], counts["vrnn_cell_bwd"]) == (1, 1), f"VRNN forward and backward launches {counts}")
+    phase("K8-backward-launches", vrnn_cell=counts["vrnn_cell"], vrnn_cell_bwd=counts["vrnn_cell_bwd"])
 
     # 27. the test pass: flags of benchmarks.txt:17 -> driver -> model on the card -> weights bridge,
     # whole and with --split_eval (h_n carried), kernels against the twins with the same noise (the
@@ -1753,6 +1773,388 @@ def vrnn_phases(record, smi, dev):
              "profile-vrnn-generate", 200, "stack")
 
     require(not failures, f"VRNN phases failed: {failures}")
+
+def vrnn_train_phases(record, smi, dev):
+    """Phases 30-32, the VRNN train step at the width of ``experiments/benchmarks.txt:17``:
+    K8-bwd against the float64 twin, three steps of the driver's ``train`` with its annealers,
+    and their times. Each check is printed before any raises, so one run shows every number."""
+    import copy
+
+    import numpy as np
+
+    from blvm_tpu_torch import weights
+    from blvm_tpu_torch.evaluation.tracker import Tracker
+    from blvm_tpu_torch.experiments import common, vrnn_audio
+    from blvm_tpu_torch.models import vrnn as vrnn_model
+    from blvm_tpu_torch.models.wavenet import modules
+    from blvm_tpu_torch.modules import distributions
+    from blvm_tpu_torch.ops import cuda, likelihoods, recurrent, variational
+    from blvm_tpu_torch.ops import vrnn as vrnn_ops
+    from blvm_tpu_torch.training.train_state import TrainState
+    from blvm_tpu_torch.training.train_step import make_train_step
+
+    failures = []
+
+    def expect(cond, message):
+        if not cond:
+            failures.append(message)
+            print(f"  FAIL: {message}", flush=True)
+
+    card = smi.replace(" ", "_")
+    plain = plain_path(modules, likelihoods, distributions, variational, recurrent)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    args = vrnn_audio.build_args(VRNN_FLAGS.split())
+    targs = argparse_copy(args, epochs=1, lr=3e-4)
+    model = vrnn_audio.build_model(args)
+    params = weights.random_jax_params(model, args.seed)
+    weights.load_jax_params(model, params)
+    cell = model.vrnn.cell
+    S, Z, R, H = args.stack_frames, args.latent_size, cell.r_dim, args.hidden_size
+    beta_sd, eps_sd = cell.prior_head.beta, cell.prior_head.epsilon
+
+    # the train batches: 19 utterances of 40k-64k samples a step, each step's lengths drawn again until
+    # they fit the --batch_len 64 budget, as the length sampler packs a sum of lengths
+    rng = np.random.default_rng(args.seed + 31)
+    train_batches = []
+    for _ in range(3):
+        lengths = rng.integers(VRNN_TRAIN_LENGTHS[0], VRNN_TRAIN_LENGTHS[1] + 1, VRNN_TRAIN_B)
+        while lengths.sum() > VRNN_BUDGET:
+            lengths = rng.integers(VRNN_TRAIN_LENGTHS[0], VRNN_TRAIN_LENGTHS[1] + 1, VRNN_TRAIN_B)
+        train_batches.append([(len(train_batches) * VRNN_TRAIN_B + i, synthetic_speech(int(n), rng))
+                              for i, n in enumerate(lengths)])
+    step_batches = []
+    for b_ in train_batches:
+        xb_, slb_ = common.make_batch([w for _, w in b_], targs)
+        step_batches.append(dict(x=torch.from_numpy(xb_).to(dev), x_sl=torch.from_numpy(slb_).to(dev)))
+    x0, sl0 = step_batches[0]["x"], step_batches[0]["x_sl"]
+    with torch.no_grad():
+        enc0 = model.vrnn.encoder(x0[..., None])  # (19, T', 256): K8's input in the first train step
+    T0 = enc0.shape[1]
+    stacks0 = torch.ceil(sl0 / S).long()
+
+    def seeded_noise(seed):
+        """The latent noise from a generator of its own, drawn in float32 and cast, so every path
+        (kernels, f32 twins, f64 twins) and every run sees the same noise."""
+        g_ = torch.Generator(device=dev).manual_seed(seed)
+        return mock.patch.object(vrnn_model, "gaussian_noise", lambda _, shape, like: torch.randn(
+            shape, generator=g_, device=like.device).to(like.dtype))
+
+    def chain_grads(kw, xpost, xg, h0, eps, g_out, dtype, kernel, residual):
+        """At K8-bwd's boundary: the gradients of sum(outputs * g_out) by xpost, xg, h0 and the 28
+        kernel weights, through VRNNCellFunction (kernel) or autograd of the plain chain."""
+        leaves = [None if t is None else t.detach().to(dtype).clone().requires_grad_(True)
+                  for t in (xpost, xg, h0, *kw)]
+        if kernel:
+            outs = vrnn_ops.VRNNCellFunction.apply(residual, beta_sd, eps_sd, leaves[0], leaves[1], leaves[2], eps,
+                                                   *leaves[3:])
+        else:
+            outs = vrnn_ops.vrnn_chain_plain(leaves[3:], leaves[0], leaves[1], leaves[2], eps.to(dtype),
+                                             inference=True, residual_posterior=residual, sd_beta=beta_sd,
+                                             sd_epsilon=eps_sd)[0]
+        loss = sum((o * g.to(dtype)).sum() for o, g in zip(outs, g_out))
+        grads = iter(torch.autograd.grad(loss, [t for t in leaves if t is not None]))
+        return [None if t is None else next(grads) for t in leaves]
+
+    # 30. K8-bwd against its twin: the train shape (19 rows, the first step's stacks, ragged: no gradient
+    # past a row's last stack, as the masked ELBO gives none, orthogonal w_hh), H = 32 with a given h0 and
+    # no residual posterior, and h not conditioned on x. K8-bwd (through VRNNCellFunction: K8 in save mode,
+    # one K8-bwd launch, the weight-gradient GEMMs) and autograd of the f32 twin are both held to autograd of
+    # the f64 twin: every gradient's largest error, relative to its largest value, at most twice the f32
+    # twin's plus 1e-6 (~16 f32 ulps of the largest value: where the twin happens to round as f64 does, the
+    # kernel's other summation order still costs a few ulps). Then the kernel alone against its f64 twin
+    # (vrnn_cell_backward_plain) on the same saved f32 tensors: its max_abs_err.
+    small = vrnn_model.VRNNCell(32, 32, 8, 64, residual_posterior=False, device=dev)
+    weights.load_jax_params(small, weights.random_jax_params(small, SEED + 30))
+    no_x = vrnn_model.VRNNCell(64, 64, 16, 128, condition_h_on_x=False, residual_posterior=True, device=dev)
+    weights.load_jax_params(no_x, weights.random_jax_params(no_x, SEED + 31))
+    ragged = (torch.arange(T0, device=dev)[None, :] < stacks0[:, None]).float()[..., None]
+    bwd_cases = {
+        "train_B19": (cell, enc0, torch.zeros(VRNN_TRAIN_B, R, device=dev), ragged),
+        "H32_given_h0": (small, torch.randn(3, 40, 32, generator=gen, device=dev) * 0.5,
+                         torch.randn(3, 64, generator=gen, device=dev) * 0.3, None),
+        "h_not_on_x": (no_x, torch.randn(5, 60, 64, generator=gen, device=dev) * 0.5,
+                       torch.randn(5, 128, generator=gen, device=dev) * 0.3, None),
+    }
+    names_ = ["xpost", "xg", "h0"] + [f"w{i}" for i in range(vrnn_ops.N_WEIGHTS)]
+    for name, (c_, x, h0, mask) in bwd_cases.items():
+        w = [t.detach() for t in c_.cell_weights()]
+        B_, T_ = x.shape[:2]
+        Rc, Hc, Zc = c_.r_dim, w[0].shape[1], w[6].shape[1] // 2
+        eps = torch.randn(B_, T_, Zc, generator=gen, device=dev)
+        g_out = [torch.randn(B_, T_, n, generator=gen, device=dev) * (1.0 if mask is None else mask)
+                 for n in (Rc, Zc, Hc, Zc, Zc, Zc, Zc)]
+        xpost, xg, kw = vrnn_ops.hoist(w, x, True, c_.condition_h_on_x)
+        res_ = c_.residual_posterior
+        cuda.reset_launch_counts()
+        got = chain_grads(kw, xpost, xg, h0, eps, g_out, torch.float32, True, res_)
+        torch.cuda.synchronize()
+        counts = cuda.launch_counts()
+        twin = chain_grads(kw, xpost, xg, h0, eps, g_out, torch.float32, False, res_)
+        ref = chain_grads(kw, xpost, xg, h0, eps, g_out, torch.float64, False, res_)
+        errs = {}
+        for n_, a_, b_, r_ in zip(names_, got, twin, ref):
+            if r_ is None:
+                continue
+            scale = r_.abs().max().clamp_min(1e-30)
+            errs[n_] = (((a_.double() - r_).abs().max() / scale).item(), ((b_.double() - r_).abs().max() / scale).item())
+        finite = all(bool(torch.isfinite(t).all()) for t in got if t is not None)
+        over = {k: v for k, v in errs.items() if v[0] > 2 * v[1] + 1e-6}
+        expect(finite and not over and (counts["vrnn_cell"], counts["vrnn_cell_bwd"]) == (1, 1),
+               f"K8-bwd {name}: launches {counts['vrnn_cell']}/{counts['vrnn_cell_bwd']}, finite {finite}, over {over}")
+        worst = max(errs, key=lambda k: errs[k][0])
+        phase("K8-bwd", case=name, shape=tuple(x.shape), R=Rc, H=Hc, Z=Zc, gradients=len(errs),
+              kernel_max_rel_vs_f64=f"{errs[worst][0]:.3g}", twin_f32_max_rel_vs_f64=f"{max(v[1] for v in errs.values()):.3g}",
+              worst=worst, twin_at_worst=f"{errs[worst][1]:.3g}")
+        if name == "train_B19":
+            with torch.no_grad():
+                outs, saved = vrnn_ops.vrnn_cell_save(kw, xpost, xg, h0, eps, residual_posterior=res_, sd_beta=beta_sd,
+                                                      sd_epsilon=eps_sd)
+                dpre, dh0 = vrnn_ops.vrnn_cell_backward(kw, h0, eps, outs.h, outs.phi_z, saved, g_out,
+                                                        residual_posterior=res_, sd_beta=beta_sd)
+                d64 = [t.double() for t in (h0, eps, outs.h, outs.phi_z, saved)]
+                dpre_r, dh0_r = vrnn_ops.vrnn_cell_backward_plain([t.double() for t in kw], *d64,
+                                                                  [g.double() for g in g_out], residual_posterior=res_,
+                                                                  sd_beta=beta_sd)
+            kernel_err = max((dpre.double() - dpre_r).abs().max().item(), (dh0.double() - dh0_r).abs().max().item())
+            scale = max(dpre_r.abs().max().item(), dh0_r.abs().max().item())
+            expect(kernel_err <= 1e-4 * scale, f"K8-bwd alone vs its f64 twin: {kernel_err} (largest {scale})")
+            record["vrnn_cell_bwd"]["max_abs_err"] = kernel_err
+            phase("K8-bwd-alone", case=name, max_abs_err_vs_f64=f"{kernel_err:.3g}", largest=f"{scale:.3g}",
+                  saved_MB=f"{saved.numel() * 4 / 2**20:.1f}", dpre_MB=f"{dpre.numel() * 4 / 2**20:.1f}")
+            del outs, saved, dpre, dh0, d64, dpre_r, dh0_r
+        del got, twin, ref
+    torch.cuda.empty_cache()
+
+    # 31. the train slice: flags of benchmarks.txt:17 -> driver -> model on the card -> weights bridge ->
+    # vrnn_audio.train with its annealers, 3 Adam steps on 19 utterances a step; the latent noise from a
+    # generator of its own, alike for the kernel and the plain runs
+    def run_train(plain_path_=False):
+        weights.load_jax_params(model, params)
+        log = StepLog(Tracker())
+        with plain() if plain_path_ else contextlib.nullcontext(), seeded_noise(SEED + 31):
+            cuda.reset_launch_counts()
+            t0 = time.time()
+            vrnn_audio.train(model, targs, train_batches, log)
+            torch.cuda.synchronize()
+            return log.steps, cuda.launch_counts(), time.time() - t0
+
+    steps_k, counts, seconds = run_train()
+    steps_p, counts_p, seconds_p = run_train(plain_path_=True)
+    expected = dict(vrnn_cell=3, vrnn_cell_bwd=3, dmol_log_prob=3, dmol_log_prob_bwd=3, dmol_sample=3)
+    expect(counts == {**dict.fromkeys(counts, 0), **expected},
+           f"VRNN train-step launches {counts}, expected {expected} (1/1/1/1/1 a step)")
+    expect(not any(counts_p.values()), f"the plain VRNN train path launched kernels: {counts_p}")
+    record["vrnn_cell"]["launches"] = record["vrnn_cell"].get("launches", 0) + counts["vrnn_cell"]
+    record["vrnn_cell_bwd"]["launches"] = counts["vrnn_cell_bwd"]
+    losses, losses_p = [st["loss"] for st in steps_k], [st["loss"] for st in steps_p]
+    loss_rel = [abs(a_ - b_) / abs(b_) for a_, b_ in zip(losses, losses_p)]
+    expect(all(math.isfinite(v) for st in steps_k for v in st.values()), f"VRNN train metrics not finite: {steps_k}")
+    # step 0: the same parameters, only the sums' order differs (1e-5). Later steps: Adam's first updates
+    # move every parameter by about lr sign(g), so a gradient element near zero whose sign the summation
+    # order flips moves by 2 lr: 1e-4
+    expect(loss_rel[0] <= 1e-5 and max(loss_rel) <= 1e-4, f"VRNN train losses {losses} vs plain {losses_p}")
+    ref_annealers = vrnn_audio.build_annealers(targs)
+    ref_values = [{k: float(np.float32(a.step())) for k, a in ref_annealers.items()} for _ in range(3)]
+    got_values = [{k: st[k] for k in ("beta", "free_nats")} for st in steps_k]
+    expect(got_values == ref_values and got_values[0] == dict(beta=0.0, free_nats=2.0),
+           f"annealers {got_values}, expected {ref_values}")
+    phase("vrnn-train-slice", steps=3, utterances_per_step=VRNN_TRAIN_B,
+          samples_per_step=[sum(len(w) for _, w in b_) for b_ in train_batches],
+          stacks_per_step=[int(torch.ceil(b_["x_sl"].max() / S)) for b_ in step_batches],
+          losses=[f"{v:.6f}" for v in losses], losses_plain=[f"{v:.6f}" for v in losses_p],
+          loss_rel=[f"{v:.3g}" for v in loss_rel], beta=[v["beta"] for v in got_values],
+          free_nats=[v["free_nats"] for v in got_values], launches_per_step={k: v // 3 for k, v in counts.items() if v},
+          seconds=f"{seconds:.2f}", seconds_plain=f"{seconds_p:.2f}")
+
+    # the step-0 gradients of every parameter at beta 1 and free nats 2 (every gradient path of the cell
+    # live): the kernels and the f32 twins both held to the f64 twins, the kernels no further than twice
+    # the f32 twins plus 1e-6 (relative norms)
+    def step0_grads(m, plain_path_, dtype):
+        m.zero_grad(set_to_none=True)
+        m.train()
+        with plain() if plain_path_ else contextlib.nullcontext(), seeded_noise(SEED + 32):
+            loss, _, _ = m(x0.to(dtype), sl0, beta=1.0, free_nats=2.0,
+                           generator=torch.Generator(device=dev).manual_seed(SEED))
+            loss.backward()
+        grads = {n: p.grad.detach().clone() for n, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        return grads, loss.item()
+
+    weights.load_jax_params(model, params)
+    g_k, loss_k = step0_grads(model, False, torch.float32)
+    g_p, loss_p = step0_grads(model, True, torch.float32)
+    model64 = copy.deepcopy(model).double()
+    g_64, loss_64 = step0_grads(model64, True, torch.float64)
+    del model64
+    e_k = {n: rel_norm(g_k[n], g_64[n]) for n in g_64}
+    e_p = {n: rel_norm(g_p[n], g_64[n]) for n in g_64}
+    over = {n: (e_k[n], e_p[n]) for n in e_k if e_k[n] > 2 * e_p[n] + 1e-6}
+    expect(all(torch.isfinite(g_).all() for g_ in g_k.values()) and not over, f"VRNN step-0 gradients: {over}")
+    worst = max(e_k, key=e_k.get)
+    phase("vrnn-train-grads", loss=f"{loss_k:.6f}", loss_plain=f"{loss_p:.6f}", loss_f64=f"{loss_64:.6f}",
+          kernel_max_rel_vs_f64=f"{e_k[worst]:.3g}", twin_f32_max_rel_vs_f64=f"{max(e_p.values()):.3g}", worst=worst,
+          kernel_vs_twin_max_rel=f"{max(rel_norm(g_k[n], g_p[n]) for n in g_p):.3g}", parameters=len(e_k))
+    del g_k, g_p, g_64
+    torch.cuda.empty_cache()
+
+    # 32. times, CUDA events, a different input each call: K8 in save mode against K8 without it at the train
+    # shape; K8-bwd alone, and the cell's backward (K8-bwd and the weight-gradient GEMMs) against autograd
+    # of the twin; the whole train step with its host enqueue time; a torch.profiler breakdown of a step;
+    # K8-bwd's own trace by stage and phase
+    w = [t.detach() for t in cell.cell_weights()]
+    xpost, xg, kw = vrnn_ops.hoist(w, enc0, True, True)
+    zeros_h = torch.zeros(VRNN_TRAIN_B, R, device=dev)
+    eps_t = [torch.randn(VRNN_TRAIN_B, T0, Z, generator=gen, device=dev) for _ in range(3)]
+    save_kw = dict(residual_posterior=True, sd_beta=beta_sd, sd_epsilon=eps_sd)
+
+    def k8_no_save(e_):
+        with torch.no_grad():
+            vrnn_ops.vrnn_cell(w, enc0, zeros_h, e_, inference=True, condition_h_on_x=True, **save_kw)
+
+    def k8_save(e_):
+        with torch.no_grad():
+            vrnn_ops.vrnn_cell_save(kw, xpost, xg, zeros_h, e_, **save_kw)
+
+    t_save = alternate(k8_no_save, k8_save, eps_t)
+    phase("time-K8-save", card=card, shape=f"({VRNN_TRAIN_B},{T0})", dtype="f32", save_ms=f"{t_save['kernel']:.4f}",
+          no_save_ms=f"{t_save['plain']:.4f}", us_per_step_save=f"{t_save['kernel'] * 1e3 / T0:.3f}",
+          us_per_step_no_save=f"{t_save['plain'] * 1e3 / T0:.3f}", ratio=f"{t_save['kernel'] / t_save['plain']:.4f}")
+
+    def print_trace(label, trace, steps, stage_names):
+        per_step = vrnn_ops.read_trace(trace) / steps / 1e3  # us a step
+        phase(label, card=card, steps=steps, us_per_step=f"{per_step.sum().item():.3f}",
+              inputs_us=f"{per_step[:, 0].sum().item():.3f}", products_us=f"{per_step[:, 1].sum().item():.3f}",
+              finish_us=f"{per_step[:, 2].sum().item():.3f}", barrier_us=f"{per_step[:, 3].sum().item():.3f}",
+              by_stage={n_: f"{v_:.2f}" for n_, v_ in zip(stage_names, per_step.sum(1).tolist())})
+
+    # K8's own trace at B = 19: three passes of 8 rows a stage where the test pass's B = 6 needs one
+    trace = torch.zeros(vrnn_ops.trace_size(), dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        for e_ in eps_t:
+            vrnn_ops.vrnn_cell(w, enc0, zeros_h, e_, inference=True, condition_h_on_x=True, trace=trace, **save_kw)
+    torch.cuda.synchronize()
+    print_trace("K8-trace-train", trace, len(eps_t) * T0,
+                ("L1+gh", "L2", "L3", "heads+z", "phi1", "phi2", "phi3", "phi4", "gru"))
+
+    bwd_inputs = []
+    with torch.no_grad():
+        for e_ in eps_t:
+            outs, saved = vrnn_ops.vrnn_cell_save(kw, xpost, xg, zeros_h, e_, **save_kw)
+            g_out = [torch.randn(VRNN_TRAIN_B, T0, n, generator=gen, device=dev) * ragged for n in (R, Z, H, Z, Z, Z, Z)]
+            bwd_inputs.append((e_, outs, saved, g_out))
+
+    def k8_bwd(inp, trace=None):
+        e_, outs, saved, g_out = inp
+        return vrnn_ops.vrnn_cell_backward(kw, zeros_h, e_, outs.h, outs.phi_z, saved, g_out, trace=trace,
+                                           residual_posterior=True, sd_beta=beta_sd)
+
+    def cell_bwd(inp):
+        e_, outs, saved, _ = inp
+        dpre, _ = k8_bwd(inp)
+        vrnn_ops.cell_weight_grads(kw, zeros_h, outs.h, outs.z, outs.phi_z, saved, dpre)
+
+    kernel_only = sorted(cuda_time_ms(k8_bwd, bwd_inputs))[1]
+    fn_bwd = sorted(cuda_time_ms(cell_bwd, bwd_inputs))[1]
+
+    def graph(kernel, e_, g_out):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (xpost, xg, zeros_h, *kw)]
+        if kernel:
+            outs = vrnn_ops.VRNNCellFunction.apply(True, beta_sd, eps_sd, leaves[0], leaves[1], leaves[2], e_,
+                                                   *leaves[3:])
+        else:
+            outs = vrnn_ops.vrnn_chain_plain(leaves[3:], leaves[0], leaves[1], leaves[2], e_, inference=True, **save_kw)[0]
+        return (sum((o * g).sum() for o, g in zip(outs, g_out)),), leaves, None
+
+    def backward_only(g_):
+        outputs, inputs, _ = g_
+        return torch.autograd.grad(outputs, inputs, retain_graph=True)
+
+    e0, _, _, g0 = bwd_inputs[0]
+    pair = [(graph(False, e0, g0), graph(True, e0, g0))]
+    t_bwd = alternate(lambda g_: backward_only(g_[0]), lambda g_: backward_only(g_[1]), pair)
+    del pair
+    rows = VRNN_TRAIN_B * T0
+    n_kernel = sum(t.numel() for t in kw[0::2])  # the kernels' elements: one multiply-add a row-step each in the
+    dw = sum(w_ for _, w_ in vrnn_ops.grad_fields(R, H, Z).values())  # chain and in the weight gradients
+    sw = sum(w_ for _, w_ in vrnn_ops.save_fields(R, H, Z).values())
+    # bytes: the kernel weights read and their gradients written; a row-step's saved values, h, phi, z, eps
+    # and the outputs' gradients (R + H + 5Z) read, d xpost (H) and d xg (3R) written; h0 and dh0
+    record["vrnn_cell_bwd"].update(ms=t_bwd["kernel"], plain_ms=t_bwd["plain"], **roofline(
+        bytes_=4 * (2 * sum(t.numel() for t in kw) + rows * (sw + R + H + 2 * Z + (R + H + 5 * Z) + H + 3 * R)
+                    + 2 * VRNN_TRAIN_B * R),
+        flops=2 * rows * 2 * n_kernel + rows * dw, peak=F32_PEAK))
+    phase("time-K8-bwd", card=card, shape=f"({VRNN_TRAIN_B},{T0})", dtype="f32", kernel_alone_ms=f"{kernel_only:.4f}",
+          cell_backward_ms=f"{fn_bwd:.4f}", cell_backward_in_turns_ms=f"{t_bwd['kernel']:.4f}",
+          twin_autograd_ms=f"{t_bwd['plain']:.4f}", us_per_step=f"{kernel_only * 1e3 / T0:.3f}",
+          bound_ms=f"{record['vrnn_cell_bwd']['bound_ms']:.4f}", bound_by=record["vrnn_cell_bwd"]["bound_by"],
+          includes="cell backward: K8-bwd, the 14 weight-gradient GEMMs and the bias product")
+
+    # K8-bwd's own trace: the SM cycles of its ten stages' phases as its first CTA sees them
+    trace = torch.zeros(vrnn_ops.bwd_trace_size(), dtype=torch.int64, device=dev)
+    for inp in bwd_inputs:
+        k8_bwd(inp, trace=trace)
+    torch.cuda.synchronize()
+    print_trace("K8-bwd-trace", trace, len(bwd_inputs) * T0,
+                ("gates", "phi4", "phi3", "phi2", "phi1", "z+heads", "mlp3", "mlp2", "mlp1", "dh"))
+    del bwd_inputs
+
+    # the train step, kernels against twins in turns on the first batch, the kernels alone over the three
+    tx, _ = common.build_tx_and_lr(targs)
+    weights.load_jax_params(model, params)
+    model.train()
+    state = TrainState.create(model=model, tx=tx, generator=torch.Generator(device=dev).manual_seed(SEED))
+    train_step = make_train_step(common.loss_fn)
+    scalars = dict(beta=torch.tensor(0.5), free_nats=torch.tensor(2.0))
+
+    def run_step(b_):
+        train_step(state, b_, scalars)
+
+    def run_step_plain(b_):
+        with plain():
+            train_step(state, b_, scalars)
+
+    ts_turns = alternate(run_step_plain, run_step, step_batches[:1])
+    torch.cuda.reset_peak_memory_stats()
+    ts = sorted(cuda_time_ms(run_step, step_batches))[1]
+    torch.cuda.synchronize()
+    enqueue = []
+    for b_ in step_batches:
+        t0 = time.perf_counter()
+        run_step(b_)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    samples = sum(int(b_["x_sl"].sum()) for b_ in step_batches) / len(step_batches)
+    phase("time-vrnn-train-step", card=card, utterances=VRNN_TRAIN_B, samples=int(samples), kernel_ms=f"{ts:.3f}",
+          kernel_ms_in_turns=f"{ts_turns['kernel']:.3f}", plain_ms=f"{ts_turns['plain']:.3f}",
+          host_enqueue_ms=f"{sorted(enqueue)[1]:.3f}", samples_per_s=f"{samples / ts * 1e3:.0f}",
+          peak_memory_GB=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+
+    # where the train step's device time goes: torch.profiler over the 3 steps
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b_ in step_batches:
+            run_step(b_)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+
+    def device_us(e_):
+        return getattr(e_, "self_device_time_total", None) or getattr(e_, "self_cuda_time_total", 0)
+
+    events = prof.key_averages()
+    host_names = {e_.key for e_ in events if e_.device_type == torch.autograd.DeviceType.CPU}
+    kernels_ = [e_ for e_ in events if e_.device_type == torch.autograd.DeviceType.CUDA and device_us(e_) > 0
+                and e_.key not in host_names]
+    busy_ms = sum(device_us(e_) for e_ in kernels_) / 1e3 / 3
+    phase("profile-vrnn-train-step", card=card, device_ms_per_step=f"{busy_ms:.3f}", wall_ms_per_step=f"{wall_ms:.3f}",
+          idle_share=f"{1 - busy_ms / wall_ms:.3f}" if busy_ms else "not measured",
+          kernel_launches_per_step=sum(e_.count for e_ in kernels_) // 3)
+    for e_ in sorted(kernels_, key=device_us, reverse=True)[:12]:
+        print(f"  {device_us(e_) / 1e3 / 3:9.3f} ms/step {e_.count // 3:5d} calls/step  {e_.key[:90]}", flush=True)
+
+    require(not failures, f"VRNN train phases failed: {failures}")
 
 
 def argparse_copy(args, **changes):

@@ -1,0 +1,76 @@
+"""Bounds on paper of the TPU kernels the PyTorch/CUDA port has still to write, at their run specs.
+
+    python scripts/torch_kernel_bounds.py
+
+For each kernel, the least time one H100 could take for one launch at the shape its run spec
+gives it, by ``chip_smoke.roofline``'s arithmetic: the larger of the compulsory bytes (inputs
+read once, outputs written once) over the HBM rate and the operations over the peak rate of
+their type. The operations are the products' multiply-adds (x 2); elementwise work is left
+out. Batch shapes follow each driver's batch budget; each assumption is stated beside its
+kernel. Runs on the CPU: nothing is measured.
+"""
+
+import json
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from chip_smoke import BF16_PEAK, F32_PEAK, roofline  # noqa: E402
+
+F32, BF16 = 4, 2
+
+
+def lstm_or_gru(rows, H, gates, directions=1):
+    """A masked recurrence over precomputed x W_ih (K5's shape): h W_hh a row-step."""
+    return dict(bytes_=F32 * (directions * (rows * (gates * H + H) + H * gates * H)),
+                flops=2 * directions * rows * H * gates * H, peak=F32_PEAK)
+
+
+def wavenet_stack(B, T_in, C, blocks, skip_frames):
+    """A fused stack of gated residual blocks (K1's block: a k=2 dilated conv C -> 2C, the residual
+    and skip 1x1s), bf16: the input read and the output written once, the f32 skip sum written once."""
+    macs = blocks * (2 * C * 2 * C + C * C + C * C)
+    return dict(bytes_=BF16 * (2 * B * T_in * C + macs) + F32 * B * skip_frames * C,
+                flops=2 * B * T_in * macs, peak=BF16_PEAK)
+
+
+def main():
+    bounds = {}
+    # P2: the fused 10-block stack at the flagship shape of chip_smoke.py phase 8 (B = 8, T = 16000 plus
+    # the receptive field, C = 96, benchmarks.txt:6); one launch a stack, five a forward
+    bounds["P2"] = wavenet_stack(B=8, T_in=21117, C=96, blocks=10, skip_frames=16000)
+    # P3: the windowed stack of the oracle generation, one window of the receptive field (5116 frames)
+    # for each of 2 sequences
+    bounds["P3"] = wavenet_stack(B=2, T_in=5116, C=96, blocks=10, skip_frames=1)
+    # K6: the ASR probe's bi-LSTM (experiment_asr_ctc.py: --hidden_size 128, one layer, --batch_len 120 s
+    # at hop 64: 30000 frames a batch), both directions in one launch
+    bounds["K6"] = lstm_or_gru(rows=120 * 16000 // 64, H=128, gates=4, directions=2)
+    # K7: SRNN's GRU (benchmarks.txt:22, s=64, hidden 256 -> r_dim 512): the --batch_len 64 budget as
+    # the VRNN train step packs it, 19 utterances of up to 1000 stacks; one direction a launch
+    bounds["K7"] = lstm_or_gru(rows=19 * 1000, H=512, gates=3)
+    # K9: SRNN's latent step at the same shape (use_phi_z and the gated transfer off, the driver's
+    # defaults): prior and posterior MLPs on [d_t or a_t (512), z (256)] and their heads
+    rows, R, H, Z = 19 * 1000, 512, 256, 256
+    macs = 2 * ((R + Z) * H + 2 * H * H + H * 2 * Z)
+    bounds["K9"] = dict(bytes_=F32 * (rows * (2 * R + Z) + macs + rows * 5 * Z), flops=2 * rows * macs, peak=F32_PEAK)
+    # K10: the CW-VAE RSSM cell (benchmarks.txt:33, d=192 z=128 s=64, one level: no context; the encoder's
+    # width taken as d), the driver's --batch_len 16 s: 256000 samples, 4000 row-steps
+    rows, Hd, Zd = 256000 // 64, 192, 128
+    macs = Zd * Hd + 2 * Hd * 3 * Hd + 3 * Hd * Hd + Hd * 2 * Zd + (2 * Hd) * Hd + 2 * Hd * Hd + Hd * 2 * Zd
+    bounds["K10"] = dict(bytes_=F32 * (rows * (Hd + Zd) + macs + rows * (Hd + 5 * Zd)), flops=2 * rows * macs,
+                         peak=F32_PEAK)
+    # K11: the CW-VAE level-0 encoder's depthwise-separable chain at the same batch: three blocks of stride
+    # 4 (64 = 4^3) at width 192, frames 64000, 16000, 4000; the pointwise 1x1 carries the operations
+    frames, C = (64000, 16000, 4000), 192
+    bounds["K11"] = dict(bytes_=F32 * (256000 + 2 * sum(frames) * C + 3 * C * C), flops=2 * sum(frames) * C * C,
+                         peak=F32_PEAK)
+    # K12: one STCN decode frame (benchmarks.txt:27, s=64 z=[256], hidden 256, 5 stacks of 5 blocks), 2
+    # sequences, f32: every block's weights read once a frame
+    blocks, C = 25, 256
+    macs = blocks * (2 * C * 2 * C + C * C + C * C)
+    bounds["K12"] = dict(bytes_=F32 * macs, flops=2 * 2 * macs, peak=F32_PEAK)
+    print(json.dumps({name: roofline(**b) for name, b in bounds.items()}, indent=1))
+
+
+if __name__ == "__main__":
+    main()

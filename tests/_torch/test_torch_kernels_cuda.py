@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels against their plain twins, on the card: K1 and
 K2 forward and backward (against autograd of the twins), K3 the sampler, K4 the
 Fast-WaveNet decode step, K5 the LSTM recurrence forward and backward, K8 the
-VRNN cell.
+VRNN cell and K8-bwd its backward through time.
 
 Marked ``cuda``: they skip without a CUDA device (here, on CPU-only machines).
 On the card, where JAX is not installed, leave out the root conftest (it imports
@@ -456,7 +456,9 @@ K8_CASES = [
 ]
 
 
-def _k8_inputs(B, T, X, H, Z, R, cond, device, seed=0):
+def _k8_inputs(B, T, X, H, Z, R, cond, device, seed=0, orthogonal=False):
+    """K8's 28 weights (U(+-1/sqrt(fan_in)); ``w_hh`` orthogonal, ``W W^T = I``, as the VRNN's
+    ``GRUCell`` draws it, under ``orthogonal``), x, h0 and the noise."""
     g = torch.Generator().manual_seed(seed)
 
     def u(*shape, fan_in):
@@ -473,6 +475,9 @@ def _k8_inputs(B, T, X, H, Z, R, cond, device, seed=0):
                                                                                    u(2 * Z, fan_in=H)]
          + mlp(Z, 4) + [u(X + H if cond else H, 3 * R, fan_in=R), u(3 * R, fan_in=R), u(R, 3 * R, fan_in=R),
                         u(3 * R, fan_in=R)])
+    if orthogonal:
+        q, r = torch.linalg.qr(torch.randn(3 * R, R, generator=g, dtype=torch.float64))
+        w[26] = (q * torch.sign(torch.diagonal(r))).T.float()
     x = torch.randn(B, T, X, generator=g) * 0.5
     h0 = torch.randn(B, R, generator=g) * 0.3
     eps = torch.randn(B, T, Z, generator=g)
@@ -484,7 +489,28 @@ def _k8_inputs(B, T, X, H, Z, R, cond, device, seed=0):
 def test_vrnn_cell_kernel_matches_twin(cuda_device, B, T, X, H, Z, R, inference, residual, cond, use_mode):
     """K8 against its twin, free-running over every step in f32: the products' summation
     order only (the chain does not amplify it), 1e-5 absolute plus 1e-5 relative."""
-    w, x, h0, eps = _k8_inputs(B, T, X, H, Z, R, cond, cuda_device)
+    _k8_against_twin(cuda_device, B, T, X, H, Z, R, inference, residual, cond, use_mode)
+
+
+# the VRNN's GRU w_hh as the model has it (orthogonal): the spec width over 200 steps, uneven widths
+# over 12, a generation step
+K8_ORTHOGONAL_CASES = [
+    (3, 200, 256, 256, 256, 512, True, True, True, False),
+    (4, 12, 64, 200, 16, 300, True, True, True, False),
+    (2, 1, 256, 256, 256, 512, False, True, True, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,X,H,Z,R,inference,residual,cond,use_mode", K8_ORTHOGONAL_CASES)
+def test_vrnn_cell_kernel_matches_twin_with_orthogonal_w_hh(cuda_device, B, T, X, H, Z, R, inference, residual, cond,
+                                                            use_mode):
+    """K8 against its twin with an orthogonal ``w_hh``, at the same tolerance."""
+    _k8_against_twin(cuda_device, B, T, X, H, Z, R, inference, residual, cond, use_mode, orthogonal=True)
+
+
+def _k8_against_twin(cuda_device, B, T, X, H, Z, R, inference, residual, cond, use_mode, orthogonal=False):
+    w, x, h0, eps = _k8_inputs(B, T, X, H, Z, R, cond, cuda_device, orthogonal=orthogonal)
     kwargs = dict(inference=inference, residual_posterior=residual, condition_h_on_x=cond, use_mode=use_mode,
                   sd_beta=0.6931478, sd_epsilon=1e-6)
     cuda.reset_launch_counts()
@@ -522,8 +548,14 @@ def test_vrnn_cell_kernel_refuses_what_it_does_not_take(cuda_device):
     w, x, h0, eps = _k8_inputs(2, 3, 32, 32, 8, 64, True, cuda_device)
     kwargs = dict(inference=True, residual_posterior=True, condition_h_on_x=True, sd_beta=0.6931478,
                   sd_epsilon=1e-6)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        vrnn_ops.vrnn_cell(w, x.requires_grad_(True), h0, eps, **kwargs)
+    cuda.reset_launch_counts()
+    got = _cell_input_grads(vrnn_ops.vrnn_cell, w, x, h0, eps, kwargs)
+    counts = cuda.launch_counts()
+    assert (counts["vrnn_cell"], counts["vrnn_cell_bwd"]) == (1, 1)
+    for a, b in zip(got, _cell_input_grads(vrnn_ops.vrnn_cell_plain, w, x, h0, eps, kwargs)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    with pytest.raises(NotImplementedError, match="inference mode only"):
+        vrnn_ops.vrnn_cell(w, x.requires_grad_(True), h0, eps, **dict(kwargs, inference=False))
     with torch.no_grad():
         with pytest.raises(TypeError, match="float32"):
             vrnn_ops.vrnn_cell(w, x.double(), h0, eps, **kwargs)
@@ -540,7 +572,9 @@ def test_vrnn_cell_kernel_refuses_what_it_does_not_take(cuda_device):
 def test_vrnn_audio_on_the_card_launches_k8(cuda_device):
     """A small VRNNAudio on the card: a forward launches K8, K2 and K3 once each and its loss
     equals the plain path's (same noise); a generation launches K8 and K3 once a stack; a
-    forward that would need a gradient raises."""
+    forward with a gradient launches K8 (save mode) and its backward K8-bwd once each, and
+    the gradients match the plain path's (relative norm 1e-4: f32 sums in another order
+    through 25 steps of the chain)."""
     model = VRNNAudio(input_size=8, hidden_size=32, latent_size=8, residual_posterior=True, device=cuda_device)
     weights.load_jax_params(model, weights.random_jax_params(model, 0))
     x = torch.rand(3, 200, generator=torch.Generator().manual_seed(0)).to(cuda_device) * 2 - 1
@@ -555,9 +589,95 @@ def test_vrnn_audio_on_the_card_launches_k8(cuda_device):
     assert (counts["vrnn_cell"], counts["dmol_log_prob"], counts["dmol_sample"]) == (1, 1, 1)
     torch.testing.assert_close(loss, plain_loss, rtol=1e-5, atol=0)
     torch.testing.assert_close(out.h_n, plain_out.h_n, rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        model(x, x_sl)
+    grads = {}
+    for path in ("kernel", "plain"):
+        model.zero_grad(set_to_none=True)
+        cuda.reset_launch_counts()
+        with mock.patch.object(vrnn_ops, "vrnn_cell", vrnn_ops.vrnn_cell_plain if path == "plain" else vrnn_ops.vrnn_cell):
+            model(x, x_sl, eps=eps)[0].backward()
+        counts = cuda.launch_counts()
+        assert (counts["vrnn_cell"], counts["vrnn_cell_bwd"]) == ((1, 1) if path == "kernel" else (0, 0))
+        grads[path] = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    for n, g in grads["plain"].items():
+        assert ((grads["kernel"][n] - g).norm() / g.norm().clamp_min(1e-30)).item() <= 1e-4, n
     cuda.reset_launch_counts()
     (gen, _), _ = model.generate(2, 6, generator=torch.Generator(device=cuda_device).manual_seed(0))
     assert gen.shape == (2, 48, 1) and torch.isfinite(gen).all()
     assert cuda.launch_counts()["vrnn_cell"] == 6 and cuda.launch_counts()["dmol_sample"] == 6
+
+
+def _cell_input_grads(fn, w, x, h0, eps, kwargs):
+    """The gradients of ``sum(outputs * g)`` (g fixed, from a seed) by the 28 weights, x and h0."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (*w, x, h0)]
+    outs = fn(leaves[:-2], leaves[-2], leaves[-1], eps, **kwargs)
+    g = torch.Generator(device=x.device).manual_seed(7)
+    loss = sum((o * torch.randn(o.shape, generator=g, device=o.device)).sum() for o in outs if o is not None)
+    return torch.autograd.grad(loss, leaves)
+
+
+def _chain_grads(w, x, h0, eps, g_out, dtype, residual, cond, kernel):
+    """At K8-bwd's boundary: the gradients of ``sum(outputs * g_out)`` by xpost, xg (None
+    without ``condition_h_on_x``), h0 and the 28 kernel weights, through ``VRNNCellFunction``
+    (the kernels) or autograd of the plain chain, in ``dtype``."""
+    kw = [t.to(dtype) for t in w]
+    xpost, xg, kernel_weights = vrnn_ops.hoist(kw, x.to(dtype), True, cond)
+    leaves = [None if t is None else t.detach().clone().requires_grad_(True)
+              for t in (xpost, xg, h0.to(dtype), *kernel_weights)]
+    args = dict(residual_posterior=residual, sd_beta=0.6931478, sd_epsilon=1e-6)
+    if kernel:
+        outs = vrnn_ops.VRNNCellFunction.apply(residual, 0.6931478, 1e-6, leaves[0], leaves[1], leaves[2],
+                                               eps.to(dtype), *leaves[3:])
+    else:
+        outs = vrnn_ops.vrnn_chain_plain(leaves[3:], leaves[0], leaves[1], leaves[2], eps.to(dtype), inference=True,
+                                         **args)[0]
+    loss = sum((o * g.to(dtype)).sum() for o, g in zip(outs, g_out))
+    live = [t for t in leaves if t is not None]
+    return [None if t is None else gr for t, gr in zip(leaves, _fill(torch.autograd.grad(loss, live), leaves))]
+
+
+def _fill(grads, leaves):
+    it = iter(grads)
+    return [None if t is None else next(it) for t in leaves]
+
+
+# (B, T', residual_posterior, condition_h_on_x) at uneven widths (X = 64, H = 200, R = 300, Z = 16)
+K8_BWD_CASES = [(1, 24, True, True), (8, 24, True, True), (19, 24, True, True), (8, 16, False, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,residual,cond", K8_BWD_CASES)
+def test_vrnn_cell_bwd_kernel_matches_f64_twin(cuda_device, B, T, residual, cond):
+    """K8-bwd (through ``VRNNCellFunction``: K8 in save mode, one K8-bwd launch, the weight
+    gradients) and autograd of the f32 twin, both against autograd of the f64 twin, with an
+    orthogonal ``w_hh``: every gradient's largest error, relative to its largest value, no more
+    than twice the f32 twin's plus 1e-6 (about 16 f32 ulps of the largest value: where the twin
+    happens to round as f64 does, the kernel's other summation order still costs a few ulps)."""
+    X, H, Z, R = 64, 200, 16, 300
+    w, x, h0, eps = _k8_inputs(B, T, X, H, Z, R, cond, cuda_device, seed=B, orthogonal=True)
+    g = torch.Generator(device=cuda_device).manual_seed(B)
+    g_out = [torch.randn(B, T, n, generator=g, device=cuda_device) for n in (R, Z, H, Z, Z, Z, Z)]
+    cuda.reset_launch_counts()
+    got = _chain_grads(w, x, h0, eps, g_out, torch.float32, residual, cond, kernel=True)
+    counts = cuda.launch_counts()
+    assert (counts["vrnn_cell"], counts["vrnn_cell_bwd"]) == (1, 1)
+    twin = _chain_grads(w, x, h0, eps, g_out, torch.float32, residual, cond, kernel=False)
+    ref = _chain_grads(w, x, h0, eps, g_out, torch.float64, residual, cond, kernel=False)
+    assert (got[1] is None) == (not cond)
+    for i, (a, b, r) in enumerate(zip(got, twin, ref)):
+        if r is None:
+            continue
+        scale = r.abs().max().clamp_min(1e-30)
+        err_k, err_t = ((a.double() - r).abs().max() / scale).item(), ((b.double() - r).abs().max() / scale).item()
+        assert torch.isfinite(a).all() and err_k <= 2 * err_t + 1e-6, (i, err_k, err_t)
+
+
+@pytest.mark.cuda
+def test_free_nats_takes_a_host_budget_on_the_card(cuda_device):
+    """``discount_free_nats`` on a CUDA KL with the budget a float32 host scalar (as the train step's
+    annealers hand it over): the budget stays on the host (no copy to the card), the values are
+    ``max(kld, budget)`` and a tie's gradient is split 0.5/0.5, as on the CPU."""
+    kld = torch.tensor([[[0.1, 0.25, 0.4, 0.25]]], device=cuda_device, requires_grad=True)
+    out = variational.discount_free_nats(kld, torch.tensor(1.0), shared_dims=-1)
+    out.sum().backward()
+    torch.testing.assert_close(out.detach().cpu(), torch.tensor([[[0.25, 0.25, 0.4, 0.25]]]))
+    torch.testing.assert_close(kld.grad.cpu(), torch.tensor([[[0.0, 0.5, 1.0, 0.5]]]))

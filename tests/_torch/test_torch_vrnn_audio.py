@@ -257,7 +257,8 @@ def test_cosine_annealer_matches_jax():
 def test_weights_round_trip_and_flax_names():
     """``random_jax_params`` -> ``load_jax_params`` -> ``export_jax_params`` gives the same tree;
     its names and shapes are a flax init's, and the GRU's parameters take the recurrent rule
-    U(-1/sqrt(R), 1/sqrt(R)) (``blvm_tpu/modules/recurrent.py:32-38``)."""
+    U(-1/sqrt(R), 1/sqrt(R)) (``blvm_tpu/modules/recurrent.py:32-38``) but for ``w_hh``, which
+    is orthogonal (``orthogonal_hh``, ``blvm_tpu/models/vrnn.py:63``)."""
     model = VRNNAudio(**SMALL)
     flat = weights.random_jax_params(model, seed=9)
     weights.load_jax_params(model, weights.unflatten(flat))
@@ -270,6 +271,8 @@ def test_weights_round_trip_and_flax_names():
         {"params": jax.random.PRNGKey(0), "sample": jax.random.PRNGKey(1)}, x, np.array([16], np.int32)))
     assert weights.param_shapes(model) == {k: tuple(v.shape) for k, v in weights.flatten(variables["params"]).items()}
     R = 2 * SMALL["hidden_size"]
-    for leaf in ("w_ih", "b_ih", "w_hh", "b_hh"):
+    for leaf in ("w_ih", "b_ih", "b_hh"):
         bound = np.abs(flat[f"vrnn/cell/gru/{leaf}"]).max()
         assert 0.8 / np.sqrt(R) < bound <= 1 / np.sqrt(R), leaf
+    w_hh = flat["vrnn/cell/gru/w_hh"].astype(np.float64)
+    np.testing.assert_allclose(w_hh @ w_hh.T, np.eye(R), atol=1e-5)
