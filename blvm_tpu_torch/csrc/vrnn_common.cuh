@@ -1,5 +1,6 @@
-// What K8 (vrnn_cell.cu) and K8-bwd (vrnn_cell_bwd.cu) share: the CTA's shape, a stage's weight
-// segments in shared memory, its staged input rows, its products, the grid barrier and the trace clock.
+// What the chain kernels share: K8 (vrnn_cell.cu), K8-bwd (vrnn_cell_bwd.cu), K7 (gru.cu) and K9
+// (srnn_chain.cu): the CTA's shape, a stage's weight segments in shared memory, its staged input rows,
+// its products, the grid barrier, the trace clock and the cooperative launch's limits.
 #pragma once
 
 #include "common.cuh"

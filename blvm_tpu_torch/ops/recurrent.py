@@ -1,5 +1,6 @@
-"""K5: the masked LSTM recurrence (port of the ``lax.scan`` step of
-``blvm_tpu/modules/recurrent.py`` ``LSTM.__call__``, ``:92-102``).
+"""K5 and K7: the masked LSTM and GRU recurrences (port of the ``lax.scan`` steps of
+``blvm_tpu/modules/recurrent.py`` ``LSTM.__call__``, ``:92-102``, and ``GRU.__call__``,
+``:177-187``).
 
 The input projection ``x @ W_ih + b_ih`` of every step is one time-parallel
 product outside the recurrence, as in the JAX package; what remains is the
@@ -13,7 +14,14 @@ JAX step (in bf16 every op rounds, as XLA rounds it). :func:`lstm_recurrence` is
 the entry point: for CPU tensors the twin (autograd gives its gradient); for CUDA
 tensors one launch of ``csrc/lstm.cu``'s forward, under autograd
 :class:`LSTMRecurrenceFunction` with the backward kernel, or it raises.
-:func:`gru_update` is the GRU's gate math, shared by ``GRUCell`` and K8's twin.
+:func:`gru_update` is the GRU's gate math, shared by ``GRUCell``, K7's twin and K8's twin.
+
+K7 is the GRU's chain: ``gh = h @ W_hh + b_hh``, ``h_new = gru_update(xw_t, gh, h)``
+(gate order r, z, n), the state frozen where the mask is 0 and the output
+``h_new * m``. :func:`gru_recurrence_plain` is its twin; :func:`gru_recurrence` the
+entry point: for CPU tensors the twin, for CUDA tensors one launch of ``csrc/gru.cu``
+(forward only: K7-bwd is not written yet, so a call that needs a gradient on the card
+raises).
 """
 
 from typing import Optional, Tuple
@@ -170,3 +178,85 @@ class LSTMRecurrenceFunction(torch.autograd.Function):
         d_w_hh = h_prev.reshape(B * T, H).T @ rows
         d_b_hh = (torch.ones((1, B * T), dtype=dtype, device=rows.device) @ rows)[0]
         return d_gates, d_w_hh, d_b_hh, None, d_h0, d_c0
+
+
+def gru_recurrence_plain(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, mask: Optional[torch.Tensor],
+                         h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX GRU step in plain PyTorch, one step at a time: the twin of K7.
+
+    ``xw (B, T, 3H)`` (``x W_ih + b_ih``), ``w_hh (H, 3H)``, ``b_hh (3H,)``, ``mask (B, T)``
+    of 0/1 (None: all ones; any pattern, e.g. the flipped mask of a backward GRU, whose
+    zeros lead), ``h0 (B, H)``. Returns ``(out (B, T, H), h_n (B, H))``: ``out`` is
+    ``h_new * m``, ``h_n`` the state after the last step, frozen wherever ``m`` is 0.
+    """
+    dtype = xw.dtype
+    B, T = xw.shape[:2]
+    h = h0.to(dtype)
+    mask = torch.ones((B, T), dtype=dtype, device=xw.device) if mask is None else mask.to(dtype)
+    outs = []
+    for t in range(T):
+        m = mask[:, t, None]
+        h_new = gru_update(xw[:, t], h @ w_hh + b_hh, h)
+        h = m * h_new + (1 - m) * h
+        outs.append(h_new * m)
+    out = torch.stack(outs, dim=1) if outs else xw.new_zeros((B, 0, h.shape[-1]))
+    return out, h
+
+
+def gru_recurrence(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, mask: Optional[torch.Tensor],
+                   h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out (B, T, H), h_n (B, H))`` of the masked GRU recurrence.
+
+    CPU tensors: :func:`gru_recurrence_plain` (autograd gives its gradient). CUDA tensors:
+    one launch of K7, all float32 and on one device, on a grid of one CTA an SM; a call
+    that needs a gradient raises ``NotImplementedError`` (K7-bwd, the backward through
+    time, is the next slice's kernel), as does nothing else: no fallback to the twin.
+    """
+    if not xw.is_cuda:
+        return gru_recurrence_plain(xw, w_hh, b_hh, mask, h0)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xw, w_hh, b_hh, h0)):
+        raise NotImplementedError("gru_recurrence (K7) has no backward on the card yet (K7-bwd is still to be "
+                                  "written); run it under torch.no_grad() or on CPU tensors")
+    _check_gru(xw, w_hh, b_hh, mask, h0)
+    if xw.shape[1] == 0:
+        return xw.new_zeros((xw.shape[0], 0, w_hh.shape[0])), h0
+    xw, w_hh, b_hh, h0 = (t.contiguous() for t in (xw, w_hh, b_hh, h0))
+    if mask is not None:
+        mask = mask.to(torch.float32).contiguous()
+    B, T, G = xw.shape
+    H = G // 3
+    out = torch.empty((B, T, H), dtype=torch.float32, device=xw.device)
+    h_n = torch.empty_like(h0)
+    state = torch.empty((2, B, H), dtype=torch.float32, device=xw.device)
+    barrier = torch.empty(1, dtype=torch.int32, device=xw.device)
+    lib = cuda.library()
+    cuda.count_launch("gru_recurrence")
+    err = lib.blvm_gru_recurrence(*(_ptr(t) for t in (xw, w_hh, b_hh, mask, h0, out, h_n, state, barrier)), B, T, H,
+                                  cuda.stream_handle(xw))
+    if err == 720:  # cudaErrorCooperativeLaunchTooLarge
+        raise RuntimeError(f"K7 (gru_recurrence): W_hh of H={H} at B={B} does not fit the shared memory of a grid of "
+                           "one CTA an SM that is all resident")
+    cuda.check(err, "gru_recurrence")
+    return out, h_n
+
+
+def _check_gru(xw, w_hh, b_hh, mask, h0) -> None:
+    if xw.ndim != 3 or xw.shape[-1] % 3:
+        raise ValueError(f"gru_recurrence takes xw of shape (B, T, 3H), got {tuple(xw.shape)}")
+    B, T, G = xw.shape
+    H = G // 3
+    shapes = {"w_hh": (w_hh, (H, G)), "b_hh": (b_hh, (G,)), "h0": (h0, (B, H))}
+    if mask is not None:
+        shapes["mask"] = (mask, (B, T))
+    wrong = {name: tuple(t.shape) for name, (t, shape) in shapes.items() if tuple(t.shape) != shape}
+    if wrong:
+        raise ValueError(f"gru_recurrence: for xw {tuple(xw.shape)} expected w_hh ({H}, {G}), b_hh ({G},), "
+                         f"mask ({B}, {T}) and h0 ({B}, {H}); got {wrong}")
+    tensors = [xw, w_hh, b_hh, h0] + ([mask] if mask is not None else [])
+    if any(t.device != xw.device for t in tensors):
+        raise ValueError("gru_recurrence: all inputs must lie on one CUDA device")
+    if any(t.dtype != torch.float32 for t in (xw, w_hh, b_hh, h0)):
+        raise TypeError(f"the gru_recurrence kernel takes float32 xw, w_hh, b_hh and h0 (the JAX GRU is f32), got "
+                        f"{[t.dtype for t in (xw, w_hh, b_hh, h0)]}")
+    if B < 1 or H < 1:
+        raise ValueError(f"gru_recurrence takes B >= 1 and H >= 1, got B={B}, H={H}")

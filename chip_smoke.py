@@ -8,8 +8,9 @@ mixtures over 2^16 bins, bf16 residual stack), and LSTMAudio's test pass, train
 step and generation at the width of its s=64 run spec (H = 256, one layer, 64
 frames a stack, the same DMoL head, f32), and the VRNN's test pass, generation and
 train step at the width of its s=64 z=256 run spec (H = Z = 256, r_dim 512, 64 frames a
-stack, the same DMoL head, f32), and checks the ten hand-written kernels they run against
-their plain PyTorch twins:
+stack, the same DMoL head, f32), and the SRNN's test pass and generation at the width of its
+s=64 z=256 run spec (the same widths, smoothing, f32), and checks the twelve hand-written
+kernels they run against their plain PyTorch twins:
 
   1. device: the card's name and power limit (nvidia-smi)
   2. numerics: TF32 and reduced-precision bf16 GEMM reductions off
@@ -94,9 +95,27 @@ their plain PyTorch twins:
      the cell's backward against autograd of the twin, K8-bwd's trace by stage and
      phase, the train step (in turns with the twins) with its host enqueue time and a
      torch.profiler breakdown
+ 33. K7 gru_recurrence vs its twin at the SRNN test pass's shapes: 6 utterances of 24k-72k
+     samples (up to 1125 stacks), H=512, the d GRU's mask and the a GRU's flipped mask; H=32
+     with a given h0 and a zero-length row; T'=1. Teacher-forced and free-running
+ 34. K9 srnn_chain vs its twin in inference mode on the test pass's hoisted d and a, residual
+     posterior on and off, teacher-forced and free-running on given noise; prior mode at T'=1
+     (sampled and at the mode) and over T'=64
+ 35. the SRNN test pass: flags of benchmarks.txt:22 -> driver -> model -> weights bridge, the
+     utterances of 33, whole and --split_eval (chunks of 16 stacks, d_n and z_n carried); 2 K7,
+     1 K9, 1 K2, 1 K3 a forward; bits/frame against the twins, same noise; a forward with a
+     gradient raises
+ 36. generation through the SRNN driver's hook: 2 x 2000 stacks (2 x 128000 frames), 2000 K7,
+     2000 K9 and 2000 K3 launches, two wav files under
+     blvm_tpu_torch/_build/srnn_generation_hook/; a rollout from given noise and uniforms
+     against the twins fed the same noise and the kernel's frames
+ 37. timing: K7 at the d and a shapes against its twin and torch.nn.GRU (cuDNN, the yardstick)
+     and at T'=1 (host and device time); K9 a launch and a step, a T'=1 call's host and device
+     time, K9's trace by stage and phase; the test pass whole and split, a generation,
+     torch.profiler breakdowns of a test pass and of 200 generated stacks
 
 Every phase prints one line (the profiles a few); any failure raises and exits
-non-zero before the last line (phases 14-32 print all their numbers first). A
+non-zero before the last line (phases 14-37 print all their numbers first). A
 ``[total]`` line gives the run's seconds; the second-to-last line is the
 kernels' JSON record, the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero without CUDA.
@@ -143,6 +162,10 @@ VRNN_B, VRNN_T = 6, 1125
 # the VRNN train step: the --batch_len 64 budget (1,024,000 samples, packed as a sum of lengths) in 19
 # utterances of 40k-64k samples a step, up to 1000 stacks
 VRNN_TRAIN_B, VRNN_BUDGET, VRNN_TRAIN_LENGTHS = 19, 64 * 16000, (40000, 64000)
+# SRNN: the s=64 z=256 run spec of experiments/benchmarks.txt:22 (the driver's defaults fill in the residual
+# posterior and smoothing, r_dim = 512; f32); K7 and K9 at 6 utterances of up to 1125 stacks
+SRNN_FLAGS = VRNN_FLAGS
+SRNN_B, SRNN_T = 6, 1125
 
 
 def phase(tag, /, **values):
@@ -162,6 +185,40 @@ def roofline(bytes_, flops, peak):
 
 def rel_norm(a, b):
     return ((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30)).item()
+
+
+def device_us(event):
+    """An event's own device time in microseconds, under either name torch.profiler gives it."""
+    return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0)
+
+
+def profiled(fn, label, per, unit, card):
+    """Print ``fn()``'s wall time, device time, idle share and launches under torch.profiler, each per
+    ``unit`` (``per`` units in the run), and its eight largest kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels_ = device_kernels(prof)
+    busy_ms = sum(device_us(e) for e in kernels_) / 1e3
+    phase(label, card=card, wall_ms=f"{wall_ms:.3f}", device_ms=f"{busy_ms:.3f}",
+          idle_share=f"{1 - busy_ms / wall_ms:.3f}" if busy_ms else "not measured",
+          kernel_launches=sum(e.count for e in kernels_), **{f"wall_ms_per_{unit}": f"{wall_ms / per:.4f}"})
+    for e in sorted(kernels_, key=device_us, reverse=True)[:8]:
+        print(f"  {device_us(e) / 1e3 / per:9.4f} ms/{unit} {e.count // per:5d} calls/{unit}  {e.key[:90]}", flush=True)
+
+
+def device_kernels(prof):
+    """The device kernels of a ``torch.profiler`` run: CUDA events with device time, not named like a
+    host op or annotation."""
+    events = prof.key_averages()
+    host_names = {e.key for e in events if e.device_type == torch.autograd.DeviceType.CPU}
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
+            and e.key not in host_names]
 
 
 class StepLog:
@@ -286,6 +343,11 @@ def main():
                                replaces="blvm_tpu/models/vrnn.py:77", library_ms=None)
     record["vrnn_cell_bwd"] = dict(name="vrnn_cell_bwd", route="cuda", source="blvm_tpu_torch/csrc/vrnn_cell_bwd.cu",
                                    replaces="blvm_tpu/models/vrnn.py:77", library_ms=None)
+    # K7's yardstick, torch.nn.GRU (cuDNN), is timed in phase 37; no single PyTorch call computes the SRNN chain
+    record["gru_recurrence"] = dict(name="gru_recurrence", route="cuda", source="blvm_tpu_torch/csrc/gru.cu",
+                                    replaces="blvm_tpu/modules/recurrent.py:177")
+    record["srnn_chain"] = dict(name="srnn_chain", route="cuda", source="blvm_tpu_torch/csrc/srnn_chain.cu",
+                                replaces="blvm_tpu/models/srnn.py:68", library_ms=None)
 
     # 4. K1 against its twin at the flagship shapes
     args = wavenet_audio.build_args(FLAGSHIP_FLAGS.split())
@@ -712,13 +774,8 @@ def main():
             run_step(b_)
         torch.cuda.synchronize()
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     events = prof.key_averages()
-    host_names = {e.key for e in events if e.device_type == torch.autograd.DeviceType.CPU}  # ops, annotations
-    kernels_ = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
-                and e.key not in host_names]
+    kernels_ = device_kernels(prof)
     busy_ms = sum(device_us(e) for e in kernels_) / 1e3 / 3
     # the host's share: the step returns before the card finishes (no sync inside it), so
     # the host clock around the call alone is the time to enqueue one step's work
@@ -748,6 +805,8 @@ def main():
     vrnn_phases(record, smi, dev)
     torch.cuda.empty_cache()
     vrnn_train_phases(record, smi, dev)
+    torch.cuda.empty_cache()
+    srnn_phases(record, smi, dev)
     phase("total", seconds=f"{time.time() - t_start:.1f}")
 
     print(json.dumps({"kernels": list(record.values())}), flush=True)
@@ -925,13 +984,7 @@ def generation_phases(record, smi, args, models, dev):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, prof_s, prof_enqueued = generate_timed(m, n_prof)
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    events = prof.key_averages()
-    host_names = {e.key for e in events if e.device_type == torch.autograd.DeviceType.CPU}
-    kernels_ = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
-                and e.key not in host_names]
+    kernels_ = device_kernels(prof)
     busy_us = sum(device_us(e) for e in kernels_)
     decode = [e for e in kernels_ if "wavenet_decode" in e.key]
     phase("profile-generate", card=card, dtype="bf16", frames=n_prof, wall_us_per_frame=f"{prof_s * 1e6 / n_prof:.2f}",
@@ -1416,13 +1469,7 @@ def lstm_phases(record, smi, dev):
             run_step(b_)
         torch.cuda.synchronize()
 
-    def device_us(e_):
-        return getattr(e_, "self_device_time_total", None) or getattr(e_, "self_cuda_time_total", 0)
-
-    events = prof.key_averages()
-    host_names = {e_.key for e_ in events if e_.device_type == torch.autograd.DeviceType.CPU}
-    kernels_ = [e_ for e_ in events if e_.device_type == torch.autograd.DeviceType.CUDA and device_us(e_) > 0
-                and e_.key not in host_names]
+    kernels_ = device_kernels(prof)
     busy_ms = sum(device_us(e_) for e_ in kernels_) / 1e3 / 3
     phase("profile-lstm-train-step", card=card, device_ms_per_step=f"{busy_ms:.3f}", step_ms=f"{ts['kernel']:.3f}",
           idle_share=f"{1 - busy_ms / ts['kernel']:.3f}" if busy_ms else "not measured",
@@ -1648,15 +1695,6 @@ def vrnn_phases(record, smi, dev):
     # torch.profiler breakdowns
     from torch.profiler import ProfilerActivity, profile
 
-    def device_us(e_):
-        return getattr(e_, "self_device_time_total", None) or getattr(e_, "self_cuda_time_total", 0)
-
-    def device_kernels(prof):
-        events = prof.key_averages()
-        host_names = {e_.key for e_ in events if e_.device_type == torch.autograd.DeviceType.CPU}
-        return [e_ for e_ in events if e_.device_type == torch.autograd.DeviceType.CUDA and device_us(e_) > 0
-                and e_.key not in host_names]
-
     eps_t = [torch.randn(VRNN_B, VRNN_T, Z, generator=gen, device=dev) for _ in range(3)]
 
     def k8(eps_):
@@ -1751,26 +1789,10 @@ def vrnn_phases(record, smi, dev):
           generate_frames_per_s=f"{GEN_B * n_stacks * S / min(gen_s):.0f}")
 
     # where the time goes: torch.profiler over one whole-batch test pass and over 200 generated stacks
-    def profiled(fn, label, per, unit):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels_ = device_kernels(prof)
-        busy_ms = sum(device_us(e_) for e_ in kernels_) / 1e3
-        phase(label, card=card, wall_ms=f"{wall_ms:.3f}", device_ms=f"{busy_ms:.3f}",
-              idle_share=f"{1 - busy_ms / wall_ms:.3f}" if busy_ms else "not measured",
-              kernel_launches=sum(e_.count for e_ in kernels_), **{f"wall_ms_per_{unit}": f"{wall_ms / per:.4f}"})
-        for e_ in sorted(kernels_, key=device_us, reverse=True)[:8]:
-            print(f"  {device_us(e_) / 1e3 / per:9.4f} ms/{unit} {e_.count // per:5d} calls/{unit}  {e_.key[:90]}",
-                  flush=True)
-
-    profiled(lambda: test_pass(False), "profile-vrnn-test-pass", 1, "pass")
+    profiled(lambda: test_pass(False), "profile-vrnn-test-pass", 1, "pass", card)
     profiled(lambda: model.generate(n_samples=GEN_B, max_timesteps=200,
                                     generator=torch.Generator(device=dev).manual_seed(SEED)),
-             "profile-vrnn-generate", 200, "stack")
+             "profile-vrnn-generate", 200, "stack", card)
 
     require(not failures, f"VRNN phases failed: {failures}")
 
@@ -2140,13 +2162,7 @@ def vrnn_train_phases(record, smi, dev):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / 3
 
-    def device_us(e_):
-        return getattr(e_, "self_device_time_total", None) or getattr(e_, "self_cuda_time_total", 0)
-
-    events = prof.key_averages()
-    host_names = {e_.key for e_ in events if e_.device_type == torch.autograd.DeviceType.CPU}
-    kernels_ = [e_ for e_ in events if e_.device_type == torch.autograd.DeviceType.CUDA and device_us(e_) > 0
-                and e_.key not in host_names]
+    kernels_ = device_kernels(prof)
     busy_ms = sum(device_us(e_) for e_ in kernels_) / 1e3 / 3
     phase("profile-vrnn-train-step", card=card, device_ms_per_step=f"{busy_ms:.3f}", wall_ms_per_step=f"{wall_ms:.3f}",
           idle_share=f"{1 - busy_ms / wall_ms:.3f}" if busy_ms else "not measured",
@@ -2155,6 +2171,448 @@ def vrnn_train_phases(record, smi, dev):
         print(f"  {device_us(e_) / 1e3 / 3:9.3f} ms/step {e_.count // 3:5d} calls/step  {e_.key[:90]}", flush=True)
 
     require(not failures, f"VRNN train phases failed: {failures}")
+
+
+def srnn_phases(record, smi, dev):
+    """Phases 33-37, the SRNN paths at the width of ``experiments/benchmarks.txt:22``: K7 and K9
+    against their twins, the test pass (whole and with carried state), generation through the
+    driver's hook, and their times. Each check is printed before any raises, so one run shows
+    every number."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from blvm_tpu_torch import weights
+    from blvm_tpu_torch.evaluation.tracker import Tracker
+    from blvm_tpu_torch.experiments import common, srnn_audio
+    from blvm_tpu_torch.models import srnn as srnn_model
+    from blvm_tpu_torch.models.wavenet import modules
+    from blvm_tpu_torch.modules import distributions
+    from blvm_tpu_torch.ops import cuda, likelihoods, recurrent, variational
+    from blvm_tpu_torch.ops import srnn as srnn_ops
+
+    failures = []
+
+    def expect(cond, message):
+        if not cond:
+            failures.append(message)
+            print(f"  FAIL: {message}", flush=True)
+
+    card = smi.replace(" ", "_")
+    plain = plain_path(modules, likelihoods, distributions, variational, recurrent)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 33)
+    args = srnn_audio.build_args(SRNN_FLAGS.split())
+    model = srnn_audio.build_model(args)
+    require(next(model.parameters()).device.type == "cuda", "srnn_audio.build_model did not build on the card")
+    weights.load_jax_params(model, weights.random_jax_params(model, args.seed))
+    model.eval()
+    srnn = model.srnn
+    S, Z, R, H = args.stack_frames, args.latent_size, srnn.r_dim, args.hidden_size
+    rng = np.random.default_rng(args.seed + 33)
+    lengths = rng.integers(SRNN_T * S // 3, SRNN_T * S + 1, SRNN_B)  # 24k-72k samples
+    lengths[0] = SRNN_T * S  # the longest utterance fills all 1125 stacks
+    x_np, x_sl_np = common.make_batch([synthetic_speech(int(n), rng) for n in lengths], args)
+    x_dev, x_sl_dev = torch.from_numpy(x_np).to(dev), torch.from_numpy(x_sl_np).to(dev)
+    stacks = torch.from_numpy(-(-lengths // S)).to(dev)
+    mask = (torch.arange(SRNN_T, device=dev)[None] < stacks[:, None]).float()  # (6, 1125), the d GRU's
+    d_gru, a_gru = srnn.d_forward_recurrent, srnn.a_backward_recurrent
+    with torch.no_grad():
+        enc = srnn.encoder(x_dev[..., None])  # (6, 1125, 256)
+        u_enc = torch.cat([torch.zeros_like(enc[:, :1]), enc[:, :-1]], dim=1)
+        d_out, _ = d_gru(u_enc, mask=mask)
+        d = torch.cat([torch.zeros(SRNN_B, 1, R, device=dev), d_out[:, :-1]], dim=1)
+        concat_flip = torch.cat([enc, d], dim=-1).flip(1)  # the a GRU's input (6, 1125, 768), its mask flipped
+        a = a_gru(concat_flip, mask=mask.flip(1))[0].flip(1)
+        xw_d = u_enc @ d_gru.w_ih + d_gru.b_ih  # K7's inputs on the test pass: (6, 1125, 1536)
+        xw_a = concat_flip @ a_gru.w_ih + a_gru.b_ih
+
+    def within(got, ref, atol, rtol):
+        return all(bool(((g - r).abs() <= atol + rtol * r.abs()).all()) for g, r in zip(got, ref) if r is not None)
+
+    def max_err(got, ref):
+        return max((g - r).abs().max().item() for g, r in zip(got, ref) if r is not None)
+
+    # 33. K7 against its twin at the test pass's shapes: the d GRU's mask and the a GRU's flipped one, and
+    # H = 32 with a given h0 and a zero-length row, and T' = 1. Teacher-forced (a twin step from the
+    # kernel's state entering every step): the products' summation order only, 1e-5 absolute plus 1e-5
+    # relative. Free-running: those differences re-enter the chain every step, which does not amplify them,
+    # so 1e-4 absolute plus 1e-5 relative, as K8's
+    def k7_state_before(out, m, h0):
+        """The state entering each step, from the kernel's outputs: out at the last step t' < t whose mask
+        is 1, h0 before any (the state is frozen where the mask is 0)."""
+        T_ = out.shape[1]
+        steps = torch.arange(T_, device=dev)[None].expand_as(m)
+        last = torch.where(m > 0, steps, torch.full_like(steps, -1)).cummax(dim=1).values  # last valid <= t
+        prev = torch.cat([torch.full_like(last[:, :1], -1), last[:, :-1]], dim=1)
+        kept = torch.gather(out, 1, prev.clamp_min(0)[..., None].expand(-1, -1, out.shape[-1]))
+        return torch.where(prev[..., None] >= 0, kept, h0[:, None])
+
+    g_small = torch.Generator().manual_seed(SEED + 33)
+    small_w = [((torch.rand(*shape, generator=g_small) * 2 - 1) / 32**0.5).to(dev) for shape in ((32, 96), (96,))]
+    small_mask = torch.ones(3, 40, device=dev)
+    small_mask[1, 23:] = 0
+    small_mask[2] = 0  # a zero-length row
+    k7_cases = {
+        "d_B6_T1125": (xw_d, d_gru.w_hh, d_gru.b_hh, mask, torch.zeros(SRNN_B, R, device=dev)),
+        "a_flipped_B6_T1125": (xw_a, a_gru.w_hh, a_gru.b_hh, mask.flip(1), torch.zeros(SRNN_B, R, device=dev)),
+        "H32_given_h0": ((torch.randn(3, 40, 96, generator=g_small) * 0.5).to(dev), *small_w, small_mask.flip(1),
+                         (torch.randn(3, 32, generator=g_small) * 0.3).to(dev)),
+        "T1_B2": (xw_d[:GEN_B, :1], d_gru.w_hh, d_gru.b_hh, None, d[:GEN_B, 5]),
+    }
+    k7_err = 0.0
+    for name, (xw, w_hh, b_hh, m, h0) in k7_cases.items():
+        w_hh, b_hh = w_hh.detach(), b_hh.detach()
+        with torch.no_grad():
+            cuda.reset_launch_counts()
+            got = recurrent.gru_recurrence(xw, w_hh, b_hh, m, h0)
+            torch.cuda.synchronize()
+            launches = cuda.launch_counts()["gru_recurrence"]
+            free = recurrent.gru_recurrence_plain(xw, w_hh, b_hh, m, h0)
+            B_, T_ = xw.shape[:2]
+            m_ = torch.ones(B_, T_, device=dev) if m is None else m
+            h_prev = k7_state_before(got[0], m_, h0)
+            forced_out, forced_h = recurrent.gru_recurrence_plain(
+                xw.reshape(B_ * T_, 1, -1), w_hh, b_hh, m_.reshape(B_ * T_, 1), h_prev.reshape(B_ * T_, -1))
+        forced = (forced_out.reshape(B_, T_, -1), forced_h.reshape(B_, T_, -1)[:, -1])
+        e_free, e_forced = max_err(got, free), max_err(got, forced)
+        expect(launches == 1 and all(bool(torch.isfinite(t).all()) for t in got), f"K7 {name}: launches/finite")
+        expect(within(got, forced, 1e-5, 1e-5), f"K7 {name}: teacher-forced {e_forced}")
+        expect(within(got, free, 1e-4, 1e-5), f"K7 {name}: free-running {e_free}")
+        if name == "H32_given_h0":
+            expect(torch.equal(got[1][2], h0[2]) and not got[0][2].any(), "K7: the zero-length row moved")
+        if name.endswith("T1125"):
+            k7_err = max(k7_err, e_free)
+        phase("K7", case=name, shape=tuple(xw.shape), launches=launches, free_max_abs_err=f"{e_free:.3g}",
+              teacher_forced_max_abs_err=f"{e_forced:.3g}")
+    record["gru_recurrence"]["max_abs_err"] = k7_err
+
+    # 34. K9 against its twin in inference mode on the test pass's d and a (hoisted), with the residual
+    # posterior on and off, on given noise: teacher-forced (a twin step from the kernel's z entering every
+    # step) within 1e-5 + 1e-5 |twin|, free-running within 1e-4 + 1e-5 |twin|; prior mode at T' = 1,
+    # sampled and at the mode, and over T' = 64 steps, within 1e-5 + 1e-5 |twin|
+    step = srnn.step
+    head = step.prior_net.layers_1
+    chain_kw = dict(sd_beta=head.beta, sd_epsilon=head.epsilon)
+    with torch.no_grad():
+        xp, xq, kw_ = srnn_ops.hoist(step.chain_weights(), d, a, True)
+    kernel_w = [t.detach() for t in kw_]
+    eps_k9 = torch.randn(SRNN_B, SRNN_T, Z, generator=gen, device=dev)
+    z0 = torch.zeros(SRNN_B, Z, device=dev)
+    k9_err = 0.0
+    for residual in (True, False):
+        kw = dict(inference=True, residual_posterior=residual, **chain_kw)
+        with torch.no_grad():
+            cuda.reset_launch_counts()
+            got = srnn_ops.srnn_chain(kernel_w, xp, xq, z0, eps_k9, **kw)
+            torch.cuda.synchronize()
+            launches = cuda.launch_counts()["srnn_chain"]
+            free = srnn_ops.srnn_chain_plain(kernel_w, xp, xq, z0, eps_k9, **kw)
+            rows = SRNN_B * SRNN_T
+            z_prev = torch.cat([z0[:, None], got.z[:, :-1]], dim=1).reshape(rows, Z)
+            forced = srnn_ops.srnn_chain_plain(kernel_w, xp.reshape(rows, 1, -1), xq.reshape(rows, 1, -1), z_prev,
+                                               eps_k9.reshape(rows, 1, Z), **kw)
+        forced = [t.reshape(SRNN_B, SRNN_T, Z) for t in forced]
+        e_free, e_forced = max_err(got, free), max_err(got, forced)
+        expect(launches == 1 and all(bool(torch.isfinite(t).all()) for t in got), f"K9 residual={residual}: launches")
+        expect(within(got, forced, 1e-5, 1e-5), f"K9 residual={residual}: teacher-forced {e_forced}")
+        expect(within(got, free, 1e-4, 1e-5), f"K9 residual={residual}: free-running {e_free}")
+        k9_err = max(k9_err, e_free)
+        phase("K9", mode="inference", residual_posterior=residual, shape=tuple(xp.shape), launches=launches,
+              free_max_abs_err=f"{e_free:.3g}", teacher_forced_max_abs_err=f"{e_forced:.3g}")
+    record["srnn_chain"]["max_abs_err"] = k9_err
+    for name, (T_, use_mode) in {"T1_sampled": (1, False), "T1_mode": (1, True), "T64_sampled": (64, False)}.items():
+        xp_ = xp[:GEN_B, 100:100 + T_]
+        z0_ = torch.randn(GEN_B, Z, generator=gen, device=dev) * 0.5
+        eps_ = None if use_mode else torch.randn(GEN_B, T_, Z, generator=gen, device=dev)
+        kw = dict(inference=False, residual_posterior=True, use_mode=use_mode, **chain_kw)
+        with torch.no_grad():
+            cuda.reset_launch_counts()
+            got = srnn_ops.srnn_chain(kernel_w, xp_, None, z0_, eps_, **kw)
+            torch.cuda.synchronize()
+            launches = cuda.launch_counts()["srnn_chain"]
+            ref = srnn_ops.srnn_chain_plain(kernel_w, xp_, None, z0_, eps_, **kw)
+        e_ = max_err(got, ref)
+        expect(launches == 1 and got.enc_mu is None and within(got, ref, 1e-5, 1e-5), f"K9 prior {name}: {e_}")
+        phase("K9", mode="prior", case=name, shape=tuple(xp_.shape), use_mode=use_mode, max_abs_err=f"{e_:.3g}")
+
+    # 35. the test pass: flags of benchmarks.txt:22 -> driver -> model on the card -> weights bridge, whole
+    # and with --split_eval (d_n and z_n carried, a from zeros), kernels against the twins with the same
+    # noise (the latent noise drawn from one generator seeded alike for both runs)
+    n_chunks = len(model.split_sequence(x_np, x_sl_np, length=args.random_segment_size or 16 * S)[0])
+
+    def seeded_noise():
+        g_ = torch.Generator(device=dev).manual_seed(SEED + 35)
+        return mock.patch.object(srnn_model, "gaussian_noise",
+                                 lambda _, shape, like: torch.randn(shape, generator=g_, dtype=like.dtype,
+                                                                    device=like.device))
+
+    def test_pass(split, plain_path_=False):
+        with plain() if plain_path_ else contextlib.nullcontext(), seeded_noise():
+            cuda.reset_launch_counts()
+            t0 = time.time()
+            values = srnn_audio.evaluate(model, argparse_copy(args, split_eval=split), [(x_np, x_sl_np)], Tracker(),
+                                         generator=torch.Generator(device=dev).manual_seed(SEED))
+            torch.cuda.synchronize()
+            return values, cuda.launch_counts(), time.time() - t0
+
+    path_launches = {"gru_recurrence": 0, "srnn_chain": 0}
+    for split in (False, True):
+        values, counts, seconds = test_pass(split)
+        values_p, counts_p, seconds_p = test_pass(split, plain_path_=True)
+        forwards = n_chunks if split else 1
+        expected = dict(gru_recurrence=2 * forwards, srnn_chain=forwards, dmol_log_prob=forwards,
+                        dmol_sample=forwards)
+        expect(counts == {**dict.fromkeys(counts, 0), **expected},
+               f"SRNN test pass split={split}: launches {counts}, expected {expected}")
+        expect(not any(counts_p.values()), f"the plain SRNN test pass launched kernels: {counts_p}")
+        for k in path_launches:
+            path_launches[k] += counts[k]
+        bpd_rel = abs(values["bpd"] - values_p["bpd"]) / abs(values_p["bpd"])
+        finite = all(math.isfinite(values[k]) for k in ("loss", "elbo", "rec", "kl", "bpd"))
+        # f32 throughout: only the summation orders of K7, K9, K2 and the products differ
+        expect(finite and bpd_rel <= 1e-5, f"SRNN test pass split={split}: {values} vs twins {values_p}")
+        phase("srnn-test-pass", split_eval=split, utterances=list(map(int, lengths)), forwards=forwards,
+              loss=f"{values['loss']:.6f}", bpd=f"{values['bpd']:.6f}", bpd_plain=f"{values_p['bpd']:.6f}",
+              bpd_rel=f"{bpd_rel:.3g}", kl=f"{values['kl']:.3f}", rec=f"{values['rec']:.3f}",
+              launches_per_forward={k: v // forwards for k, v in counts.items() if v}, seconds=f"{seconds:.2f}",
+              plain_seconds=f"{seconds_p:.2f}")
+    # a forward that needs a gradient raises on the card (K7-bwd and K9-bwd are still to be written)
+    try:
+        model(x_dev[:1, :640], x_sl_dev[:1].clamp_max(640))
+        raised = ""
+    except NotImplementedError as err:
+        raised = str(err)
+    expect("K7-bwd" in raised, f"an SRNN forward with a gradient on the card did not raise: {raised!r}")
+    phase("srnn-no-backward", raised=raised.split(";")[0].replace(" ", "_")[:60])
+
+    # 36. generation through the driver's hook: 2 x 2000 stacks of 64 (--generate_frames 128000), one K7
+    # (T' = 1), one K9 (prior mode, T' = 1) and one K3 launch a stack; then the rollout from given noise and
+    # uniforms against the twins fed the same noise and the kernel's frames (every stack at once)
+    out_dir = Path(__file__).resolve().parent / "blvm_tpu_torch" / "_build" / "srnn_generation_hook"
+    hook = srnn_audio.make_generation_hook(model, argparse_copy(args, generate_every=5))
+    cuda.reset_launch_counts()
+    t0 = time.time()
+    paths = hook(5, out_dir)
+    torch.cuda.synchronize()
+    hook_s = time.time() - t0
+    counts = cuda.launch_counts()
+    n_stacks = args.generate_frames // S
+    expected = dict(gru_recurrence=n_stacks, srnn_chain=n_stacks, dmol_sample=n_stacks)
+    expect(counts == {**dict.fromkeys(counts, 0), **expected}, f"SRNN generation launches {counts}, expected {expected}")
+    for k in path_launches:
+        path_launches[k] += counts[k]
+    shapes = []
+    for path in paths:
+        with wave.open(str(path)) as f:
+            shapes.append((f.getnchannels(), f.getsampwidth(), f.getframerate(), f.getnframes()))
+            pcm = np.frombuffer(f.readframes(f.getnframes()), "<i2")
+        expect(shapes[-1] == (1, 2, 16000, n_stacks * S) and np.abs(pcm).max() > 0, f"SRNN hook wav {path}: {shapes[-1]}")
+    expect(len(paths) == 2, f"SRNN hook wrote {paths}")
+    phase("srnn-generation-hook", stacks=n_stacks, launches=counts, seconds=f"{hook_s:.2f}",
+          files=[str(p_.relative_to(out_dir.parents[2])) for p_ in paths], wav=shapes)
+    record["gru_recurrence"]["launches"] = path_launches["gru_recurrence"]
+    record["srnn_chain"]["launches"] = path_launches["srnn_chain"]
+
+    eps_g = torch.randn(n_stacks, GEN_B, Z, generator=gen, device=dev)
+    u_g = (torch.rand(n_stacks * S, GEN_B, 10, generator=gen, device=dev),
+           torch.rand(n_stacks * S, GEN_B, 1, generator=gen, device=dev))
+    (frames, _), _ = model.generate(n_samples=GEN_B, max_timesteps=n_stacks, eps=eps_g, uniforms=u_g)
+    with torch.no_grad():
+        stacks_in = torch.cat([torch.zeros(GEN_B, S, device=dev), frames[:, :-S, 0]], dim=1)  # each step's input stack
+        xw_g = srnn.encoder(stacks_in[..., None]) @ d_gru.w_ih + d_gru.b_ih
+        d_g, _ = recurrent.gru_recurrence_plain(xw_g, d_gru.w_hh, d_gru.b_hh, None, torch.zeros(GEN_B, R, device=dev))
+        xp_g, _, kw_g = srnn_ops.hoist(step.chain_weights(), d_g, None, False)
+        z_g = srnn_ops.srnn_chain_plain(kw_g, xp_g, None, torch.zeros(GEN_B, Z, device=dev), eps_g.transpose(0, 1),
+                                        inference=False, residual_posterior=True, **chain_kw).z
+        dec_params = srnn.likelihood(srnn.decoder(torch.cat([z_g, d_g], dim=-1)))
+        twin_frames = variational.rsample_discretized_logistic_mixture(
+            None, *dec_params, uniforms=tuple(u.transpose(0, 1) for u in u_g))
+    err = (twin_frames - frames).abs()
+    share = (err <= 1e-5).double().mean().item()
+    # f32: the twins fed the kernel's frames and the same noise; a frame whose Gumbel pick sits within
+    # f32 rounding of a tie may pick another component: at most 1e-3 of them
+    expect(bool(torch.isfinite(frames).all()) and share >= 1 - 1e-3, f"SRNN rollout vs twins: share {share}")
+    phase("srnn-generate-vs-twins", frames=GEN_B * n_stacks * S, share_within_1e5=f"{share:.6f}",
+          max_abs_err=f"{err.max().item():.3g}", frames_outside=int((err > 1e-5).sum().item()))
+    del twin_frames, dec_params, u_g
+
+    # 37. times, CUDA events, a different input each call, kernel and twin in turns: K7 at the d and a
+    # shapes against its twin and against torch.nn.GRU (cuDNN, unmasked, with its input projection: the
+    # yardstick; the port never calls it) and at T' = 1; K9 a launch and a step, a T' = 1 call split into
+    # the wrapper's host time and its kernel's device time, K9's trace by stage; the test pass whole and
+    # split; a generation; torch.profiler breakdowns of a test pass and of 200 generated stacks
+    xws_d = [xw_d + 0.01 * torch.randn(xw_d.shape, generator=gen, device=dev) for _ in range(3)]
+    xws_a = [xw_a + 0.01 * torch.randn(xw_a.shape, generator=gen, device=dev) for _ in range(3)]
+    zeros_r = torch.zeros(SRNN_B, R, device=dev)
+
+    def k7_for(gru, m):
+        w_hh, b_hh = gru.w_hh.detach(), gru.b_hh.detach()
+
+        def kernel(xw):
+            with torch.no_grad():
+                recurrent.gru_recurrence(xw, w_hh, b_hh, m, zeros_r)
+
+        def twin(xw):
+            with torch.no_grad():
+                recurrent.gru_recurrence_plain(xw, w_hh, b_hh, m, zeros_r)
+
+        return twin, kernel
+
+    def cudnn_for(gru, x_in):
+        lib = torch.nn.GRU(gru.w_ih.shape[0], R, batch_first=True).to(dev)
+        with torch.no_grad():
+            lib.weight_ih_l0.copy_(gru.w_ih.T)
+            lib.weight_hh_l0.copy_(gru.w_hh.T)
+            lib.bias_ih_l0.copy_(gru.b_ih)
+            lib.bias_hh_l0.copy_(gru.b_hh)
+            ref_out = lib(x_in)[0]
+            ours = gru(x_in)[0]  # unmasked, as cuDNN's is here
+        return lib, (ref_out - ours).abs().max().item()
+
+    times_k7 = {}
+    for label, gru, m, xws, x_in in (("d", d_gru, mask, xws_d, u_enc), ("a", a_gru, mask.flip(1), xws_a, concat_flip)):
+        twin, kernel = k7_for(gru, m)
+        t_k7 = alternate(twin, kernel, xws)
+        lib, lib_err = cudnn_for(gru, x_in)
+        inputs = [x_in + 0.01 * torch.randn(x_in.shape, generator=gen, device=dev) for _ in range(3)]
+
+        def library(x_, lib=lib):
+            with torch.no_grad():
+                lib(x_)
+
+        def module(x_, gru=gru, m=m):
+            with torch.no_grad():
+                gru(x_, mask=m)
+
+        t_lib = alternate(library, module, inputs)
+        expect(lib_err <= 1e-4, f"the yardstick torch.nn.GRU computes another function ({label}): max err {lib_err}")
+        times_k7[label] = (t_k7, t_lib, lib_err)
+    t_k7, t_lib, lib_err = times_k7["d"]
+    G = 3 * R
+    rows = SRNN_B * SRNN_T
+    record["gru_recurrence"].update(ms=t_k7["kernel"], plain_ms=t_k7["plain"], library_ms=t_lib["plain"], **roofline(
+        bytes_=4 * (rows * (G + 1 + R) + R * G + G + 2 * SRNN_B * R), flops=2 * rows * R * G, peak=F32_PEAK))
+    for label, (t_k7_, t_lib_, err_) in times_k7.items():
+        phase("time-K7", card=card, gru=label, shape=f"({SRNN_B},{SRNN_T},{G})", dtype="f32",
+              kernel_ms=f"{t_k7_['kernel']:.4f}", plain_ms=f"{t_k7_['plain']:.4f}",
+              us_per_step=f"{t_k7_['kernel'] * 1e3 / SRNN_T:.3f}", module_ms=f"{t_lib_['kernel']:.4f}",
+              cudnn_gru_ms=f"{t_lib_['plain']:.4f}", cudnn_max_abs_err=f"{err_:.3g}",
+              bound_ms=f"{record['gru_recurrence']['bound_ms']:.4f}")
+
+    xw1 = [xw_d[:GEN_B, i:i + 1].contiguous() for i in range(20)]
+    h1 = d[:GEN_B, 3].contiguous()
+    w_hh_d, b_hh_d = d_gru.w_hh.detach(), d_gru.b_hh.detach()
+
+    def k7_step(xw):
+        with torch.no_grad():
+            recurrent.gru_recurrence(xw, w_hh_d, b_hh_d, None, h1)
+
+    def k7_step_plain(xw):
+        with torch.no_grad():
+            recurrent.gru_recurrence_plain(xw, w_hh_d, b_hh_d, None, h1)
+
+    t1_k7 = alternate(k7_step_plain, k7_step, xw1)
+
+    eps_t = [torch.randn(SRNN_B, SRNN_T, Z, generator=gen, device=dev) for _ in range(3)]
+    chain_inf = dict(inference=True, residual_posterior=True, **chain_kw)
+
+    def k9(eps_):
+        with torch.no_grad():
+            srnn_ops.srnn_chain(kernel_w, xp, xq, z0, eps_, **chain_inf)
+
+    def k9_plain(eps_):
+        with torch.no_grad():
+            srnn_ops.srnn_chain_plain(kernel_w, xp, xq, z0, eps_, **chain_inf)
+
+    t9 = alternate(k9_plain, k9, eps_t)
+    chain_macs = 2 * (Z * H + 2 * H * H + H * 2 * Z)
+    n_weights = sum(t.numel() for t in kernel_w)
+    record["srnn_chain"].update(ms=t9["kernel"], plain_ms=t9["plain"], **roofline(
+        bytes_=4 * (rows * (2 * H + Z) + SRNN_B * Z + n_weights + rows * 5 * Z), flops=2 * rows * chain_macs,
+        peak=F32_PEAK))
+
+    xp1 = xp[:GEN_B, :1].contiguous()
+    z1 = torch.zeros(GEN_B, Z, device=dev)
+    eps1 = [torch.randn(GEN_B, 1, Z, generator=gen, device=dev) for _ in range(20)]
+    chain_prior = dict(inference=False, residual_posterior=True, **chain_kw)
+
+    def k9_step(eps_):
+        with torch.no_grad():
+            srnn_ops.srnn_chain(kernel_w, xp1, None, z1, eps_, **chain_prior)
+
+    def k9_step_plain(eps_):
+        with torch.no_grad():
+            srnn_ops.srnn_chain_plain(kernel_w, xp1, None, z1, eps_, **chain_prior)
+
+    t1_k9 = alternate(k9_step_plain, k9_step, eps1)
+
+    def t1_split(fn, inputs, kernel_name):
+        """A T' = 1 call's host time (the calls enqueued back to back, no wait between them: the card runs
+        behind the host) and the device time of all its kernels, and of the named kernel's alone."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i_ in inputs:
+            fn(i_)
+        host = (time.perf_counter() - t0) * 1e6 / len(inputs)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i_ in inputs:
+                fn(i_)
+            torch.cuda.synchronize()
+        kernels_ = device_kernels(prof)
+        own = sum(device_us(e) for e in kernels_ if kernel_name in e.key)
+        return host, sum(device_us(e) for e in kernels_) / len(inputs), own / len(inputs)
+
+    split_7, split_9 = t1_split(k7_step, xw1, "gru_kernel"), t1_split(k9_step, eps1, "srnn_chain_kernel")
+    phase("time-K7-T1", card=card, shape=f"({GEN_B},1,{G})", kernel_us=f"{t1_k7['kernel'] * 1e3:.2f}",
+          plain_us=f"{t1_k7['plain'] * 1e3:.2f}", host_us=f"{split_7[0]:.2f}", device_us=f"{split_7[1]:.2f}",
+          K7_device_us=f"{split_7[2]:.2f}")
+    phase("time-K9", card=card, shape=f"({SRNN_B},{SRNN_T})", H=H, Z=Z, dtype="f32", kernel_ms=f"{t9['kernel']:.4f}",
+          plain_ms=f"{t9['plain']:.4f}", us_per_step=f"{t9['kernel'] * 1e3 / SRNN_T:.3f}",
+          bound_ms=f"{record['srnn_chain']['bound_ms']:.4f}", bound_by=record["srnn_chain"]["bound_by"],
+          prior_T1_us_per_launch=f"{t1_k9['kernel'] * 1e3:.2f}", prior_T1_plain_us=f"{t1_k9['plain'] * 1e3:.2f}",
+          T1_host_us=f"{split_9[0]:.2f}", T1_device_us=f"{split_9[1]:.2f}", T1_K9_device_us=f"{split_9[2]:.2f}")
+
+    # where a step's time goes inside K9: its own trace (SM cycles of each stage's phases as its first CTA
+    # sees them, converted at the loop's clock rate), over 3 launches at the test pass's shape and 20 at T' = 1
+    stage_names = ("L1", "L2", "L3", "heads+z")
+    for label, (xp_, xq_, z_, eps_list, kw) in {
+            "K9-trace": (xp, xq, z0, eps_t, chain_inf),
+            "K9-trace-T1": (xp1, None, z1, eps1, chain_prior)}.items():
+        trace = torch.zeros(srnn_ops.trace_size(), dtype=torch.int64, device=dev)
+        with torch.no_grad():
+            for e_ in eps_list:
+                srnn_ops.srnn_chain(kernel_w, xp_, xq_, z_, e_, trace=trace, **kw)
+        torch.cuda.synchronize()
+        per_step = srnn_ops.read_trace(trace) / (len(eps_list) * xp_.shape[1]) / 1e3  # us a step
+        phase(label, card=card, steps=len(eps_list) * xp_.shape[1], us_per_step=f"{per_step.sum().item():.3f}",
+              inputs_us=f"{per_step[:, 0].sum().item():.3f}", products_us=f"{per_step[:, 1].sum().item():.3f}",
+              finish_us=f"{per_step[:, 2].sum().item():.3f}", barrier_us=f"{per_step[:, 3].sum().item():.3f}",
+              by_stage={n_: f"{v_:.2f}" for n_, v_ in zip(stage_names, per_step.sum(1).tolist())})
+
+    test_s = {False: [], True: []}
+    for split in (False, True):
+        for _ in range(3 if not split else 2):
+            test_s[split].append(test_pass(split)[2])
+    gen_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.generate(n_samples=GEN_B, max_timesteps=n_stacks, generator=torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        gen_s.append(time.perf_counter() - t0)
+    scored = int(x_sl_np.sum())
+    phase("time-srnn-test-pass-and-generate", card=card, test_pass_samples=scored,
+          test_pass_s=[f"{v:.4f}" for v in test_s[False]], split_eval_s=[f"{v:.4f}" for v in test_s[True]],
+          test_samples_per_s=f"{scored / min(test_s[False]):.0f}", generate_stacks=n_stacks,
+          generate_s=[f"{v:.4f}" for v in gen_s], ms_per_stack=f"{min(gen_s) * 1e3 / n_stacks:.3f}",
+          generate_frames_per_s=f"{GEN_B * n_stacks * S / min(gen_s):.0f}")
+
+    profiled(lambda: test_pass(False), "profile-srnn-test-pass", 1, "pass", card)
+    profiled(lambda: model.generate(n_samples=GEN_B, max_timesteps=200,
+                                    generator=torch.Generator(device=dev).manual_seed(SEED)),
+             "profile-srnn-generate", 200, "stack", card)
+
+    require(not failures, f"SRNN phases failed: {failures}")
 
 
 def argparse_copy(args, **changes):
@@ -2175,11 +2633,14 @@ def plain_path(modules, likelihoods, distributions, variational, recurrent):
                                                                      uniforms=uniforms),
                     variational.dmol_mode(logit_probs, locs))
 
+    from blvm_tpu_torch.ops import srnn as srnn_ops
     from blvm_tpu_torch.ops import vrnn as vrnn_ops
 
     def plain():
         stack = contextlib.ExitStack()
         stack.enter_context(mock.patch.object(vrnn_ops, "vrnn_cell", vrnn_ops.vrnn_cell_plain))
+        stack.enter_context(mock.patch.object(srnn_ops, "srnn_chain", srnn_ops.srnn_chain_plain))
+        stack.enter_context(mock.patch.object(recurrent, "gru_recurrence", recurrent.gru_recurrence_plain))
         stack.enter_context(mock.patch.object(modules, "residual_glu", modules.residual_glu_plain))
         stack.enter_context(mock.patch.object(likelihoods, "dmol_log_prob", dmol))
         stack.enter_context(mock.patch.object(distributions, "dmol_sample_and_mode", sample_and_mode))

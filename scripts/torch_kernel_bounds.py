@@ -1,4 +1,5 @@
-"""Bounds on paper of the TPU kernels the PyTorch/CUDA port has still to write, at their run specs.
+"""Bounds on paper of the TPU kernels the PyTorch/CUDA port has still to write, at their run specs,
+and of K7 and K9 at the SRNN test pass's shape, which ``chip_smoke.py`` also computes from its run.
 
     python scripts/torch_kernel_bounds.py
 
@@ -53,6 +54,16 @@ def main():
     rows, R, H, Z = 19 * 1000, 512, 256, 256
     macs = 2 * ((R + Z) * H + 2 * H * H + H * 2 * Z)
     bounds["K9"] = dict(bytes_=F32 * (rows * (2 * R + Z) + macs + rows * 5 * Z), flops=2 * rows * macs, peak=F32_PEAK)
+    # K7 and K9 as the SRNN test pass runs them (chip_smoke.py phases 33-35: 6 utterances of up to 1125
+    # stacks): K7 for the d GRU (input 256) and the a GRU (input 768), each input projection one GEMM
+    # outside the kernel, so both launches bound alike; K9 on the hoisted d and a products, so only the
+    # chain's z-row products count: the first layers' z rows (Z x H), two H x H layers, the heads (H x 2Z)
+    rows = 6 * 1125
+    bounds["K7 test pass"] = lstm_or_gru(rows=rows, H=R, gates=3)
+    chain_macs = 2 * (Z * H + 2 * H * H + H * 2 * Z)
+    chain_weights = 2 * (Z * H + 2 * (H * H + H) + H * 2 * Z + 2 * Z)
+    bounds["K9 test pass"] = dict(bytes_=F32 * (rows * (2 * H + Z) + 6 * Z + chain_weights + rows * 5 * Z),
+                                  flops=2 * rows * chain_macs, peak=F32_PEAK)
     # K10: the CW-VAE RSSM cell (benchmarks.txt:33, d=192 z=128 s=64, one level: no context; the encoder's
     # width taken as d), the driver's --batch_len 16 s: 256000 samples, 4000 row-steps
     rows, Hd, Zd = 256000 // 64, 192, 128

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels against their plain twins, on the card: K1 and
 K2 forward and backward (against autograd of the twins), K3 the sampler, K4 the
 Fast-WaveNet decode step, K5 the LSTM recurrence forward and backward, K8 the
-VRNN cell and K8-bwd its backward through time.
+VRNN cell and K8-bwd its backward through time, K7 the GRU recurrence and K9 the
+SRNN's latent chain.
 
 Marked ``cuda``: they skip without a CUDA device (here, on CPU-only machines).
 On the card, where JAX is not installed, leave out the root conftest (it imports
@@ -18,10 +19,11 @@ import pytest
 import torch
 
 from blvm_tpu_torch import weights
-from blvm_tpu_torch.models import LSTMAudio, VRNNAudio, WaveNet
+from blvm_tpu_torch.models import LSTMAudio, SRNNAudio, VRNNAudio, WaveNet
 from blvm_tpu_torch.models.wavenet.modules import residual_glu, residual_glu_plain
 from blvm_tpu_torch.modules.distributions import DiscretizedLogisticMixtureDense
 from blvm_tpu_torch.ops import cuda, likelihoods, recurrent, variational
+from blvm_tpu_torch.ops import srnn as srnn_ops
 from blvm_tpu_torch.ops import vrnn as vrnn_ops
 from blvm_tpu_torch.ops.generation import WaveNetDecoder
 
@@ -681,3 +683,177 @@ def test_free_nats_takes_a_host_budget_on_the_card(cuda_device):
     out.sum().backward()
     torch.testing.assert_close(out.detach().cpu(), torch.tensor([[[0.25, 0.25, 0.4, 0.25]]]))
     torch.testing.assert_close(kld.grad.cpu(), torch.tensor([[[0.0, 0.5, 1.0, 0.5]]]))
+
+
+# (B, T, H, mask, a given h0): the SRNN test pass's width with its d GRU's mask and its a GRU's flipped one,
+# more rows than a pass of 8 over uneven parts, H = 32 with a zero-length row, a generation step
+K7_CASES = [
+    (6, 200, 512, "ragged", False),
+    (6, 200, 512, "flipped", True),
+    (11, 30, 300, "flipped", True),
+    (3, 40, 32, "ragged", True),
+    (2, 1, 512, None, True),
+]
+
+
+def _k7_inputs(B, T, H, mask, given, device, seed=0):
+    """xw, W_hh, b_hh (U(+-1/sqrt(H)) as the GRU draws them), the mask (row 0 full, the last row of
+    length 0 where B > 2, the others ragged; flipped: its zeros leading) and h0."""
+    g = torch.Generator().manual_seed(seed)
+    bound = H**-0.5
+    w_hh, b_hh = ((torch.rand(*s, generator=g) * 2 - 1) * bound for s in ((H, 3 * H), (3 * H,)))
+    xw = torch.randn(B, T, 3 * H, generator=g) * 0.5
+    m = None
+    if mask is not None:
+        lengths = torch.randint(1, T + 1, (B,), generator=g)
+        lengths[0] = T
+        if B > 2:
+            lengths[-1] = 0
+        m = (torch.arange(T)[None, :] < lengths[:, None]).float()
+        m = m.flip(1) if mask == "flipped" else m
+    h0 = torch.randn(B, H, generator=g) * 0.3 if given else torch.zeros(B, H)
+    return [None if t is None else t.to(device) for t in (xw, w_hh, b_hh, m, h0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,mask,given", K7_CASES)
+def test_gru_recurrence_kernel_matches_twin(cuda_device, B, T, H, mask, given):
+    """K7 against its twin, free-running over every step in f32: the products' summation order
+    only (the chain does not amplify it), 1e-5 absolute plus 1e-5 relative; a row masked
+    throughout keeps h0 and outputs zeros."""
+    xw, w_hh, b_hh, m, h0 = _k7_inputs(B, T, H, mask, given, cuda_device)
+    cuda.reset_launch_counts()
+    with torch.no_grad():
+        out, h_n = recurrent.gru_recurrence(xw, w_hh, b_hh, m, h0)
+        torch.cuda.synchronize()
+        assert cuda.launch_counts()["gru_recurrence"] == 1
+        ref_out, ref_h_n = recurrent.gru_recurrence_plain(xw, w_hh, b_hh, m, h0)
+    torch.testing.assert_close(out, ref_out, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(h_n, ref_h_n, atol=1e-5, rtol=1e-5)
+    if m is not None and B > 2:
+        assert torch.equal(h_n[-1], h0[-1]) and not out[-1].any()
+
+
+@pytest.mark.cuda
+def test_gru_recurrence_kernel_refuses_what_it_does_not_take(cuda_device):
+    xw, w_hh, b_hh, m, h0 = _k7_inputs(2, 3, 32, "ragged", True, cuda_device)
+    with pytest.raises(NotImplementedError, match="K7-bwd"):
+        recurrent.gru_recurrence(xw, w_hh.requires_grad_(True), b_hh, m, h0)
+    with torch.no_grad():
+        with pytest.raises(TypeError, match="float32"):
+            recurrent.gru_recurrence(xw.double(), w_hh, b_hh, m, h0)
+        with pytest.raises(ValueError, match="h0"):
+            recurrent.gru_recurrence(xw, w_hh, b_hh, m, h0[:1])
+        # a CTA keeps the r, z, n columns of its ~H/132 units (3 H^2 / 132 floats): at H = 2048, 16 units
+        # a CTA, 384 KB, more than the 227 KB a CTA can have
+        xw, w_hh, b_hh, m, h0 = _k7_inputs(1, 1, 2048, None, False, cuda_device)
+        with pytest.raises(RuntimeError, match="does not fit"):
+            recurrent.gru_recurrence(xw, w_hh, b_hh, m, h0)
+
+
+# (B, T', H, Z, inference, residual_posterior, use_mode)
+K9_CASES = [
+    (6, 100, 256, 256, True, True, False),  # the s=64 z=256 spec's width
+    (6, 50, 256, 256, True, False, False),
+    (11, 9, 16, 4, True, True, False),  # more rows than a stage's pass of 8
+    (4, 12, 200, 16, True, True, False),  # widths that no grid divides evenly
+    (2, 1, 256, 256, False, True, False),  # a generation step, sampled
+    (2, 1, 256, 256, False, True, True),  # a generation step at the mode
+    (2, 64, 256, 256, False, True, False),  # a prior rollout of 64 steps
+]
+
+
+def _k9_inputs(B, T, H, Z, device, seed=0):
+    """K9's 14 kernel weights (U(+-1/sqrt(fan_in)), the first layers' fan-in R + Z with R = 2H),
+    the hoisted xp and xq, z0 and the noise."""
+    g = torch.Generator().manual_seed(seed)
+
+    def u(*shape, fan_in):
+        return (torch.rand(*shape, generator=g) * 2 - 1) / fan_in**0.5
+
+    def net():
+        fan = 2 * H + Z
+        return [u(Z, H, fan_in=fan), u(H, H, fan_in=H), u(H, fan_in=H), u(H, H, fan_in=H), u(H, fan_in=H),
+                u(H, 2 * Z, fan_in=H), u(2 * Z, fan_in=H)]
+
+    w = net() + net()
+    xp, xq = (torch.randn(B, T, H, generator=g) * 0.5 for _ in range(2))
+    z0 = torch.randn(B, Z, generator=g) * 0.5
+    eps = torch.randn(B, T, Z, generator=g)
+    return [t.to(device) for t in w], xp.to(device), xq.to(device), z0.to(device), eps.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,Z,inference,residual,use_mode", K9_CASES)
+def test_srnn_chain_kernel_matches_twin(cuda_device, B, T, H, Z, inference, residual, use_mode):
+    """K9 against its twin, free-running over every step in f32: 1e-5 absolute plus 1e-5
+    relative (the products' summation order only)."""
+    w, xp, xq, z0, eps = _k9_inputs(B, T, H, Z, cuda_device)
+    kwargs = dict(inference=inference, residual_posterior=residual, use_mode=use_mode, sd_beta=0.6931478,
+                  sd_epsilon=1e-6)
+    xq = xq if inference else None
+    eps = None if use_mode else eps
+    cuda.reset_launch_counts()
+    with torch.no_grad():
+        got = srnn_ops.srnn_chain(w, xp, xq, z0, eps, **kwargs)
+        torch.cuda.synchronize()
+        assert cuda.launch_counts()["srnn_chain"] == 1
+        ref = srnn_ops.srnn_chain_plain(w, xp, xq, z0, eps, **kwargs)
+    for name, a, b in zip(got._fields, got, ref):
+        if b is None:
+            assert a is None and not inference
+            continue
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5, msg=name)
+
+
+@pytest.mark.cuda
+def test_srnn_chain_kernel_trace_and_refusals(cuda_device):
+    """The same outputs with the trace as without, its phases summing to the loop's cycles but for
+    the few outside any phase; a gradient, float64 and a wrong noise shape raise."""
+    w, xp, xq, z0, eps = _k9_inputs(3, 30, 64, 16, cuda_device)
+    kwargs = dict(inference=True, residual_posterior=True, sd_beta=0.6931478, sd_epsilon=1e-6)
+    trace = torch.zeros(srnn_ops.trace_size(), dtype=torch.int64, device=cuda_device)
+    with torch.no_grad():
+        plain = srnn_ops.srnn_chain(w, xp, xq, z0, eps, **kwargs)
+        traced = srnn_ops.srnn_chain(w, xp, xq, z0, eps, trace=trace, **kwargs)
+    assert all(torch.equal(a, b) for a, b in zip(plain, traced))
+    cycles = trace.cpu()
+    assert (cycles >= 0).all() and 0.95 * cycles[-2] <= cycles[:-2].sum() <= cycles[-2] and cycles[-1] > 0
+    assert srnn_ops.read_trace(trace).shape == (4, 4)
+    with pytest.raises(NotImplementedError, match="K9-bwd"):
+        srnn_ops.srnn_chain(w, xp.requires_grad_(True), xq, z0, eps, **kwargs)
+    with torch.no_grad():
+        with pytest.raises(TypeError, match="float32"):
+            srnn_ops.srnn_chain(w, xp.double(), xq, z0, eps, **kwargs)
+        with pytest.raises(ValueError, match="eps"):
+            srnn_ops.srnn_chain(w, xp, xq, z0, eps[:, :2], **kwargs)
+
+
+@pytest.mark.cuda
+def test_srnn_audio_on_the_card_launches_k7_and_k9(cuda_device):
+    """A small SRNNAudio on the card: a forward launches K7 twice (the d and a GRUs), K9, K2 and K3
+    once each, and its loss equals the plain path's (same noise); a forward that needs a gradient
+    raises; a generation launches K7, K9 and K3 once a stack."""
+    model = SRNNAudio(input_size=8, hidden_size=32, latent_size=8, residual_posterior=True, device=cuda_device)
+    weights.load_jax_params(model, weights.random_jax_params(model, 0))
+    x = torch.rand(3, 200, generator=torch.Generator().manual_seed(0)).to(cuda_device) * 2 - 1
+    x_sl = torch.tensor([200, 150, 61], device=cuda_device)
+    eps = torch.randn(3, 25, 8, generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    cuda.reset_launch_counts()
+    with torch.no_grad():
+        loss, _, out = model(x, x_sl, eps=eps)
+        counts = cuda.launch_counts()
+        with mock.patch.object(srnn_ops, "srnn_chain", srnn_ops.srnn_chain_plain), \
+                mock.patch.object(recurrent, "gru_recurrence", recurrent.gru_recurrence_plain):
+            plain_loss, _, plain_out = model(x, x_sl, eps=eps)
+    assert (counts["gru_recurrence"], counts["srnn_chain"], counts["dmol_log_prob"], counts["dmol_sample"]) == (2, 1, 1, 1)
+    torch.testing.assert_close(loss, plain_loss, rtol=1e-5, atol=0)
+    for name in ("d_n", "a_n", "z_n"):
+        torch.testing.assert_close(getattr(out, name), getattr(plain_out, name), rtol=1e-5, atol=1e-5, msg=name)
+    with pytest.raises(NotImplementedError, match="K7-bwd"):
+        model(x, x_sl, eps=eps)
+    cuda.reset_launch_counts()
+    (gen, _), _ = model.generate(2, 6, generator=torch.Generator(device=cuda_device).manual_seed(0))
+    assert gen.shape == (2, 48, 1) and torch.isfinite(gen).all()
+    counts = cuda.launch_counts()
+    assert (counts["gru_recurrence"], counts["srnn_chain"], counts["dmol_sample"]) == (6, 6, 6)
