@@ -10,6 +10,9 @@
 // lead and the state holds h0 until the valid frames begin. Tensors are batch-first and contiguous: xw
 // (B, T, 3H), W_hh (H, 3H), b_hh (3H), mask (B, T) float32 or null (all ones), h0 (B, H); outputs out
 // (B, T, H) and h_n (B, H); state (2, B, H) is scratch, the carried state double-buffered between steps.
+// In save mode (the forward of a train step) it also writes, for every row-step, what K7-bwd (gru_bwd.cu)
+// reads: save (B, T, 5H) = [the state entering the step, r, z, n, hn = h W_hn + b_hn]; the outputs are the
+// same bits as without it.
 //
 // What bounds it. At the SRNN test pass's shape (B = 6, T = 1125 stacks, H = 512, f32) the products are
 // 2 B T H 3H ~ 10.6 GFLOP (~0.16 ms at 67 TFLOP/s), the compulsory bytes ~0.1 GB (~0.03 ms), but the
@@ -43,6 +46,7 @@ struct Params {
   const float* h0;
   float* out;
   float* h_n;
+  float* save;   // null, or (B, T, 5H): h_{t-1}, r, z, n, hn of every row-step
   float* state;  // 2 x B x H: the state after step t lies in half (t + 1) & 1
   unsigned int* barrier;
   int B, T, H;
@@ -131,6 +135,14 @@ __global__ void __launch_bounds__(NT, 1) gru_kernel(const Params p) {
         __stcg(p.out + ((int64_t)row * T + t) * H + ulo + u, __fmul_rn(h_new, m));
         __stcg(h_next + o, h_kept);
         if (t == T - 1) p.h_n[o] = h_kept;
+        if (p.save) {
+          float* sv = p.save + ((int64_t)row * T + t) * 5 * H + ulo + u;
+          __stcs(sv, h);
+          __stcs(sv + H, r);
+          __stcs(sv + 2 * H, z);
+          __stcs(sv + 3 * H, n);
+          __stcs(sv + 4 * H, gh[2]);
+        }
       }
       __syncthreads();
     }
@@ -148,13 +160,14 @@ size_t smem_bytes(int NB, int H) {
 }  // namespace blvm
 
 // K7. xw (B, T, 3H), w_hh (H, 3H), b_hh (3H), mask (B, T) float32 or null, h0 (B, H); out (B, T, H), h_n
-// (B, H); state: 2 B H floats of scratch; barrier: one uint32 (zeroed here). The grid is one CTA an SM, or
-// one a unit where H is below the card's SM count. Returns a cudaError_t: cudaErrorInvalidValue for
-// shapes it does not take (more than 2 NT / (4 BC) = 16 units a CTA, whose side inputs its threads fetch
-// two each), cudaErrorCooperativeLaunchTooLarge when the grid's columns of W_hh cannot all be resident.
+// (B, H); save: null, or (B, T, 5H) (see Params); state: 2 B H floats of scratch; barrier: one uint32
+// (zeroed here). The grid is one CTA an SM, or one a unit where H is below the card's SM count. Returns a
+// cudaError_t: cudaErrorInvalidValue for shapes it does not take (more than 2 NT / (4 BC) = 16 units a CTA,
+// whose side inputs its threads fetch two each), cudaErrorCooperativeLaunchTooLarge when the grid's columns
+// of W_hh cannot all be resident.
 extern "C" int blvm_gru_recurrence(const void* xw, const void* w_hh, const void* b_hh, const void* mask,
-                                   const void* h0, void* out, void* h_n, void* state, void* barrier, int B, int T,
-                                   int H, void* stream) {
+                                   const void* h0, void* out, void* h_n, void* save, void* state, void* barrier,
+                                   int B, int T, int H, void* stream) {
   using namespace blvm::gru;
   if (B < 1 || T < 1 || H < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -175,6 +188,7 @@ extern "C" int blvm_gru_recurrence(const void* xw, const void* w_hh, const void*
   p.h0 = static_cast<const float*>(h0);
   p.out = static_cast<float*>(out);
   p.h_n = static_cast<float*>(h_n);
+  p.save = static_cast<float*>(save);
   p.state = static_cast<float*>(state);
   p.barrier = static_cast<unsigned int*>(barrier);
   p.B = B;

@@ -27,6 +27,11 @@
 // finishes and stores its units, and a grid-wide barrier orders the stages. Given a trace buffer, the
 // first CTA adds up the SM cycles of each stage's phases (inputs in, products, finish and store,
 // barrier), as K8's does. No tensor cores: the JAX step is f32.
+//
+// In save mode (inference mode in a train step's forward) it also writes, for every row-step, what K9-bwd
+// (srnn_chain_bwd.cu) reads: save (B, T', 6H + 2Z) = the pre-activations of the prior's and the posterior's
+// L1, L2, L3 (in the order p1, q1, p2, q2, p3, q3) and both heads' raw sd (prior, posterior); the outputs
+// are the same bits as without it.
 
 #include "vrnn_common.cuh"
 
@@ -52,6 +57,7 @@ struct Params {
   float* p_mu;
   float* p_sd;
   float* act;  // B x 6H: prior L1, posterior L1, prior L2, posterior L2, prior L3, posterior L3 of one step
+  float* save;  // null, or (B, T, 6H + 2Z): the same layers' pre-activations and both raw sd of every step
   unsigned int* barrier;
   long long* trace;  // null, or the trace's sums: SM cycles of each (stage, phase) as CTA 0 sees them, the totals
   int B, T, H, Z;
@@ -132,6 +138,7 @@ __global__ void __launch_bounds__(NT, 1) srnn_chain_kernel(const Params p) {
   __syncthreads();
 
   const int64_t ars = (int64_t)6 * H;  // the activations' row stride
+  const int64_t sw = (int64_t)6 * H + 2 * Z;  // the save buffer's width a row-step
   float* const pin[3] = {p.act, p.act + 2 * H, p.act + 4 * H};
   float* const qin[3] = {p.act + H, p.act + 3 * H, p.act + 5 * H};
   unsigned int target = 0;
@@ -174,11 +181,10 @@ __global__ void __launch_bounds__(NT, 1) srnn_chain_kernel(const Params p) {
         for (int idx = tid; idx < s0.ncols * BC; idx += NT) {
           const int c = idx / BC, b = idx % BC, row = b0 + b;
           if (row >= B) continue;
-          const float v = res[c * BC + b];
-          if (c < nh)
-            __stcg(pin[0] + (int64_t)row * ars + hlo + c, leaky_relu(v + side[b * nh + c]));
-          else
-            __stcg(qin[0] + (int64_t)row * ars + hlo + c - nh, leaky_relu(v + side[BC * nh + b * nh + c - nh]));
+          const float pre = res[c * BC + b] + (c < nh ? side[b * nh + c] : side[BC * nh + b * nh + c - nh]);
+          const int field = c < nh ? hlo + c : H + hlo + c - nh;  // p1 or q1: act's and save's offset
+          __stcg(p.act + (int64_t)row * ars + field, leaky_relu(pre));
+          if (p.save) __stcs(p.save + ((int64_t)row * T + t) * sw + field, pre);
         }
         __syncthreads();
         tick(0, 2);
@@ -200,11 +206,10 @@ __global__ void __launch_bounds__(NT, 1) srnn_chain_kernel(const Params p) {
         for (int idx = tid; idx < sl.ncols * BC; idx += NT) {
           const int c = idx / BC, b = idx % BC, row = b0 + b;
           if (row >= B) continue;
-          const float v = leaky_relu(res[c * BC + b] + sl.bs[c]);
-          if (c < nh)
-            __stcg(pin[l] + (int64_t)row * ars + hlo + c, v);
-          else
-            __stcg(qin[l] + (int64_t)row * ars + hlo + c - nh, v);
+          const float pre = res[c * BC + b] + sl.bs[c];
+          const int field = 2 * l * H + (c < nh ? hlo + c : H + hlo + c - nh);
+          __stcg(p.act + (int64_t)row * ars + field, leaky_relu(pre));
+          if (p.save) __stcs(p.save + ((int64_t)row * T + t) * sw + field, pre);
         }
         __syncthreads();
         tick(l, 2);
@@ -232,11 +237,18 @@ __global__ void __launch_bounds__(NT, 1) srnn_chain_kernel(const Params p) {
           if (row >= B) continue;
           const int64_t o = ((int64_t)row * T + t) * Z + zlo + j;
           const float mu_p = res[j * BC + b] + s3.bs[j];
-          const float sd_p = vrnn::softplus_sd(res[(nz + j) * BC + b] + s3.bs[nz + j], p.sd_beta, p.sd_eps);
+          const float raw_p = res[(nz + j) * BC + b] + s3.bs[nz + j];
+          const float sd_p = vrnn::softplus_sd(raw_p, p.sd_beta, p.sd_eps);
           float zv;
           if (p.inference) {
             float mu_q = res[(2 * nz + j) * BC + b] + s3.bs[2 * nz + j];
-            const float sd_q = vrnn::softplus_sd(res[(3 * nz + j) * BC + b] + s3.bs[3 * nz + j], p.sd_beta, p.sd_eps);
+            const float raw_q = res[(3 * nz + j) * BC + b] + s3.bs[3 * nz + j];
+            const float sd_q = vrnn::softplus_sd(raw_q, p.sd_beta, p.sd_eps);
+            if (p.save) {
+              float* raw = p.save + ((int64_t)row * T + t) * sw + 6 * H + zlo + j;
+              __stcs(raw, raw_p);
+              __stcs(raw + Z, raw_q);
+            }
             if (p.residual) mu_q = mu_q + mu_p;
             zv = __fadd_rn(mu_q, __fmul_rn(sd_q, side[b * nz + j]));
             __stcg(p.q_mu + o, mu_q);
@@ -282,19 +294,19 @@ size_t smem_bytes(int NB, int H, int Z) {
 // W1 (H, H), b1, W2, b2 and its head W (H, 2Z), b; the posterior's the same. xp, xq (B, T, H): the d and a
 // parts of the first layers with their biases (xq null in prior mode); z0 (B, Z); eps (B, T, Z), null in
 // prior mode under use_mode. outputs: 5 device pointers z, q_mu, q_sd, p_mu, p_sd (B, T, Z); q_mu and q_sd
-// null in prior mode. act: 6 B H floats of scratch; barrier: one uint32 (zeroed here); trace: null, or 18
-// int64 sums the kernel adds to (the SM cycles of each stage's four phases as CTA 0 sees them, then the
-// loop's cycles and nanoseconds). The grid is one CTA an SM, or one a unit where a layer has fewer units
+// null in prior mode. act: 6 B H floats of scratch; save: null, or (B, T, 6H + 2Z) in inference mode (see
+// Params); barrier: one uint32 (zeroed here); trace: null, or 18 int64 sums the kernel adds to (the SM
+// cycles of each stage's four phases as CTA 0 sees them, then the loop's cycles and nanoseconds). The grid is one CTA an SM, or one a unit where a layer has fewer units
 // than the card has SMs. Returns a cudaError_t: cudaErrorInvalidValue for shapes it does not take (more
 // than NT / BC units of an MLP layer or of the latent a CTA: each thread fetches at most one of a stage's
 // side inputs), cudaErrorCooperativeLaunchTooLarge when the grid's weights cannot all be resident.
 extern "C" int blvm_srnn_chain(const void* const* weights, const void* xp, const void* xq, const void* z0,
-                               const void* eps, void* const* outputs, void* act, void* barrier, void* trace, int B,
-                               int T, int H, int Z, int inference, int residual, int use_mode, float sd_beta,
-                               float sd_eps, void* stream) {
+                               const void* eps, void* const* outputs, void* act, void* save, void* barrier,
+                               void* trace, int B, int T, int H, int Z, int inference, int residual, int use_mode,
+                               float sd_beta, float sd_eps, void* stream) {
   using namespace blvm::srnn;
   if (B < 1 || T < 1 || H < 1 || Z < 1 || (inference && (!xq || !eps || !outputs[1] || !outputs[2])) ||
-      (!inference && !use_mode && !eps))
+      (!inference && !use_mode && !eps) || (save && !inference))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   static blvm::vrnn::LaunchCache cache;
@@ -321,6 +333,7 @@ extern "C" int blvm_srnn_chain(const void* const* weights, const void* xp, const
   p.p_mu = o[3];
   p.p_sd = o[4];
   p.act = static_cast<float*>(act);
+  p.save = static_cast<float*>(save);
   p.barrier = static_cast<unsigned int*>(barrier);
   p.trace = static_cast<long long*>(trace);
   p.B = B;

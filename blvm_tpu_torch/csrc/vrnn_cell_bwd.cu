@@ -56,15 +56,6 @@ struct Params {
   float sd_beta;
 };
 
-__device__ __forceinline__ float ldg_or0(const float* p, int64_t o) { return p ? __ldg(p + o) : 0.0f; }
-
-// d softplus(beta x) / beta / dx = sigmoid(beta x), in a form that neither overflows nor loses the tails
-__device__ __forceinline__ float softplus_slope(float raw, float beta) {
-  const float x = __fmul_rn(beta, raw);
-  const float e = expf(-fabsf(x));
-  return x >= 0.0f ? 1.0f / (1.0f + e) : e / (1.0f + e);
-}
-
 __global__ void __launch_bounds__(NT, 1) vrnn_cell_bwd_kernel(const Params p) {
   extern __shared__ float smem[];
   const int NB = gridDim.x, cta = blockIdx.x, tid = threadIdx.x;

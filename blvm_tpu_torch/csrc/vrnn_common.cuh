@@ -1,6 +1,7 @@
-// What the chain kernels share: K8 (vrnn_cell.cu), K8-bwd (vrnn_cell_bwd.cu), K7 (gru.cu) and K9
-// (srnn_chain.cu): the CTA's shape, a stage's weight segments in shared memory, its staged input rows,
-// its products, the grid barrier, the trace clock and the cooperative launch's limits.
+// What the chain kernels share: K8 (vrnn_cell.cu), K8-bwd (vrnn_cell_bwd.cu), K7 (gru.cu), K7-bwd
+// (gru_bwd.cu), K9 (srnn_chain.cu) and K9-bwd (srnn_chain_bwd.cu): the CTA's shape, a stage's weight
+// segments in shared memory, its staged input rows, its products, the grid barrier, the trace clock, the
+// backward's softplus slope and the cooperative launch's limits.
 #pragma once
 
 #include "common.cuh"
@@ -133,6 +134,15 @@ static __device__ __forceinline__ float relu(float v) { return fmaxf(v, 0.0f); }
 static __device__ __forceinline__ float softplus_sd(float raw, float beta, float eps) {
   return __fadd_rn(__fdiv_rn(softplusf(__fmul_rn(beta, raw)), beta), eps);
 }
+
+// d softplus(beta x) / beta / dx = sigmoid(beta x), in a form that neither overflows nor loses the tails
+static __device__ __forceinline__ float softplus_slope(float raw, float beta) {
+  const float x = __fmul_rn(beta, raw);
+  const float e = expf(-fabsf(x));
+  return x >= 0.0f ? 1.0f / (1.0f + e) : e / (1.0f + e);
+}
+
+static __device__ __forceinline__ float ldg_or0(const float* p, int64_t o) { return p ? __ldg(p + o) : 0.0f; }
 
 // A cooperative kernel's launch limits, asked once per device and shared-memory size (a generation
 // launches K8 once a stack).

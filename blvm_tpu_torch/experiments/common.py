@@ -153,7 +153,7 @@ def train(
     a list of ``(example_id, waveform in [-1, 1])``), one train step a batch, the
     step's metrics merged into ``tracker`` under the ``train`` source.
 
-    ``annealers`` (the VRNN's beta and free nats, :func:`make_scalar_schedules`) are
+    ``annealers`` (the VRNN's and the SRNN's beta and free nats, :func:`make_scalar_schedules`) are
     stepped once before each train step and their values handed to the forward as keyword
     arguments (:func:`loss_fn`); without any the forward sees none, as WaveNet's and
     LSTMAudio's do. Runs on ``device`` (default: the card; raises where there is none),

@@ -2,17 +2,18 @@
 
 Port of ``experiments/experiment_srnn_audio.py``: its flags (so the SRNN run specs of
 ``experiments/benchmarks.txt`` parse), its model, its beta and free-nats annealers
-(``:71-79``), its chunked test pass with ``d_n`` and ``z_n`` carried from chunk to chunk
+(``:71-79``) and its training loop with them (``:80-90``), its chunked test pass with ``d_n`` and ``z_n`` carried from chunk to chunk
 and ``a`` starting from zeros in every chunk (``:92-116``), and its generation hook
 (``:118-122``). The test pass uses the scalars the JAX runner gives every evaluation,
 ``beta = 1`` and ``free_nats = 0`` (the true ELBO). The batch encoding and the whole-batch
 test pass are the shared :mod:`blvm_tpu_torch.experiments.common`. ``--scan_unroll`` only
 schedules XLA and is accepted and ignored. Models build on the card unless a device is
-given; there a forward runs K7 twice (the d and a GRUs), K9 once, K2 and K3 once each.
-Training (K7-bwd, K9-bwd) is not ported yet.
+given; there a forward runs K7 twice (the d and a GRUs), K9 once, K2 and K3 once each, and a
+train step's backward K7-bwd twice, K9-bwd and K2-bwd once each.
 
     args = build_args(argv)
     model = build_model(args)
+    state = train(model, args, batches_per_epoch, Tracker())
     values = evaluate(model, args, [common.make_batch(waveforms, args)], Tracker())
     make_generation_hook(model, args)(epoch, run_dir)
 """
@@ -28,6 +29,7 @@ from blvm_tpu_torch.experiments import common
 from blvm_tpu_torch.experiments.common import resolve_device, str2bool, to_host
 from blvm_tpu_torch.models.srnn import SRNNAudio
 from blvm_tpu_torch.training.annealers import CosineAnnealer
+from blvm_tpu_torch.training.train_state import TrainState
 
 # the scalars of every evaluation (blvm_tpu experiments/common.py:768-771)
 EVAL_SCALARS = dict(beta=1.0, free_nats=0.0)
@@ -92,6 +94,15 @@ def build_annealers(args: argparse.Namespace) -> dict:
         free_nats=CosineAnnealer(anneal_steps=args.free_nats_steps // 2, constant_steps=args.free_nats_steps // 2,
                                  start_value=args.free_nats_start_value, end_value=0.0),
     )
+
+
+def train(model: SRNNAudio, args: argparse.Namespace, batches_per_epoch: Sequence[Sequence[Tuple[int, np.ndarray]]],
+          tracker: Tracker, device=None) -> TrainState:
+    """The driver's training loop (:func:`common.train`) with :func:`build_annealers`: beta
+    and free nats stepped once a train step and handed to the forward, their values logged
+    under the ``train`` source (``SRNNAudio.build_metrics``). Returns the final
+    :class:`TrainState`."""
+    return common.train(model, args, batches_per_epoch, tracker, device=device, annealers=build_annealers(args))
 
 
 def make_state_carry_eval(model: SRNNAudio, args: argparse.Namespace):

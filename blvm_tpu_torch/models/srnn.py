@@ -5,9 +5,10 @@ and its outputs are shifted again (``d = [d_0, d_out[:, :-1]]``); smoothing runs
 ``a`` over the full flip of ``[x_enc, d]`` under the flipped mask (its zeros leading), or a
 LeakyReLU MLP without smoothing; the latent chain draws ``z_t`` from the posterior on
 ``[a_t, z_{t-1}]`` (the prior on ``[d_t, z_{t-1}]``); the decoder reads ``[z, d]``. Both GRUs
-run :func:`blvm_tpu_torch.ops.recurrent.gru_recurrence` (K7 on the card) after one
-time-parallel input product; the chain runs :func:`blvm_tpu_torch.ops.srnn.srnn_chain` (K9
-on the card) after the hoisted products. As in the JAX package the chain has no mask (the
+run :func:`blvm_tpu_torch.ops.recurrent.gru_recurrence` (K7 on the card; K7-bwd in the
+backward) after one time-parallel input product; the chain runs
+:func:`blvm_tpu_torch.ops.srnn.srnn_chain` (K9 on the card; K9-bwd in the backward) after the
+hoisted products. As in the JAX package the chain has no mask (the
 padding steps run too, so ``z_n`` is z after all T' steps), ``d_n`` is the d GRU's state
 frozen at each length, and the reported ``kl`` is the true KL, not the free-nats-discounted one.
 
@@ -28,7 +29,6 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from blvm_tpu_torch.evaluation.metrics import (
@@ -42,7 +42,7 @@ from blvm_tpu_torch.evaluation.metrics import (
 from blvm_tpu_torch.models.base import BaseModel
 from blvm_tpu_torch.models.elbo import compute_sequence_elbo, masked_strided_sum
 from blvm_tpu_torch.models.vrnn import _StackedEncoder, _UnstackingDecoder
-from blvm_tpu_torch.modules.common import MLP
+from blvm_tpu_torch.modules.common import MLP, leaky_relu
 from blvm_tpu_torch.modules.distributions import DiagonalGaussianDense, DiscretizedLogisticMixtureDense
 from blvm_tpu_torch.modules.recurrent import GRU, GRUCell
 from blvm_tpu_torch.ops import srnn as srnn_ops
@@ -56,17 +56,13 @@ from blvm_tpu_torch.ops.variational import (
 )
 
 
-def _leaky_relu(v):
-    return F.leaky_relu(v, 0.01)
-
-
 class _GaussianNet(nn.Module):
     """flax's ``nn.Sequential([MLP([H] * 3), DiagonalGaussianDense(Z)])`` under its names
     ``layers_0`` and ``layers_1``: ``forward(h) -> (mu, sd)``."""
 
     def __init__(self, in_features: int, h_dim: int, z_dim: int, device=None):
         super().__init__()
-        self.layers_0 = MLP(in_features, [h_dim] * 3, activation=_leaky_relu, device=device)
+        self.layers_0 = MLP(in_features, [h_dim] * 3, activation=leaky_relu, device=device)
         self.layers_1 = DiagonalGaussianDense(h_dim, z_dim, device=device)
 
     def forward(self, h):
@@ -92,7 +88,7 @@ class _SRNNStep(nn.Module):
         self.prior_net = _GaussianNet(net_in, h_dim, z_dim, device=device)
         self.posterior_net = _GaussianNet(net_in, h_dim, z_dim, device=device)
         if use_phi_z:
-            self.phi_z = MLP(z_dim, [h_dim] * 4, activation=_leaky_relu, device=device)
+            self.phi_z = MLP(z_dim, [h_dim] * 4, activation=leaky_relu, device=device)
         if gated_stochastic_transfer:
             self.gru_cell = GRUCell(r_dim + z_feat, r_dim, device=device)
 
@@ -174,7 +170,7 @@ class SRNN(nn.Module):
         if smoothing:
             self.a_backward_recurrent = GRU(x_dim + R, R, device=device)
         else:
-            self.a_mlp = MLP(x_dim + R, [R, R], activation=_leaky_relu, device=device)
+            self.a_mlp = MLP(x_dim + R, [R, R], activation=leaky_relu, device=device)
         self.step = _SRNNStep(h_dim, z_dim, R, use_phi_z=use_phi_z, gated_stochastic_transfer=gated_stochastic_transfer,
                               residual_posterior=residual_posterior, device=device)
 

@@ -35,7 +35,7 @@ from blvm_tpu_torch.evaluation.metrics import (
 )
 from blvm_tpu_torch.models.base import BaseModel
 from blvm_tpu_torch.models.elbo import compute_sequence_elbo, masked_strided_sum
-from blvm_tpu_torch.modules.common import MLP
+from blvm_tpu_torch.modules.common import MLP, leaky_relu
 from blvm_tpu_torch.modules.distributions import DiagonalGaussianDense, DiscretizedLogisticMixtureDense
 from blvm_tpu_torch.modules.recurrent import GRUCell
 from blvm_tpu_torch.ops import vrnn as vrnn_ops
@@ -46,10 +46,6 @@ from blvm_tpu_torch.ops.variational import (
     kl_divergence_gaussian,
     kl_divergence_gaussian_mc,
 )
-
-
-def _leaky_relu(v):
-    return F.leaky_relu(v, 0.01)
 
 
 class VRNNCell(nn.Module):
@@ -268,7 +264,7 @@ class _StackedEncoder(nn.Module):
     def __init__(self, input_size: int, hidden_size: int, device=None):
         super().__init__()
         self.input_size = input_size
-        self.MLP_0 = MLP(input_size, [hidden_size] * 3, activation=_leaky_relu, device=device)
+        self.MLP_0 = MLP(input_size, [hidden_size] * 3, activation=leaky_relu, device=device)
 
     def forward(self, x):
         x, _ = stack_tensor(x.reshape(x.shape[0], -1), self.input_size, axis=1)
@@ -282,7 +278,7 @@ class _UnstackingDecoder(nn.Module):
     def __init__(self, in_features: int, hidden_size: int, input_size: int, out_features: int, device=None):
         super().__init__()
         self.input_size, self.out_features = input_size, out_features
-        self.MLP_0 = MLP(in_features, [hidden_size, hidden_size, input_size * out_features], activation=_leaky_relu,
+        self.MLP_0 = MLP(in_features, [hidden_size, hidden_size, input_size * out_features], activation=leaky_relu,
                          device=device)
 
     def forward(self, d):

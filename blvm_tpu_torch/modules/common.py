@@ -11,6 +11,12 @@ import torch
 from torch import nn
 
 
+def leaky_relu(v: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.leaky_relu`` of slope 0.01, ``where(v >= 0, v, 0.01 v)``: autograd of this form
+    gives JAX's gradient at exactly 0, 1 (torch's ``F.leaky_relu`` gives 0.01 there)."""
+    return torch.where(v >= 0, v, 0.01 * v)
+
+
 def torch_uniform_(t: torch.Tensor, fan_in: int, generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """U(-1/sqrt(fan_in), 1/sqrt(fan_in)) in place: PyTorch's default Linear/Conv
     init for kernel and bias alike, which the JAX package also uses."""

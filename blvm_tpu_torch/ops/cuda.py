@@ -34,7 +34,7 @@ _lib_lock = threading.Lock()
 _launches: Dict[str, int] = {
     "residual_glu": 0, "residual_glu_bwd": 0, "dmol_log_prob": 0, "dmol_log_prob_bwd": 0, "dmol_sample": 0,
     "wavenet_decode": 0, "lstm_recurrence": 0, "lstm_recurrence_bwd": 0, "vrnn_cell": 0,
-    "vrnn_cell_bwd": 0, "gru_recurrence": 0, "srnn_chain": 0,
+    "vrnn_cell_bwd": 0, "gru_recurrence": 0, "gru_recurrence_bwd": 0, "srnn_chain": 0, "srnn_chain_bwd": 0,
 }
 build_log = ""  # nvcc's output of the build this process ran (register / shared-memory report)
 
@@ -63,11 +63,15 @@ _SIGNATURES = {
     # weights[28], h0, eps, h, phi, save, grads[7], dpre, dh0, barrier, trace; B, T, R, H, Z, residual; sd_beta;
     # stream
     "blvm_vrnn_cell_bwd": [_P] * 11 + [_I] * 6 + [_F] + [_P],
-    # xw, w_hh, b_hh, mask, h0, out, h_n, state, barrier; B, T, H; stream
-    "blvm_gru_recurrence": [_P] * 9 + [_I] * 3 + [_P],
-    # weights[14], xp, xq, z0, eps, outputs[5], act, barrier, trace; B, T, H, Z, inference, residual, use_mode;
-    # sd_beta, sd_eps; stream
-    "blvm_srnn_chain": [_P] * 9 + [_I] * 7 + [_F] * 2 + [_P],
+    # xw, w_hh, b_hh, mask, h0, out, h_n, save, state, barrier; B, T, H; stream
+    "blvm_gru_recurrence": [_P] * 10 + [_I] * 3 + [_P],
+    # w_hh, mask, save, d_out, d_hn, d_gi, d_gh, d_h0, barrier, trace; B, T, H; stream
+    "blvm_gru_recurrence_bwd": [_P] * 10 + [_I] * 3 + [_P],
+    # weights[14], xp, xq, z0, eps, outputs[5], act, save, barrier, trace; B, T, H, Z, inference, residual,
+    # use_mode; sd_beta, sd_eps; stream
+    "blvm_srnn_chain": [_P] * 10 + [_I] * 7 + [_F] * 2 + [_P],
+    # weights[14], eps, save, grads[5], dpre, dz0, barrier, trace; B, T, H, Z, residual; sd_beta; stream
+    "blvm_srnn_chain_bwd": [_P] * 8 + [_I] * 5 + [_F] + [_P],
 }
 
 

@@ -46,8 +46,10 @@ def gaussian_ll(y, mu, sd, epsilon: float = 1e-6, reduce_dim: Optional[int] = -1
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus`` (``logaddexp(x, 0)``); torch's ``F.softplus`` switches to
-    the identity above a threshold and would round differently."""
-    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+    the identity above a threshold and would round differently. ``max(x, 0)`` is written
+    ``(x + |x|) / 2`` (the same value) so that autograd's gradient at exactly 0 is JAX's,
+    ``sigmoid(0) = 0.5``, not the 1 of ``clamp_min``."""
+    return 0.5 * (x + x.abs()) + torch.log1p(torch.exp(-x.abs()))
 
 
 def softplus_beta(x: torch.Tensor, beta: float) -> torch.Tensor:

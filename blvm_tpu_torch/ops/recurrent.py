@@ -19,9 +19,12 @@ tensors one launch of ``csrc/lstm.cu``'s forward, under autograd
 K7 is the GRU's chain: ``gh = h @ W_hh + b_hh``, ``h_new = gru_update(xw_t, gh, h)``
 (gate order r, z, n), the state frozen where the mask is 0 and the output
 ``h_new * m``. :func:`gru_recurrence_plain` is its twin; :func:`gru_recurrence` the
-entry point: for CPU tensors the twin, for CUDA tensors one launch of ``csrc/gru.cu``
-(forward only: K7-bwd is not written yet, so a call that needs a gradient on the card
-raises).
+entry point: for CPU tensors the twin, for CUDA tensors one launch of ``csrc/gru.cu``.
+Where a gradient is needed it runs :class:`GRURecurrenceFunction`: the forward saves what
+the backward reads (:func:`gru_recurrence_save`; K7's save mode on the card), the backward
+is :func:`gru_recurrence_backward` (K7-bwd, ``csrc/gru_bwd.cu``, on the card;
+:func:`gru_recurrence_backward_plain` on the CPU) and the weight gradients as sums over the
+``B T`` rows (:func:`gru_weight_grads`).
 """
 
 from typing import Optional, Tuple
@@ -35,14 +38,20 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 K5_CLUSTER, K5_MAX_HIDDEN = 8, 256
 
 
-def gru_update(gi: torch.Tensor, gh: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """The GRU's new state from ``gi = x W_ih + b_ih`` and ``gh = h W_hh + b_hh``
-    (gate order r, z, n; torch's placement of the reset gate on ``h W_hn + b_hn``)."""
+def gru_gates(gi: torch.Tensor, gh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(r, z, n, hn)`` of a GRU step from ``gi = x W_ih + b_ih`` and ``gh = h W_hh + b_hh``
+    (gate order r, z, n; torch's placement of the reset gate on ``hn = h W_hn + b_hn``)."""
     i_r, i_z, i_n = gi.chunk(3, dim=-1)
     h_r, h_z, h_n = gh.chunk(3, dim=-1)
     r = torch.sigmoid(i_r + h_r)
     z = torch.sigmoid(i_z + h_z)
     n = torch.tanh(i_n + r * h_n)
+    return r, z, n, h_n
+
+
+def gru_update(gi: torch.Tensor, gh: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """The GRU's new state from ``gi`` and ``gh`` (:func:`gru_gates`)."""
+    _, z, n, _ = gru_gates(gi, gh)
     return (1.0 - z) * n + z * h
 
 
@@ -189,55 +198,183 @@ def gru_recurrence_plain(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tenso
     zeros lead), ``h0 (B, H)``. Returns ``(out (B, T, H), h_n (B, H))``: ``out`` is
     ``h_new * m``, ``h_n`` the state after the last step, frozen wherever ``m`` is 0.
     """
+    return _gru_chain_plain(xw, w_hh, b_hh, mask, h0, save=False)[:2]
+
+
+def _gru_chain_plain(xw, w_hh, b_hh, mask, h0, save: bool):
+    """:func:`gru_recurrence_plain` and, with ``save``, K7's save buffer ``(B, T, 5H)`` (the
+    state entering each step, r, z, n, hn), else None."""
     dtype = xw.dtype
     B, T = xw.shape[:2]
     h = h0.to(dtype)
     mask = torch.ones((B, T), dtype=dtype, device=xw.device) if mask is None else mask.to(dtype)
-    outs = []
+    outs, saved = [], []
     for t in range(T):
         m = mask[:, t, None]
-        h_new = gru_update(xw[:, t], h @ w_hh + b_hh, h)
+        r, z, n, hn = gru_gates(xw[:, t], h @ w_hh + b_hh)
+        h_new = (1.0 - z) * n + z * h
+        if save:
+            saved.append(torch.cat([h, r, z, n, hn], dim=-1))
         h = m * h_new + (1 - m) * h
         outs.append(h_new * m)
     out = torch.stack(outs, dim=1) if outs else xw.new_zeros((B, 0, h.shape[-1]))
-    return out, h
+    return out, h, torch.stack(saved, dim=1) if save else None
 
 
 def gru_recurrence(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, mask: Optional[torch.Tensor],
                    h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out (B, T, H), h_n (B, H))`` of the masked GRU recurrence.
 
-    CPU tensors: :func:`gru_recurrence_plain` (autograd gives its gradient). CUDA tensors:
-    one launch of K7, all float32 and on one device, on a grid of one CTA an SM; a call
-    that needs a gradient raises ``NotImplementedError`` (K7-bwd, the backward through
-    time, is the next slice's kernel), as does nothing else: no fallback to the twin.
+    Without a gradient: CPU tensors, :func:`gru_recurrence_plain`; CUDA tensors, one launch of
+    K7, all float32 and on one device, on a grid of one CTA an SM. With gradients enabled and
+    an input or weight that requires one: :class:`GRURecurrenceFunction` (on the card K7 in
+    save mode forward, K7-bwd backward; on the CPU their twins). No fallback to the twin on
+    the card: what the kernels do not take raises.
     """
-    if not xw.is_cuda:
-        return gru_recurrence_plain(xw, w_hh, b_hh, mask, h0)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (xw, w_hh, b_hh, h0)):
-        raise NotImplementedError("gru_recurrence (K7) has no backward on the card yet (K7-bwd is still to be "
-                                  "written); run it under torch.no_grad() or on CPU tensors")
-    _check_gru(xw, w_hh, b_hh, mask, h0)
+    if xw.is_cuda:
+        _check_gru(xw, w_hh, b_hh, mask, h0)
+        if mask is not None:
+            mask = mask.detach().to(torch.float32).contiguous()
     if xw.shape[1] == 0:
         return xw.new_zeros((xw.shape[0], 0, w_hh.shape[0])), h0
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xw, w_hh, b_hh, h0)):
+        return GRURecurrenceFunction.apply(xw, w_hh, b_hh, mask, h0)
+    if not xw.is_cuda:
+        return gru_recurrence_plain(xw, w_hh, b_hh, mask, h0)
+    with torch.no_grad():
+        return _gru_launch(xw, w_hh, b_hh, mask, h0, save=False)[:2]
+
+
+def gru_recurrence_save(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, mask: Optional[torch.Tensor],
+                        h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward of :class:`GRURecurrenceFunction`: ``(out, h_n, saved)``, ``saved (B, T, 5H)``
+    the state entering each step and its r, z, n and ``hn = h W_hn + b_hn``. CPU tensors: the
+    twin; CUDA tensors: one launch of K7 in save mode (its outputs the same bits as without)."""
+    if not xw.is_cuda:
+        return _gru_chain_plain(xw, w_hh, b_hh, mask, h0, save=True)
+    return _gru_launch(xw, w_hh, b_hh, mask, h0, save=True)
+
+
+def _gru_launch(xw, w_hh, b_hh, mask, h0, save: bool):
+    """One launch of K7: ``(out, h_n, saved)``, ``saved`` None without ``save``."""
     xw, w_hh, b_hh, h0 = (t.contiguous() for t in (xw, w_hh, b_hh, h0))
-    if mask is not None:
-        mask = mask.to(torch.float32).contiguous()
     B, T, G = xw.shape
     H = G // 3
     out = torch.empty((B, T, H), dtype=torch.float32, device=xw.device)
     h_n = torch.empty_like(h0)
+    saved = torch.empty((B, T, 5 * H), dtype=torch.float32, device=xw.device) if save else None
     state = torch.empty((2, B, H), dtype=torch.float32, device=xw.device)
     barrier = torch.empty(1, dtype=torch.int32, device=xw.device)
     lib = cuda.library()
     cuda.count_launch("gru_recurrence")
-    err = lib.blvm_gru_recurrence(*(_ptr(t) for t in (xw, w_hh, b_hh, mask, h0, out, h_n, state, barrier)), B, T, H,
-                                  cuda.stream_handle(xw))
+    err = lib.blvm_gru_recurrence(*(_ptr(t) for t in (xw, w_hh, b_hh, mask, h0, out, h_n, saved, state, barrier)),
+                                  B, T, H, cuda.stream_handle(xw))
     if err == 720:  # cudaErrorCooperativeLaunchTooLarge
         raise RuntimeError(f"K7 (gru_recurrence): W_hh of H={H} at B={B} does not fit the shared memory of a grid of "
                            "one CTA an SM that is all resident")
     cuda.check(err, "gru_recurrence")
-    return out, h_n
+    return out, h_n, saved
+
+
+def gru_recurrence_backward_plain(w_hh: torch.Tensor, mask: Optional[torch.Tensor], saved: torch.Tensor,
+                                  d_out: Optional[torch.Tensor],
+                                  d_h_n: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The twin of K7-bwd: the reverse chain in plain PyTorch, one step at a time. From ``w_hh``,
+    the mask, K7's save buffer and the gradients of ``out`` and ``h_n`` (None for zero):
+    ``(d_gi, d_gh, d_h0)``, ``d_gi (B, T, 3H)`` the gradient of ``xw`` and ``d_gh`` that of
+    ``h W_hh + b_hh`` at every step (its n part ``d pre_n r``, where ``d_gi``'s is ``d pre_n``)."""
+    B, T, H = saved.shape[0], saved.shape[1], saved.shape[2] // 5
+    dh = torch.zeros((B, H), dtype=saved.dtype, device=saved.device) if d_h_n is None else d_h_n
+    d_gi, d_gh = [], []
+    for t in range(T - 1, -1, -1):
+        h_prev, r, z, n, hn = saved[:, t].split(H, dim=-1)
+        m = 1.0 if mask is None else mask[:, t, None].to(saved.dtype)
+        dh_new = m * (dh if d_out is None else dh + d_out[:, t])
+        dn = dh_new * (1.0 - z)
+        dz = dh_new * (h_prev - n)
+        d_pre_n = dn * (1.0 - n * n)
+        d_pre_z = dz * z * (1.0 - z)
+        d_pre_r = d_pre_n * hn * r * (1.0 - r)
+        d_gi.append(torch.cat([d_pre_r, d_pre_z, d_pre_n], dim=-1))
+        d_gh.append(torch.cat([d_pre_r, d_pre_z, d_pre_n * r], dim=-1))
+        dh = ((1.0 - m) * dh + dh_new * z) + d_gh[-1] @ w_hh.T
+    return torch.stack(d_gi[::-1], dim=1), torch.stack(d_gh[::-1], dim=1), dh
+
+
+def gru_recurrence_backward(w_hh: torch.Tensor, mask: Optional[torch.Tensor], saved: torch.Tensor,
+                            d_out: Optional[torch.Tensor], d_h_n: Optional[torch.Tensor],
+                            trace: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(d_gi, d_gh, d_h0)`` as :func:`gru_recurrence_backward_plain` gives them. CPU tensors:
+    that twin; CUDA tensors: one launch of K7-bwd (float32; ``trace``, an int64 tensor of
+    :func:`gru_bwd_trace_size` zeros on the card, receives its time by stage and phase)."""
+    if not saved.is_cuda:
+        return gru_recurrence_backward_plain(w_hh, mask, saved, d_out, d_h_n)
+    B, T, W = saved.shape
+    H = W // 5
+    w_hh, saved = w_hh.contiguous(), saved.contiguous()
+    d_out, d_h_n = (None if g is None else g.contiguous() for g in (d_out, d_h_n))
+    tensors = [w_hh, saved] + [t for t in (mask, d_out, d_h_n) if t is not None]
+    if any(t.device != saved.device or t.dtype != torch.float32 for t in tensors):
+        raise ValueError("gru_recurrence_backward takes float32 tensors on one CUDA device")
+    if (tuple(w_hh.shape) != (H, 3 * H) or W != 5 * H or (mask is not None and tuple(mask.shape) != (B, T))
+            or (d_out is not None and tuple(d_out.shape) != (B, T, H))
+            or (d_h_n is not None and tuple(d_h_n.shape) != (B, H))):
+        raise ValueError(f"gru_recurrence_backward: saved {tuple(saved.shape)} is not K7's save buffer for w_hh "
+                         f"{tuple(w_hh.shape)}, or the mask or the output gradients do not match it")
+    if trace is not None and (trace.dtype != torch.int64 or trace.numel() != gru_bwd_trace_size()
+                              or trace.device != saved.device):
+        raise ValueError(f"the trace must be an int64 tensor of {gru_bwd_trace_size()} elements on {saved.device}")
+    d_gi = torch.empty((B, T, 3 * H), dtype=torch.float32, device=saved.device)
+    d_gh = torch.empty_like(d_gi)
+    d_h0 = torch.empty((B, H), dtype=torch.float32, device=saved.device)
+    barrier = torch.empty(1, dtype=torch.int32, device=saved.device)
+    lib = cuda.library()
+    cuda.count_launch("gru_recurrence_bwd")
+    err = lib.blvm_gru_recurrence_bwd(*(_ptr(t) for t in (w_hh, mask, saved, d_out, d_h_n, d_gi, d_gh, d_h0, barrier,
+                                                          trace)), B, T, H, cuda.stream_handle(saved))
+    if err == 720:  # cudaErrorCooperativeLaunchTooLarge
+        raise RuntimeError(f"K7-bwd (gru_recurrence_bwd): W_hh of H={H} at B={B} does not fit the shared memory of "
+                           "a grid of one CTA an SM that is all resident")
+    cuda.check(err, "gru_recurrence_bwd")
+    return d_gi, d_gh, d_h0
+
+
+def gru_weight_grads(saved: torch.Tensor, d_gh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dW_hh, db_hh)``: ``dW_hh = sum_t h_{t-1}^T d gh_t`` over the ``B T`` rows as one GEMM
+    (cuBLAS on the card), ``db_hh`` the column sums of ``d gh`` as a product with a row of ones
+    (a column ``sum`` is ~10x slower on the card)."""
+    B, T, G = d_gh.shape
+    rows = d_gh.reshape(B * T, G)
+    h_prev = saved[..., :G // 3].reshape(B * T, G // 3)
+    return h_prev.T @ rows, (torch.ones((1, B * T), dtype=rows.dtype, device=rows.device) @ rows)[0]
+
+
+def gru_bwd_trace_size() -> int:
+    """K7-bwd's trace: its 2 stages (the elementwise backward, the product) x 4 phases, then the
+    loop's cycles and nanoseconds; read it as ``ops/srnn.py:read_trace`` reads K9's."""
+    return 2 * 4 + 2
+
+
+class GRURecurrenceFunction(torch.autograd.Function):
+    """K7 under autograd: ``apply(xw, w_hh, b_hh, mask, h0) -> (out, h_n)``. ``forward`` runs
+    :func:`gru_recurrence_save`; ``backward`` runs :func:`gru_recurrence_backward` once and
+    :func:`gru_weight_grads`, and returns the gradients of ``xw`` (``d_gi``), ``w_hh``,
+    ``b_hh`` and ``h0`` (none for the mask). An output gradient autograd has none for arrives
+    as None and is read as zero."""
+
+    @staticmethod
+    def forward(ctx, xw, w_hh, b_hh, mask, h0):
+        out, h_n, saved = gru_recurrence_save(xw, w_hh, b_hh, mask, h0)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(w_hh, mask, saved)
+        return out, h_n
+
+    @staticmethod
+    def backward(ctx, d_out, d_h_n):
+        w_hh, mask, saved = ctx.saved_tensors
+        d_gi, d_gh, d_h0 = gru_recurrence_backward(w_hh, mask, saved, d_out, d_h_n)
+        d_w_hh, d_b_hh = gru_weight_grads(saved, d_gh)
+        return d_gi, d_w_hh, d_b_hh, None, d_h0
 
 
 def _check_gru(xw, w_hh, b_hh, mask, h0) -> None:

@@ -8,9 +8,9 @@ mixtures over 2^16 bins, bf16 residual stack), and LSTMAudio's test pass, train
 step and generation at the width of its s=64 run spec (H = 256, one layer, 64
 frames a stack, the same DMoL head, f32), and the VRNN's test pass, generation and
 train step at the width of its s=64 z=256 run spec (H = Z = 256, r_dim 512, 64 frames a
-stack, the same DMoL head, f32), and the SRNN's test pass and generation at the width of its
-s=64 z=256 run spec (the same widths, smoothing, f32), and checks the twelve hand-written
-kernels they run against their plain PyTorch twins:
+stack, the same DMoL head, f32), and the SRNN's test pass, generation and train step at the
+width of its s=64 z=256 run spec (the same widths, smoothing, f32), and checks the fourteen
+hand-written kernels they run against their plain PyTorch twins:
 
   1. device: the card's name and power limit (nvidia-smi)
   2. numerics: TF32 and reduced-precision bf16 GEMM reductions off
@@ -103,8 +103,8 @@ kernels they run against their plain PyTorch twins:
      (sampled and at the mode) and over T'=64
  35. the SRNN test pass: flags of benchmarks.txt:22 -> driver -> model -> weights bridge, the
      utterances of 33, whole and --split_eval (chunks of 16 stacks, d_n and z_n carried); 2 K7,
-     1 K9, 1 K2, 1 K3 a forward; bits/frame against the twins, same noise; a forward with a
-     gradient raises
+     1 K9, 1 K2, 1 K3 a forward; bits/frame against the twins, same noise; the chain in prior
+     mode with a gradient raises
  36. generation through the SRNN driver's hook: 2 x 2000 stacks (2 x 128000 frames), 2000 K7,
      2000 K9 and 2000 K3 launches, two wav files under
      blvm_tpu_torch/_build/srnn_generation_hook/; a rollout from given noise and uniforms
@@ -113,9 +113,27 @@ kernels they run against their plain PyTorch twins:
      and at T'=1 (host and device time); K9 a launch and a step, a T'=1 call's host and device
      time, K9's trace by stage and phase; the test pass whole and split, a generation,
      torch.profiler breakdowns of a test pass and of 200 generated stacks
+ 38. K7-bwd gru_recurrence_bwd (through GRURecurrenceFunction) and autograd of the f32 twin, both
+     held to autograd of the f64 twin over every gradient (xw, w_hh, b_hh, h0), a random d h_n in
+     each case: the SRNN train step's d GRU (19 utterances, ~1000 stacks, its mask) and a GRU
+     (its flipped mask), H=200 with a given h0 and a zero-length row, one row; K7-bwd alone
+     against its f64 twin
+ 39. K9-bwd srnn_chain_bwd (through SRNNChainFunction) the same way over every gradient (xp, xq,
+     z0, 14 weights): the train step's hoisted d and a with the residual posterior on and off,
+     H=200 and Z=16, one row, some output gradients absent; K9-bwd alone against its f64 twin
+ 40. the SRNN train slice: flags of benchmarks.txt:22 -> driver -> model -> weights bridge ->
+     srnn_audio.train with its annealers, 3 Adam steps on 19 utterances of 40k-64k samples; 2 K7,
+     2 K7-bwd, 1 K9, 1 K9-bwd, 1 K2, 1 K2-bwd, 1 K3 a step, none on the plain path; losses
+     against the twins fed the same noise, beta and free nats against the annealers; step-0
+     gradients, kernels and f32 twins held to the f64 twins
+ 41. timing: K7 and K9 in save mode against the plain launches at the train shape (bitwise equal
+     outputs), K7-bwd and K9-bwd alone against their twins, the GRU's and the chain's backward
+     against autograd of the twins, torch.nn.GRU's backward (cuDNN, the yardstick), both
+     kernels' traces by stage and phase, the train step (in turns with the twins) with its host
+     enqueue time and a torch.profiler breakdown
 
 Every phase prints one line (the profiles a few); any failure raises and exits
-non-zero before the last line (phases 14-37 print all their numbers first). A
+non-zero before the last line (phases 14-41 print all their numbers first). A
 ``[total]`` line gives the run's seconds; the second-to-last line is the
 kernels' JSON record, the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero without CUDA.
@@ -249,12 +267,12 @@ def cuda_time_ms(fn, inputs, warmup=3):
     return times
 
 
-def alternate(plain_fn, kernel_fn, inputs):
+def alternate(plain_fn, kernel_fn, inputs, warmup=3):
     """Median times of the plain and the kernel version, run in turns
-    plain, kernel, kernel, plain on the same card."""
+    plain, kernel, kernel, plain on the same card, ``warmup`` calls before each turn."""
     samples = {"plain": [], "kernel": []}
     for name in ("plain", "kernel", "kernel", "plain"):
-        samples[name] += cuda_time_ms(plain_fn if name == "plain" else kernel_fn, inputs)
+        samples[name] += cuda_time_ms(plain_fn if name == "plain" else kernel_fn, inputs, warmup)
     return {k: sorted(v)[len(v) // 2] for k, v in samples.items()}
 
 
@@ -348,6 +366,11 @@ def main():
                                     replaces="blvm_tpu/modules/recurrent.py:177")
     record["srnn_chain"] = dict(name="srnn_chain", route="cuda", source="blvm_tpu_torch/csrc/srnn_chain.cu",
                                 replaces="blvm_tpu/models/srnn.py:68", library_ms=None)
+    # K7-bwd's yardstick, torch.nn.GRU's backward (cuDNN), is timed in phase 41
+    record["gru_recurrence_bwd"] = dict(name="gru_recurrence_bwd", route="cuda", source="blvm_tpu_torch/csrc/gru_bwd.cu",
+                                        replaces="blvm_tpu/modules/recurrent.py:177")
+    record["srnn_chain_bwd"] = dict(name="srnn_chain_bwd", route="cuda", source="blvm_tpu_torch/csrc/srnn_chain_bwd.cu",
+                                    replaces="blvm_tpu/models/srnn.py:68", library_ms=None)
 
     # 4. K1 against its twin at the flagship shapes
     args = wavenet_audio.build_args(FLAGSHIP_FLAGS.split())
@@ -807,6 +830,8 @@ def main():
     vrnn_train_phases(record, smi, dev)
     torch.cuda.empty_cache()
     srnn_phases(record, smi, dev)
+    torch.cuda.empty_cache()
+    srnn_train_phases(record, smi, dev)
     phase("total", seconds=f"{time.time() - t_start:.1f}")
 
     print(json.dumps({"kernels": list(record.values())}), flush=True)
@@ -2375,14 +2400,16 @@ def srnn_phases(record, smi, dev):
               bpd_rel=f"{bpd_rel:.3g}", kl=f"{values['kl']:.3f}", rec=f"{values['rec']:.3f}",
               launches_per_forward={k: v // forwards for k, v in counts.items() if v}, seconds=f"{seconds:.2f}",
               plain_seconds=f"{seconds_p:.2f}")
-    # a forward that needs a gradient raises on the card (K7-bwd and K9-bwd are still to be written)
+    # the chain in prior mode under a gradient raises on the card: K9-bwd runs the inference mode, and no
+    # driver differentiates a generation
     try:
-        model(x_dev[:1, :640], x_sl_dev[:1].clamp_max(640))
+        srnn_ops.srnn_chain(kernel_w, xp[:1, :4].detach().requires_grad_(True), None, z0[:1], eps_k9[:1, :4],
+                            inference=False, residual_posterior=True, **chain_kw)
         raised = ""
     except NotImplementedError as err:
         raised = str(err)
-    expect("K7-bwd" in raised, f"an SRNN forward with a gradient on the card did not raise: {raised!r}")
-    phase("srnn-no-backward", raised=raised.split(";")[0].replace(" ", "_")[:60])
+    expect("inference mode only" in raised, f"a prior-mode chain with a gradient did not raise: {raised!r}")
+    phase("srnn-prior-no-backward", raised=raised.split(";")[0].replace(" ", "_")[:60])
 
     # 36. generation through the driver's hook: 2 x 2000 stacks of 64 (--generate_frames 128000), one K7
     # (T' = 1), one K9 (prior mode, T' = 1) and one K3 launch a stack; then the rollout from given noise and
@@ -2613,6 +2640,491 @@ def srnn_phases(record, smi, dev):
              "profile-srnn-generate", 200, "stack", card)
 
     require(not failures, f"SRNN phases failed: {failures}")
+
+
+def srnn_train_phases(record, smi, dev):
+    """Phases 38-41, the SRNN train step at the width of ``experiments/benchmarks.txt:22``: K7-bwd and
+    K9-bwd against the float64 twins, three steps of the driver's ``train`` with its annealers, and
+    their times. Each check is printed before any raises, so one run shows every number."""
+    import copy
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from blvm_tpu_torch import weights
+    from blvm_tpu_torch.evaluation.tracker import Tracker
+    from blvm_tpu_torch.experiments import common, srnn_audio
+    from blvm_tpu_torch.models import srnn as srnn_model
+    from blvm_tpu_torch.models.wavenet import modules
+    from blvm_tpu_torch.modules import distributions
+    from blvm_tpu_torch.ops import cuda, likelihoods, recurrent, variational
+    from blvm_tpu_torch.ops import srnn as srnn_ops
+    from blvm_tpu_torch.training.train_state import TrainState
+    from blvm_tpu_torch.training.train_step import make_train_step
+
+    failures = []
+
+    def expect(cond, message):
+        if not cond:
+            failures.append(message)
+            print(f"  FAIL: {message}", flush=True)
+
+    card = smi.replace(" ", "_")
+    plain = plain_path(modules, likelihoods, distributions, variational, recurrent)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 38)
+    args = srnn_audio.build_args(SRNN_FLAGS.split())
+    targs = argparse_copy(args, epochs=1, lr=3e-4)
+    model = srnn_audio.build_model(args)
+    params = weights.random_jax_params(model, args.seed)
+    weights.load_jax_params(model, params)
+    srnn = model.srnn
+    d_gru, a_gru, step = srnn.d_forward_recurrent, srnn.a_backward_recurrent, srnn.step
+    S, Z, R, H = args.stack_frames, args.latent_size, srnn.r_dim, args.hidden_size
+    head = step.prior_net.layers_1
+    beta_sd, eps_sd = head.beta, head.epsilon
+
+    # the train batches: 19 utterances of 40k-64k samples a step, each step's lengths drawn again until they
+    # fit the --batch_len 64 budget, as the length sampler packs a sum of lengths (the VRNN train slice's)
+    rng = np.random.default_rng(args.seed + 38)
+    train_batches = []
+    for _ in range(3):
+        lengths = rng.integers(VRNN_TRAIN_LENGTHS[0], VRNN_TRAIN_LENGTHS[1] + 1, VRNN_TRAIN_B)
+        while lengths.sum() > VRNN_BUDGET:
+            lengths = rng.integers(VRNN_TRAIN_LENGTHS[0], VRNN_TRAIN_LENGTHS[1] + 1, VRNN_TRAIN_B)
+        train_batches.append([(len(train_batches) * VRNN_TRAIN_B + i, synthetic_speech(int(n), rng))
+                              for i, n in enumerate(lengths)])
+    step_batches = []
+    for b_ in train_batches:
+        xb_, slb_ = common.make_batch([w for _, w in b_], targs)
+        step_batches.append(dict(x=torch.from_numpy(xb_).to(dev), x_sl=torch.from_numpy(slb_).to(dev)))
+    x0, sl0 = step_batches[0]["x"], step_batches[0]["x_sl"]
+    B0 = VRNN_TRAIN_B
+    # the first train step's inputs of K7 (both GRUs) and K9, as the forward computes them
+    with torch.no_grad():
+        enc0 = srnn.encoder(x0[..., None])  # (19, T', 256)
+        T0 = enc0.shape[1]
+        stacks0 = torch.ceil(sl0 / S).long()
+        mask0 = (torch.arange(T0, device=dev)[None] < stacks0[:, None]).float()
+        u0 = torch.cat([torch.zeros_like(enc0[:, :1]), enc0[:, :-1]], dim=1)
+        xw_d = u0 @ d_gru.w_ih + d_gru.b_ih
+        d_out, _ = d_gru(u0, mask=mask0)
+        d0 = torch.cat([torch.zeros(B0, 1, R, device=dev), d_out[:, :-1]], dim=1)
+        concat_flip = torch.cat([enc0, d0], dim=-1).flip(1)
+        xw_a = concat_flip @ a_gru.w_ih + a_gru.b_ih
+        a0 = a_gru(concat_flip, mask=mask0.flip(1))[0].flip(1)
+        xp0, xq0, kw0 = srnn_ops.hoist(step.chain_weights(), d0, a0, True)
+    kernel_w = [t.detach() for t in kw0]
+    covered = int(stacks0.sum())  # the row-steps the lengths cover: past them every gradient is zero
+    zeros_r, zeros_z = torch.zeros(B0, R, device=dev), torch.zeros(B0, Z, device=dev)
+
+    def held_to_f64(got, twin, ref, names):
+        """Each gradient's largest error relative to its largest value, the kernel's and the f32 twin's."""
+        errs = {}
+        for n_, a_, b_, r_ in zip(names, got, twin, ref):
+            scale = r_.abs().max().clamp_min(1e-30)
+            errs[n_] = (((a_.double() - r_).abs().max() / scale).item(), ((b_.double() - r_).abs().max() / scale).item())
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        return errs, finite, {k: v for k, v in errs.items() if v[0] > 2 * v[1] + 1e-6}
+
+    # 38. K7-bwd against its twin: the d GRU at the train shape (19 rows, the first step's stacks, its mask),
+    # the a GRU (its flipped mask, zeros leading), H = 200 with a given h0 and a zero-length row, one row;
+    # a random gradient of h_n in every case. K7-bwd (through GRURecurrenceFunction: K7 in save mode, one
+    # K7-bwd launch, the weight GEMMs) and autograd of the f32 twin are both held to autograd of the f64
+    # twin: every gradient's largest error, relative to its largest value, at most twice the f32 twin's plus
+    # 1e-6, as K8-bwd is held. Then K7-bwd alone against its f64 twin on the same saved f32 tensors
+    def k7_grads(xw, w_hh, b_hh, m, h0, g_out, dtype, kernel):
+        leaves = [t.detach().to(dtype).clone().requires_grad_(True) for t in (xw, w_hh, b_hh, h0)]
+        fn = recurrent.gru_recurrence if kernel else recurrent.gru_recurrence_plain
+        outs = fn(leaves[0], leaves[1], leaves[2], None if m is None else m.to(dtype), leaves[3])
+        return torch.autograd.grad(sum((o * g.to(dtype)).sum() for o, g in zip(outs, g_out)), leaves)
+
+    g_small = torch.Generator().manual_seed(SEED + 38)
+    small_w = [((torch.rand(*shape, generator=g_small) * 2 - 1) / 200**0.5).to(dev) for shape in ((200, 600), (600,))]
+    small_mask = (torch.arange(60)[None] < torch.tensor([60, 41, 17, 0, 33, 60, 5, 60, 22, 59, 1])[:, None]).float()
+    k7_cases = {
+        "d_B19": (xw_d, d_gru.w_hh, d_gru.b_hh, mask0, zeros_r),
+        "a_flipped_B19": (xw_a, a_gru.w_hh, a_gru.b_hh, mask0.flip(1), zeros_r),
+        "H200_given_h0": ((torch.randn(11, 60, 600, generator=g_small) * 0.5).to(dev), *small_w,
+                          small_mask.flip(1).to(dev), (torch.randn(11, 200, generator=g_small) * 0.3).to(dev)),
+        "B1": (xw_d[:1], d_gru.w_hh, d_gru.b_hh, None, torch.randn(1, R, generator=gen, device=dev) * 0.3),
+    }
+    for name, (xw, w_hh, b_hh, m, h0) in k7_cases.items():
+        B_, T_, G_ = xw.shape
+        g_out = [torch.randn(B_, T_, G_ // 3, generator=gen, device=dev), torch.randn(B_, G_ // 3, generator=gen,
+                                                                                      device=dev)]
+        cuda.reset_launch_counts()
+        got = k7_grads(xw, w_hh, b_hh, m, h0, g_out, torch.float32, True)
+        torch.cuda.synchronize()
+        counts = cuda.launch_counts()
+        twin = k7_grads(xw, w_hh, b_hh, m, h0, g_out, torch.float32, False)
+        ref = k7_grads(xw, w_hh, b_hh, m, h0, g_out, torch.float64, False)
+        errs, finite, over = held_to_f64(got, twin, ref, ("xw", "w_hh", "b_hh", "h0"))
+        expect(finite and not over and (counts["gru_recurrence"], counts["gru_recurrence_bwd"]) == (1, 1),
+               f"K7-bwd {name}: launches {counts['gru_recurrence']}/{counts['gru_recurrence_bwd']}, finite {finite}, "
+               f"over {over}")
+        worst = max(errs, key=lambda k: errs[k][0])
+        phase("K7-bwd", case=name, shape=tuple(xw.shape), launches=counts["gru_recurrence_bwd"],
+              kernel_max_rel_vs_f64=f"{errs[worst][0]:.3g}", twin_f32_max_rel_vs_f64=f"{max(v[1] for v in errs.values()):.3g}",
+              worst=worst, twin_at_worst=f"{errs[worst][1]:.3g}")
+        del got, twin, ref
+    with torch.no_grad():
+        w_hh_d, b_hh_d = d_gru.w_hh.detach(), d_gru.b_hh.detach()
+        _, _, saved7 = recurrent.gru_recurrence_save(xw_d, w_hh_d, b_hh_d, mask0, zeros_r)
+        g7 = torch.randn(B0, T0, R, generator=gen, device=dev)
+        got7 = recurrent.gru_recurrence_backward(w_hh_d, mask0, saved7, g7, None)
+        ref7 = recurrent.gru_recurrence_backward_plain(w_hh_d.double(), mask0, saved7.double(), g7.double(), None)
+    k7b_err = max((a_.double() - r_).abs().max().item() for a_, r_ in zip(got7, ref7))
+    scale = max(r_.abs().max().item() for r_ in ref7)
+    expect(k7b_err <= 1e-4 * scale, f"K7-bwd alone vs its f64 twin: {k7b_err} (largest {scale})")
+    record["gru_recurrence_bwd"]["max_abs_err"] = k7b_err
+    phase("K7-bwd-alone", case="d_B19", max_abs_err_vs_f64=f"{k7b_err:.3g}", largest=f"{scale:.3g}",
+          saved_MB=f"{saved7.numel() * 4 / 2**20:.1f}")
+    del got7, ref7
+
+    # 39. K9-bwd against its twin the same way: the train shape's hoisted d and a with the residual posterior
+    # on and off (off: no gradient for z and enc_sd), H = 200 and Z = 16 (no gradient for enc_mu and
+    # prior_sd), one row; then K9-bwd alone against its f64 twin
+    def k9_grads(w, xp, xq, z0, eps, g_out, residual, dtype, kernel):
+        leaves = [t.detach().to(dtype).clone().requires_grad_(True) for t in (xp, xq, z0, *w)]
+        fn = srnn_ops.srnn_chain if kernel else srnn_ops.srnn_chain_plain
+        outs = fn(leaves[3:], leaves[0], leaves[1], leaves[2], eps.to(dtype), inference=True,
+                  residual_posterior=residual, sd_beta=beta_sd, sd_epsilon=eps_sd)
+        loss = sum((o * g.to(dtype)).sum() for o, g in zip(outs, g_out) if g is not None)
+        return torch.autograd.grad(loss, leaves)
+
+    def k9_small(B_, T_, H_, Z_):
+        def u(*shape, fan_in):
+            return ((torch.rand(*shape, generator=g_small) * 2 - 1) / fan_in**0.5).to(dev)
+
+        def net():
+            return [u(Z_, H_, fan_in=2 * H_ + Z_), u(H_, H_, fan_in=H_), u(H_, fan_in=H_), u(H_, H_, fan_in=H_),
+                    u(H_, fan_in=H_), u(H_, 2 * Z_, fan_in=H_), u(2 * Z_, fan_in=H_)]
+
+        return (net() + net(), *((torch.randn(B_, T_, H_, generator=g_small) * 0.5).to(dev) for _ in range(2)),
+                (torch.randn(B_, Z_, generator=g_small) * 0.5).to(dev))
+
+    k9_cases = {
+        "train_B19_residual": ((kernel_w, xp0, xq0, zeros_z), True, ()),
+        "train_B19_plain_posterior": ((kernel_w, xp0, xq0, zeros_z), False, (0, 2)),
+        "H200_Z16": (k9_small(11, 60, 200, 16), True, (1, 4)),
+        "B1": ((kernel_w, xp0[:1], xq0[:1], torch.randn(1, Z, generator=gen, device=dev) * 0.5), True, ()),
+    }
+    names9 = ["xp", "xq", "z0"] + [f"w{i}" for i in range(srnn_ops.N_KERNEL_WEIGHTS)]
+    for name, ((w, xp, xq, z0), residual, no_grad) in k9_cases.items():
+        B_, T_ = xp.shape[:2]
+        Z_ = z0.shape[1]
+        eps = torch.randn(B_, T_, Z_, generator=gen, device=dev)
+        g_out = [None if i in no_grad else torch.randn(B_, T_, Z_, generator=gen, device=dev) for i in range(5)]
+        cuda.reset_launch_counts()
+        got = k9_grads(w, xp, xq, z0, eps, g_out, residual, torch.float32, True)
+        torch.cuda.synchronize()
+        counts = cuda.launch_counts()
+        twin = k9_grads(w, xp, xq, z0, eps, g_out, residual, torch.float32, False)
+        ref = k9_grads(w, xp, xq, z0, eps, g_out, residual, torch.float64, False)
+        errs, finite, over = held_to_f64(got, twin, ref, names9)
+        expect(finite and not over and (counts["srnn_chain"], counts["srnn_chain_bwd"]) == (1, 1),
+               f"K9-bwd {name}: launches {counts['srnn_chain']}/{counts['srnn_chain_bwd']}, finite {finite}, over {over}")
+        worst = max(errs, key=lambda k: errs[k][0])
+        phase("K9-bwd", case=name, shape=tuple(xp.shape), Z=Z_, residual_posterior=residual,
+              no_gradient=[srnn_ops.SRNNChainOutputs._fields[i] for i in no_grad], launches=counts["srnn_chain_bwd"],
+              kernel_max_rel_vs_f64=f"{errs[worst][0]:.3g}", twin_f32_max_rel_vs_f64=f"{max(v[1] for v in errs.values()):.3g}",
+              worst=worst, twin_at_worst=f"{errs[worst][1]:.3g}")
+        del got, twin, ref
+    ragged = mask0[..., None]
+    chain_kw = dict(residual_posterior=True, sd_beta=beta_sd)
+    with torch.no_grad():
+        eps9 = torch.randn(B0, T0, Z, generator=gen, device=dev)
+        outs9, saved9 = srnn_ops.srnn_chain_save(kernel_w, xp0, xq0, zeros_z, eps9, sd_epsilon=eps_sd, **chain_kw)
+        g9 = [torch.randn(B0, T0, Z, generator=gen, device=dev) * ragged for _ in range(5)]
+        got9 = srnn_ops.srnn_chain_backward(kernel_w, eps9, saved9, g9, **chain_kw)
+        ref9 = srnn_ops.srnn_chain_backward_plain([t.double() for t in kernel_w], eps9.double(), saved9.double(),
+                                                  [g.double() for g in g9], **chain_kw)
+    k9b_err = max((a_.double() - r_).abs().max().item() for a_, r_ in zip(got9, ref9))
+    scale = max(r_.abs().max().item() for r_ in ref9)
+    expect(k9b_err <= 1e-4 * scale, f"K9-bwd alone vs its f64 twin: {k9b_err} (largest {scale})")
+    record["srnn_chain_bwd"]["max_abs_err"] = k9b_err
+    phase("K9-bwd-alone", case="train_B19_residual", max_abs_err_vs_f64=f"{k9b_err:.3g}", largest=f"{scale:.3g}",
+          saved_MB=f"{saved9.numel() * 4 / 2**20:.1f}", dpre_MB=f"{got9[0].numel() * 4 / 2**20:.1f}")
+    del got9, ref9
+    torch.cuda.empty_cache()
+
+    # 40. the train slice: flags of benchmarks.txt:22 -> driver -> model on the card -> weights bridge ->
+    # srnn_audio.train with its annealers, 3 Adam steps on 19 utterances a step; the latent noise from a
+    # generator of its own, alike for the kernel and the plain runs
+    def seeded_noise(seed):
+        g_ = torch.Generator(device=dev).manual_seed(seed)
+        return mock.patch.object(srnn_model, "gaussian_noise", lambda _, shape, like: torch.randn(
+            shape, generator=g_, device=like.device).to(like.dtype))
+
+    def run_train(plain_path_=False):
+        weights.load_jax_params(model, params)
+        log = StepLog(Tracker())
+        with plain() if plain_path_ else contextlib.nullcontext(), seeded_noise(SEED + 40):
+            cuda.reset_launch_counts()
+            t0 = time.time()
+            srnn_audio.train(model, targs, train_batches, log)
+            torch.cuda.synchronize()
+            return log.steps, cuda.launch_counts(), time.time() - t0
+
+    steps_k, counts, seconds = run_train()
+    steps_p, counts_p, seconds_p = run_train(plain_path_=True)
+    expected = dict(gru_recurrence=6, gru_recurrence_bwd=6, srnn_chain=3, srnn_chain_bwd=3, dmol_log_prob=3,
+                    dmol_log_prob_bwd=3, dmol_sample=3)
+    expect(counts == {**dict.fromkeys(counts, 0), **expected},
+           f"SRNN train-step launches {counts}, expected {expected} (2/2/1/1/1/1/1 a step)")
+    expect(not any(counts_p.values()), f"the plain SRNN train path launched kernels: {counts_p}")
+    for k in ("gru_recurrence", "srnn_chain"):
+        record[k]["launches"] = record[k].get("launches", 0) + counts[k]
+    record["gru_recurrence_bwd"]["launches"] = counts["gru_recurrence_bwd"]
+    record["srnn_chain_bwd"]["launches"] = counts["srnn_chain_bwd"]
+    losses, losses_p = [st["loss"] for st in steps_k], [st["loss"] for st in steps_p]
+    loss_rel = [abs(a_ - b_) / abs(b_) for a_, b_ in zip(losses, losses_p)]
+    expect(all(math.isfinite(v) for st in steps_k for v in st.values()), f"SRNN train metrics not finite: {steps_k}")
+    # step 0: the same parameters, only the sums' order differs (1e-5). Later steps: Adam's first updates move
+    # every parameter by about lr sign(g), so a gradient element near zero whose sign the summation order
+    # flips moves by 2 lr: 1e-4
+    expect(loss_rel[0] <= 1e-5 and max(loss_rel) <= 1e-4, f"SRNN train losses {losses} vs plain {losses_p}")
+    ref_annealers = srnn_audio.build_annealers(targs)
+    ref_values = [{k: float(np.float32(a.step())) for k, a in ref_annealers.items()} for _ in range(3)]
+    got_values = [{k: st[k] for k in ("beta", "free_nats")} for st in steps_k]
+    expect(got_values == ref_values and got_values[0] == dict(beta=0.0, free_nats=2.0),
+           f"annealers {got_values}, expected {ref_values}")
+    phase("srnn-train-slice", steps=3, utterances_per_step=VRNN_TRAIN_B,
+          samples_per_step=[sum(len(w) for _, w in b_) for b_ in train_batches],
+          stacks_per_step=[int(torch.ceil(b_["x_sl"].max() / S)) for b_ in step_batches],
+          losses=[f"{v:.6f}" for v in losses], losses_plain=[f"{v:.6f}" for v in losses_p],
+          loss_rel=[f"{v:.3g}" for v in loss_rel], beta=[v["beta"] for v in got_values],
+          free_nats=[v["free_nats"] for v in got_values], launches_per_step={k: v // 3 for k, v in counts.items() if v},
+          seconds=f"{seconds:.2f}", seconds_plain=f"{seconds_p:.2f}")
+
+    # the step-0 gradients of every parameter at beta 1 and free nats 2 (every gradient path live): the
+    # kernels and the f32 twins both held to the f64 twins, the kernels no further than twice the f32 twins
+    # plus 1e-6 (relative norms)
+    def step0_grads(m, plain_path_, dtype):
+        m.zero_grad(set_to_none=True)
+        m.train()
+        with plain() if plain_path_ else contextlib.nullcontext(), seeded_noise(SEED + 41):
+            loss, _, _ = m(x0.to(dtype), sl0, beta=1.0, free_nats=2.0,
+                           generator=torch.Generator(device=dev).manual_seed(SEED))
+            loss.backward()
+        grads = {n: p.grad.detach().clone() for n, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        return grads, loss.item()
+
+    weights.load_jax_params(model, params)
+    g_k, loss_k = step0_grads(model, False, torch.float32)
+    g_p, loss_p = step0_grads(model, True, torch.float32)
+    model64 = copy.deepcopy(model).double()
+    g_64, loss_64 = step0_grads(model64, True, torch.float64)
+    del model64
+    e_k = {n: rel_norm(g_k[n], g_64[n]) for n in g_64}
+    e_p = {n: rel_norm(g_p[n], g_64[n]) for n in g_64}
+    over = {n: (e_k[n], e_p[n]) for n in e_k if e_k[n] > 2 * e_p[n] + 1e-6}
+    expect(all(torch.isfinite(g_).all() for g_ in g_k.values()) and not over, f"SRNN step-0 gradients: {over}")
+    worst = max(e_k, key=e_k.get)
+    phase("srnn-train-grads", loss=f"{loss_k:.6f}", loss_plain=f"{loss_p:.6f}", loss_f64=f"{loss_64:.6f}",
+          kernel_max_rel_vs_f64=f"{e_k[worst]:.3g}", twin_f32_max_rel_vs_f64=f"{max(e_p.values()):.3g}", worst=worst,
+          kernel_vs_twin_max_rel=f"{max(rel_norm(g_k[n], g_p[n]) for n in g_p):.3g}", parameters=len(e_k))
+    del g_k, g_p, g_64
+    torch.cuda.empty_cache()
+
+    # 41. times, CUDA events, a different input each call, kernel and twin in turns: K7 and K9 in save mode
+    # against the plain launch at the train shape (bitwise equal outputs); K7-bwd and K9-bwd alone against
+    # their twins, cuDNN's torch.nn.GRU backward (unmasked, with its input projection's gradients: the
+    # yardstick; the port never calls it), the kernels' traces by stage; the GRU's and the chain's backward
+    # (the kernel and the weight GEMMs) and the train step, each against one call of the twins' path (warm
+    # from phases 38-40: a twin step takes seconds); the step's host enqueue time and a torch.profiler
+    # breakdown
+    xws = [xw_d + 0.01 * torch.randn(xw_d.shape, generator=gen, device=dev) for _ in range(3)]
+
+    def k7_plain_launch(xw):
+        with torch.no_grad():
+            return recurrent.gru_recurrence(xw, w_hh_d, b_hh_d, mask0, zeros_r)
+
+    def k7_save(xw):
+        with torch.no_grad():
+            return recurrent.gru_recurrence_save(xw, w_hh_d, b_hh_d, mask0, zeros_r)
+
+    same7 = all(torch.equal(a_, b_) for a_, b_ in zip(k7_plain_launch(xws[0]), k7_save(xws[0])[:2]))
+    t7s = alternate(k7_plain_launch, k7_save, xws)
+    expect(same7, "K7's save mode changed its outputs")
+    phase("time-K7-save", card=card, shape=f"({B0},{T0},{3 * R})", dtype="f32", bitwise_equal=same7,
+          save_ms=f"{t7s['kernel']:.4f}", no_save_ms=f"{t7s['plain']:.4f}",
+          us_per_step_save=f"{t7s['kernel'] * 1e3 / T0:.3f}", ratio=f"{t7s['kernel'] / t7s['plain']:.4f}")
+    eps_t = [torch.randn(B0, T0, Z, generator=gen, device=dev) for _ in range(3)]
+
+    def k9_plain_launch(e_):
+        with torch.no_grad():
+            return srnn_ops.srnn_chain(kernel_w, xp0, xq0, zeros_z, e_, inference=True, sd_epsilon=eps_sd, **chain_kw)
+
+    def k9_save(e_):
+        with torch.no_grad():
+            return srnn_ops.srnn_chain_save(kernel_w, xp0, xq0, zeros_z, e_, sd_epsilon=eps_sd, **chain_kw)
+
+    same9 = all(torch.equal(a_, b_) for a_, b_ in zip(k9_plain_launch(eps_t[0]), k9_save(eps_t[0])[0]))
+    t9s = alternate(k9_plain_launch, k9_save, eps_t)
+    expect(same9, "K9's save mode changed its outputs")
+    phase("time-K9-save", card=card, shape=f"({B0},{T0})", dtype="f32", bitwise_equal=same9,
+          save_ms=f"{t9s['kernel']:.4f}", no_save_ms=f"{t9s['plain']:.4f}",
+          us_per_step_save=f"{t9s['kernel'] * 1e3 / T0:.3f}", ratio=f"{t9s['kernel'] / t9s['plain']:.4f}")
+
+    def print_trace(label, trace, steps, stage_names):
+        per_step = srnn_ops.read_trace(trace) / steps / 1e3  # us a step
+        phase(label, card=card, steps=steps, us_per_step=f"{per_step.sum().item():.3f}",
+              inputs_us=f"{per_step[:, 0].sum().item():.3f}", products_us=f"{per_step[:, 1].sum().item():.3f}",
+              finish_us=f"{per_step[:, 2].sum().item():.3f}", barrier_us=f"{per_step[:, 3].sum().item():.3f}",
+              by_stage={n_: f"{v_:.2f}" for n_, v_ in zip(stage_names, per_step.sum(1).tolist())})
+
+    def backward_only(graph):
+        outputs, inputs, grad_outputs = graph
+        return torch.autograd.grad(outputs, inputs, grad_outputs, retain_graph=True)
+
+    # K7-bwd: the d GRU's saved forward, a different output gradient each call (zero past each row's end)
+    g7s = [torch.randn(B0, T0, R, generator=gen, device=dev) * ragged for _ in range(3)]
+
+    def k7b(g_, trace=None):
+        return recurrent.gru_recurrence_backward(w_hh_d, mask0, saved7, g_, None, trace=trace)
+
+    def k7b_plain(g_):
+        return recurrent.gru_recurrence_backward_plain(w_hh_d, mask0, saved7, g_, None)
+
+    t7b = alternate(k7b_plain, k7b, g7s, warmup=1)
+
+    def gru_graph(fn, g_):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (xw_d, w_hh_d, b_hh_d)]
+        out_ = fn(leaves[0], leaves[1], leaves[2], mask0, zeros_r)[0]
+        return (out_,), leaves, (g_,)
+
+    pair = [(gru_graph(recurrent.gru_recurrence_plain, g7s[0]), gru_graph(recurrent.gru_recurrence, g7s[0]))]
+    t7_fn = dict(plain=cuda_time_ms(lambda g_: backward_only(g_[0]), pair, warmup=0)[0],
+                 kernel=sorted(cuda_time_ms(lambda g_: backward_only(g_[1]), pair * 3, warmup=1))[1])
+    del pair
+    cudnn = torch.nn.GRU(d_gru.w_ih.shape[0], R, batch_first=True).to(dev)
+    with torch.no_grad():
+        cudnn.weight_ih_l0.copy_(d_gru.w_ih.T)
+        cudnn.weight_hh_l0.copy_(d_gru.w_hh.T)
+        cudnn.bias_ih_l0.copy_(d_gru.b_ih)
+        cudnn.bias_hh_l0.copy_(d_gru.b_hh)
+
+    def lib_graph(g_):
+        leaves = [u0.detach().clone().requires_grad_(True)] + list(cudnn.parameters())
+        return (cudnn(leaves[0])[0],), leaves, (g_,)
+
+    def layer_graph(g_):
+        """Our layer as cuDNN's autograd sees it: the input projection and K7, differentiated by the input
+        and all four parameters (unmasked, as cuDNN's here)."""
+        leaves = [t.detach().clone().requires_grad_(True) for t in (u0, d_gru.w_ih, d_gru.b_ih, w_hh_d, b_hh_d)]
+        out_ = recurrent.gru_recurrence(leaves[0] @ leaves[1] + leaves[2], leaves[3], leaves[4], None, zeros_r)[0]
+        return (out_,), leaves, (g_,)
+
+    lib_pairs = [(lib_graph(g_), layer_graph(g_)) for g_ in g7s]
+    t7_lib = alternate(lambda g_: backward_only(g_[0]), lambda g_: backward_only(g_[1]), lib_pairs)
+    del lib_pairs
+    trace7 = torch.zeros(recurrent.gru_bwd_trace_size(), dtype=torch.int64, device=dev)
+    for g_ in g7s:
+        k7b(g_, trace=trace7)
+    torch.cuda.synchronize()
+    G = 3 * R
+    rows = B0 * T0
+    # bytes: W_hh read; a row-step's saved values (5R), mask and output gradient (R) read, d gi and d gh
+    # (2 x 3R) written; d h0. Operations: d gh W_hh^T over the row-steps the lengths cover
+    record["gru_recurrence_bwd"].update(ms=t7b["kernel"], plain_ms=t7b["plain"], library_ms=t7_lib["plain"], **roofline(
+        bytes_=4 * (R * G + rows * (5 * R + 1 + R + 2 * G) + B0 * R), flops=2 * covered * G * R, peak=F32_PEAK))
+    phase("time-K7-bwd", card=card, shape=f"({B0},{T0},{G})", dtype="f32", kernel_ms=f"{t7b['kernel']:.4f}",
+          plain_ms=f"{t7b['plain']:.4f}", us_per_step=f"{t7b['kernel'] * 1e3 / T0:.3f}",
+          gru_backward_ms=f"{t7_fn['kernel']:.4f}", twin_autograd_ms=f"{t7_fn['plain']:.4f}",
+          layer_backward_ms=f"{t7_lib['kernel']:.4f}", cudnn_gru_backward_ms=f"{t7_lib['plain']:.4f}",
+          bound_ms=f"{record['gru_recurrence_bwd']['bound_ms']:.4f}", bound_by=record["gru_recurrence_bwd"]["bound_by"],
+          includes="kernel: K7-bwd alone; gru backward: also dW_hh, db_hh; layer and cuDNN: also dx, dW_ih, db_ih")
+    print_trace("K7-bwd-trace", trace7, len(g7s) * T0, ("gates", "dh"))
+
+    # K9-bwd: the first step's saved chain, a different set of output gradients each call
+    g9s = [[torch.randn(B0, T0, Z, generator=gen, device=dev) * ragged for _ in range(5)] for _ in range(3)]
+
+    def k9b(g_, trace=None):
+        return srnn_ops.srnn_chain_backward(kernel_w, eps9, saved9, g_, trace=trace, **chain_kw)
+
+    def k9b_plain(g_):
+        return srnn_ops.srnn_chain_backward_plain(kernel_w, eps9, saved9, g_, **chain_kw)
+
+    t9b = alternate(k9b_plain, k9b, g9s, warmup=1)
+
+    def chain_graph(kernel, g_):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (xp0, xq0, *kernel_w)]
+        fn = srnn_ops.srnn_chain if kernel else srnn_ops.srnn_chain_plain
+        outs = fn(leaves[2:], leaves[0], leaves[1], zeros_z, eps9, inference=True, sd_epsilon=eps_sd, **chain_kw)
+        return tuple(outs), leaves, tuple(g_)
+
+    pair = [(chain_graph(False, g9s[0]), chain_graph(True, g9s[0]))]
+    t9_fn = dict(plain=cuda_time_ms(lambda g_: backward_only(g_[0]), pair, warmup=0)[0],
+                 kernel=sorted(cuda_time_ms(lambda g_: backward_only(g_[1]), pair * 3, warmup=1))[1])
+    del pair
+    trace9 = torch.zeros(srnn_ops.trace_size(), dtype=torch.int64, device=dev)
+    for g_ in g9s:
+        k9b(g_, trace=trace9)
+    torch.cuda.synchronize()
+    n_kernel = sum(t.numel() for t in kernel_w if t.ndim == 2)  # the eight kernels (the biases are not read)
+    macs9 = 2 * (Z * H + 2 * H * H + H * 2 * Z)  # a row-step of both nets: z rows, L2, L3, the heads
+    # bytes: the kernels read; a row-step's noise, saved values (6H + 2Z) and five output gradients read, its
+    # pre-activation gradients (4Z + 6H) written; d z0. Operations over the row-steps the lengths cover
+    record["srnn_chain_bwd"].update(ms=t9b["kernel"], plain_ms=t9b["plain"], **roofline(
+        bytes_=4 * (n_kernel + rows * (Z + 6 * H + 2 * Z + 5 * Z + 4 * Z + 6 * H) + B0 * Z),
+        flops=2 * covered * macs9, peak=F32_PEAK))
+    phase("time-K9-bwd", card=card, shape=f"({B0},{T0})", H=H, Z=Z, dtype="f32", kernel_ms=f"{t9b['kernel']:.4f}",
+          plain_ms=f"{t9b['plain']:.4f}", us_per_step=f"{t9b['kernel'] * 1e3 / T0:.3f}",
+          chain_backward_ms=f"{t9_fn['kernel']:.4f}", twin_autograd_ms=f"{t9_fn['plain']:.4f}",
+          bound_ms=f"{record['srnn_chain_bwd']['bound_ms']:.4f}", bound_by=record["srnn_chain_bwd"]["bound_by"],
+          includes="kernel: K9-bwd alone; chain backward: also the 14 weight-gradient GEMMs and the bias product")
+    print_trace("K9-bwd-trace", trace9, len(g9s) * T0, ("z+heads", "L3", "L2", "L1"))
+    del g7s, g9s, saved7, saved9, outs9
+
+    # the train step, kernels against twins in turns on the first batch, the kernels alone over the three
+    tx, _ = common.build_tx_and_lr(targs)
+    weights.load_jax_params(model, params)
+    model.train()
+    state = TrainState.create(model=model, tx=tx, generator=torch.Generator(device=dev).manual_seed(SEED))
+    train_step = make_train_step(common.loss_fn)
+    scalars = dict(beta=torch.tensor(0.5), free_nats=torch.tensor(2.0))
+
+    def run_step(b_):
+        train_step(state, b_, scalars)
+
+    def run_step_plain(b_):
+        with plain():
+            train_step(state, b_, scalars)
+
+    plain_step_ms = cuda_time_ms(run_step_plain, step_batches[:1], warmup=0)[0]
+    torch.cuda.reset_peak_memory_stats()
+    ts = sorted(cuda_time_ms(run_step, step_batches))[1]
+    torch.cuda.synchronize()
+    enqueue = []
+    for b_ in step_batches:
+        t0 = time.perf_counter()
+        run_step(b_)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    samples = sum(int(b_["x_sl"].sum()) for b_ in step_batches) / len(step_batches)
+    phase("time-srnn-train-step", card=card, utterances=VRNN_TRAIN_B, samples=int(samples), kernel_ms=f"{ts:.3f}",
+          plain_ms=f"{plain_step_ms:.3f}",
+          host_enqueue_ms=f"{sorted(enqueue)[1]:.3f}", samples_per_s=f"{samples / ts * 1e3:.0f}",
+          peak_memory_GB=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b_ in step_batches:
+            run_step(b_)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+    kernels_ = device_kernels(prof)
+    busy_ms = sum(device_us(e_) for e_ in kernels_) / 1e3 / 3
+    phase("profile-srnn-train-step", card=card, device_ms_per_step=f"{busy_ms:.3f}", wall_ms_per_step=f"{wall_ms:.3f}",
+          idle_share=f"{1 - busy_ms / wall_ms:.3f}" if busy_ms else "not measured",
+          kernel_launches_per_step=sum(e_.count for e_ in kernels_) // 3)
+    for e_ in sorted(kernels_, key=device_us, reverse=True)[:12]:
+        print(f"  {device_us(e_) / 1e3 / 3:9.3f} ms/step {e_.count // 3:5d} calls/step  {e_.key[:90]}", flush=True)
+
+    require(not failures, f"SRNN train phases failed: {failures}")
 
 
 def argparse_copy(args, **changes):

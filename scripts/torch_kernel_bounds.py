@@ -1,5 +1,6 @@
 """Bounds on paper of the TPU kernels the PyTorch/CUDA port has still to write, at their run specs,
-and of K7 and K9 at the SRNN test pass's shape, which ``chip_smoke.py`` also computes from its run.
+and of K7, K9, K7-bwd and K9-bwd (each kernel apart from the cuBLAS weight-gradient GEMMs around it)
+at the SRNN's test pass and train step shapes, which ``chip_smoke.py`` also computes from its run.
 
     python scripts/torch_kernel_bounds.py
 
@@ -46,21 +47,41 @@ def main():
     # K6: the ASR probe's bi-LSTM (experiment_asr_ctc.py: --hidden_size 128, one layer, --batch_len 120 s
     # at hop 64: 30000 frames a batch), both directions in one launch
     bounds["K6"] = lstm_or_gru(rows=120 * 16000 // 64, H=128, gates=4, directions=2)
-    # K7: SRNN's GRU (benchmarks.txt:22, s=64, hidden 256 -> r_dim 512): the --batch_len 64 budget as
-    # the VRNN train step packs it, 19 utterances of up to 1000 stacks; one direction a launch
-    bounds["K7"] = lstm_or_gru(rows=19 * 1000, H=512, gates=3)
-    # K9: SRNN's latent step at the same shape (use_phi_z and the gated transfer off, the driver's
-    # defaults): prior and posterior MLPs on [d_t or a_t (512), z (256)] and their heads
+    # The SRNN train step (benchmarks.txt:22, s=64, hidden 256 -> r_dim 512, H = Z = 256): the --batch_len
+    # 64 budget as chip_smoke.py packs it, 19 utterances of up to 1000 stacks, 19000 row-steps.
     rows, R, H, Z = 19 * 1000, 512, 256, 256
-    macs = 2 * ((R + Z) * H + 2 * H * H + H * 2 * Z)
-    bounds["K9"] = dict(bytes_=F32 * (rows * (2 * R + Z) + macs + rows * 5 * Z), flops=2 * rows * macs, peak=F32_PEAK)
+    G = 3 * R
+    # K7 a GRU (one direction a launch; the input projection is one GEMM outside)
+    bounds["K7 train step"] = lstm_or_gru(rows=rows, H=R, gates=3)
+    # K7-bwd: d gh W_hh^T a row-step, the only product inside the kernel; W_hh read, the saved forward (5R:
+    # h_{t-1}, r, z, n, hn), the mask and d out read, d gi and d gh written
+    bounds["K7-bwd train step"] = dict(bytes_=F32 * (R * G + rows * (5 * R + 1 + R + 2 * G) + 19 * 2 * R),
+                                       flops=2 * rows * G * R, peak=F32_PEAK)
+    # its weight gradients, outside the kernel (cuBLAS): dW_hh = h_{t-1}^T d gh and db_hh, a product with a
+    # row of ones
+    bounds["K7-bwd GEMMs train step"] = dict(bytes_=F32 * (rows * (R + G) + R * G + G),
+                                             flops=2 * rows * (R + 1) * G, peak=F32_PEAK)
+    # K9 and K9-bwd on the hoisted d and a products: the chain's products only, the z rows of both first
+    # layers (Z x H), two H x H layers and the heads (H x 2Z) of both nets; the d and a rows (R x H) are
+    # GEMMs before the chain (ops/srnn.py:hoist) and their gradients autograd's, outside K9-bwd
+    chain_macs = 2 * (Z * H + 2 * H * H + H * 2 * Z)
+    chain_kernels = 2 * (Z * H + 2 * H * H + H * 2 * Z)
+    bounds["K9 train step"] = dict(bytes_=F32 * (rows * (2 * H + Z + 5 * Z + 6 * H + 2 * Z) + chain_kernels),
+                                   flops=2 * rows * chain_macs, peak=F32_PEAK)
+    # K9-bwd: the noise, the saved forward (6H + 2Z) and five output gradients read, the pre-activation
+    # gradients (4Z + 6H) written; the same products as the forward, transposed
+    bounds["K9-bwd train step"] = dict(bytes_=F32 * (chain_kernels + rows * (Z + 6 * H + 2 * Z + 5 * Z + 4 * Z + 6 * H)),
+                                       flops=2 * rows * chain_macs, peak=F32_PEAK)
+    # its 14 weight gradients, outside the kernel (cuBLAS): the 8 kernels (each its layer's input^T times its
+    # pre-activation gradient) and 6 biases in one product with a row of ones
+    bounds["K9-bwd GEMMs train step"] = dict(bytes_=F32 * (rows * (Z + 6 * H + 4 * Z + 6 * H) + chain_kernels),
+                                             flops=2 * rows * (chain_macs + 4 * Z + 6 * H), peak=F32_PEAK)
     # K7 and K9 as the SRNN test pass runs them (chip_smoke.py phases 33-35: 6 utterances of up to 1125
     # stacks): K7 for the d GRU (input 256) and the a GRU (input 768), each input projection one GEMM
     # outside the kernel, so both launches bound alike; K9 on the hoisted d and a products, so only the
     # chain's z-row products count: the first layers' z rows (Z x H), two H x H layers, the heads (H x 2Z)
     rows = 6 * 1125
     bounds["K7 test pass"] = lstm_or_gru(rows=rows, H=R, gates=3)
-    chain_macs = 2 * (Z * H + 2 * H * H + H * 2 * Z)
     chain_weights = 2 * (Z * H + 2 * (H * H + H) + H * 2 * Z + 2 * Z)
     bounds["K9 test pass"] = dict(bytes_=F32 * (rows * (2 * H + Z) + 6 * Z + chain_weights + rows * 5 * Z),
                                   flops=2 * rows * chain_macs, peak=F32_PEAK)

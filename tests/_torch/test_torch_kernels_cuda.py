@@ -2,7 +2,7 @@
 K2 forward and backward (against autograd of the twins), K3 the sampler, K4 the
 Fast-WaveNet decode step, K5 the LSTM recurrence forward and backward, K8 the
 VRNN cell and K8-bwd its backward through time, K7 the GRU recurrence and K9 the
-SRNN's latent chain.
+SRNN's latent chain, their save modes and their backwards through time, K7-bwd and K9-bwd.
 
 Marked ``cuda``: they skip without a CUDA device (here, on CPU-only machines).
 On the card, where JAX is not installed, leave out the root conftest (it imports
@@ -12,6 +12,7 @@ holds the kernels to their twins at the flagship shapes; these tests cover the
 other widths, ragged tiles, strided inputs and the refusals.
 """
 
+import contextlib
 import math
 from unittest import mock
 
@@ -737,8 +738,12 @@ def test_gru_recurrence_kernel_matches_twin(cuda_device, B, T, H, mask, given):
 @pytest.mark.cuda
 def test_gru_recurrence_kernel_refuses_what_it_does_not_take(cuda_device):
     xw, w_hh, b_hh, m, h0 = _k7_inputs(2, 3, 32, "ragged", True, cuda_device)
-    with pytest.raises(NotImplementedError, match="K7-bwd"):
-        recurrent.gru_recurrence(xw, w_hh.requires_grad_(True), b_hh, m, h0)
+    with torch.no_grad():
+        _, _, saved = recurrent.gru_recurrence_save(xw, w_hh, b_hh, m, h0)
+        with pytest.raises(ValueError, match="save buffer"):
+            recurrent.gru_recurrence_backward(w_hh, m, saved[..., :-1], None, None)
+        with pytest.raises(ValueError, match="float32"):
+            recurrent.gru_recurrence_backward(w_hh.double(), m, saved, None, None)
     with torch.no_grad():
         with pytest.raises(TypeError, match="float32"):
             recurrent.gru_recurrence(xw.double(), w_hh, b_hh, m, h0)
@@ -820,8 +825,8 @@ def test_srnn_chain_kernel_trace_and_refusals(cuda_device):
     cycles = trace.cpu()
     assert (cycles >= 0).all() and 0.95 * cycles[-2] <= cycles[:-2].sum() <= cycles[-2] and cycles[-1] > 0
     assert srnn_ops.read_trace(trace).shape == (4, 4)
-    with pytest.raises(NotImplementedError, match="K9-bwd"):
-        srnn_ops.srnn_chain(w, xp.requires_grad_(True), xq, z0, eps, **kwargs)
+    with pytest.raises(NotImplementedError, match="inference mode only"):
+        srnn_ops.srnn_chain(w, xp.requires_grad_(True), None, z0, eps, **dict(kwargs, inference=False))
     with torch.no_grad():
         with pytest.raises(TypeError, match="float32"):
             srnn_ops.srnn_chain(w, xp.double(), xq, z0, eps, **kwargs)
@@ -832,8 +837,10 @@ def test_srnn_chain_kernel_trace_and_refusals(cuda_device):
 @pytest.mark.cuda
 def test_srnn_audio_on_the_card_launches_k7_and_k9(cuda_device):
     """A small SRNNAudio on the card: a forward launches K7 twice (the d and a GRUs), K9, K2 and K3
-    once each, and its loss equals the plain path's (same noise); a forward that needs a gradient
-    raises; a generation launches K7, K9 and K3 once a stack."""
+    once each, and its loss equals the plain path's (same noise); a forward with a gradient launches
+    K7 (save mode) twice and K9 (save mode) once, its backward K7-bwd twice and K9-bwd once, and the
+    gradients match the plain path's (relative norm 1e-4: f32 sums in another order through 25 steps
+    of three chains); a generation launches K7, K9 and K3 once a stack."""
     model = SRNNAudio(input_size=8, hidden_size=32, latent_size=8, residual_posterior=True, device=cuda_device)
     weights.load_jax_params(model, weights.random_jax_params(model, 0))
     x = torch.rand(3, 200, generator=torch.Generator().manual_seed(0)).to(cuda_device) * 2 - 1
@@ -850,10 +857,153 @@ def test_srnn_audio_on_the_card_launches_k7_and_k9(cuda_device):
     torch.testing.assert_close(loss, plain_loss, rtol=1e-5, atol=0)
     for name in ("d_n", "a_n", "z_n"):
         torch.testing.assert_close(getattr(out, name), getattr(plain_out, name), rtol=1e-5, atol=1e-5, msg=name)
-    with pytest.raises(NotImplementedError, match="K7-bwd"):
-        model(x, x_sl, eps=eps)
+    grads = {}
+    for path in ("kernel", "plain"):
+        model.zero_grad(set_to_none=True)
+        cuda.reset_launch_counts()
+        with contextlib.ExitStack() as stack:
+            if path == "plain":
+                stack.enter_context(mock.patch.object(srnn_ops, "srnn_chain", srnn_ops.srnn_chain_plain))
+                stack.enter_context(mock.patch.object(recurrent, "gru_recurrence", recurrent.gru_recurrence_plain))
+            model(x, x_sl, eps=eps)[0].backward()
+        counts = cuda.launch_counts()
+        launched = tuple(counts[k] for k in ("gru_recurrence", "gru_recurrence_bwd", "srnn_chain", "srnn_chain_bwd"))
+        assert launched == ((2, 2, 1, 1) if path == "kernel" else (0, 0, 0, 0)), (path, counts)
+        grads[path] = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    for n, g in grads["plain"].items():
+        assert ((grads["kernel"][n] - g).norm() / g.norm().clamp_min(1e-30)).item() <= 1e-4, n
     cuda.reset_launch_counts()
     (gen, _), _ = model.generate(2, 6, generator=torch.Generator(device=cuda_device).manual_seed(0))
     assert gen.shape == (2, 48, 1) and torch.isfinite(gen).all()
     counts = cuda.launch_counts()
     assert (counts["gru_recurrence"], counts["srnn_chain"], counts["dmol_sample"]) == (6, 6, 6)
+
+
+def _held_to_f64(got, twin, ref):
+    """Each gradient's largest error, relative to its largest value: the kernels' no more than twice
+    the f32 twin's plus 1e-6 (about 16 f32 ulps of the largest value: where the twin happens to round
+    as f64 does, the kernel's other summation order still costs a few ulps), as K8-bwd is held."""
+    for i, (a, b, r) in enumerate(zip(got, twin, ref)):
+        scale = r.abs().max().clamp_min(1e-30)
+        err_k, err_t = ((a.double() - r).abs().max() / scale).item(), ((b.double() - r).abs().max() / scale).item()
+        assert torch.isfinite(a).all() and err_k <= 2 * err_t + 1e-6, (i, err_k, err_t)
+
+
+def _k7_grads(xw, w_hh, b_hh, m, h0, g_out, dtype, kernel):
+    """The gradients of ``sum(out * g_out[0]) + sum(h_n * g_out[1])`` by xw, w_hh, b_hh and h0:
+    through ``gru_recurrence`` (K7 in save mode and K7-bwd) or autograd of the twin in ``dtype``."""
+    leaves = [t.detach().to(dtype).clone().requires_grad_(True) for t in (xw, w_hh, b_hh, h0)]
+    fn = recurrent.gru_recurrence if kernel else recurrent.gru_recurrence_plain
+    outs = fn(leaves[0], leaves[1], leaves[2], None if m is None else m.to(dtype), leaves[3])
+    return torch.autograd.grad(sum((o * g.to(dtype)).sum() for o, g in zip(outs, g_out)), leaves)
+
+
+# (B, T, H, mask, a given h0): the SRNN train step's width with the d GRU's mask and the a GRU's flipped one,
+# uneven parts over more rows than a pass of 8, a single row without a mask
+K7_BWD_CASES = [
+    (19, 40, 512, "ragged", False),
+    (19, 40, 512, "flipped", True),
+    (11, 30, 200, "flipped", True),
+    (1, 25, 512, None, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,mask,given", K7_BWD_CASES)
+def test_gru_recurrence_bwd_kernel_matches_f64_twin(cuda_device, B, T, H, mask, given):
+    """K7-bwd (through ``GRURecurrenceFunction``: K7 in save mode, one K7-bwd launch, the weight
+    gradients) and autograd of the f32 twin, both against autograd of the f64 twin, with a random
+    gradient of ``h_n``."""
+    xw, w_hh, b_hh, m, h0 = _k7_inputs(B, T, H, mask, given, cuda_device, seed=B)
+    g = torch.Generator(device=cuda_device).manual_seed(B)
+    g_out = [torch.randn(B, T, H, generator=g, device=cuda_device), torch.randn(B, H, generator=g, device=cuda_device)]
+    cuda.reset_launch_counts()
+    got = _k7_grads(xw, w_hh, b_hh, m, h0, g_out, torch.float32, kernel=True)
+    counts = cuda.launch_counts()
+    assert (counts["gru_recurrence"], counts["gru_recurrence_bwd"]) == (1, 1)
+    twin = _k7_grads(xw, w_hh, b_hh, m, h0, g_out, torch.float32, kernel=False)
+    ref = _k7_grads(xw, w_hh, b_hh, m, h0, g_out, torch.float64, kernel=False)
+    _held_to_f64(got, twin, ref)
+
+
+@pytest.mark.cuda
+def test_gru_and_srnn_chain_save_modes_keep_the_outputs(cuda_device):
+    """K7 and K9 in save mode: the same output bits as without, and saved values equal to their
+    twins' (the products' summation order only: 1e-5 absolute plus 1e-5 relative)."""
+    xw, w_hh, b_hh, m, h0 = _k7_inputs(11, 30, 200, "flipped", True, cuda_device)
+    with torch.no_grad():
+        plain = recurrent.gru_recurrence(xw, w_hh, b_hh, m, h0)
+        out, h_n, saved = recurrent.gru_recurrence_save(xw, w_hh, b_hh, m, h0)
+        ref = recurrent._gru_chain_plain(xw, w_hh, b_hh, m, h0, save=True)
+    assert torch.equal(out, plain[0]) and torch.equal(h_n, plain[1])
+    torch.testing.assert_close(saved, ref[2], atol=1e-5, rtol=1e-5)
+    w, xp, xq, z0, eps = _k9_inputs(11, 9, 200, 16, cuda_device)
+    kwargs = dict(residual_posterior=True, sd_beta=0.6931478, sd_epsilon=1e-6)
+    with torch.no_grad():
+        plain = srnn_ops.srnn_chain(w, xp, xq, z0, eps, inference=True, **kwargs)
+        outs, saved = srnn_ops.srnn_chain_save(w, xp, xq, z0, eps, **kwargs)
+        ref = srnn_ops._chain_plain(w, xp, xq, z0, eps, inference=True, use_mode=False, save=True, **kwargs)
+    assert all(torch.equal(a, b) for a, b in zip(outs, plain))
+    torch.testing.assert_close(saved, ref[1], atol=1e-5, rtol=1e-5)
+
+
+def _k9_grads(w, xp, xq, z0, eps, g_out, dtype, residual, kernel):
+    """The gradients of ``sum(outputs * g_out)`` (an output whose ``g_out`` is None left out) by xp,
+    xq, z0 and the 14 kernel weights: through ``srnn_chain`` (K9 in save mode and K9-bwd) or
+    autograd of the twin in ``dtype``."""
+    leaves = [t.detach().to(dtype).clone().requires_grad_(True) for t in (xp, xq, z0, *w)]
+    fn = srnn_ops.srnn_chain if kernel else srnn_ops.srnn_chain_plain
+    outs = fn(leaves[3:], leaves[0], leaves[1], leaves[2], eps.to(dtype), inference=True, residual_posterior=residual,
+              sd_beta=0.6931478, sd_epsilon=1e-6)
+    return torch.autograd.grad(sum((o * g.to(dtype)).sum() for o, g in zip(outs, g_out) if g is not None), leaves)
+
+
+# (B, T', H, Z, residual_posterior, the outputs without a gradient): the spec's width at the train step's
+# rows, uneven widths over more rows than a pass of 8, a single row
+K9_BWD_CASES = [
+    (19, 30, 256, 256, True, ()),
+    (19, 20, 256, 256, False, ()),
+    (11, 9, 200, 16, True, (0, 2)),
+    (1, 24, 64, 16, True, (1, 4)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,Z,residual,no_grad", K9_BWD_CASES)
+def test_srnn_chain_bwd_kernel_matches_f64_twin(cuda_device, B, T, H, Z, residual, no_grad):
+    """K9-bwd (through ``SRNNChainFunction``: K9 in save mode, one K9-bwd launch, the weight
+    gradients) and autograd of the f32 twin, both against autograd of the f64 twin; outputs
+    without a gradient reach the kernel as null pointers."""
+    w, xp, xq, z0, eps = _k9_inputs(B, T, H, Z, cuda_device, seed=B)
+    g = torch.Generator(device=cuda_device).manual_seed(B)
+    g_out = [None if i in no_grad else torch.randn(B, T, Z, generator=g, device=cuda_device) for i in range(5)]
+    cuda.reset_launch_counts()
+    got = _k9_grads(w, xp, xq, z0, eps, g_out, torch.float32, residual, kernel=True)
+    counts = cuda.launch_counts()
+    assert (counts["srnn_chain"], counts["srnn_chain_bwd"]) == (1, 1)
+    twin = _k9_grads(w, xp, xq, z0, eps, g_out, torch.float32, residual, kernel=False)
+    ref = _k9_grads(w, xp, xq, z0, eps, g_out, torch.float64, residual, kernel=False)
+    _held_to_f64(got, twin, ref)
+
+
+@pytest.mark.cuda
+def test_gru_and_srnn_chain_bwd_traces_account_for_the_loop(cuda_device):
+    """K7-bwd's and K9-bwd's traces: the same gradients with the trace as without, the phases summing
+    to the loop's cycles but for the few outside any phase."""
+    xw, w_hh, b_hh, m, h0 = _k7_inputs(11, 30, 200, "flipped", True, cuda_device)
+    w, xp, xq, z0, eps = _k9_inputs(11, 9, 200, 16, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    with torch.no_grad():
+        _, _, saved7 = recurrent.gru_recurrence_save(xw, w_hh, b_hh, m, h0)
+        d_out = torch.randn(11, 30, 200, generator=g, device=cuda_device)
+        kw = dict(residual_posterior=True, sd_beta=0.6931478)
+        outs, saved9 = srnn_ops.srnn_chain_save(w, xp, xq, z0, eps, sd_epsilon=1e-6, **kw)
+        grads9 = [torch.randn(o.shape, generator=g, device=cuda_device) for o in outs]
+        for size, run in ((recurrent.gru_bwd_trace_size(),
+                           lambda tr: recurrent.gru_recurrence_backward(w_hh, m, saved7, d_out, None, trace=tr)),
+                          (srnn_ops.trace_size(),
+                           lambda tr: srnn_ops.srnn_chain_backward(w, eps, saved9, grads9, trace=tr, **kw))):
+            trace = torch.zeros(size, dtype=torch.int64, device=cuda_device)
+            assert all(torch.equal(a, b) for a, b in zip(run(None), run(trace)))
+            cycles = trace.cpu()
+            assert (cycles >= 0).all() and 0.95 * cycles[-2] <= cycles[:-2].sum() <= cycles[-2] and cycles[-1] > 0

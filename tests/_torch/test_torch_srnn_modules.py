@@ -3,7 +3,7 @@
 and zero-length masks and a given state; K9's plain twin (``ops/srnn.py``) against the JAX
 ``_SRNNStep`` stepped over T' steps in inference and in prior mode with the same noise; the
 gated transfer and ``phi_z`` twin path against the JAX step; the wrappers' refusals on the
-card. Inputs and weights come from numpy seeds; each JAX reference compiles once, in a
+card (the unported fields, the prior mode under a gradient). Inputs and weights come from numpy seeds; each JAX reference compiles once, in a
 module-scoped fixture."""
 
 from unittest import mock
@@ -212,17 +212,19 @@ class _OnTheCard(torch.Tensor):
 
 
 def test_card_paths_refuse_gradients_and_the_unported_fields():
-    """On the card K7 and K9 have no backward yet, and the gated transfer and ``phi_z`` no
-    kernel: each raises ``NotImplementedError`` before a launch, never running a twin."""
-    rng = np.random.default_rng(5)
-    xw = torch.from_numpy(rng.normal(size=(2, 3, 3 * R)).astype(np.float32)).as_subclass(_OnTheCard)
-    w_hh = torch.zeros(R, 3 * R, requires_grad=True).as_subclass(_OnTheCard)
-    with pytest.raises(NotImplementedError, match="K7-bwd"):
-        recurrent_ops.gru_recurrence(xw, w_hh, torch.zeros(3 * R), None, torch.zeros(2, R))
+    """On the card the gated transfer and ``phi_z`` have no kernel, and K9-bwd runs the inference
+    mode only: each raises ``NotImplementedError`` before a launch, never running a twin (the prior
+    mode under a gradient, since no driver differentiates a generation)."""
     step, _ = _step(True)
     d, a, z0, eps = (torch.from_numpy(v).as_subclass(_OnTheCard) for v in _chain_inputs())
-    with pytest.raises(NotImplementedError, match="K9-bwd"):
-        step.run(d, a, z0, eps)
+    head = step.prior_net.layers_1
+    xp, _, kernel_weights = srnn_ops.hoist(step.chain_weights(), d, None, False)
+    assert xp.requires_grad and xp.is_cuda
+    with pytest.raises(NotImplementedError, match="inference mode only"):
+        srnn_ops.srnn_chain(kernel_weights, xp, None, z0, eps, inference=False, residual_posterior=True,
+                            sd_beta=head.beta, sd_epsilon=head.epsilon)
+    with pytest.raises(NotImplementedError, match="inference mode only"):
+        step.prior_step(z0, d[:, 0], d[:, 1], eps[:, 0])
     for fields in (dict(use_phi_z=True), dict(gated=True)):
         unported, _ = _step(True, **fields)
         with torch.no_grad(), pytest.raises(NotImplementedError, match="Queue 1 item 9"):
