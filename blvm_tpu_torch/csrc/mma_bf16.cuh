@@ -1,5 +1,6 @@
 // Warp-level bf16 tensor-core helpers shared by the residual-GLU kernels (forward and backward):
-// mma.sync m16n8k16 (bf16 in, f32 accumulate), cp.async copies and the SFU's tanh.
+// mma.sync m16n8k16 (bf16 in, f32 accumulate), cp.async copies (also used by K1's f32 tiled path and
+// K12) and the SFU's tanh.
 #pragma once
 
 #include "common.cuh"
@@ -13,8 +14,14 @@ __device__ __forceinline__ void cp_async16(__nv_bfloat16* dst, const __nv_bfloat
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src), "r"(valid ? 16 : 0));
 }
+// the same for f32 (16 bytes: four floats, 16-byte aligned)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src), "r"(valid ? 16 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

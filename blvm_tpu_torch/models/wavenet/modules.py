@@ -23,12 +23,14 @@ from blvm_tpu_torch.ops import cuda
 from blvm_tpu_torch.ops.conv_arithmetic import compute_conv_attributes
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# K1's limits (csrc/residual_glu.cu): MAX_C, 32 * MAX_GATE_COLS, 32 * MAX_RS_COLS
-K1_MAX_CHANNELS, K1_MAX_HALF, K1_MAX_RES_PLUS_SKIP = 256, 128, 256
+# K1's limits (csrc/residual_glu.cu): MAX_C, MAX_HALF, MAX_RS (the widest accumulators, STCN's C = 256)
+K1_MAX_CHANNELS, K1_MAX_HALF, K1_MAX_RES_PLUS_SKIP = 256, 256, 512
+# K1-bwd's (csrc/residual_glu_bwd.cu): the WaveNet widths; STCN's C = 256 and skip-free blocks come with its train step
+K1_BWD_MAX_HALF, K1_BWD_MAX_RES_PLUS_SKIP = 128, 256
 
 
 def residual_glu_plain(x, gate_kernel_t, gate_kernel_s, gate_bias_t, gate_bias_s, rs_kernel, rs_bias,
-                       dilation: int, skip_size: int):
+                       dilation: int, skip_size: int, need_skip: bool = True):
     """The k=2 residual-GLU block as plain PyTorch, op for op the JAX block
     (``blvm_tpu/models/wavenet/modules.py:146-202``), rounding to the compute
     dtype of ``x`` after every op as JAX does.
@@ -37,7 +39,9 @@ def residual_glu_plain(x, gate_kernel_t, gate_kernel_s, gate_bias_t, gate_bias_s
         x: (B, T_in, C) in the compute dtype; the kernels and biases in it too.
         gate_kernel_t, gate_kernel_s: (2, C, half); gate_bias_t, gate_bias_s: (half,).
         rs_kernel: (1, half, R + S); rs_bias: (R + S,). ``R == C``.
-    Returns ``o`` (B, T_in - dilation, R) and ``s`` (B, skip_size, S).
+        need_skip: False contracts only the R residual columns of ``rs_kernel`` and
+            returns no skip, as JAX's ``need_skip=False`` block does.
+    Returns ``o`` (B, T_in - dilation, R) and ``s`` (B, skip_size, S), or None without the skip.
     """
     d = dilation
     L = x.shape[1] - d
@@ -48,46 +52,49 @@ def residual_glu_plain(x, gate_kernel_t, gate_kernel_s, gate_bias_t, gate_bias_s
         return y0[:, :L] + y1[:, d:] + bias
 
     act = torch.tanh(branch(gate_kernel_t, gate_bias_t)) * torch.sigmoid(branch(gate_kernel_s, gate_bias_s))
-    rs = act @ rs_kernel[0] + rs_bias
     R = x.shape[-1]
-    r, s = rs[..., :R], rs[..., R:]
-    s = s[:, -skip_size:]
+    if need_skip:
+        rs = act @ rs_kernel[0] + rs_bias
+        r, s = rs[..., :R], rs[..., R:][:, -skip_size:]
+    else:
+        r, s = act @ rs_kernel[0, :, :R] + rs_bias[:R], None
     inv_std = torch.tensor(math.sqrt(0.5), dtype=x.dtype)  # the JAX constant takes x's dtype
     return (r + x[:, -L:]) * inv_std, s
 
 
 def residual_glu(x, gate_kernel_t, gate_kernel_s, gate_bias_t, gate_bias_s, rs_kernel, rs_bias,
-                 dilation: int, skip_size: int):
+                 dilation: int, skip_size: int, need_skip: bool = True):
     """K1: one k=2 residual-GLU block, same contract as :func:`residual_glu_plain`.
 
     CPU tensors run the plain twin (autograd gives its gradient). CUDA tensors
     go through :class:`ResidualGLUFunction`: the hand-written forward kernel
-    ``csrc/residual_glu.cu`` and, under autograd, the backward kernel
-    ``csrc/residual_glu_bwd.cu`` (f32 accumulation, one rounding to the compute
-    dtype at the store), or raise for what they do not take.
+    ``csrc/residual_glu.cu`` (with the skip, or in its skip-free mode) and, under
+    autograd, the backward kernel ``csrc/residual_glu_bwd.cu`` (f32 accumulation,
+    one rounding to the compute dtype at the store), or raise for what they do not take.
     """
     args = (x, gate_kernel_t, gate_kernel_s, gate_bias_t, gate_bias_s, rs_kernel, rs_bias)
     if not x.is_cuda:
-        return residual_glu_plain(*args, dilation=dilation, skip_size=skip_size)
+        return residual_glu_plain(*args, dilation=dilation, skip_size=skip_size, need_skip=need_skip)
 
     B, T_in, C = x.shape
     half = gate_kernel_t.shape[-1]
     RS = rs_kernel.shape[-1]
-    S = RS - C
+    S = RS - C if need_skip else 0
     T_out = T_in - dilation
     if x.dtype not in _DTYPE_CODES or any(t.dtype != x.dtype or t.device != x.device for t in args):
         raise TypeError("residual_glu kernel: all tensors must share x's device and dtype (float32 or bfloat16)")
     expected = [(2, C, half), (2, C, half), (half,), (half,), (1, half, RS), (RS,)]
     if [tuple(t.shape) for t in args[1:]] != expected:
         raise ValueError(f"residual_glu kernel: weight shapes {[tuple(t.shape) for t in args[1:]]}, expected {expected}")
-    if C > K1_MAX_CHANNELS or half > K1_MAX_HALF or RS > K1_MAX_RES_PLUS_SKIP or S < 1:
+    if C > K1_MAX_CHANNELS or half > K1_MAX_HALF or C + S > K1_MAX_RES_PLUS_SKIP or (need_skip and S < 1):
         raise ValueError(
             f"residual_glu kernel takes C <= {K1_MAX_CHANNELS}, half <= {K1_MAX_HALF}, "
-            f"1 <= S and R + S <= {K1_MAX_RES_PLUS_SKIP}; got C={C}, half={half}, R+S={RS}"
+            f"R + S <= {K1_MAX_RES_PLUS_SKIP} and, with the skip, S >= 1; got C={C}, half={half}, R+S={C + S}"
         )
-    if dilation < 1 or T_out < 1 or not 1 <= skip_size <= T_out or not 1 <= B <= 65535:
+    if dilation < 1 or T_out < 1 or (need_skip and not 1 <= skip_size <= T_out) or not 1 <= B <= 65535:
         raise ValueError(f"residual_glu kernel: bad geometry B={B}, T_in={T_in}, dilation={dilation}, skip_size={skip_size}")
-    return ResidualGLUFunction.apply(*args, dilation, skip_size)
+    o, s = ResidualGLUFunction.apply(*args, dilation, skip_size, need_skip)
+    return o, (s if need_skip else None)
 
 
 class ResidualGLUFunction(torch.autograd.Function):
@@ -97,33 +104,42 @@ class ResidualGLUFunction(torch.autograd.Function):
     recomputes the gate from them (two passes: ``d_pre`` and ``act``, then
     ``dx``), and takes the weight and bias gradients, sums over all ``B * L``
     rows, as plain products on its outputs (cuBLAS, f32 accumulation), as the
-    JAX backward left them to XLA. Arguments were checked by :func:`residual_glu`."""
+    JAX backward left them to XLA. The backward kernel takes the WaveNet widths
+    with the skip; it raises for STCN's (C = 256, skip-free blocks). Without the
+    skip the second output is an empty ``(B, 0, 0)`` tensor. Arguments were
+    checked by :func:`residual_glu`."""
 
     @staticmethod
-    def forward(ctx, x, w_t, w_s, b_t, b_s, w_rs, b_rs, dilation: int, skip_size: int):
+    def forward(ctx, x, w_t, w_s, b_t, b_s, w_rs, b_rs, dilation: int, skip_size: int, need_skip: bool = True):
         args = [t.contiguous() for t in (x, w_t, w_s, b_t, b_s, w_rs, b_rs)]
         x = args[0]
         B, T_in, C = x.shape
-        half, S = w_t.shape[-1], w_rs.shape[-1] - C
+        half, RS = w_t.shape[-1], w_rs.shape[-1]
+        S = RS - C if need_skip else 0
         o = torch.empty((B, T_in - dilation, C), dtype=x.dtype, device=x.device)
-        s = torch.empty((B, skip_size, S), dtype=x.dtype, device=x.device)
+        s = torch.empty((B, skip_size, S) if need_skip else (B, 0, 0), dtype=x.dtype, device=x.device)
         lib = cuda.library()
         cuda.count_launch("residual_glu")
         err = lib.blvm_residual_glu(
             *(t.data_ptr() for t in args), o.data_ptr(), s.data_ptr(),
-            B, T_in, C, half, C, S, dilation, skip_size, _DTYPE_CODES[x.dtype], cuda.stream_handle(x),
+            B, T_in, C, half, C, S, RS, dilation, skip_size, _DTYPE_CODES[x.dtype], cuda.stream_handle(x),
         )
         cuda.check(err, "residual_glu")
         ctx.save_for_backward(*args[:6])
-        ctx.geometry = (dilation, skip_size)
+        ctx.geometry = (dilation, skip_size, need_skip)
         return o, s
 
     @staticmethod
     def backward(ctx, d_o, d_s):
         x, w_t, w_s, b_t, b_s, w_rs = ctx.saved_tensors
-        dilation, skip_size = ctx.geometry
+        dilation, skip_size, need_skip = ctx.geometry
         B, T_in, C = x.shape
         half, S = w_t.shape[-1], w_rs.shape[-1] - C
+        if not need_skip or half > K1_BWD_MAX_HALF or C + S > K1_BWD_MAX_RES_PLUS_SKIP:
+            raise NotImplementedError(
+                f"residual_glu_bwd kernel takes half <= {K1_BWD_MAX_HALF}, R + S <= {K1_BWD_MAX_RES_PLUS_SKIP} and "
+                f"blocks with the skip; got half={half}, R+S={C + S}, need_skip={need_skip} (STCN's backward on "
+                "the card is not ported yet)")
         L = T_in - dilation
         d_o, d_s = d_o.to(x.dtype).contiguous(), d_s.to(x.dtype).contiguous()
         d_pre = torch.empty((B, L, 2 * half), dtype=x.dtype, device=x.device)
@@ -158,7 +174,7 @@ class ResidualGLUFunction(torch.autograd.Function):
             act[:, L - skip_size :].reshape(-1, half).T @ d_s_rows,
         ], dim=1)[None]
         d_b_rs = torch.cat([col_sum(d_o_rows) * inv_std, col_sum(d_s_rows)])
-        return dx, d_w_t, d_w_s, d_b[:half], d_b[half:], d_w_rs, d_b_rs, None, None
+        return dx, d_w_t, d_w_s, d_b[:half], d_b[half:], d_w_rs, d_b_rs, None, None, None
 
 
 class Conv1d(nn.Module):
@@ -242,24 +258,29 @@ class Conv1dResidualGLU(nn.Module):
         if self.rs_bias is not None:
             torch_uniform_(self.rs_bias, half, generator)
 
-    def forward(self, x: torch.Tensor, skip_size: int):
+    def forward(self, x: torch.Tensor, skip_size: int, need_skip: Optional[bool] = None):
+        """``(o, s)``; ``need_skip`` (default: the block's own) False returns ``s = None``
+        and contracts only the residual columns, as the JAX block does."""
+        need_skip = self.need_skip if need_skip is None else need_skip
         dtype = self.dtype or x.dtype
         x = x.to(dtype)
         w_t, w_s, w_rs = (p.to(dtype) for p in (self.gate_kernel_t, self.gate_kernel_s, self.rs_kernel))
         b_t, b_s = self.gate_bias_t.to(dtype), self.gate_bias_s.to(dtype)
         b_rs = self.rs_bias.to(dtype) if self.rs_bias is not None else torch.zeros(w_rs.shape[-1], dtype=dtype,
                                                                                    device=x.device)
-        if self.kernel_size == 2 and self.need_skip:
-            return residual_glu(x, w_t, w_s, b_t, b_s, w_rs, b_rs, dilation=self.dilation, skip_size=skip_size)
+        if self.kernel_size == 2:
+            return residual_glu(x, w_t, w_s, b_t, b_s, w_rs, b_rs, dilation=self.dilation, skip_size=skip_size,
+                                need_skip=need_skip)
+        if x.is_cuda:
+            raise ValueError(f"no kernel takes a residual-GLU block of kernel_size {self.kernel_size} on the card")
 
-        # off the slice's path: k != 2 or a block whose skip is discarded (STCN)
         def branch(kernel, bias):
             y = F.conv1d(x.transpose(1, 2), kernel.permute(2, 1, 0), dilation=self.dilation).transpose(1, 2)
             return y + bias
 
         act = torch.tanh(branch(w_t, b_t)) * torch.sigmoid(branch(w_s, b_s))
         R = self.res_channels
-        if self.need_skip:
+        if need_skip:
             rs = act @ w_rs[0] + b_rs
             r, s = rs[..., :R], rs[..., R:][:, -skip_size:]
         else:
@@ -307,19 +328,27 @@ class ResidualStack(nn.Module):
     def receptive_field(self) -> int:
         return self.compute_receptive_fields(self.n_layers, self.n_stacks, self.kernel_size, self.base_dilation)[-1]
 
-    def forward(self, x: torch.Tensor, skip_size: int, collect_tails: bool = False):
+    def forward(self, x: torch.Tensor, skip_size: int, collect_tails: bool = False,
+                skip_mask: Optional[Sequence[bool]] = None):
         """Returns the per-block skips, each (B, skip_size, S), in block order.
 
         ``collect_tails`` (priming fast generation): also return each block's history
         tail, the last ``dilation`` frames of its input, whose final column is
         time-aligned with the stack's final output column; they seed the circular
-        buffers of ``WaveNet.generate``'s frame loop. Returns ``(skips, tails)``."""
+        buffers of ``WaveNet.generate``'s and ``STCN.generate``'s frame loops. Returns
+        ``(skips, tails)``.
+
+        ``skip_mask`` (one bool per block, default all True): a block marked False runs
+        without its skip (K1's skip-free mode on the card) and puts None in its place,
+        as JAX's ``ResidualStack`` does for STCN, which reads every n-th skip only."""
         o = self.Conv1d_0(x)
         skips, tails = [], []
-        for block in self.blocks:
+        if skip_mask is None:
+            skip_mask = [True] * len(self.blocks)
+        for block, need_skip in zip(self.blocks, skip_mask):
             if collect_tails:
                 tails.append(o[:, -block.dilation :])
-            o, s = block(o, skip_size)
+            o, s = block(o, skip_size, need_skip=need_skip)
             skips.append(s)
         return (skips, tails) if collect_tails else skips
 

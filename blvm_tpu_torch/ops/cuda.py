@@ -35,13 +35,14 @@ _launches: Dict[str, int] = {
     "residual_glu": 0, "residual_glu_bwd": 0, "dmol_log_prob": 0, "dmol_log_prob_bwd": 0, "dmol_sample": 0,
     "wavenet_decode": 0, "lstm_recurrence": 0, "lstm_recurrence_bwd": 0, "vrnn_cell": 0,
     "vrnn_cell_bwd": 0, "gru_recurrence": 0, "gru_recurrence_bwd": 0, "srnn_chain": 0, "srnn_chain_bwd": 0,
+    "stcn_decode": 0,
 }
 build_log = ""  # nvcc's output of the build this process ran (register / shared-memory report)
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
-    # x, w_t, w_s, b_t, b_s, w_rs, b_rs, o, s, B, T_in, C, half, R, S, dilation, skip_size, dtype, stream
-    "blvm_residual_glu": [_P] * 9 + [_I] * 9 + [_P],
+    # x, w_t, w_s, b_t, b_s, w_rs, b_rs, o, s, B, T_in, C, half, R, S, rs_ld, dilation, skip_size, dtype, stream
+    "blvm_residual_glu": [_P] * 9 + [_I] * 10 + [_P],
     # x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, d_pre, act, dx, B, T_in, C, half, R, S, dilation, skip_size, dtype, stream
     "blvm_residual_glu_bwd": [_P] * 11 + [_I] * 9 + [_P],
     # y, logits, locs, log_scales, out, N, M, y/logit/loc/scale row strides, num_bins, stream
@@ -72,6 +73,10 @@ _SIGNATURES = {
     "blvm_srnn_chain": [_P] * 10 + [_I] * 7 + [_F] * 2 + [_P],
     # weights[14], eps, save, grads[5], dpre, dz0, barrier, trace; B, T, H, Z, residual; sd_beta; stream
     "blvm_srnn_chain_bwd": [_P] * 8 + [_I] * 5 + [_F] + [_P],
+    # weights[18 + 6 L] (host array), geometry (host ints), state[11] (host array), eps, seed, u_cat, u_log, z_out,
+    # params_out, trace; B, C, half, S, Le, Ld, L, M, x_cols, frame, from_d, use_mode; inv_std_n, sd_beta, sd_eps,
+    # log_eps, 4 uniform maps; stream
+    "blvm_stcn_decode": [_P] * 10 + [_I] * 12 + [_F] * 8 + [_P],
 }
 
 

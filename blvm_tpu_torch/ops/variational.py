@@ -207,3 +207,13 @@ class FrameKeys:
         if self.seed is not None:
             return dict(seed=self.seed, step=step)
         return {}
+
+
+def precision_weighted_gaussian(mu_1, sd_1, mu_2, sd_2):
+    """Two Gaussians fused by their precisions (``blvm_tpu/ops/variational.py:65-72``):
+    ``(mu_w, sd_w)``. The precisions are ``1 / (sd * sd)``, as ``sd**-2`` lowers in JAX."""
+    pr_1 = 1.0 / (sd_1 * sd_1)
+    pr_2 = 1.0 / (sd_2 * sd_2)
+    va_w = 1.0 / (pr_1 + pr_2)
+    mu_w = va_w * (mu_1 * pr_1 + mu_2 * pr_2)
+    return mu_w, torch.sqrt(va_w)

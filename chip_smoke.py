@@ -9,8 +9,10 @@ step and generation at the width of its s=64 run spec (H = 256, one layer, 64
 frames a stack, the same DMoL head, f32), and the VRNN's test pass, generation and
 train step at the width of its s=64 z=256 run spec (H = Z = 256, r_dim 512, 64 frames a
 stack, the same DMoL head, f32), and the SRNN's test pass, generation and train step at the
-width of its s=64 z=256 run spec (the same widths, smoothing, f32), and checks the fourteen
-hand-written kernels they run against their plain PyTorch twins:
+width of its s=64 z=256 run spec (the same widths, smoothing, f32), and STCN's test pass and
+generation at the width of its s=1 z=[256,128,64,32,16] run spec (256 channels, 5 x 5 encoder
+blocks, a 5-block decode stack, the same DMoL head, f32), and checks the fifteen hand-written
+kernels they run against their plain PyTorch twins:
 
   1. device: the card's name and power limit (nvidia-smi)
   2. numerics: TF32 and reduced-precision bf16 GEMM reductions off
@@ -131,9 +133,25 @@ hand-written kernels they run against their plain PyTorch twins:
      against autograd of the twins, torch.nn.GRU's backward (cuDNN, the yardstick), both
      kernels' traces by stage and phase, the train step (in turns with the twins) with its host
      enqueue time and a torch.profiler breakdown
+ 42. K1 at STCN's width (C = half = 256) vs its twin, f32 and bf16, B=6 at the test pass's
+     first-block length: dilations 1 and 16, the skip at all rows and at the last 1000, skip-free
+ 43. the STCN test pass: flags of benchmarks.txt:26 -> driver -> model -> weights bridge, 6
+     mu-law utterances of 24k-72k samples, whole and --split_eval (chunks of 1000 with the
+     receptive field's overlap); 30 K1 (20 skip-free), 1 K2, 1 K3 a forward, none on the plain
+     path; loss, ELBO, KL per level and bits/frame against the twins fed the same latent noise;
+     the chunked bits/frame against the whole pass
+ 44. K12 stcn_decode vs the plain frame loop over 256 frames from a zero history and a speech
+     prefix, fed the same prior noise and uniforms: teacher-forced (each frame's z and DMoL
+     parameters) and free-running; the fast path (K12) vs the windowed path (K1 x 30 + K3 a
+     frame) over 16 frames from one generator state
+ 45. generation through the STCN driver's hook: 2 x 16000 frames, 16000 K12 and 30 K1 launches
+     (the primes), two wav files under blvm_tpu_torch/_build/stcn_generation_hook/
+ 46. timing: K1 at STCN's width (with the skip and skip-free) against its twin, K12 a frame
+     against the plain loop and the windowed path a frame, the test pass (samples/s) and a
+     generation (frames/s), torch.profiler breakdowns of both
 
 Every phase prints one line (the profiles a few); any failure raises and exits
-non-zero before the last line (phases 14-41 print all their numbers first). A
+non-zero before the last line (phases 14-46 print all their numbers first). A
 ``[total]`` line gives the run's seconds; the second-to-last line is the
 kernels' JSON record, the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero without CUDA.
@@ -184,6 +202,15 @@ VRNN_TRAIN_B, VRNN_BUDGET, VRNN_TRAIN_LENGTHS = 19, 64 * 16000, (40000, 64000)
 # posterior and smoothing, r_dim = 512; f32); K7 and K9 at 6 utterances of up to 1125 stacks
 SRNN_FLAGS = VRNN_FLAGS
 SRNN_B, SRNN_T = 6, 1125
+# STCN: the s=1 z=[256,128,64,32,16] run spec of experiments/benchmarks.txt:26 (the driver's defaults fill in
+# 256 channels, 5 x 5 blocks, the precision-weighted posterior, dense top-down, f32); the test pass at 6
+# utterances of 24k-72k samples, chunks of --random_segment_size 1000; K12 against its twin over 256 frames
+STCN_FLAGS = (
+    "--likelihood DMoL --input_coding mu_law --batch_size 20 --beta_anneal_steps 0 --free_nats_steps 25000 "
+    "--dense True --num_stack_frames 1 --latent_size 256 128 64 32 16 --random_segment_size 1000 "
+    "--max_grad_norm 1.0 --max_grad_value 0.1 --accum_steps 4 --seed 0"
+)
+STCN_B, STCN_T, N_K12 = 6, 72000, 256
 
 
 def phase(tag, /, **values):
@@ -199,6 +226,32 @@ def roofline(bytes_, flops, peak):
     """``bound_ms`` and ``bound_by`` of work that must move ``bytes_`` and do ``flops``."""
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def residual_glu_work(B, T_in, C, half, S, dilation, skip_size, elem=4):
+    """``roofline`` keywords of one K1 launch: x read once, o and the skip rows written once, the weights
+    read once; the gate's and the [r | s] product's multiply-adds (S = 0: the skip-free mode)."""
+    T_out = T_in - dilation
+    weights = 4 * C * half + 2 * half + half * (C + S) + C + S
+    return dict(bytes_=elem * (B * T_in * C + B * T_out * C + B * skip_size * S + weights),
+                flops=2 * B * T_out * (4 * C * half + half * (C + S)))
+
+
+def stcn_frame_work(B, C, half, S, n_enc, n_used, n_dec, latent_size, D):
+    """``roofline`` keywords of one K12 launch (one frame of B sequences, f32): every weight the frame
+    touches read once (the causal tap, the encoder's in_transform and blocks, the used blocks' skip
+    columns only, the prior heads at their input widths, the decode in_transform and blocks, the upsample
+    and likelihood Dense), each buffer slot read and written, the noise read and the frame written; two
+    operations a multiply-add a row."""
+    Z, H, L = sum(latent_size), C, len(latent_size)
+    prior = sum(2 * ((S + (latent_size[l + 1] if l + 1 < L else 0)) * H + H * H + H * z)
+                for l, z in enumerate(latent_size))
+    macs = (C * C + n_enc * 2 * C * 2 * half + (n_enc * C + n_used * S) * half + prior + Z * C
+            + n_dec * (2 * C * 2 * half + half * (C + S)) + S * D + D * D)
+    biases = (3 * C + n_enc * (2 * half + C) + n_used * S + 2 * (2 * H * L + Z) + C + n_dec * (2 * half + C + S)
+              + 2 * D)
+    state = B * (2 * C * (n_enc + n_dec) + Z + 1)
+    return dict(bytes_=4 * (2 * C + macs + biases + state), flops=2 * B * macs)
 
 
 def rel_norm(a, b):
@@ -371,6 +424,9 @@ def main():
                                         replaces="blvm_tpu/modules/recurrent.py:177")
     record["srnn_chain_bwd"] = dict(name="srnn_chain_bwd", route="cuda", source="blvm_tpu_torch/csrc/srnn_chain_bwd.cu",
                                     replaces="blvm_tpu/models/srnn.py:68", library_ms=None)
+    # no single PyTorch call computes an STCN decode frame
+    record["stcn_decode"] = dict(name="stcn_decode", route="cuda", source="blvm_tpu_torch/csrc/stcn_decode.cu",
+                                 replaces="blvm_tpu/models/stcn/stcn.py:486", library_ms=None)
 
     # 4. K1 against its twin at the flagship shapes
     args = wavenet_audio.build_args(FLAGSHIP_FLAGS.split())
@@ -832,6 +888,8 @@ def main():
     srnn_phases(record, smi, dev)
     torch.cuda.empty_cache()
     srnn_train_phases(record, smi, dev)
+    torch.cuda.empty_cache()
+    stcn_phases(record, smi, dev)
     phase("total", seconds=f"{time.time() - t_start:.1f}")
 
     print(json.dumps({"kernels": list(record.values())}), flush=True)
@@ -3125,6 +3183,331 @@ def srnn_train_phases(record, smi, dev):
         print(f"  {device_us(e_) / 1e3 / 3:9.3f} ms/step {e_.count // 3:5d} calls/step  {e_.key[:90]}", flush=True)
 
     require(not failures, f"SRNN train phases failed: {failures}")
+
+
+def stcn_phases(record, smi, dev):
+    """Phases 42-46, STCN's serving path at the width of ``experiments/benchmarks.txt:26`` (s = 1,
+    z = [256, 128, 64, 32, 16], 256 channels, 5 x 5 encoder blocks, a 5-block decode stack, f32): K1 at
+    STCN's width against its twin, the test pass whole and rf-chunked, K12 against the plain frame loop
+    and the fast path against the windowed one, generation through the driver's hook, and their times.
+    Each check is printed before any raises, so one run shows every number."""
+    import numpy as np
+
+    from blvm_tpu_torch import weights
+    from blvm_tpu_torch.evaluation.tracker import Tracker
+    from blvm_tpu_torch.experiments import common, stcn_audio
+    from blvm_tpu_torch.models import stcn as stcn_model
+    from blvm_tpu_torch.models.wavenet import modules
+    from blvm_tpu_torch.modules import distributions
+    from blvm_tpu_torch.ops import cuda, likelihoods, recurrent, variational
+    from blvm_tpu_torch.ops.generation import STCNDecoder
+
+    failures = []
+
+    def expect(cond, message):
+        if not cond:
+            failures.append(message)
+            print(f"  FAIL: {message}", flush=True)
+
+    card = smi.replace(" ", "_")
+    plain = plain_path(modules, likelihoods, distributions, variational, recurrent)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    args = stcn_audio.build_args(STCN_FLAGS.split())
+    model = stcn_audio.build_model(args)
+    require(next(model.parameters()).device.type == "cuda", "stcn_audio.build_model did not build on the card")
+    weights.load_jax_params(model, weights.random_jax_params(model, args.seed))
+    model.eval()
+    C, rf = args.hidden_size, model.receptive_field
+    block_names = ("gate_kernel_t", "gate_kernel_s", "gate_bias_t", "gate_bias_s", "rs_kernel", "rs_bias")
+
+    def block_weights(i, dtype=torch.float32):
+        b = model.res_stack.blocks[i]
+        return [getattr(b, n).detach().to(dtype) for n in block_names]
+
+    def counting_glu():
+        """K1's wrapper with a tally of its skip-free launches (a CUDA call launches or raises)."""
+        tally = {"skip_free": 0}
+        real = modules.residual_glu
+
+        def glu(*a, need_skip=True, **kw):
+            tally["skip_free"] += int(a[0].is_cuda and not need_skip)
+            return real(*a, need_skip=need_skip, **kw)
+
+        return mock.patch.object(modules, "residual_glu", glu), tally
+
+    # 42. K1 at STCN's width against its twin, f32 and bf16, B = 6 at the test pass's first-block length: the
+    # used blocks' weights (dilation 16) and the first block's (dilation 1), with the skip at skip_size = all
+    # rows and = the last 1000, and skip-free; phase 4's tolerances (f32: the FMA order against cuBLAS's over
+    # 512- and 256-term sums, 1e-5 + 1e-5 |twin|; bf16: two ulps plus 5e-2)
+    T_in = STCN_T + rf - 1
+    k1_tol = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0**-6, 5e-2)}
+    k1_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(STCN_B, T_in, C, generator=gen, device=dev).to(dtype)
+        for block, d in ((0, 1), (4, 16)):
+            w = block_weights(block, dtype)
+            for need_skip, skip in ((True, T_in - d), (True, 1000), (False, 0)):
+                o, s_ = modules.residual_glu(x, *w, dilation=d, skip_size=skip, need_skip=need_skip)
+                torch.cuda.synchronize()
+                o_ref, s_ref = modules.residual_glu_plain(x, *w, dilation=d, skip_size=skip, need_skip=need_skip)
+                rtol, atol = k1_tol[dtype]
+                errs = []
+                for got, ref in ((o, o_ref), (s_, s_ref)):
+                    if ref is None:
+                        expect(got is None, f"K1-stcn skip-free returned a skip {type(got)}")
+                        continue
+                    err = (got.float() - ref.float()).abs()
+                    ok = got.shape == ref.shape and bool(torch.isfinite(got).all())
+                    expect(ok and (err - (atol + rtol * ref.float().abs())).max().item() <= 0,
+                           f"K1-stcn {dtype} d={d} skip={skip}: max err {err.max().item()}")
+                    errs.append(err.max().item())
+                k1_err = max(k1_err, *errs)
+                phase("K1-stcn", dtype=str(dtype).split(".")[1], dilation=d, need_skip=need_skip, skip_rows=skip,
+                      max_abs_err=f"{max(errs):.3g}")
+        del x, o, s_, o_ref, s_ref
+    record["residual_glu"]["max_abs_err"] = max(record["residual_glu"].get("max_abs_err", 0.0), k1_err)
+
+    # 43. the test pass: flags of benchmarks.txt:26 -> driver -> model on the card -> weights bridge, the 6
+    # utterances of the SRNN phases' geometry (24k-72k samples), whole and --split_eval (chunks of 1000 with
+    # the receptive field's overlap), kernels against the twins fed the same latent noise
+    rng = np.random.default_rng(args.seed + 43)
+    lengths = rng.integers(STCN_T // 3, STCN_T + 1, STCN_B)
+    lengths[0] = STCN_T
+    x_np, x_sl_np = common.make_batch([synthetic_speech(int(n), rng) for n in lengths], args)
+    n_chunks = len(model.split_sequence(x_np, x_sl_np, length=args.random_segment_size)[0])
+
+    def seeded_noise():
+        g_ = torch.Generator(device=dev).manual_seed(SEED + 43)
+        return mock.patch.object(stcn_model, "gaussian_noise",
+                                 lambda _, shape, like: torch.randn(shape, generator=g_, dtype=like.dtype,
+                                                                    device=like.device))
+
+    def test_pass(split, plain_path_=False):
+        counting, tally = counting_glu()
+        with plain() if plain_path_ else counting, seeded_noise():
+            cuda.reset_launch_counts()
+            t0 = time.time()
+            values = stcn_audio.evaluate(model, argparse_copy(args, split_eval=split), [(x_np, x_sl_np)], Tracker(),
+                                         generator=torch.Generator(device=dev).manual_seed(SEED))
+            torch.cuda.synchronize()
+            return values, cuda.launch_counts(), tally["skip_free"], time.time() - t0
+
+    path_k1 = 0
+    passes = {}
+    levels = len(args.latent_size)
+    compared = ["loss", "elbo (bpx)", "rec (bpx)", "kl (nats)", *[f"kl_{l} (nats)" for l in range(levels)]]
+    for split in (False, True):
+        values, counts, skip_free, seconds = test_pass(split)
+        values_p, counts_p, _, seconds_p = test_pass(split, plain_path_=True)
+        forwards = n_chunks if split else 1
+        expected = dict(residual_glu=30 * forwards, dmol_log_prob=forwards, dmol_sample=forwards)
+        expect(counts == {**dict.fromkeys(counts, 0), **expected} and skip_free == 20 * forwards,
+               f"STCN test pass split={split}: launches {counts} ({skip_free} skip-free), expected {expected}")
+        expect(not any(counts_p.values()), f"the plain STCN test pass launched kernels: {counts_p}")
+        path_k1 += counts["residual_glu"]
+        rel = {k: abs(values[k] - values_p[k]) / max(abs(values_p[k]), 1e-30) for k in compared}
+        finite = all(math.isfinite(values[k]) for k in compared)
+        # f32 throughout: only the summation orders of K1, K2 and the products differ
+        expect(finite and max(rel.values()) <= 1e-5, f"STCN test pass split={split}: {values} vs twins {values_p}")
+        passes[split] = values
+        phase("stcn-test-pass", split_eval=split, utterances=list(map(int, lengths)), forwards=forwards,
+              loss=f"{values['loss']:.6f}", elbo_bpx=f"{values['elbo (bpx)']:.6f}",
+              elbo_bpx_plain=f"{values_p['elbo (bpx)']:.6f}", rec_bpx=f"{values['rec (bpx)']:.6f}",
+              kl_nats=f"{values['kl (nats)']:.3f}", kl_levels=[f"{values[f'kl_{l} (nats)']:.3f}" for l in range(levels)],
+              max_rel_vs_twins=f"{max(rel.values()):.3g}", launches_per_forward={k: v // forwards for k, v in counts.items() if v},
+              skip_free_per_forward=skip_free // forwards, seconds=f"{seconds:.2f}", plain_seconds=f"{seconds_p:.2f}")
+    # the chunks score the same frames; what differs is each later chunk's decode stack, which starts from
+    # zeros (its left padding) where the whole pass has the previous frames' z, as JAX's chunking does: held
+    # to 1 % of the bits/frame
+    chunk_rel = {k: abs(passes[True][k] - passes[False][k]) / abs(passes[False][k]) for k in ("elbo (bpx)", "rec (bpx)")}
+    expect(max(chunk_rel.values()) <= 1e-2, f"STCN chunked vs whole: {chunk_rel}")
+    phase("stcn-chunked-vs-whole", elbo_bpx_chunked=f"{passes[True]['elbo (bpx)']:.6f}",
+          elbo_bpx_whole=f"{passes[False]['elbo (bpx)']:.6f}", rel={k: f"{v:.3g}" for k, v in chunk_rel.items()})
+
+    # 44. K12 against the plain frame loop over 256 frames, from a zero history and a speech prefix, fed the
+    # same prior noise and uniforms. Teacher-forced (the loop fed K12's frames): each frame's z and DMoL
+    # parameters within the order of the sums, 1e-5 + 1e-5 |twin|. Free-running, the share of frames within
+    # 1e-5 (a Gumbel pick within f32 rounding of a tie sends the two apart for good)
+    speech, _ = common.make_batch([synthetic_speech(rf, rng) for _ in range(GEN_B)], args)  # mu-law coded
+    histories = {"zero": None, "speech": torch.from_numpy(speech).to(dev)}
+    k12_err = 0.0
+    with torch.no_grad():
+        for name, hist in histories.items():
+            window = model._window(GEN_B, hist)
+            enc_tails, dec_tails, d0 = model._prime(window)
+            eps = torch.randn(N_K12, GEN_B, sum(args.latent_size), generator=gen, device=dev)
+            keys = variational.FrameKeys(None, dev, (torch.rand(N_K12, GEN_B, 10, generator=gen, device=dev),
+                                                     torch.rand(N_K12, GEN_B, 1, generator=gen, device=dev)))
+            fixed = (window[:, -1:], d0, enc_tails, dec_tails, N_K12, eps, keys)
+            cuda.reset_launch_counts()
+            x_k, z_k, p_k = STCNDecoder(model, enc_tails, dec_tails).run(window[:, -1, 0], d0, N_K12, eps, keys,
+                                                                           record=True)
+            torch.cuda.synchronize()
+            launches = cuda.launch_counts()["stcn_decode"]
+            x_t, z_t, p_t = model._generate_fast_plain(*fixed, forced=x_k)
+            x_f, _, _ = model._generate_fast_plain(*fixed)
+            errs = {}
+            for label, got, ref in (("z", z_k, z_t), ("params", p_k, p_t), ("frames", x_k, x_t)):
+                err = (got - ref).abs()
+                errs[label] = err.max().item()
+                expect(bool(torch.isfinite(got).all()) and bool((err <= 1e-5 + 1e-5 * ref.abs()).all()),
+                       f"K12 {name} teacher-forced {label}: max err {errs[label]}")
+            k12_err = max(k12_err, *errs.values())
+            share = ((x_k - x_f).abs() <= 1e-5).double().mean().item()
+            expect(launches == N_K12, f"K12 launches {launches} for {N_K12} frames")
+            phase("K12", history=name, frames=N_K12, launches=launches,
+                  teacher_forced_max_abs_err={k: f"{v:.3g}" for k, v in errs.items()},
+                  free_running_share_within_1e5=f"{share:.4f}")
+    record["stcn_decode"]["max_abs_err"] = k12_err
+
+    # the fast path (K12 a frame) against the windowed one (K1 x 30 and K3 a frame) over 16 frames, from one
+    # generator state and the same prior noise: one Philox key a generation, stepped by the frame, so both
+    # draw the same numbers for the same frame (f32, 1e-5)
+    for name, hist in histories.items():
+        eps16 = torch.randn(N_NAIVE, GEN_B, sum(args.latent_size), generator=gen, device=dev)
+        outs, counts = {}, {}
+        for fast in (True, False):
+            cuda.reset_launch_counts()
+            (outs[fast], _), _ = model.generate(GEN_B, N_NAIVE, x=hist, fast=fast, eps=eps16,
+                                                generator=torch.Generator(device=dev).manual_seed(SEED + 44))
+            counts[fast] = {k: v for k, v in cuda.launch_counts().items() if v}
+        err = (outs[True] - outs[False]).abs().max().item()
+        expect(err <= 1e-5 and counts[True] == dict(residual_glu=30, stcn_decode=N_NAIVE)
+               and counts[False] == dict(residual_glu=30 * N_NAIVE, dmol_sample=N_NAIVE),
+               f"STCN fast vs windowed {name}: err {err}, launches {counts}")
+        phase("stcn-fast-vs-windowed", history=name, frames=N_NAIVE, max_abs_err=f"{err:.3g}",
+              fast_launches=counts[True], windowed_launches=counts[False])
+
+    # 45. generation through the driver's hook: 2 x 16000 frames, K12 once a frame, K1 30 times (the primes)
+    out_dir = Path(__file__).resolve().parent / "blvm_tpu_torch" / "_build" / "stcn_generation_hook"
+    hook = stcn_audio.make_generation_hook(model, argparse_copy(args, generate_every=5))
+    cuda.reset_launch_counts()
+    t0 = time.time()
+    paths = hook(5, out_dir)
+    torch.cuda.synchronize()
+    hook_s = time.time() - t0
+    counts = cuda.launch_counts()
+    expected = dict(residual_glu=30, stcn_decode=args.generate_frames)
+    expect(counts == {**dict.fromkeys(counts, 0), **expected}, f"STCN generation launches {counts}, expected {expected}")
+    path_k1 += counts["residual_glu"]
+    shapes = []
+    for path in paths:
+        with wave.open(str(path)) as f:
+            shapes.append((f.getnchannels(), f.getsampwidth(), f.getframerate(), f.getnframes()))
+            pcm = np.frombuffer(f.readframes(f.getnframes()), "<i2")
+        expect(shapes[-1] == (1, 2, 16000, args.generate_frames) and np.abs(pcm).max() > 0,
+               f"STCN hook wav {path}: {shapes[-1]}")
+    expect(len(paths) == 2, f"STCN hook wrote {paths}")
+    phase("stcn-generation-hook", frames=args.generate_frames, launches=counts, seconds=f"{hook_s:.2f}",
+          frames_per_s=f"{GEN_B * args.generate_frames / hook_s:.1f}",
+          files=[str(p_.relative_to(out_dir.parents[2])) for p_ in paths], wav=shapes)
+    record["residual_glu"]["launches"] = record["residual_glu"].get("launches", 0) + path_k1
+    record["stcn_decode"]["launches"] = counts["stcn_decode"]
+
+    # 46. times, CUDA events, a different input each call, kernel and twin in turns: K1 at STCN's width (a
+    # used block with its skip, the first block skip-free), K12 a frame against the plain loop and the
+    # windowed path a frame, the test pass, a generation, torch.profiler breakdowns of both
+    xs = [torch.randn(STCN_B, T_in, C, generator=gen, device=dev) for _ in range(3)]
+    for label, block, d, skip, need_skip in (("skip", 4, 16, STCN_T + 1, True), ("skip_free", 0, 1, 0, False)):
+        w = block_weights(block)
+        t = alternate(lambda x_: modules.residual_glu_plain(x_, *w, dilation=d, skip_size=skip, need_skip=need_skip),
+                      lambda x_: modules.residual_glu(x_, *w, dilation=d, skip_size=skip, need_skip=need_skip), xs,
+                      warmup=1)
+        bound = roofline(**residual_glu_work(STCN_B, T_in, C, C, C if need_skip else 0, d, skip), peak=F32_PEAK)
+        record["residual_glu"].update({f"stcn_{label}_ms": t["kernel"], f"stcn_{label}_plain_ms": t["plain"],
+                                       f"stcn_{label}_bound_ms": bound["bound_ms"]})
+        tflops = residual_glu_work(STCN_B, T_in, C, C, C if need_skip else 0, d, skip)["flops"] / t["kernel"] / 1e9
+        phase("time-K1-stcn", card=card, mode=label, shape=f"({STCN_B},{T_in},{C})", dilation=d, dtype="f32",
+              kernel_ms=f"{t['kernel']:.4f}", plain_ms=f"{t['plain']:.4f}", bound_ms=f"{bound['bound_ms']:.4f}",
+              bound_by=bound["bound_by"], tflops=f"{tflops:.2f}")
+    del xs
+
+    window = model._window(GEN_B, None)
+    with torch.no_grad():
+        enc_tails, dec_tails, d0 = model._prime(window)
+    n_time = 2000
+    eps_t = torch.randn(n_time, GEN_B, sum(args.latent_size), generator=gen, device=dev)
+    keys_t = variational.FrameKeys(gen, dev)
+
+    def k12_run(n):
+        with torch.no_grad():
+            decoder = STCNDecoder(model, enc_tails, dec_tails)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            decoder.run(window[:, -1, 0], d0, n, eps_t[:n], keys_t)
+            end.record()
+            enqueue = time.perf_counter() - t0
+            end.synchronize()
+            return start.elapsed_time(end) / n, enqueue * 1e3 / n
+
+    def plain_frame_ms(n):
+        keys_p = variational.FrameKeys(gen, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            model._generate_fast_plain(window[:, -1:], d0, enc_tails, dec_tails, n, eps_t[:n], keys_p)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    def windowed_frame_ms(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.generate(GEN_B, n, fast=False, eps=eps_t[:n], generator=gen)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    k12_run(50)  # warm-up
+    # where a frame's time goes inside K12: its own trace (SM cycles of CTA 0's thread 0 by phase, summed over
+    # every product of 200 frames, converted at the launch's clock rate)
+    trace = torch.zeros(7, dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        STCNDecoder(model, enc_tails, dec_tails).run(window[:, -1, 0], d0, 200, eps_t[:200], keys_t, trace=trace)
+    cyc = trace.tolist()
+    us = [c / max(cyc[5], 1) * cyc[6] / 1e3 / 200 for c in cyc[:6]]  # each phase's share of the launch's time
+    phase("K12-trace", card=card, frames=200, us_per_frame={name: f"{v:.2f}" for name, v in zip(
+        ("loads_and_barrier", "inputs", "products", "finish", "head", "launch"), us)},
+          clock_ghz=f"{cyc[5] / max(cyc[6], 1):.3f}")
+    plain_a = plain_frame_ms(32)
+    k12_a, enq_a = k12_run(n_time)
+    k12_b, enq_b = k12_run(n_time)
+    plain_b = plain_frame_ms(32)
+    naive = windowed_frame_ms(N_NAIVE_TIME)
+    bound = roofline(**stcn_frame_work(GEN_B, C, C, C, len(model.res_stack.blocks), levels,
+                                       len(model.out_transform.blocks), args.latent_size, 30), peak=F32_PEAK)
+    record["stcn_decode"].update(ms=min(k12_a, k12_b), plain_ms=min(plain_a, plain_b), **bound)
+    phase("time-K12", card=card, sequences=GEN_B, frames=n_time, ms_per_frame=[f"{k12_a:.4f}", f"{k12_b:.4f}"],
+          host_enqueue_ms_per_frame=[f"{enq_a:.4f}", f"{enq_b:.4f}"],
+          plain_loop_ms_per_frame=[f"{plain_a:.3f}", f"{plain_b:.3f}"], windowed_ms_per_frame=f"{naive:.3f}",
+          bound_ms=f"{bound['bound_ms']:.5f}", bound_by=bound["bound_by"])
+
+    # the test pass (one whole-batch forward, kernels and twins in turns) and a generation of 2 x 16000 frames
+    def forward_pass(plain_path_=False):
+        def run(_):
+            with plain() if plain_path_ else contextlib.nullcontext():
+                stcn_audio.evaluate(model, argparse_copy(args, split_eval=False), [(x_np, x_sl_np)], Tracker(),
+                                    generator=torch.Generator(device=dev).manual_seed(SEED))
+        return run
+
+    tp = alternate(forward_pass(True), forward_pass(), [None], warmup=1)
+    scored = int(x_sl_np.sum())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (frames_out, _), _ = model.generate(GEN_B, args.generate_frames, generator=gen)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    expect(bool(torch.isfinite(frames_out).all()) and frames_out.shape == (GEN_B, args.generate_frames),
+           "STCN generation: shape, finite")
+    phase("time-stcn-test-pass-and-generate", card=card, test_pass_samples=scored, test_pass_ms=f"{tp['kernel']:.2f}",
+          test_pass_plain_ms=f"{tp['plain']:.2f}", test_pass_samples_per_s=f"{scored / tp['kernel'] * 1e3:.0f}",
+          generate_frames=GEN_B * args.generate_frames, generate_s=f"{gen_s:.3f}",
+          generate_frames_per_s=f"{GEN_B * args.generate_frames / gen_s:.1f}")
+    profiled(lambda: forward_pass()(None), "profile-stcn-test-pass", per=1, unit="pass", card=card)
+    profiled(lambda: model.generate(GEN_B, 600, generator=gen), "profile-stcn-generate", per=600, unit="frame",
+             card=card)
+
+    require(not failures, f"STCN phases failed: {failures}")
 
 
 def argparse_copy(args, **changes):

@@ -1,6 +1,7 @@
 """Bounds on paper of the TPU kernels the PyTorch/CUDA port has still to write, at their run specs,
-and of K7, K9, K7-bwd and K9-bwd (each kernel apart from the cuBLAS weight-gradient GEMMs around it)
-at the SRNN's test pass and train step shapes, which ``chip_smoke.py`` also computes from its run.
+of K7, K9, K7-bwd and K9-bwd (each kernel apart from the cuBLAS weight-gradient GEMMs around it)
+at the SRNN's test pass and train step shapes, and of K12 and K1 at STCN's width, which
+``chip_smoke.py`` also computes from its run.
 
     python scripts/torch_kernel_bounds.py
 
@@ -17,7 +18,7 @@ import sys
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from chip_smoke import BF16_PEAK, F32_PEAK, roofline  # noqa: E402
+from chip_smoke import BF16_PEAK, F32_PEAK, residual_glu_work, roofline, stcn_frame_work  # noqa: E402
 
 F32, BF16 = 4, 2
 
@@ -96,11 +97,17 @@ def main():
     frames, C = (64000, 16000, 4000), 192
     bounds["K11"] = dict(bytes_=F32 * (256000 + 2 * sum(frames) * C + 3 * C * C), flops=2 * sum(frames) * C * C,
                          peak=F32_PEAK)
-    # K12: one STCN decode frame (benchmarks.txt:27, s=64 z=[256], hidden 256, 5 stacks of 5 blocks), 2
-    # sequences, f32: every block's weights read once a frame
-    blocks, C = 25, 256
-    macs = blocks * (2 * C * 2 * C + C * C + C * C)
-    bounds["K12"] = dict(bytes_=F32 * macs, flops=2 * 2 * macs, peak=F32_PEAK)
+    # K12: one STCN decode frame at the only spec that takes the fast path (benchmarks.txt:26, s=1,
+    # z=[256,128,64,32,16], hidden 256, 5 stacks of 5 blocks of which 5 feed a level, a 5-block decode
+    # stack, the 30-wide DMoL head), 2 sequences (the generation hook's), f32
+    bounds["K12"] = dict(**stcn_frame_work(B=2, C=256, half=256, S=256, n_enc=25, n_used=5, n_dec=5,
+                                           latent_size=(256, 128, 64, 32, 16), D=30), peak=F32_PEAK)
+    # K1 at STCN's width (the same spec): the test pass's first block (dilation 1) over 6 utterances of up
+    # to 72000 samples plus the receptive field less one (157 - 1), f32, with its skip (the used blocks',
+    # skip_size T + 1) and skip-free (the other 20 blocks'; here at dilation 16)
+    T = 72000
+    bounds["K1 STCN skip"] = dict(**residual_glu_work(6, T + 156, 256, 256, 256, 1, T + 1), peak=F32_PEAK)
+    bounds["K1 STCN skip-free"] = dict(**residual_glu_work(6, T + 156, 256, 256, 0, 16, 0), peak=F32_PEAK)
     print(json.dumps({name: roofline(**b) for name, b in bounds.items()}, indent=1))
 
 

@@ -2,7 +2,8 @@
 K2 forward and backward (against autograd of the twins), K3 the sampler, K4 the
 Fast-WaveNet decode step, K5 the LSTM recurrence forward and backward, K8 the
 VRNN cell and K8-bwd its backward through time, K7 the GRU recurrence and K9 the
-SRNN's latent chain, their save modes and their backwards through time, K7-bwd and K9-bwd.
+SRNN's latent chain, their save modes and their backwards through time, K7-bwd and K9-bwd; K1 at
+STCN's width (C = 256, with and without its skip) and K12, STCN's frame decode.
 
 Marked ``cuda``: they skip without a CUDA device (here, on CPU-only machines).
 On the card, where JAX is not installed, leave out the root conftest (it imports
@@ -20,13 +21,13 @@ import pytest
 import torch
 
 from blvm_tpu_torch import weights
-from blvm_tpu_torch.models import LSTMAudio, SRNNAudio, VRNNAudio, WaveNet
+from blvm_tpu_torch.models import STCN, LSTMAudio, SRNNAudio, VRNNAudio, WaveNet
 from blvm_tpu_torch.models.wavenet.modules import residual_glu, residual_glu_plain
 from blvm_tpu_torch.modules.distributions import DiscretizedLogisticMixtureDense
 from blvm_tpu_torch.ops import cuda, likelihoods, recurrent, variational
 from blvm_tpu_torch.ops import srnn as srnn_ops
 from blvm_tpu_torch.ops import vrnn as vrnn_ops
-from blvm_tpu_torch.ops.generation import WaveNetDecoder
+from blvm_tpu_torch.ops.generation import STCNDecoder, WaveNetDecoder
 
 # f32: the kernel's FMA order against cuBLAS's (a few ulps of O(1) values).
 # bf16: the kernel rounds once at the store, the twin after every op as JAX does:
@@ -88,11 +89,133 @@ def test_residual_glu_kernel_refuses_what_it_does_not_take(cuda_device):
     args = glu_inputs(1, 50, 8, 8, 8, torch.float32, cuda_device)
     with pytest.raises(ValueError):
         residual_glu(*args, dilation=2, skip_size=49)  # more skip rows than output rows
-    big = glu_inputs(1, 50, 8, 136, 8, torch.float32, cuda_device)
+    big = glu_inputs(1, 50, 8, 264, 8, torch.float32, cuda_device)
     with pytest.raises(ValueError):
         residual_glu(*big, dilation=2, skip_size=10)  # half above the kernel's limit
     with pytest.raises(TypeError):
         residual_glu(args[0].half(), *args[1:], dilation=2, skip_size=10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,T_in,dilation,skip,need_skip",
+    [
+        (2, 300, 1, 299, True),  # STCN's width, skip == T_out
+        (3, 333, 16, 100, True),  # its widest dilation, the last rows' skip
+        (2, 300, 1, 0, False),  # skip-free: only the R residual columns of rs_kernel
+        (1, 97, 16, 0, False),  # skip-free, a ragged tile
+    ],
+)
+def test_residual_glu_kernel_at_stcn_width(cuda_device, dtype, B, T_in, dilation, skip, need_skip):
+    """K1 at C = half = 256, R + S = 512 (STCN's blocks), with the skip and in its skip-free mode,
+    against the twin at phase 4's tolerances."""
+    args = glu_inputs(B, T_in, 256, 256, 256, dtype, cuda_device)
+    o, s = residual_glu(*args, dilation=dilation, skip_size=skip, need_skip=need_skip)
+    torch.cuda.synchronize()
+    o_ref, s_ref = residual_glu_plain(*args, dilation=dilation, skip_size=skip, need_skip=need_skip)
+    torch.testing.assert_close(o.float(), o_ref.float(), **K1_TOL[dtype])
+    if need_skip:
+        torch.testing.assert_close(s.float(), s_ref.float(), **K1_TOL[dtype])
+    else:
+        assert s is None and s_ref is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need_skip", [True, False])
+def test_residual_glu_tiled_and_fma_paths_agree_at_stcn_width(cuda_device, need_skip):
+    """f32 at C = 256 takes the register-tiled path when x's rows are 16-byte aligned and the FMA path
+    when they are not (a view offset by one element); both hold to the twin at phase 4's tolerance."""
+    args = glu_inputs(2, 200, 256, 256, 256, torch.float32, cuda_device)
+    shifted = torch.empty(2 * 200 * 256 + 1, device=cuda_device)[1:].view(2, 200, 256)
+    shifted.copy_(args[0])
+    skip = 150 if need_skip else 0
+    ref = residual_glu_plain(*args, dilation=8, skip_size=skip, need_skip=need_skip)
+    for x in (args[0], shifted):
+        o, s = residual_glu(x, *args[1:], dilation=8, skip_size=skip, need_skip=need_skip)
+        torch.testing.assert_close(o, ref[0], **K1_TOL[torch.float32])
+        if need_skip:
+            torch.testing.assert_close(s, ref[1], **K1_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_residual_glu_backward_refuses_stcn_width(cuda_device):
+    """K1-bwd takes the WaveNet widths only: under autograd at STCN's, or skip-free, it raises."""
+    for need_skip in (True, False):
+        args = [t.requires_grad_(True) for t in glu_inputs(1, 40, 256, 256, 256, torch.float32, cuda_device)]
+        o, s = residual_glu(*args, dilation=2, skip_size=10, need_skip=need_skip)
+        with pytest.raises(NotImplementedError):
+            (o.sum() + (s.sum() if s is not None else 0)).backward()
+
+
+def stcn_case(device, n, history=True, **kwargs):
+    """An STCN with random weights, its primes over a history (or zeros), the prior noise and the uniforms."""
+    model = STCN(device=device, **kwargs)
+    weights.load_jax_params(model, weights.random_jax_params(model, 5))
+    g = torch.Generator(device=device).manual_seed(6)
+    hist = torch.rand(2, 200, generator=g, device=device) * 2 - 1 if history else None
+    with torch.no_grad():
+        window = model._window(2, hist)
+        enc_tails, dec_tails, d0 = model._prime(window)
+    eps = torch.randn(n, 2, sum(model.latent_size), generator=g, device=device)
+    keys = variational.FrameKeys(None, device, (torch.rand(n, 2, 10, generator=g, device=device),
+                                                torch.rand(n, 2, 1, generator=g, device=device)))
+    return model, window, enc_tails, dec_tails, d0, eps, keys
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("history", [True, False])
+@pytest.mark.parametrize("width", ["stcn", "small"])
+def test_stcn_decode_kernel_matches_plain_loop(cuda_device, width, history):
+    """K12 fed the prior's noise and the uniforms against the plain loop fed the kernel's frames
+    (teacher forcing): every frame's z and DMoL parameters within the order of the sums (1e-5
+    absolute plus 1e-5 relative), frame 0 from the encoder prime's columns (the d-column mode)."""
+    n = 12
+    kwargs = {} if width == "stcn" else dict(n_layers=3, latent_size=(8, 4, 4), res_channels=16)
+    model, window, enc_tails, dec_tails, d0, eps, keys = stcn_case(cuda_device, n, history, **kwargs)
+    cuda.reset_launch_counts()
+    with torch.no_grad():
+        got, z, params = STCNDecoder(model, enc_tails, dec_tails).run(window[:, -1, 0], d0, n, eps, keys, record=True)
+        torch.cuda.synchronize()
+        assert cuda.launch_counts()["stcn_decode"] == n
+        ref, z_ref, params_ref = model._generate_fast_plain(window[:, -1:], d0, enc_tails, dec_tails, n, eps, keys,
+                                                            forced=got)
+    assert got.shape == (2, n) and torch.isfinite(got).all() and got.abs().max() <= 1
+    torch.testing.assert_close(z, z_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(params, params_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_stcn_generate_on_the_card_launches_k12_and_matches_the_windowed_path(cuda_device):
+    """One Philox key a generation: K12 and the windowed path (K1 x 6 and K3 a frame) draw the same
+    numbers for the same frame, with the same prior noise (f32, 1e-5); the primes launch K1 6 times."""
+    model = STCN(n_layers=2, latent_size=(8, 4), res_channels=16, device=cuda_device)
+    weights.load_jax_params(model, weights.random_jax_params(model, 7))
+    eps = torch.randn(10, 2, 12, device=cuda_device)
+    cuda.reset_launch_counts()
+    (fast, _), _ = model.generate(2, 10, generator=torch.Generator(device=cuda_device).manual_seed(4), eps=eps)
+    counts = cuda.launch_counts()
+    assert counts["stcn_decode"] == 10 and counts["residual_glu"] == 6 and counts["dmol_sample"] == 0
+    (naive, _), _ = model.generate(2, 10, fast=False, generator=torch.Generator(device=cuda_device).manual_seed(4),
+                                   eps=eps)
+    torch.testing.assert_close(fast, naive, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_stcn_decode_kernel_refuses_what_it_does_not_take(cuda_device):
+    model, window, enc_tails, dec_tails, d0, eps, keys = stcn_case(cuda_device, 4, n_layers=2, latent_size=(8, 4),
+                                                                     res_channels=16)
+    with pytest.raises(ValueError):
+        STCNDecoder(model, enc_tails[:-1], dec_tails)  # a block without its buffer
+    decoder = STCNDecoder(model, enc_tails, dec_tails)
+    with pytest.raises(ValueError):
+        decoder.run(window[:, -1, 0], d0, 5, eps, keys)  # more frames than rows of noise
+    for kwargs in (dict(bf16=True), dict(top_down=False), dict(dense=False), dict(res_channels=264),
+                   dict(latent_size=(8, 6))):  # ... a width that is not a multiple of 4
+        other = STCN(device=cuda_device, **{"n_layers": 2, "latent_size": (8, 4), "res_channels": 16, **kwargs})
+        with pytest.raises(ValueError):
+            STCNDecoder(other, enc_tails, dec_tails)
 
 
 @pytest.mark.cuda
