@@ -45,6 +45,7 @@
 // rs_ld = R + S_full wide), as JAX contracts rs_kernel[0, :, :R], and no skip is written.
 
 #include "common.cuh"
+#include "fma_tile.cuh"
 #include "mma_bf16.cuh"
 
 namespace blvm {
@@ -250,41 +251,6 @@ constexpr int RM = 8, UN = 4;  // rows and units a thread
 constexpr int WCOLS = 2 * HALF;  // a staged weight row: [tanh | sigmoid] or [r | s]
 constexpr size_t SMEM = sizeof(float) * (2 * TM * C + 2 * KC * WCOLS);
 
-__device__ __forceinline__ float lane4(const float4& v, int j) { return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w; }
-
-// acc[i][j] (+ acc2[i][j]) += sum over this chunk's KC rows k of a[row r0 + i][k0 + k] w[k][u0 + j] (and
-// w[k][HALF + u0 + j]); a is row-major with row stride lda, w the staged chunk
-template <bool TWO>
-__device__ __forceinline__ void chunk_fma(const float* a, int lda, int k0, const float* w, int r0, int u0,
-                                          float (&acc)[RM][UN], float (&acc2)[RM][UN]) {
-#pragma unroll
-  for (int kk = 0; kk < KC; kk += 4) {
-    float4 av[RM];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) av[i] = *reinterpret_cast<const float4*>(a + (r0 + i) * lda + k0 + kk);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float4 b1 = *reinterpret_cast<const float4*>(w + (kk + j) * WCOLS + u0);
-      float4 b2 = b1;
-      if (TWO) b2 = *reinterpret_cast<const float4*>(w + (kk + j) * WCOLS + HALF + u0);
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float x = lane4(av[i], j);
-        acc[i][0] = fmaf(x, b1.x, acc[i][0]);
-        acc[i][1] = fmaf(x, b1.y, acc[i][1]);
-        acc[i][2] = fmaf(x, b1.z, acc[i][2]);
-        acc[i][3] = fmaf(x, b1.w, acc[i][3]);
-        if (TWO) {
-          acc2[i][0] = fmaf(x, b2.x, acc2[i][0]);
-          acc2[i][1] = fmaf(x, b2.y, acc2[i][1]);
-          acc2[i][2] = fmaf(x, b2.z, acc2[i][2]);
-          acc2[i][3] = fmaf(x, b2.w, acc2[i][3]);
-        }
-      }
-    }
-  }
-}
-
 template <int RS>  // R + S: 512 with the skip, 256 skip-free
 __global__ void __launch_bounds__(THREADS, 1)
 residual_glu_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w_t, const float* __restrict__ w_s,
@@ -342,7 +308,8 @@ residual_glu_tiled_kernel(const float* __restrict__ x, const float* __restrict__
     }
     __syncthreads();
     const int k0 = ci * KC;
-    chunk_fma<true>(k0 < C ? xo : xc, C, k0 % C, wbuf + (ci & 1) * KC * WCOLS, r0, u0, acc_t, acc_s);
+    fma_tile::chunk<KC, RM, WCOLS, HALF, true>(k0 < C ? xo : xc, C, k0 % C, wbuf + (ci & 1) * KC * WCOLS, r0, u0,
+                                                acc_t, acc_s);
     __syncthreads();  // every thread is done with this buffer (and, after the last chunk, with x[t])
   }
   stage_rs(0, 0);
@@ -371,7 +338,7 @@ residual_glu_tiled_kernel(const float* __restrict__ x, const float* __restrict__
       cp_async_wait_all();
     }
     __syncthreads();  // (the first time: the activation written too)
-    chunk_fma<SKIP>(xo, HALF, ci * KC, wbuf + (ci & 1) * KC * WCOLS, r0, u0, acc_r, acc_k);
+    fma_tile::chunk<KC, RM, WCOLS, HALF, SKIP>(xo, HALF, ci * KC, wbuf + (ci & 1) * KC * WCOLS, r0, u0, acc_r, acc_k);
     __syncthreads();
   }
 

@@ -26,11 +26,18 @@
 // Dtypes: f32 accumulation inside, rounded once at the store to x's dtype, as the forward.
 // bf16 at the widths instantiated below runs both passes on the tensor cores (mma.sync
 // m16n8k16, mma_bf16.cuh): persistent blocks, one per SM, the block's weights staged once in
-// shared memory, each warp 16 rows, its A fragments read straight from device memory. f32, and
-// bf16 at other widths, run on CUDA-core FMAs with the weights streamed through shared memory
-// in chunks, as the forward's FMA path.
+// shared memory, each warp 16 rows, its A fragments read straight from device memory. f32 at
+// STCN's width (C = half = R = 256) runs the register-tiled path (namespace tiled, below). f32 and
+// bf16 at other widths (half <= 128, R + S <= 256) run on CUDA-core FMAs with the weights streamed
+// through shared memory in chunks, as the forward's FMA path.
+//
+// Skip-free mode (S = 0, the blocks STCN runs with need_skip=False): d_rs is only dO sqrt(1/2), no
+// row lies in a skip window, and only the R residual columns of rs_kernel (rows rs_ld wide) are read.
+// The wrapper gives the S skip columns of the rs_kernel and rs_bias gradients as zeros, as the
+// gradient of JAX's column slice rs_kernel[0, :, :R] is.
 
 #include "common.cuh"
+#include "fma_tile.cuh"
 #include "mma_bf16.cuh"
 
 namespace blvm {
@@ -55,7 +62,7 @@ __global__ void __launch_bounds__(THREADS)
 glu_bwd_a_kernel(const T* __restrict__ x, const T* __restrict__ w_t, const T* __restrict__ w_s,
                  const T* __restrict__ b_t, const T* __restrict__ b_s, const T* __restrict__ w_rs,
                  const T* __restrict__ d_o, const T* __restrict__ d_s, T* __restrict__ d_pre, T* __restrict__ act,
-                 int T_in, int C, int half, int R, int S, int d, int skip_size) {
+                 int T_in, int C, int half, int R, int S, int rs_ld, int d, int skip_size) {
   extern __shared__ float smem[];
   const int RS = R + S;
   float* x_old = smem;            // [TT][C]  x[t]
@@ -124,13 +131,13 @@ glu_bwd_a_kernel(const T* __restrict__ x, const T* __restrict__ w_t, const T* __
     }
   }
 
-  // d_act = d_rs Wrs^T: Wrs (1, half, R+S) streamed in chunks of KC rows of its R+S axis
+  // d_act = d_rs Wrs^T: Wrs (1, half, rs_ld), its first R+S columns streamed in chunks of KC
   for (int k0 = 0; k0 < RS; k0 += KC) {
     const int kc = min(KC, RS - k0);
     __syncthreads();
     for (int i = threadIdx.x; i < kc * half; i += THREADS) {
       const int j = i / kc, k = i - j * kc;
-      w[k * half + j] = to_f32(w_rs[(size_t)j * RS + k0 + k]);
+      w[k * half + j] = to_f32(w_rs[(size_t)j * rs_ld + k0 + k]);
     }
     __syncthreads();
     for (int k = 0; k < kc; ++k) {
@@ -249,7 +256,7 @@ glu_bwd_b_kernel(const T* __restrict__ w_t, const T* __restrict__ w_s, const T* 
 template <typename T>
 int launch(const void* x, const void* w_t, const void* w_s, const void* b_t, const void* b_s, const void* w_rs,
            const void* d_o, const void* d_s, void* d_pre, void* act, void* dx, int B, int T_in, int C, int half,
-           int R, int S, int d, int skip_size, cudaStream_t stream) {
+           int R, int S, int rs_ld, int d, int skip_size, cudaStream_t stream) {
   const size_t smem_a = smem_a_bytes(C, half, R + S), smem_b = smem_b_bytes(C, half);
   cudaError_t err = cudaFuncSetAttribute(glu_bwd_a_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
   if (err == cudaSuccess)
@@ -259,7 +266,8 @@ int launch(const void* x, const void* w_t, const void* w_s, const void* b_t, con
   glu_bwd_a_kernel<T><<<dim3((T_out + TT - 1) / TT, B), THREADS, smem_a, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w_t), static_cast<const T*>(w_s), static_cast<const T*>(b_t),
       static_cast<const T*>(b_s), static_cast<const T*>(w_rs), static_cast<const T*>(d_o),
-      static_cast<const T*>(d_s), static_cast<T*>(d_pre), static_cast<T*>(act), T_in, C, half, R, S, d, skip_size);
+      static_cast<const T*>(d_s), static_cast<T*>(d_pre), static_cast<T*>(act), T_in, C, half, R, S, rs_ld, d,
+      skip_size);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   glu_bwd_b_kernel<T><<<dim3((T_in + TT - 1) / TT, B), THREADS, smem_b, stream>>>(
@@ -267,6 +275,252 @@ int launch(const void* x, const void* w_t, const void* w_s, const void* b_t, con
       static_cast<const T*>(d_o), static_cast<T*>(dx), T_in, C, half, d);
   return (int)cudaGetLastError();
 }
+
+// ---- register-tiled f32 path: STCN's width ------------------------------------------------------
+//
+// f32 at C = half = R = 256, with the skip (S = 256) or skip-free (S = 0). The FMA path above needs
+// 262,144 bytes of shared memory in each pass here (above the 232,448-byte opt-in) and 8 gate columns a
+// lane; this path takes the forward's answer (residual_glu.cu, namespace tiled): each thread owns 8 rows x
+// 4 units and takes each k step from 16-byte loads (fma_tile.cuh), so FMA issue bounds the products.
+//
+// Pass A (a thread block a tile of 32 output rows): x[t] and x[t+d] (64 KB) and d_rs = [dO | dS or 0]
+// (64 KB with the skip) land by cp.async with the first gate chunk; the gate is the forward's GEMM
+// [x[t] | x[t+d]] (32 x 2C) times [W_t | W_s] (2C x 2 half), its chunks streamed by cp.async into two
+// buffers; then d_act = d_rs Wrs^T (32 x RS times RS x half), whose operand is rs_kernel transposed:
+// each thread loads one unit's row of 16 consecutive columns as four 16-byte loads (the next chunk's
+// while the current one is multiplied) and stores it k-major, a warp's stores on 32 consecutive floats.
+// The residual columns' share is scaled by sqrt(1/2) once, before the skip columns add theirs. The
+// epilogue writes act and d_pre = [d_pre_t | d_pre_s] with 16-byte stores.
+//
+// Pass B (a tile of 32 input rows): [d_pre[r] | d_pre[r - d]] (32 x 4 half, 128 KB) lands by cp.async;
+// dx = that times [Wt0 ; Ws0 ; Wt1 ; Ws1]^T (4 half x C), its chunks transposed into shared memory as in
+// pass A, plus dO[r - d] sqrt(1/2).
+//
+// What bounds it: a row costs 2 (4 C half + half (R + S)) + 2 (4 half C) FLOP, 1.31 MFLOP with the skip
+// and 1.18 M skip-free, against 4 (2 C + R + S) bytes of compulsory traffic (x and dx, dO and dS): ~1000
+// FLOP a byte, so the f32 FMA rate (67 TFLOP/s) bounds it. d_pre and act make a round trip through device
+// memory between the passes and the weight-gradient products (3 half floats a row).
+namespace tiled {
+
+constexpr int C = 256, HALF = 256;
+constexpr int TM = 32;           // rows a thread block
+constexpr int THREADS = 256;     // 4 row groups x 64 unit groups; also the N of a transposed product
+constexpr int KC = 16;           // k rows a staged weight chunk
+constexpr int RM = 8;            // rows a thread (and 4 units)
+constexpr int GCOLS = 2 * HALF;  // a staged gate row: [tanh | sigmoid]
+constexpr float INV_STD = 0.70710678118654752f;
+
+template <int RS>
+constexpr size_t smem_a() { return sizeof(float) * (2 * TM * C + TM * RS + 2 * KC * GCOLS); }
+constexpr size_t SMEM_B = sizeof(float) * (TM * 4 * HALF + 2 * KC * C);
+
+// This thread's share of a chunk of a transposed product's weights: W row-major with row stride ld, row
+// n = threadIdx.x, its KC columns k0 .. k0 + KC as four 16-byte loads ...
+__device__ __forceinline__ void load_t(const float* w, size_t ld, int k0, float4 (&r)[KC / 4]) {
+  const float4* src = reinterpret_cast<const float4*>(w + threadIdx.x * ld + k0);
+#pragma unroll
+  for (int q = 0; q < KC / 4; ++q) r[q] = __ldg(src + q);
+}
+// ... stored k-major into a chunk buffer [KC][THREADS]
+__device__ __forceinline__ void store_t(const float4 (&r)[KC / 4], float* dst) {
+#pragma unroll
+  for (int q = 0; q < KC / 4; ++q) {
+    dst[(4 * q + 0) * THREADS + threadIdx.x] = r[q].x;
+    dst[(4 * q + 1) * THREADS + threadIdx.x] = r[q].y;
+    dst[(4 * q + 2) * THREADS + threadIdx.x] = r[q].z;
+    dst[(4 * q + 3) * THREADS + threadIdx.x] = r[q].w;
+  }
+}
+
+__device__ __forceinline__ void scale(float (&acc)[RM][4], float s) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] *= s;
+}
+
+template <int RS>  // R + S: 512 with the skip, 256 skip-free
+__global__ void __launch_bounds__(THREADS, 1)
+pass_a_kernel(const float* __restrict__ x, const float* __restrict__ w_t, const float* __restrict__ w_s,
+              const float* __restrict__ b_t, const float* __restrict__ b_s, const float* __restrict__ w_rs,
+              const float* __restrict__ d_o, const float* __restrict__ d_s, float* __restrict__ d_pre,
+              float* __restrict__ act, int T_in, int rs_ld, int d, int skip_size) {
+  extern __shared__ __align__(16) float sm[];
+  float* xo = sm;               // [TM][C] x[t]
+  float* xc = xo + TM * C;      // [TM][C] x[t+d]
+  float* drs = xc + TM * C;     // [TM][RS] [dO | dS or 0]
+  float* wbuf = drs + TM * RS;  // 2 x [KC][GCOLS]
+  constexpr bool SKIP = RS > C;
+  constexpr int S = RS - C;
+  const int b = blockIdx.y, t0 = blockIdx.x * TM, T_out = T_in - d, skip_start = T_out - skip_size;
+  const int r0 = (threadIdx.x >> 6) * RM, u0 = (threadIdx.x & 63) * 4;
+  const float* xb = x + (size_t)b * T_in * C;
+
+  for (int i = threadIdx.x; i < TM * (C / 4); i += THREADS) {  // rows past T_out read as 0
+    const int r = i / (C / 4), v = 4 * (i % (C / 4)), t = t0 + r;
+    const bool valid = t < T_out;
+    cp_async16(xo + r * C + v, xb + (valid ? (size_t)t * C + v : 0), valid);
+    cp_async16(xc + r * C + v, xb + (valid ? (size_t)(t + d) * C + v : 0), valid);
+  }
+  for (int i = threadIdx.x; i < TM * (RS / 4); i += THREADS) {  // d_rs: 0 past T_out and above the skip window
+    const int r = i / (RS / 4), v = 4 * (i % (RS / 4)), t = t0 + r;
+    const bool valid = t < T_out && (v < C || t >= skip_start);
+    const float* src = !valid ? d_o
+                       : v < C ? d_o + ((size_t)b * T_out + t) * C + v
+                               : d_s + ((size_t)b * skip_size + (t - skip_start)) * S + (v - C);
+    cp_async16(drs + r * RS + v, src, valid);
+  }
+  // chunk k0 of the gate weights' 2C rows [tap 0 ; tap 1], each [tanh | sigmoid], into buffer buf
+  auto stage_gate = [&](int k0, int buf) {
+    float* dst = wbuf + buf * KC * GCOLS;
+    for (int i = threadIdx.x; i < KC * (GCOLS / 4); i += THREADS) {
+      const int r = i / (GCOLS / 4), col = 4 * (i % (GCOLS / 4)), k = k0 + r;
+      cp_async16(dst + r * GCOLS + col, (col < HALF ? w_t : w_s) + (size_t)k * HALF + col % HALF, true);
+    }
+    cp_async_commit();
+  };
+
+  // ---- gate pre-activations: [x[t] | x[t+d]] (TM x 2C) times [W_t | W_s] (2C x 2 HALF), as the forward ---------
+  float acc_t[RM][4], acc_s[RM][4], acc_d[RM][4];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc_t[i][j] = acc_s[i][j] = acc_d[i][j] = 0.f;
+  constexpr int NG = 2 * C / KC;
+  stage_gate(0, 0);  // with the x and d_rs tiles: one group
+  for (int ci = 0; ci < NG; ++ci) {
+    if (ci + 1 < NG) {
+      stage_gate((ci + 1) * KC, (ci + 1) & 1);
+      cp_async_wait_one();
+    } else {
+      cp_async_wait_all();
+    }
+    __syncthreads();
+    const int k0 = ci * KC;
+    fma_tile::chunk<KC, RM, GCOLS, HALF, true>(k0 < C ? xo : xc, C, k0 % C, wbuf + (ci & 1) * KC * GCOLS, r0, u0,
+                                               acc_t, acc_s);
+    __syncthreads();  // every thread is done with this buffer
+  }
+
+  // ---- d_act = d_rs (TM x RS) times Wrs^T (RS x HALF) ----------------------------------------------------------
+  constexpr int NR = RS / KC;
+  float4 wr[KC / 4];
+  load_t(w_rs, rs_ld, 0, wr);
+  store_t(wr, wbuf);
+  __syncthreads();
+  for (int ci = 0; ci < NR; ++ci) {
+    if (ci + 1 < NR) load_t(w_rs, rs_ld, (ci + 1) * KC, wr);  // the next chunk's loads fly during this product
+    if (SKIP && ci == C / KC) scale(acc_d, INV_STD);        // the residual columns' share is dO sqrt(1/2) Wr^T
+    fma_tile::chunk<KC, RM, HALF, 0, false>(drs, RS, ci * KC, wbuf + (ci & 1) * KC * GCOLS, r0, u0, acc_d, acc_d);
+    if (ci + 1 < NR) store_t(wr, wbuf + ((ci + 1) & 1) * KC * GCOLS);  // its buffer was released a chunk ago
+    __syncthreads();
+  }
+  if (!SKIP) scale(acc_d, INV_STD);
+
+  // ---- d_pre and act; the derivatives in the form autograd of the plain version takes -------------------------
+  const float4 bt = *reinterpret_cast<const float4*>(b_t + u0), bs = *reinterpret_cast<const float4*>(b_s + u0);
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int t = t0 + r0 + i;
+    if (t >= T_out) continue;
+    float a[4], dt[4], ds[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float th = tanhf(acc_t[i][j] + fma_tile::lane4(bt, j)), sg = sigmoidf(acc_s[i][j] + fma_tile::lane4(bs, j));
+      const float da = acc_d[i][j];
+      a[j] = th * sg;
+      dt[j] = da * sg * (1.f - th * th);
+      ds[j] = da * th * (sg * (1.f - sg));
+    }
+    const size_t row = (size_t)b * T_out + t;
+    *reinterpret_cast<float4*>(act + row * HALF + u0) = make_float4(a[0], a[1], a[2], a[3]);
+    *reinterpret_cast<float4*>(d_pre + row * 2 * HALF + u0) = make_float4(dt[0], dt[1], dt[2], dt[3]);
+    *reinterpret_cast<float4*>(d_pre + row * 2 * HALF + HALF + u0) = make_float4(ds[0], ds[1], ds[2], ds[3]);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+pass_b_kernel(const float* __restrict__ w_t, const float* __restrict__ w_s, const float* __restrict__ d_pre,
+              const float* __restrict__ d_o, float* __restrict__ dx, int T_in, int d) {
+  extern __shared__ __align__(16) float sm[];
+  constexpr int H2 = 2 * HALF, KB = 4 * HALF;
+  float* dp = sm;              // [TM][KB]: [d_pre[r] | d_pre[r - d]]
+  float* wbuf = dp + TM * KB;  // 2 x [KC][C]
+  const int b = blockIdx.y, t0 = blockIdx.x * TM, T_out = T_in - d;
+  const int r0 = (threadIdx.x >> 6) * RM, u0 = (threadIdx.x & 63) * 4;
+  const float* dpb = d_pre + (size_t)b * T_out * H2;
+
+  for (int i = threadIdx.x; i < TM * (KB / 4); i += THREADS) {  // rows outside d_pre read as 0
+    const int rr = i / (KB / 4), v = 4 * (i % (KB / 4)), r = t0 + rr;
+    const bool cur = v < H2;  // d_pre[r] (tap 0) or d_pre[r - d] (tap 1)
+    const bool valid = cur ? r < T_out : (r >= d && r < T_in);
+    cp_async16(dp + rr * KB + v, dpb + (valid ? (size_t)(cur ? r : r - d) * H2 + v % H2 : 0), valid);
+  }
+  cp_async_commit();
+  // chunk k0 of [Wt0 ; Ws0 ; Wt1 ; Ws1]^T: rows c of the (2, C, HALF) kernels, HALF-wide segment k0 / HALF
+  float4 wr[KC / 4];
+  auto load_w = [&](int k0) {
+    const int m = k0 / HALF;
+    load_t((m & 1 ? w_s : w_t) + (size_t)(m >> 1) * C * HALF, HALF, k0 % HALF, wr);
+  };
+  load_w(0);
+  store_t(wr, wbuf);
+  cp_async_wait_all();
+  __syncthreads();
+
+  float acc[RM][4];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  constexpr int NB = KB / KC;
+  for (int ci = 0; ci < NB; ++ci) {
+    if (ci + 1 < NB) load_w((ci + 1) * KC);
+    fma_tile::chunk<KC, RM, C, 0, false>(dp, KB, ci * KC, wbuf + (ci & 1) * KC * C, r0, u0, acc, acc);
+    if (ci + 1 < NB) store_t(wr, wbuf + ((ci + 1) & 1) * KC * C);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int r = t0 + r0 + i;
+    if (r >= T_in) continue;
+    float4 v = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    if (r >= d) {
+      const float4 o = *reinterpret_cast<const float4*>(d_o + ((size_t)b * T_out + r - d) * C + u0);
+      v.x += o.x * INV_STD;
+      v.y += o.y * INV_STD;
+      v.z += o.z * INV_STD;
+      v.w += o.w * INV_STD;
+    }
+    *reinterpret_cast<float4*>(dx + ((size_t)b * T_in + r) * C + u0) = v;
+  }
+}
+
+template <int RS>
+int launch(const void* x, const void* w_t, const void* w_s, const void* b_t, const void* b_s, const void* w_rs,
+           const void* d_o, const void* d_s, void* d_pre, void* act, void* dx, int B, int T_in, int rs_ld, int d,
+           int skip_size, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(pass_a_kernel<RS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_a<RS>());
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(pass_b_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_B);
+  if (err != cudaSuccess) return (int)err;
+  const int T_out = T_in - d;
+  pass_a_kernel<RS><<<dim3((T_out + TM - 1) / TM, B), THREADS, smem_a<RS>(), stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w_t), static_cast<const float*>(w_s),
+      static_cast<const float*>(b_t), static_cast<const float*>(b_s), static_cast<const float*>(w_rs),
+      static_cast<const float*>(d_o), static_cast<const float*>(d_s), static_cast<float*>(d_pre),
+      static_cast<float*>(act), T_in, rs_ld, d, skip_size);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  pass_b_kernel<<<dim3((T_in + TM - 1) / TM, B), THREADS, SMEM_B, stream>>>(
+      static_cast<const float*>(w_t), static_cast<const float*>(w_s), static_cast<const float*>(d_pre),
+      static_cast<const float*>(d_o), static_cast<float*>(dx), T_in, d);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tiled
 
 // ---- tensor-core path: bf16 at fixed widths -------------------------------------------------------
 namespace mma {
@@ -520,21 +774,36 @@ int launch(const void* x, const void* w_t, const void* w_s, const void* b_t, con
 }  // namespace
 }  // namespace blvm
 
-// Limits the Python wrapper enforces before it calls in (returns cudaErrorInvalidValue otherwise).
+// Limits the Python wrapper enforces before it calls in (returns cudaErrorInvalidValue otherwise): f32 at
+// C = half = R = 256 with S = 256 or 0 (the tiled path), or half <= 128 and R + S <= 256. S = 0 is the
+// skip-free mode: d_s and skip_size are not used, and rs_ld (the rs kernel's row width) may exceed R.
 // d_pre (B, T_in - d, 2 half) and act (B, T_in - d, half) are scratch outputs the wrapper keeps for
 // the weight gradients; dx is (B, T_in, C). All in x's dtype.
 extern "C" int blvm_residual_glu_bwd(const void* x, const void* w_t, const void* w_s, const void* b_t,
                                      const void* b_s, const void* w_rs, const void* d_o, const void* d_s,
                                      void* d_pre, void* act, void* dx, int B, int T_in, int C, int half, int R, int S,
-                                     int dilation, int skip_size, int dtype, void* stream) {
+                                     int rs_ld, int dilation, int skip_size, int dtype, void* stream) {
   using namespace blvm;
-  if (C > MAX_C || half > 32 * MAX_GATE_COLS || R + S > MAX_RS || R != C || dilation < 1 || T_in - dilation < 1 ||
-      skip_size < 1 || skip_size > T_in - dilation || B < 1 || B > 65535)
+  if (R != C || S < 0 || rs_ld < R + S || (S > 0 && rs_ld != R + S) || dilation < 1 || T_in - dilation < 1 ||
+      (S > 0 && (skip_size < 1 || skip_size > T_in - dilation)) || B < 1 || B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // the register-tiled path: f32 at STCN's width, 16-byte aligned rows and weights
+  const bool aligned16 = ((uintptr_t)x | (uintptr_t)w_t | (uintptr_t)w_s | (uintptr_t)b_t | (uintptr_t)b_s |
+                          (uintptr_t)w_rs | (uintptr_t)d_o | (uintptr_t)d_s | (uintptr_t)d_pre | (uintptr_t)act |
+                          (uintptr_t)dx | (uintptr_t)(rs_ld * sizeof(float))) % 16 == 0;
+  if (C == tiled::C && half == tiled::HALF) {
+    if (dtype != kFloat32 || !aligned16 || (S != 0 && S != tiled::C)) return (int)cudaErrorInvalidValue;
+    if (S == 0)
+      return tiled::launch<tiled::C>(x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, d_pre, act, dx, B, T_in, rs_ld, dilation,
+                                     skip_size, st);
+    return tiled::launch<2 * tiled::C>(x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, d_pre, act, dx, B, T_in, rs_ld,
+                                       dilation, skip_size, st);
+  }
+  if (C > MAX_C || half > 32 * MAX_GATE_COLS || R + S > MAX_RS) return (int)cudaErrorInvalidValue;
   if (dtype == kFloat32)
-    return launch<float>(x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, d_pre, act, dx, B, T_in, C, half, R, S, dilation,
-                         skip_size, st);
+    return launch<float>(x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, d_pre, act, dx, B, T_in, C, half, R, S, rs_ld,
+                         dilation, skip_size, st);
   // the tensor-core path reads 4-byte bf16 pairs and stages the weights with 16-byte loads
   const bool aligned = ((uintptr_t)x | (uintptr_t)d_o | (uintptr_t)d_s | (uintptr_t)d_pre | (uintptr_t)act |
                         (uintptr_t)dx) % 4 == 0 &&
@@ -547,6 +816,6 @@ extern "C" int blvm_residual_glu_bwd(const void* x, const void* w_t, const void*
                                    skip_size, st);
   if (dtype == kBFloat16)
     return launch<__nv_bfloat16>(x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, d_pre, act, dx, B, T_in, C, half, R, S,
-                                 dilation, skip_size, st);
+                                 rs_ld, dilation, skip_size, st);
   return (int)cudaErrorInvalidValue;
 }

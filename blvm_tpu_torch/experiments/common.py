@@ -165,12 +165,13 @@ def train(
     tx, epoch_lr = build_tx_and_lr(args)
     state = TrainState.create(model=model, tx=tx, generator=torch.Generator(device=device).manual_seed(args.seed))
     accum = int(args.accum_steps or 1)
-    # frames-weighted microbatches, as the JAX driver weights them; LSTMAudio's loss is not
-    # batch-decomposable under accumulation (blvm_tpu/parallel/train_step.py:99-103), kept as JAX has it
+    # frames-weighted microbatches, as the JAX driver weights them, from the lengths the host holds (a read
+    # of the card's x_sl would stall the host once a microbatch); LSTMAudio's loss is not batch-decomposable
+    # under accumulation (blvm_tpu/parallel/train_step.py:99-103), kept as JAX has it
     train_step = make_train_step(
         loss_fn,
         accum=accum,
-        loss_weight=(lambda mb, mets: mb["x_sl"].sum()) if accum > 1 else None,
+        loss_weight=(lambda mb, mets: mb["x_sl_host"].sum()) if accum > 1 else None,
         accum_unroll=args.accum_unroll,
     )
     crop = RandomSegment(args.random_segment_size, seed=args.seed) if args.random_segment_size else None
@@ -181,7 +182,8 @@ def train(
             state.optimizer.learning_rate = epoch_lr.lr_at_epoch(epoch)
         for examples in batches_per_epoch:
             x, x_sl = make_train_batch(examples, args, epoch, crop)
-            batch = dict(x=torch.from_numpy(x).to(device), x_sl=torch.from_numpy(x_sl).to(device))
+            batch = dict(x=torch.from_numpy(x).to(device), x_sl=torch.from_numpy(x_sl).to(device),
+                         x_sl_host=torch.from_numpy(x_sl))
             state, mets = train_step(state, batch, schedules())
             tracker.update(model.build_metrics(to_host(mets)), source="train")
     return state

@@ -1,18 +1,20 @@
-"""STCN on audio: CLI, model construction, annealers, the rf-chunked test pass and generation.
+"""STCN on audio: CLI, model construction, annealers, training, the rf-chunked test pass and generation.
 
 Port of ``experiments/experiment_stcn_audio.py``: its model flags (so the STCN run specs of
 ``experiments/benchmarks.txt`` parse), its model, its beta and free-nats annealers (``:69-77``),
-its chunked test pass (``make_rf_chunked_eval``: chunks overlapping by the receptive field, the
-first rf-padded, ``beta`` and ``free_nats`` threaded into the forward, as
-``experiments/common.py:1003-1037`` does) and its generation hook (2 x ``--generate_frames``).
-The test pass uses the scalars the JAX runner gives every evaluation, ``beta = 1`` and
-``free_nats = 0`` (the true ELBO). The tensor, pipeline and sequence parallel flags and the eval
-loader's geometry are not ported; the train step comes with K1's backward at STCN's width.
-Models build on the card unless a device is given; there a forward runs K1 30 times (20 of them
-skip-free), K2 and K3 once each, and a fast generation K1 30 times (the primes) and K12 once a frame.
+the training loop with them (:func:`train`: random segments, ``--accum_steps`` frames-weighted
+microbatches, the clips, Adam), its chunked test pass (``make_rf_chunked_eval``: chunks
+overlapping by the receptive field, the first rf-padded, ``beta`` and ``free_nats`` threaded into
+the forward, as ``experiments/common.py:1003-1037`` does) and its generation hook (2 x
+``--generate_frames``). The test pass uses the scalars the JAX runner gives every evaluation,
+``beta = 1`` and ``free_nats = 0`` (the true ELBO). The tensor, pipeline and sequence parallel
+flags and the eval loader's geometry are not ported. Models build on the card unless a device is
+given; there a forward runs K1 30 times (20 of them skip-free), K2 and K3 once each, its backward
+K1-bwd 30 times and K2-bwd once, and a fast generation K1 30 times (the primes) and K12 once a frame.
 
     args = build_args(argv)
     model = build_model(args)
+    state = train(model, args, batches_per_epoch, Tracker())
     values = evaluate(model, args, [common.make_batch(waveforms, args)], Tracker())
     make_generation_hook(model, args)(epoch, run_dir)
 """
@@ -28,6 +30,7 @@ from blvm_tpu_torch.experiments import common
 from blvm_tpu_torch.experiments.common import resolve_device, str2bool, to_host
 from blvm_tpu_torch.models.stcn import STCN
 from blvm_tpu_torch.training.annealers import CosineAnnealer
+from blvm_tpu_torch.training.train_state import TrainState
 
 # the scalars of every evaluation (blvm_tpu experiments/common.py:768-771)
 EVAL_SCALARS = dict(beta=1.0, free_nats=0.0)
@@ -95,6 +98,15 @@ def build_annealers(args: argparse.Namespace) -> dict:
         free_nats=CosineAnnealer(anneal_steps=args.free_nats_steps // 2, constant_steps=args.free_nats_steps // 2,
                                  start_value=args.free_nats_start_value, end_value=0.0),
     )
+
+
+def train(model: STCN, args: argparse.Namespace, batches_per_epoch: Sequence[Sequence[Tuple[int, np.ndarray]]],
+          tracker: Tracker, device=None) -> TrainState:
+    """The driver's training loop (:func:`common.train`) with :func:`build_annealers`: beta and free
+    nats stepped once a train step and handed to the forward, their values logged under the
+    ``train`` source (``STCN.build_metrics``); ``--accum_steps`` microbatches weighted by their
+    frames. Runs on the card unless given ``device="cpu"``. Returns the final :class:`TrainState`."""
+    return common.train(model, args, batches_per_epoch, tracker, device=device, annealers=build_annealers(args))
 
 
 def make_rf_chunked_eval(model: STCN, args: argparse.Namespace):

@@ -25,8 +25,9 @@ from blvm_tpu_torch.ops.conv_arithmetic import compute_conv_attributes
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # K1's limits (csrc/residual_glu.cu): MAX_C, MAX_HALF, MAX_RS (the widest accumulators, STCN's C = 256)
 K1_MAX_CHANNELS, K1_MAX_HALF, K1_MAX_RES_PLUS_SKIP = 256, 256, 512
-# K1-bwd's (csrc/residual_glu_bwd.cu): the WaveNet widths; STCN's C = 256 and skip-free blocks come with its train step
-K1_BWD_MAX_HALF, K1_BWD_MAX_RES_PLUS_SKIP = 128, 256
+# K1-bwd's (csrc/residual_glu_bwd.cu): half <= 128 and R + S <= 256 (the WaveNet widths), or in f32 STCN's
+# C = half = R = 256 with S = 256 or skip-free (the register-tiled path); both with or without the skip
+K1_BWD_MAX_HALF, K1_BWD_MAX_RES_PLUS_SKIP, K1_BWD_TILED_WIDTH = 128, 256, 256
 
 
 def residual_glu_plain(x, gate_kernel_t, gate_kernel_s, gate_bias_t, gate_bias_s, rs_kernel, rs_bias,
@@ -68,9 +69,10 @@ def residual_glu(x, gate_kernel_t, gate_kernel_s, gate_bias_t, gate_bias_s, rs_k
 
     CPU tensors run the plain twin (autograd gives its gradient). CUDA tensors
     go through :class:`ResidualGLUFunction`: the hand-written forward kernel
-    ``csrc/residual_glu.cu`` (with the skip, or in its skip-free mode) and, under
-    autograd, the backward kernel ``csrc/residual_glu_bwd.cu`` (f32 accumulation,
-    one rounding to the compute dtype at the store), or raise for what they do not take.
+    ``csrc/residual_glu.cu`` and, under autograd, the backward kernel
+    ``csrc/residual_glu_bwd.cu`` (f32 accumulation, one rounding to the compute
+    dtype at the store), each with the skip or in its skip-free mode, or raise
+    for what they do not take.
     """
     args = (x, gate_kernel_t, gate_kernel_s, gate_bias_t, gate_bias_s, rs_kernel, rs_bias)
     if not x.is_cuda:
@@ -104,10 +106,14 @@ class ResidualGLUFunction(torch.autograd.Function):
     recomputes the gate from them (two passes: ``d_pre`` and ``act``, then
     ``dx``), and takes the weight and bias gradients, sums over all ``B * L``
     rows, as plain products on its outputs (cuBLAS, f32 accumulation), as the
-    JAX backward left them to XLA. The backward kernel takes the WaveNet widths
-    with the skip; it raises for STCN's (C = 256, skip-free blocks). Without the
-    skip the second output is an empty ``(B, 0, 0)`` tensor. Arguments were
-    checked by :func:`residual_glu`."""
+    JAX backward left them to XLA. The backward kernel takes half <= 128 and
+    R + S <= 256 in f32 and bf16 (the WaveNet widths), and STCN's C = half = R =
+    256 in f32 (``K1_BWD_TILED_WIDTH``); both with the skip and skip-free. It
+    raises for other widths (bf16 at C = 256 among them: no STCN run spec sets
+    ``--bf16``). Without the skip the second output is an empty ``(B, 0, 0)``
+    tensor, and the skip columns of ``rs_kernel`` and ``rs_bias`` get a zero
+    gradient, as JAX's column slice ``rs_kernel[0, :, :R]`` gives them. Arguments
+    were checked by :func:`residual_glu`."""
 
     @staticmethod
     def forward(ctx, x, w_t, w_s, b_t, b_s, w_rs, b_rs, dilation: int, skip_size: int, need_skip: bool = True):
@@ -134,14 +140,19 @@ class ResidualGLUFunction(torch.autograd.Function):
         x, w_t, w_s, b_t, b_s, w_rs = ctx.saved_tensors
         dilation, skip_size, need_skip = ctx.geometry
         B, T_in, C = x.shape
-        half, S = w_t.shape[-1], w_rs.shape[-1] - C
-        if not need_skip or half > K1_BWD_MAX_HALF or C + S > K1_BWD_MAX_RES_PLUS_SKIP:
+        half, rs_ld = w_t.shape[-1], w_rs.shape[-1]
+        S = rs_ld - C if need_skip else 0
+        tiled = C == half == K1_BWD_TILED_WIDTH and S in (0, C)
+        if not (tiled and x.dtype == torch.float32) and (half > K1_BWD_MAX_HALF or C + S > K1_BWD_MAX_RES_PLUS_SKIP):
             raise NotImplementedError(
-                f"residual_glu_bwd kernel takes half <= {K1_BWD_MAX_HALF}, R + S <= {K1_BWD_MAX_RES_PLUS_SKIP} and "
-                f"blocks with the skip; got half={half}, R+S={C + S}, need_skip={need_skip} (STCN's backward on "
-                "the card is not ported yet)")
+                f"residual_glu_bwd kernel takes half <= {K1_BWD_MAX_HALF} and R + S <= {K1_BWD_MAX_RES_PLUS_SKIP}, or "
+                f"float32 at C = half = R = {K1_BWD_TILED_WIDTH} with S = {K1_BWD_TILED_WIDTH} or skip-free; got "
+                f"C={C}, half={half}, R+S={C + S}, {x.dtype}")
         L = T_in - dilation
-        d_o, d_s = d_o.to(x.dtype).contiguous(), d_s.to(x.dtype).contiguous()
+        # the kernel reads 16-byte rows: a view that starts off that alignment is copied (fresh tensors are aligned)
+        x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s = (
+            t if t.data_ptr() % 16 == 0 else t.clone()
+            for t in (x, w_t, w_s, b_t, b_s, w_rs, d_o.to(x.dtype).contiguous(), d_s.to(x.dtype).contiguous()))
         d_pre = torch.empty((B, L, 2 * half), dtype=x.dtype, device=x.device)
         act = torch.empty((B, L, half), dtype=x.dtype, device=x.device)
         dx = torch.empty_like(x)
@@ -149,7 +160,7 @@ class ResidualGLUFunction(torch.autograd.Function):
         cuda.count_launch("residual_glu_bwd")
         err = lib.blvm_residual_glu_bwd(
             *(t.data_ptr() for t in (x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, d_pre, act, dx)),
-            B, T_in, C, half, C, S, dilation, skip_size, _DTYPE_CODES[x.dtype], cuda.stream_handle(x),
+            B, T_in, C, half, C, S, rs_ld, dilation, skip_size, _DTYPE_CODES[x.dtype], cuda.stream_handle(x),
         )
         cuda.check(err, "residual_glu_bwd")
 
@@ -168,13 +179,18 @@ class ResidualGLUFunction(torch.autograd.Function):
         # the residual half of d_rs is dO sqrt(1/2): the constant (in x's dtype, as the forward
         # multiplies by it) scales the small products instead of all of dO
         inv_std = torch.tensor(math.sqrt(0.5), dtype=x.dtype)
-        d_o_rows, d_s_rows = d_o.reshape(-1, C), d_s.reshape(-1, S)
-        d_w_rs = torch.cat([
-            (act.reshape(-1, half).T @ d_o_rows) * inv_std,
-            act[:, L - skip_size :].reshape(-1, half).T @ d_s_rows,
-        ], dim=1)[None]
-        d_b_rs = torch.cat([col_sum(d_o_rows) * inv_std, col_sum(d_s_rows)])
-        return dx, d_w_t, d_w_s, d_b[:half], d_b[half:], d_w_rs, d_b_rs, None, None, None
+        d_o_rows = d_o.reshape(-1, C)
+        d_w_rs = [(act.reshape(-1, half).T @ d_o_rows) * inv_std]
+        d_b_rs = [col_sum(d_o_rows) * inv_std]
+        if need_skip:
+            d_s_rows = d_s.reshape(-1, S)
+            d_w_rs.append(act[:, L - skip_size :].reshape(-1, half).T @ d_s_rows)
+            d_b_rs.append(col_sum(d_s_rows))
+        else:  # the skip columns took no part in the skip-free forward
+            d_w_rs.append(x.new_zeros((half, rs_ld - C)))
+            d_b_rs.append(x.new_zeros(rs_ld - C))
+        return (dx, d_w_t, d_w_s, d_b[:half], d_b[half:], torch.cat(d_w_rs, dim=1)[None], torch.cat(d_b_rs),
+                None, None, None)
 
 
 class Conv1d(nn.Module):

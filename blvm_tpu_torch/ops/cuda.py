@@ -43,8 +43,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     # x, w_t, w_s, b_t, b_s, w_rs, b_rs, o, s, B, T_in, C, half, R, S, rs_ld, dilation, skip_size, dtype, stream
     "blvm_residual_glu": [_P] * 9 + [_I] * 10 + [_P],
-    # x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, d_pre, act, dx, B, T_in, C, half, R, S, dilation, skip_size, dtype, stream
-    "blvm_residual_glu_bwd": [_P] * 11 + [_I] * 9 + [_P],
+    # x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, d_pre, act, dx, B, T_in, C, half, R, S, rs_ld, dilation, skip_size, dtype,
+    # stream
+    "blvm_residual_glu_bwd": [_P] * 11 + [_I] * 10 + [_P],
     # y, logits, locs, log_scales, out, N, M, y/logit/loc/scale row strides, num_bins, stream
     "blvm_dmol_log_prob": [_P] * 5 + [_L, _I, _L, _L, _L, _L, _I, _P],
     # y, logits, locs, log_scales, g, d_logits, d_locs, d_log_scales, N, M, 4 row strides, num_bins, stream

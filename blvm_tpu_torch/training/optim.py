@@ -80,8 +80,9 @@ def get_lr_schedule(name: Optional[str], learning_rate: float, **kwargs):
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """``optax.global_norm``: the L2 norm of all elements of all tensors."""
-    return torch.sqrt(sum(torch.sum(torch.square(t)) for t in tensors))
+    """``optax.global_norm``: the L2 norm of all elements of all tensors, from one multi-tensor
+    launch of the tensors' norms (not a reduction and an add a tensor)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
 
 
 class ClippedOptimizer:
@@ -120,15 +121,18 @@ class ClippedOptimizer:
                 self.total_notfinite += 1
                 return False
             self.notfinite_count = 0
+        # multi-tensor ops: a few launches a step however many gradients, the same elementwise math
         with torch.no_grad():
             if self.clip_grad_value:
-                for g in grads:
-                    g.clamp_(-self.clip_grad_value, self.clip_grad_value)
+                torch._foreach_clamp_min_(grads, -self.clip_grad_value)
+                torch._foreach_clamp_max_(grads, self.clip_grad_value)
             if self.clip_grad_norm:
                 norm = global_norm(grads)
                 keep = norm < self.clip_grad_norm  # a device scalar: no host sync
-                for g in grads:
-                    g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * self.clip_grad_norm))
+                # g / norm * max_norm above the threshold, as optax; g / 1 * 1 (exactly g) below it
+                one = torch.ones((), dtype=norm.dtype, device=norm.device)
+                torch._foreach_div_(grads, torch.where(keep, one, norm))
+                torch._foreach_mul_(grads, torch.where(keep, one, torch.full_like(one, self.clip_grad_norm)))
         self.optimizer.step()
         return True
 

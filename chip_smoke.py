@@ -9,10 +9,11 @@ step and generation at the width of its s=64 run spec (H = 256, one layer, 64
 frames a stack, the same DMoL head, f32), and the VRNN's test pass, generation and
 train step at the width of its s=64 z=256 run spec (H = Z = 256, r_dim 512, 64 frames a
 stack, the same DMoL head, f32), and the SRNN's test pass, generation and train step at the
-width of its s=64 z=256 run spec (the same widths, smoothing, f32), and STCN's test pass and
-generation at the width of its s=1 z=[256,128,64,32,16] run spec (256 channels, 5 x 5 encoder
-blocks, a 5-block decode stack, the same DMoL head, f32), and checks the fifteen hand-written
-kernels they run against their plain PyTorch twins:
+width of its s=64 z=256 run spec (the same widths, smoothing, f32), and STCN's test pass,
+generation and train step at the width of its s=1 z=[256,128,64,32,16] run spec (256 channels,
+5 x 5 encoder blocks, a 5-block decode stack, the same DMoL head, f32; the step in 4 microbatches
+with the clips and annealers) and one train step at its s=64 z=[256] spec, and checks the fifteen
+hand-written kernels they run against their plain PyTorch twins:
 
   1. device: the card's name and power limit (nvidia-smi)
   2. numerics: TF32 and reduced-precision bf16 GEMM reductions off
@@ -149,9 +150,29 @@ kernels they run against their plain PyTorch twins:
  46. timing: K1 at STCN's width (with the skip and skip-free) against its twin, K12 a frame
      against the plain loop and the windowed path a frame, the test pass (samples/s) and a
      generation (frames/s), torch.profiler breakdowns of both
+ 47. K1-bwd at STCN's width (f32, the register-tiled path) at the train step's shapes, skip-free at
+     d=1 (5, 1156, 256) and with the skip at d=16 (5, 1141, 256): the kernel and the f32 twin held
+     to autograd of the f64 twin over every gradient
+ 48. the STCN train slice: flags of benchmarks.txt:26 -> driver -> model -> weights bridge ->
+     stcn_audio.train with its annealers, 3 Adam steps (value and norm clips) on 20 utterances of
+     24k-72k samples a step, cropped to 1000 samples, in 4 microbatches; 120 K1 (80 skip-free),
+     120 K1-bwd, 4 K2, 4 K2-bwd, 4 K3 a step, none on the plain path; losses against the twins fed
+     the same noise, beta and free nats against the annealers
+ 49. the step-0 gradients of every parameter on a microbatch: kernels and f32 twins held to the f64
+     twins
+ 50. timing: K1-bwd at the shapes of 47, the whole backward (with the weight-gradient GEMMs) against
+     autograd of the twin and the kernel alone, each beside its bound
+ 51. timing: the train step (accum 4, clips, Adam), kernels and twins in turns, samples/s, the
+     host's enqueue time, peak memory
+ 52. a torch.profiler breakdown of the train step; no host wait on the card inside the microbatch
+     loop's spans, and one step under torch's sync debug mode ("error")
+ 53. one train step at benchmarks.txt:27 (s=64, z=[256], 5 stacks, 20 whole utterances) through
+     stcn_audio.train: 30 K1 (24 skip-free), 6 K1-bwd (block 0 and the decode stack: the 24 blocks
+     after the only used one are off every path to the loss), 1 K2, 1 K2-bwd, 1 K3; the loss and the
+     step-0 gradients against the twins
 
 Every phase prints one line (the profiles a few); any failure raises and exits
-non-zero before the last line (phases 14-46 print all their numbers first). A
+non-zero before the last line (phases 14-53 print all their numbers first). A
 ``[total]`` line gives the run's seconds; the second-to-last line is the
 kernels' JSON record, the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero without CUDA.
@@ -211,6 +232,15 @@ STCN_FLAGS = (
     "--max_grad_norm 1.0 --max_grad_value 0.1 --accum_steps 4 --seed 0"
 )
 STCN_B, STCN_T, N_K12 = 6, 72000, 256
+# the s=64 z=[256] run spec of experiments/benchmarks.txt:27 (5 stacks of 5 blocks, one latent level, whole
+# utterances, no accumulation): one train step on 20 utterances of 24k-72k samples
+STCN27_FLAGS = (
+    "--likelihood DMoL --input_coding mu_law --batch_size 20 --beta_anneal_steps 25000 --free_nats_steps 50000 "
+    "--dense True --num_stack_frames 64 --latent_size 256 --num_stacks 5 --seed 0"
+)
+# host calls that wait on the card, and ops that read a device value to the host
+SYNC_EVENTS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "aten::item",
+               "aten::_local_scalar_dense")
 
 
 def phase(tag, /, **values):
@@ -235,6 +265,22 @@ def residual_glu_work(B, T_in, C, half, S, dilation, skip_size, elem=4):
     weights = 4 * C * half + 2 * half + half * (C + S) + C + S
     return dict(bytes_=elem * (B * T_in * C + B * T_out * C + B * skip_size * S + weights),
                 flops=2 * B * T_out * (4 * C * half + half * (C + S)))
+
+
+def residual_glu_bwd_work(B, T_in, C, half, S, dilation, skip_size, weight_grads=True, elem=4):
+    """``roofline`` keywords of one K1-bwd call (S = 0: the skip-free mode): x, dO, dS and the weights read
+    once, dx written once; the two passes' multiply-adds (the gate recomputed, d_act, dx). With
+    ``weight_grads`` (the whole backward) also the weight-gradient products and the weight gradients written;
+    without (the kernel alone) d_pre and act written instead."""
+    L = T_in - dilation
+    weights = 4 * C * half + 2 * half + half * (C + S) + C + S
+    macs = B * L * (4 * C * half + half * (C + S)) + B * T_in * 4 * half * C
+    if weight_grads:
+        macs += B * L * (4 * C * half + half * C) + B * skip_size * half * S
+        written = weights
+    else:
+        written = B * L * 3 * half
+    return dict(bytes_=elem * (2 * B * T_in * C + B * L * C + B * skip_size * S + weights + written), flops=2 * macs)
 
 
 def stcn_frame_work(B, C, half, S, n_enc, n_used, n_dec, latent_size, D):
@@ -807,12 +853,8 @@ def main():
         x_ = torch.randn(B, T + rf, 96, generator=gen, device=dev).to(torch.bfloat16)
         graphs.append((glu_graph(modules.residual_glu_plain, x_.clone()), glu_graph(modules.residual_glu, x_.clone())))
     k1b = alternate(lambda g_: backward_only(g_[0]), lambda g_: backward_only(g_[1]), graphs)
-    L = T + rf - 64
     record["residual_glu_bwd"].update(ms=k1b["kernel"], plain_ms=k1b["plain"], **roofline(
-        bytes_=2 * (2 * B * (T + rf) * 96 + B * L * 96 + B * T * 96 + 2 * sum(t.numel() for t in w6)),
-        flops=2 * B * L * (4 * 96 * 96 + 96 * 192) + 2 * B * (T + rf) * 4 * 96 * 96
-        + 2 * B * L * (4 * 96 * 96 + 96 * 96) + 2 * B * T * 96 * 96,
-        peak=BF16_PEAK))
+        **residual_glu_bwd_work(B, T + rf, 96, 96, 96, 64, T, elem=2), peak=BF16_PEAK))
     phase("time-K1-bwd", card=smi.replace(" ", "_"), shape=f"({B},{T + rf},96)", dilation=64, dtype="bf16",
           kernel_ms=f"{k1b['kernel']:.4f}", plain_ms=f"{k1b['plain']:.4f}", includes="both passes + weight-gradient GEMMs")
     del graphs
@@ -890,6 +932,8 @@ def main():
     srnn_train_phases(record, smi, dev)
     torch.cuda.empty_cache()
     stcn_phases(record, smi, dev)
+    torch.cuda.empty_cache()
+    stcn_train_phases(record, smi, dev)
     phase("total", seconds=f"{time.time() - t_start:.1f}")
 
     print(json.dumps({"kernels": list(record.values())}), flush=True)
@@ -3224,17 +3268,6 @@ def stcn_phases(record, smi, dev):
         b = model.res_stack.blocks[i]
         return [getattr(b, n).detach().to(dtype) for n in block_names]
 
-    def counting_glu():
-        """K1's wrapper with a tally of its skip-free launches (a CUDA call launches or raises)."""
-        tally = {"skip_free": 0}
-        real = modules.residual_glu
-
-        def glu(*a, need_skip=True, **kw):
-            tally["skip_free"] += int(a[0].is_cuda and not need_skip)
-            return real(*a, need_skip=need_skip, **kw)
-
-        return mock.patch.object(modules, "residual_glu", glu), tally
-
     # 42. K1 at STCN's width against its twin, f32 and bf16, B = 6 at the test pass's first-block length: the
     # used blocks' weights (dilation 16) and the first block's (dilation 1), with the skip at skip_size = all
     # rows and = the last 1000, and skip-free; phase 4's tolerances (f32: the FMA order against cuBLAS's over
@@ -3283,7 +3316,7 @@ def stcn_phases(record, smi, dev):
                                                                     device=like.device))
 
     def test_pass(split, plain_path_=False):
-        counting, tally = counting_glu()
+        counting, tally = counting_glu(modules)
         with plain() if plain_path_ else counting, seeded_noise():
             cuda.reset_launch_counts()
             t0 = time.time()
@@ -3508,6 +3541,374 @@ def stcn_phases(record, smi, dev):
              card=card)
 
     require(not failures, f"STCN phases failed: {failures}")
+
+
+def counting_glu(modules):
+    """K1's wrapper with a tally of its skip-free launches (a CUDA call launches or raises): ``(patch, tally)``."""
+    tally = {"skip_free": 0}
+    real = modules.residual_glu
+
+    def glu(*a, need_skip=True, **kw):
+        tally["skip_free"] += int(a[0].is_cuda and not need_skip)
+        return real(*a, need_skip=need_skip, **kw)
+
+    return mock.patch.object(modules, "residual_glu", glu), tally
+
+
+def stcn_train_phases(record, smi, dev):
+    """Phases 47-53, STCN's train step at the width of ``experiments/benchmarks.txt:26`` (s = 1, z = [256, 128,
+    64, 32, 16], 256 channels, f32; --batch_size 20 in --accum_steps 4 microbatches of 5 random segments of
+    1000 samples, the value and norm clips, the beta and free-nats annealers): K1-bwd at STCN's width against
+    the float64 twin, three steps of the driver's ``train``, the step-0 gradients, K1-bwd's and the step's
+    times and a profile of the step with the host's waits counted inside the microbatch loop; then one train
+    step at ``:27`` (s = 64, z = [256], --num_stacks 5, whole utterances) against its twins. Each check is
+    printed before any raises, so one run shows every number."""
+    import copy
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from blvm_tpu_torch import weights
+    from blvm_tpu_torch.data.transforms import RandomSegment
+    from blvm_tpu_torch.evaluation.tracker import Tracker
+    from blvm_tpu_torch.experiments import common, stcn_audio
+    from blvm_tpu_torch.models import stcn as stcn_model
+    from blvm_tpu_torch.models.wavenet import modules
+    from blvm_tpu_torch.modules import distributions
+    from blvm_tpu_torch.ops import cuda, likelihoods, recurrent, variational
+    from blvm_tpu_torch.training.train_state import TrainState
+    from blvm_tpu_torch.training.train_step import MICROBATCH_SPAN, make_train_step
+
+    failures = []
+
+    def expect(cond, message):
+        if not cond:
+            failures.append(message)
+            print(f"  FAIL: {message}", flush=True)
+
+    card = smi.replace(" ", "_")
+    plain = plain_path(modules, likelihoods, distributions, variational, recurrent)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 47)
+    args = stcn_audio.build_args(STCN_FLAGS.split())
+    targs = argparse_copy(args, epochs=1, lr=3e-4)
+    model = stcn_audio.build_model(args)
+    params = weights.random_jax_params(model, args.seed)
+    weights.load_jax_params(model, params)
+    C, rf, seg = args.hidden_size, model.receptive_field, args.random_segment_size
+    micro = args.batch_size // args.accum_steps  # 5 segments a microbatch
+    block_names = ("gate_kernel_t", "gate_kernel_s", "gate_bias_t", "gate_bias_s", "rs_kernel", "rs_bias")
+
+    # 47. K1-bwd at STCN's width against autograd of the f64 twin, at the train step's shapes: its first block
+    # (skip-free, d = 1, (5, 1156, 256)) and its first used block (the skip at d = 16, (5, 1141, 256), the last
+    # 1001 rows), both T uneven to the kernel's 32-row tiles; every gradient of the kernel and of the f32 twin
+    # held to the f64 twin, the kernel's largest error within twice the f32 twin's plus 1e-6 (the convention of
+    # K7-bwd, K8-bwd and K9-bwd)
+    cases = {"skip_free": (0, 1, seg + rf - 1, 0, False), "skip": (4, 16, seg + rf - 1 - 15, seg + 1, True)}
+
+    def block_grads(block, x, cotangents, d, skip, need_skip, fn, dtype):
+        b = model.res_stack.blocks[block]
+        leaves = [t.detach().to(dtype).requires_grad_(True) for t in [x] + [getattr(b, n) for n in block_names]]
+        o, s_ = fn(*leaves, dilation=d, skip_size=skip, need_skip=need_skip)
+        outs = [o, s_] if need_skip else [o]
+        torch.autograd.backward(outs, [c.to(dtype) for c in cotangents[: len(outs)]])
+        return [leaf.grad.double() for leaf in leaves]
+
+    k1b_err = 0.0
+    for label, (block, d, T_in, skip, need_skip) in cases.items():
+        x = torch.randn(micro, T_in, C, generator=gen, device=dev)
+        cot = [torch.randn(micro, T_in - d, C, generator=gen, device=dev),
+               torch.randn(micro, skip, C, generator=gen, device=dev)]
+        cuda.reset_launch_counts()
+        got = block_grads(block, x, cot, d, skip, need_skip, modules.residual_glu, torch.float32)
+        torch.cuda.synchronize()
+        launches = cuda.launch_counts()["residual_glu_bwd"]
+        twin = block_grads(block, x, cot, d, skip, need_skip, modules.residual_glu_plain, torch.float32)
+        ref = block_grads(block, x, cot, d, skip, need_skip, modules.residual_glu_plain, torch.float64)
+        errs = {n: ((k - r).abs().max().item(), (t - r).abs().max().item())
+                for n, k, t, r in zip(("x",) + block_names, got, twin, ref)}
+        over = {n: e for n, e in errs.items() if e[0] > 2 * e[1] + 1e-6}
+        finite = all(bool(torch.isfinite(g_).all()) for g_ in got)
+        dead = need_skip or not (got[5][..., C:].any() or got[6][C:].any())
+        expect(finite and not over and dead and launches == 1,
+               f"K1-bwd-stcn {label}: over {over}, finite {finite}, skip columns zero {dead}, launches {launches}")
+        k1b_err = max(k1b_err, *(e[0] for e in errs.values()))
+        phase("K1-bwd-stcn", mode=label, shape=f"({micro},{T_in},{C})", dilation=d, skip_rows=skip, dtype="f32",
+              max_abs_err_vs_f64={n: f"{e[0]:.3g}" for n, e in errs.items()},
+              twin_f32_max_abs_err_vs_f64={n: f"{e[1]:.3g}" for n, e in errs.items()})
+    record["residual_glu_bwd"]["stcn_max_abs_err_vs_f64"] = k1b_err
+
+    # 48. the train slice: flags of benchmarks.txt:26 -> driver -> model on the card -> weights bridge ->
+    # stcn_audio.train with its annealers, 3 Adam steps on 20 utterances of 24k-72k samples a step, each cropped
+    # to a random segment of 1000 as the driver crops; the latent noise from a generator of its own, alike for
+    # the kernel and the plain runs
+    rng = np.random.default_rng(args.seed + 48)
+    lengths = rng.integers(STCN_T // 3, STCN_T + 1, 3 * args.batch_size)
+    utterances = [(i, synthetic_speech(int(n), rng)) for i, n in enumerate(lengths)]
+    train_batches = [utterances[i * args.batch_size : (i + 1) * args.batch_size] for i in range(3)]
+
+    def seeded_noise(seed):
+        g_ = torch.Generator(device=dev).manual_seed(seed)
+        return mock.patch.object(stcn_model, "gaussian_noise", lambda _, shape, like: torch.randn(
+            shape, generator=g_, device=like.device).to(like.dtype))
+
+    def run_train(m, a, batches, plain_path_=False):
+        log = StepLog(Tracker())
+        counting, tally = counting_glu(modules)
+        with plain() if plain_path_ else counting, seeded_noise(SEED + 48):
+            cuda.reset_launch_counts()
+            t0 = time.time()
+            stcn_audio.train(m, a, batches, log)
+            torch.cuda.synchronize()
+            return log.steps, cuda.launch_counts(), tally["skip_free"], time.time() - t0
+
+    weights.load_jax_params(model, params)
+    steps_k, counts, skip_free, seconds = run_train(model, targs, train_batches)
+    weights.load_jax_params(model, params)
+    steps_p, counts_p, _, seconds_p = run_train(model, targs, train_batches, plain_path_=True)
+    expected = dict(residual_glu=360, residual_glu_bwd=360, dmol_log_prob=12, dmol_log_prob_bwd=12, dmol_sample=12)
+    expect(counts == {**dict.fromkeys(counts, 0), **expected} and skip_free == 240,
+           f"STCN train-step launches {counts} ({skip_free} skip-free), expected {expected} and 240 skip-free "
+           "(120/120/4/4/4 a step, 80 skip-free)")
+    expect(not any(counts_p.values()), f"the plain STCN train path launched kernels: {counts_p}")
+    for k, v in expected.items():
+        record[k]["launches"] = record[k].get("launches", 0) + counts[k]
+    losses, losses_p = [st["loss"] for st in steps_k], [st["loss"] for st in steps_p]
+    loss_rel = [abs(a_ - b_) / abs(b_) for a_, b_ in zip(losses, losses_p)]
+    expect(all(math.isfinite(v) for st in steps_k for v in st.values()), f"STCN train metrics not finite: {steps_k}")
+    # step 0: the same parameters, only the sums' order differs (1e-5); later steps: Adam's first updates move
+    # every parameter by about lr sign(g), so a gradient element near zero whose sign the order flips moves by
+    # 2 lr (1e-4)
+    expect(loss_rel[0] <= 1e-5 and max(loss_rel) <= 1e-4, f"STCN train losses {losses} vs plain {losses_p}")
+    ref_annealers = stcn_audio.build_annealers(targs)
+    ref_values = [{k: float(np.float32(a_.step())) for k, a_ in ref_annealers.items()} for _ in range(3)]
+    got_values = [{k: st[k] for k in ("beta", "free_nats")} for st in steps_k]
+    expect(got_values == ref_values and got_values[0] == dict(beta=1.0, free_nats=0.0625),
+           f"STCN annealers {got_values}, expected {ref_values}")
+    phase("stcn-train-slice", steps=3, segments_per_step=args.batch_size, microbatches=args.accum_steps,
+          samples_per_step=seg * args.batch_size, losses=[f"{v:.6f}" for v in losses],
+          losses_plain=[f"{v:.6f}" for v in losses_p], loss_rel=[f"{v:.3g}" for v in loss_rel],
+          beta=[v["beta"] for v in got_values], free_nats=[v["free_nats"] for v in got_values],
+          launches_per_step={k: v // 3 for k, v in counts.items() if v}, skip_free_per_step=skip_free // 3,
+          seconds=f"{seconds:.2f}", seconds_plain=f"{seconds_p:.2f}")
+
+    # 49. the step-0 gradients of every parameter on the first microbatch of the first step (its crops), at beta 1
+    # and the first free-nats value: the kernels and the f32 twins both held to the f64 twins, the kernels no
+    # further than twice the f32 twins plus 1e-6 (relative norms)
+    crop = RandomSegment(seg, seed=targs.seed)
+    x0, sl0 = common.make_train_batch(train_batches[0], targs, 1, crop)
+    x0, sl0 = torch.from_numpy(x0[:micro]).to(dev), torch.from_numpy(sl0[:micro]).to(dev)
+
+    def step0_grads(m, x_, sl_, plain_path_, dtype):
+        m.zero_grad(set_to_none=True)
+        m.train()
+        with plain() if plain_path_ else contextlib.nullcontext(), seeded_noise(SEED + 49):
+            loss, _, _ = m(x_.to(dtype), sl_, beta=1.0, free_nats=0.0625,
+                           generator=torch.Generator(device=dev).manual_seed(SEED))
+            loss.backward()
+        # a parameter off every path to the loss (at :27 the encoder's blocks after the only used one) has none
+        grads = {n: (p_.grad if p_.grad is not None else torch.zeros_like(p_)).detach().clone()
+                 for n, p_ in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        return grads, loss.item()
+
+    def grads_against_f64(m, p_, x_, sl_):
+        weights.load_jax_params(m, p_)
+        g_k, loss_k = step0_grads(m, x_, sl_, False, torch.float32)
+        g_p, loss_p = step0_grads(m, x_, sl_, True, torch.float32)
+        m64 = copy.deepcopy(m).double()
+        g_64, loss_64 = step0_grads(m64, x_, sl_, True, torch.float64)
+        del m64
+        e_k = {n: rel_norm(g_k[n], g_64[n]) for n in g_64}
+        e_p = {n: rel_norm(g_p[n], g_64[n]) for n in g_64}
+        over = {n: (e_k[n], e_p[n]) for n in e_k if e_k[n] > 2 * e_p[n] + 1e-6}
+        finite = all(bool(torch.isfinite(g_).all()) for g_ in g_k.values())
+        worst = max(e_k, key=e_k.get)
+        values = dict(loss=f"{loss_k:.6f}", loss_plain=f"{loss_p:.6f}", loss_f64=f"{loss_64:.6f}",
+                      kernel_max_rel_vs_f64=f"{e_k[worst]:.3g}", twin_f32_max_rel_vs_f64=f"{max(e_p.values()):.3g}",
+                      worst=worst, kernel_vs_twin_max_rel=f"{max(rel_norm(g_k[n], g_p[n]) for n in g_p):.3g}",
+                      parameters=len(e_k), without_gradient=sum(not g_.any() for g_ in g_64.values()))
+        return finite and not over, over, values
+
+    ok, over, values = grads_against_f64(model, params, x0, sl0)
+    expect(ok, f"STCN step-0 gradients: {over}")
+    phase("stcn-train-grads", **values)
+    torch.cuda.empty_cache()
+
+    # 50. K1-bwd's time a call at the train step's shapes of 47, CUDA events, a different input each call: the
+    # whole backward (the kernel and the weight-gradient products) against autograd of the twin in turns, and
+    # the kernel alone (its C entry point on buffers made beforehand), each beside its roofline() bound
+    def backward_only(graph):
+        outputs, inputs, grad_outputs = graph
+        return torch.autograd.grad(outputs, inputs, grad_outputs, retain_graph=True)
+
+    lib = cuda.library()
+    for label, (block, d, T_in, skip, need_skip) in cases.items():
+        b = model.res_stack.blocks[block]
+        w = [getattr(b, n).detach() for n in block_names]
+        S = C if need_skip else 0
+
+        def glu_graph(fn, x_):
+            leaves = [x_.requires_grad_(True)] + [t.clone().requires_grad_(True) for t in w]
+            o, s_ = fn(*leaves, dilation=d, skip_size=skip, need_skip=need_skip)
+            outs = (o, s_) if need_skip else (o,)
+            return outs, leaves, tuple(torch.randn_like(t) for t in outs)
+
+        graphs = []
+        for _ in range(3):
+            x_ = torch.randn(micro, T_in, C, generator=gen, device=dev)
+            graphs.append((glu_graph(modules.residual_glu_plain, x_.clone()), glu_graph(modules.residual_glu, x_.clone())))
+        t = alternate(lambda g_: backward_only(g_[0]), lambda g_: backward_only(g_[1]), graphs, warmup=1)
+        # the kernel alone: x, the weights and the cotangents of each graph, d_pre, act and dx made beforehand
+        L = T_in - d
+        bufs = []
+        for g_ in graphs:
+            (outs, leaves, cots) = g_[1]
+            d_s = cots[1] if need_skip else torch.empty(0, device=dev)
+            bufs.append([leaves[0].detach(), *w[:5], cots[0], d_s, torch.empty(micro, L, 2 * C, device=dev),
+                         torch.empty(micro, L, C, device=dev), torch.empty(micro, T_in, C, device=dev)])
+
+        def kernel_alone(buf):
+            cuda.check(lib.blvm_residual_glu_bwd(*(t_.data_ptr() for t_ in buf), micro, T_in, C, C, C, S, 2 * C, d, skip,
+                                                 0, cuda.stream_handle(buf[0])), "residual_glu_bwd")
+
+        alone = sorted(cuda_time_ms(kernel_alone, bufs, warmup=1))[1]
+        bound = roofline(**residual_glu_bwd_work(micro, T_in, C, C, S, d, skip), peak=F32_PEAK)
+        bound_alone = roofline(**residual_glu_bwd_work(micro, T_in, C, C, S, d, skip, weight_grads=False), peak=F32_PEAK)
+        record["residual_glu_bwd"].update({
+            f"stcn_{label}_ms": t["kernel"], f"stcn_{label}_plain_ms": t["plain"], f"stcn_{label}_bound_ms": bound["bound_ms"],
+            f"stcn_{label}_kernel_alone_ms": alone, f"stcn_{label}_kernel_alone_bound_ms": bound_alone["bound_ms"]})
+        flops = residual_glu_bwd_work(micro, T_in, C, C, S, d, skip, weight_grads=False)["flops"]
+        phase("time-K1-bwd-stcn", card=card, mode=label, shape=f"({micro},{T_in},{C})", dilation=d, dtype="f32",
+              backward_ms=f"{t['kernel']:.4f}", plain_ms=f"{t['plain']:.4f}", bound_ms=f"{bound['bound_ms']:.4f}",
+              kernel_alone_ms=f"{alone:.4f}", kernel_alone_bound_ms=f"{bound_alone['bound_ms']:.4f}",
+              bound_by=bound_alone["bound_by"], kernel_alone_tflops=f"{flops / alone / 1e9:.2f}",
+              includes="backward: both passes + weight-gradient GEMMs")
+        del graphs, bufs
+
+    # 51. the train step (accum 4, the clips, Adam) on 4 batches of crops, kernels and twins in turns; its host
+    # enqueue time (the step returns before the card finishes) and peak memory
+    tx, _ = common.build_tx_and_lr(targs)
+    weights.load_jax_params(model, params)
+    model.train()
+    state = TrainState.create(model=model, tx=tx, generator=torch.Generator(device=dev).manual_seed(SEED))
+    train_step = make_train_step(common.loss_fn, accum=args.accum_steps,
+                                 loss_weight=lambda mb, mets: mb["x_sl_host"].sum())
+    scalars = dict(beta=torch.tensor(1.0), free_nats=torch.tensor(0.0625))
+    step_batches = []
+    for i in range(4):
+        xb_, slb_ = common.make_train_batch(train_batches[i % 3], targs, i + 2, crop)
+        step_batches.append(dict(x=torch.from_numpy(xb_).to(dev), x_sl=torch.from_numpy(slb_).to(dev),
+                                 x_sl_host=torch.from_numpy(slb_)))
+
+    def run_step(b_):
+        train_step(state, b_, scalars)
+
+    def run_step_plain(b_):
+        with plain():
+            train_step(state, b_, scalars)
+
+    torch.cuda.reset_peak_memory_stats()
+    ts = alternate(run_step_plain, run_step, step_batches, warmup=1)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.synchronize()
+    enqueue = []
+    for b_ in step_batches:
+        t0 = time.perf_counter()
+        run_step(b_)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    samples = seg * args.batch_size
+    phase("time-stcn-train-step", card=card, segments=args.batch_size, microbatches=args.accum_steps, samples=samples,
+          kernel_ms=f"{ts['kernel']:.3f}", plain_ms=f"{ts['plain']:.3f}",
+          samples_per_s=f"{samples / ts['kernel'] * 1e3:.0f}", host_enqueue_ms=f"{sorted(enqueue)[1]:.3f}",
+          peak_memory_GB=f"{peak_gb:.2f}")
+
+    # 52. torch.profiler over 3 steps: device time, idle share, launches a step, the top kernels; inside the
+    # microbatch loop's spans no host wait on the card (a stream synchronization or a device value read to the
+    # host); and one step run with torch's sync debug mode raising on any synchronizing call
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b_ in step_batches[:3]:
+            run_step(b_)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+    kernels_ = device_kernels(prof)
+    busy_ms = sum(device_us(e_) for e_ in kernels_) / 1e3 / 3
+    spans, waits_in_loop = 0, []
+    for e_ in prof.events():
+        if e_.device_type != torch.autograd.DeviceType.CPU:  # the span's copy on the device's timeline
+            continue
+        spans += e_.name == MICROBATCH_SPAN
+        if e_.name in SYNC_EVENTS:
+            parent = e_.cpu_parent
+            while parent is not None and parent.name != MICROBATCH_SPAN:
+                parent = parent.cpu_parent
+            if parent is not None:
+                waits_in_loop.append(e_.name)
+    waits_anywhere = {n: sum(e_.count for e_ in prof.key_averages() if e_.key == n) for n in SYNC_EVENTS}
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        run_step(step_batches[3])
+        sync_free = True
+    except RuntimeError as err:
+        sync_free = False
+        print(f"  sync debug mode: {err}", flush=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    expect(spans == 3 * args.accum_steps and not waits_in_loop and sync_free,
+           f"STCN train step: {spans} microbatch spans, host waits inside them {waits_in_loop}, "
+           f"sync debug mode passed {sync_free}")
+    # the idle share against the step's time by CUDA events (51): the profiler's own host work a launch
+    # stretches its wall time, and this step is launch-heavy
+    phase("profile-stcn-train-step", card=card, device_ms_per_step=f"{busy_ms:.3f}", step_ms=f"{ts['kernel']:.3f}",
+          idle_share=f"{1 - busy_ms / ts['kernel']:.3f}" if busy_ms else "not measured",
+          wall_ms_per_step_under_profiler=f"{wall_ms:.3f}",
+          kernel_launches_per_step=sum(e_.count for e_ in kernels_) // 3,
+          host_enqueue_ms=f"{sorted(enqueue)[1]:.3f}", microbatch_spans=spans, host_waits_in_loop=len(waits_in_loop),
+          host_waits_in_profile=waits_anywhere, sync_debug_mode_step="passed" if sync_free else "raised")
+    for e_ in sorted(kernels_, key=device_us, reverse=True)[:10]:
+        print(f"  {device_us(e_) / 1e3 / 3:9.3f} ms/step {e_.count // 3:5d} calls/step  {e_.key[:90]}", flush=True)
+    for e_ in sorted(kernels_, key=lambda e: e.count, reverse=True)[:8]:  # where the launches come from
+        print(f"  launches {e_.count // 3:5d}/step {device_us(e_) / 1e3 / 3:9.3f} ms/step  {e_.key[:90]}", flush=True)
+    del state, step_batches
+    torch.cuda.empty_cache()
+
+    # 53. one train step at benchmarks.txt:27 (s = 64, z = [256], 5 stacks: 24 of the 25 encoder blocks skip-free,
+    # the stacked input and the upsampling head under a gradient) on 20 whole utterances of 24k-72k samples
+    # through stcn_audio.train, kernels against twins; its step-0 gradients held to the f64 twins as in 49. The
+    # one level reads block 0's skip only, so the 24 blocks after it are off every path to the loss, as in JAX:
+    # the forward runs 30 K1, the backward K1-bwd for block 0 and the 5 decode blocks
+    args27 = stcn_audio.build_args(STCN27_FLAGS.split())
+    targs27 = argparse_copy(args27, epochs=1, lr=3e-4)
+    model27 = stcn_audio.build_model(args27)
+    params27 = weights.random_jax_params(model27, args27.seed)
+    rng27 = np.random.default_rng(args27.seed + 53)
+    batch27 = [[(i, synthetic_speech(int(n), rng27))
+                for i, n in enumerate(rng27.integers(STCN_T // 3, STCN_T + 1, args27.batch_size))]]
+    weights.load_jax_params(model27, params27)
+    steps27, counts27, skip_free27, seconds27 = run_train(model27, targs27, batch27)
+    weights.load_jax_params(model27, params27)
+    steps27_p, counts27_p, _, _ = run_train(model27, targs27, batch27, plain_path_=True)
+    expected27 = dict(residual_glu=30, residual_glu_bwd=6, dmol_log_prob=1, dmol_log_prob_bwd=1, dmol_sample=1)
+    expect(counts27 == {**dict.fromkeys(counts27, 0), **expected27} and skip_free27 == 24 and not any(counts27_p.values()),
+           f"STCN :27 step launches {counts27} ({skip_free27} skip-free), plain {counts27_p}, expected {expected27}")
+    for k, v in expected27.items():
+        record[k]["launches"] = record[k].get("launches", 0) + counts27[k]
+    rel27 = abs(steps27[0]["loss"] - steps27_p[0]["loss"]) / abs(steps27_p[0]["loss"])
+    expect(math.isfinite(steps27[0]["loss"]) and rel27 <= 1e-5, f"STCN :27 loss {steps27} vs plain {steps27_p}")
+    x27, sl27 = common.make_train_batch(batch27[0], targs27, 1, None)
+    ok, over, values = grads_against_f64(model27, params27, torch.from_numpy(x27).to(dev), torch.from_numpy(sl27).to(dev))
+    expect(ok, f"STCN :27 step-0 gradients: {over}")
+    phase("stcn27-train-step", utterances=args27.batch_size, samples=int(sl27.sum()), stacks=int(math.ceil(sl27.max() / 64)),
+          loss_step=f"{steps27[0]['loss']:.6f}", loss_step_plain=f"{steps27_p[0]['loss']:.6f}", loss_rel=f"{rel27:.3g}",
+          launches={k: v for k, v in counts27.items() if v}, skip_free=skip_free27, seconds=f"{seconds27:.2f}",
+          step0_grads=values)
+    del model27
+    torch.cuda.empty_cache()
+
+    require(not failures, f"STCN train phases failed: {failures}")
 
 
 def argparse_copy(args, **changes):

@@ -1,6 +1,6 @@
 """Bounds on paper of the TPU kernels the PyTorch/CUDA port has still to write, at their run specs,
 of K7, K9, K7-bwd and K9-bwd (each kernel apart from the cuBLAS weight-gradient GEMMs around it)
-at the SRNN's test pass and train step shapes, and of K12 and K1 at STCN's width, which
+at the SRNN's test pass and train step shapes, and of K12, K1 and K1-bwd at STCN's width, which
 ``chip_smoke.py`` also computes from its run.
 
     python scripts/torch_kernel_bounds.py
@@ -18,7 +18,14 @@ import sys
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from chip_smoke import BF16_PEAK, F32_PEAK, residual_glu_work, roofline, stcn_frame_work  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    BF16_PEAK,
+    F32_PEAK,
+    residual_glu_bwd_work,
+    residual_glu_work,
+    roofline,
+    stcn_frame_work,
+)
 
 F32, BF16 = 4, 2
 
@@ -108,6 +115,18 @@ def main():
     T = 72000
     bounds["K1 STCN skip"] = dict(**residual_glu_work(6, T + 156, 256, 256, 256, 1, T + 1), peak=F32_PEAK)
     bounds["K1 STCN skip-free"] = dict(**residual_glu_work(6, T + 156, 256, 256, 0, 16, 0), peak=F32_PEAK)
+    # K1-bwd at STCN's width, the same spec's train step: a microbatch of 5 random segments of 1000 samples
+    # (--batch_size 20, --accum_steps 4), rf-padded: the first block (skip-free, d = 1) takes 1000 + 157 - 1 rows,
+    # the first used block (the skip at d = 16, its last 1001 rows) 15 fewer. The kernel alone (both passes:
+    # 1.31 MFLOP a row with the skip, 1.18 M skip-free) and the whole backward with the weight-gradient GEMMs
+    seg = 1000 + 157 - 1
+    bounds["K1-bwd STCN skip"] = dict(**residual_glu_bwd_work(5, seg - 15, 256, 256, 256, 16, 1001, weight_grads=False),
+                                      peak=F32_PEAK)
+    bounds["K1-bwd STCN skip-free"] = dict(**residual_glu_bwd_work(5, seg, 256, 256, 0, 1, 0, weight_grads=False),
+                                           peak=F32_PEAK)
+    bounds["K1-bwd STCN skip with GEMMs"] = dict(**residual_glu_bwd_work(5, seg - 15, 256, 256, 256, 16, 1001),
+                                                 peak=F32_PEAK)
+    bounds["K1-bwd STCN skip-free with GEMMs"] = dict(**residual_glu_bwd_work(5, seg, 256, 256, 0, 1, 0), peak=F32_PEAK)
     print(json.dumps({name: roofline(**b) for name, b in bounds.items()}, indent=1))
 
 

@@ -27,16 +27,19 @@ def _rel_norm(a, b):
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("dilation", [1, 4])
-def test_residual_glu_block_gradients_match_jax(dilation, bf16):
-    """Gradients of sum(o * dO) + sum(s * dS) by x and by the six f32 parameters.
+@pytest.mark.parametrize("dilation,need_skip", [(1, True), (4, True), (1, False), (4, False)],
+                         ids=["1", "4", "1-skip_free", "4-skip_free"])
+def test_residual_glu_block_gradients_match_jax(dilation, need_skip, bf16):
+    """Gradients of sum(o * dO) + sum(s * dS) by x and by the six f32 parameters, with the
+    skip and skip-free (``need_skip=False``, STCN's dead blocks: only sum(o * dO), and the
+    skip columns of rs_kernel and rs_bias get JAX's zero gradient of its column slice).
     f32: summation order only (1e-5 relative to each gradient's norm). bf16: both
     round after every op in bf16, forward and backward; the parameter gradients
     are sums over all rows of products rounded at 2^-8 relative, so their
     relative-norm distance stays within a few such roundings (3e-2)."""
     C, B, T_in, skip_size = 8, 2, 24, 12
     dtype = torch.bfloat16 if bf16 else None
-    module = Conv1dResidualGLU(C, dilation=dilation, dtype=dtype)
+    module = Conv1dResidualGLU(C, dilation=dilation, dtype=dtype, need_skip=need_skip)
     params = weights.random_jax_params(module, seed=dilation)
     weights.load_jax_params(module, params)
     rng = np.random.default_rng(5)
@@ -44,24 +47,29 @@ def test_residual_glu_block_gradients_match_jax(dilation, bf16):
     d_o = rng.normal(size=(B, T_in - dilation, C)).astype(np.float32)
     d_s = rng.normal(size=(B, skip_size, C)).astype(np.float32)
 
-    jmod = JaxGLU(res_channels=C, dilation=dilation, dtype=jnp.bfloat16 if bf16 else None)
+    jmod = JaxGLU(res_channels=C, dilation=dilation, dtype=jnp.bfloat16 if bf16 else None, need_skip=need_skip)
 
     def objective(p, x_):
         o, s = jmod.apply({"params": p}, x_, skip_size)
-        return jnp.sum(o.astype(jnp.float32) * d_o) + jnp.sum(s.astype(jnp.float32) * d_s)
+        return jnp.sum(o.astype(jnp.float32) * d_o) + (jnp.sum(s.astype(jnp.float32) * d_s) if need_skip else 0.0)
 
     jgrad_p, jgrad_x = jax.jit(jax.grad(objective, argnums=(0, 1)))(weights.unflatten(params), jnp.asarray(x))
     jgrads = weights.flatten(jgrad_p)
 
     xt = torch.from_numpy(x).requires_grad_(True)
     o, s = module(xt, skip_size)
-    (torch.sum(o.float() * torch.from_numpy(d_o)) + torch.sum(s.float() * torch.from_numpy(d_s))).backward()
+    assert (s is None) == (not need_skip)
+    objective_t = torch.sum(o.float() * torch.from_numpy(d_o))
+    (objective_t + (torch.sum(s.float() * torch.from_numpy(d_s)) if need_skip else 0.0)).backward()
 
     tol = 3e-2 if bf16 else 1e-5
     assert _rel_norm(np32(xt.grad), jgrad_x) <= tol
     for name, p in module.named_parameters():
         assert p.grad.dtype == torch.float32
         assert _rel_norm(np32(p.grad), jgrads[name]) <= tol, name
+    if not need_skip:  # the skip columns: zero on both sides
+        assert not np.any(jgrads["rs_kernel"][..., C:]) and not np.any(np32(module.rs_kernel.grad)[..., C:])
+        assert not np.any(jgrads["rs_bias"][C:]) and not np.any(np32(module.rs_bias.grad)[C:])
 
 
 def test_dmol_gradients_match_jax_at_the_edges_of_the_ladder():

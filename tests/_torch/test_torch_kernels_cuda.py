@@ -2,8 +2,8 @@
 K2 forward and backward (against autograd of the twins), K3 the sampler, K4 the
 Fast-WaveNet decode step, K5 the LSTM recurrence forward and backward, K8 the
 VRNN cell and K8-bwd its backward through time, K7 the GRU recurrence and K9 the
-SRNN's latent chain, their save modes and their backwards through time, K7-bwd and K9-bwd; K1 at
-STCN's width (C = 256, with and without its skip) and K12, STCN's frame decode.
+SRNN's latent chain, their save modes and their backwards through time, K7-bwd and K9-bwd; K1 and
+K1-bwd at STCN's width (C = 256, with and without its skip) and K12, STCN's frame decode.
 
 Marked ``cuda``: they skip without a CUDA device (here, on CPU-only machines).
 On the card, where JAX is not installed, leave out the root conftest (it imports
@@ -138,14 +138,66 @@ def test_residual_glu_tiled_and_fma_paths_agree_at_stcn_width(cuda_device, need_
             torch.testing.assert_close(s, ref[1], **K1_TOL[torch.float32])
 
 
+def _glu_grads_in(fn, args, dtype, dilation, skip, need_skip, seed=1):
+    """Gradients of sum(o dO) + sum(s dS) by the block's seven inputs, cast to ``dtype``, through ``fn``."""
+    leaves = [t.detach().to(dtype).requires_grad_(True) for t in args]
+    o, s = fn(*leaves, dilation=dilation, skip_size=skip, need_skip=need_skip)
+    g = torch.Generator(device=o.device).manual_seed(seed)
+    outputs, cotangents = [o], [torch.randn(o.shape, generator=g, device=o.device).to(dtype)]
+    if need_skip:
+        outputs.append(s)
+        cotangents.append(torch.randn(s.shape, generator=g, device=o.device).to(dtype))
+    torch.autograd.backward(outputs, cotangents)
+    return [leaf.grad.double() for leaf in leaves]
+
+
 @pytest.mark.cuda
-def test_residual_glu_backward_refuses_stcn_width(cuda_device):
-    """K1-bwd takes the WaveNet widths only: under autograd at STCN's, or skip-free, it raises."""
-    for need_skip in (True, False):
-        args = [t.requires_grad_(True) for t in glu_inputs(1, 40, 256, 256, 256, torch.float32, cuda_device)]
+@pytest.mark.parametrize("need_skip", [True, False])
+@pytest.mark.parametrize("dilation", [1, 16])
+def test_residual_glu_backward_kernel_at_stcn_width(cuda_device, dilation, need_skip):
+    """K1-bwd at C = half = R = 256 in f32 (the register-tiled path), with the skip (S = 256, the last 150
+    rows) and skip-free, at an uneven T: every gradient held to autograd of the float64 twin within twice
+    the f32 twin's error plus 1e-6 (largest absolute error); skip-free, the skip columns of rs_kernel and
+    rs_bias get exactly 0, as JAX's column slice gives them."""
+    args = glu_inputs(2, 333, 256, 256, 256, torch.float32, cuda_device)
+    cuda.reset_launch_counts()
+    got = _glu_grads_in(residual_glu, args, torch.float32, dilation, 150, need_skip)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts()["residual_glu_bwd"] == 1
+    twin = _glu_grads_in(residual_glu_plain, args, torch.float32, dilation, 150, need_skip)
+    ref = _glu_grads_in(residual_glu_plain, args, torch.float64, dilation, 150, need_skip)
+    for name, k, t, r in zip(("x", "w_t", "w_s", "b_t", "b_s", "w_rs", "b_rs"), got, twin, ref):
+        err_k, err_t = (k - r).abs().max().item(), (t - r).abs().max().item()
+        assert torch.isfinite(k).all() and err_k <= 2 * err_t + 1e-6, (name, err_k, err_t)
+    if not need_skip:
+        assert not got[5][..., 256:].any() and not got[6][256:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_residual_glu_backward_kernel_skip_free_at_wavenet_widths(cuda_device, dtype):
+    """The FMA and tensor-core widths' skip-free mode (the FMA path: only dO feeds d_act, rs_kernel read at its
+    full row width): K1-bwd against autograd of the twin at K1_BWD_REL, the skip columns' gradients 0."""
+    args = glu_inputs(2, 150, 96, 96, 96, dtype, cuda_device)
+    got = _glu_grads_in(residual_glu, args, dtype, 4, 0, False)
+    ref = _glu_grads_in(residual_glu_plain, args, dtype, 4, 0, False)
+    for name, a, b in zip(("x", "w_t", "w_s", "b_t", "b_s", "w_rs", "b_rs"), got, ref):
+        rel = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+        assert torch.isfinite(a).all() and rel <= K1_BWD_REL[dtype], (name, rel)
+    assert not got[5][..., 96:].any() and not got[6][96:].any()
+
+
+@pytest.mark.cuda
+def test_residual_glu_backward_refuses_what_it_does_not_take(cuda_device):
+    """K1-bwd takes half <= 128 and R + S <= 256, or f32 at C = half = R = 256 with S = 256 or skip-free: under
+    autograd at STCN's width in bf16, or at a width between, it raises (no plain fallback on the card)."""
+    cases = [(torch.bfloat16, 256, 256, 256, True), (torch.bfloat16, 256, 256, 256, False),
+             (torch.float32, 256, 256, 128, True), (torch.float32, 192, 192, 192, False)]
+    for dtype, C, half, S, need_skip in cases:
+        args = [t.requires_grad_(True) for t in glu_inputs(1, 40, C, half, S, dtype, cuda_device)]
         o, s = residual_glu(*args, dilation=2, skip_size=10, need_skip=need_skip)
-        with pytest.raises(NotImplementedError):
-            (o.sum() + (s.sum() if s is not None else 0)).backward()
+        with pytest.raises(NotImplementedError, match="residual_glu_bwd kernel takes"):
+            (o.float().sum() + (s.float().sum() if s is not None else 0)).backward()
 
 
 def stcn_case(device, n, history=True, **kwargs):
