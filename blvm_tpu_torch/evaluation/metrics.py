@@ -136,6 +136,29 @@ class RunningMeanMetric(Metric):
         self.weight_by = d
 
 
+class EMAMetric(Metric):
+    """An exponential moving average over steps: ``value = sum(values) / reduce_by`` of the first
+    step, then ``w new + (1 - w) old`` with ``w`` the mean of the two steps' ``weight_by`` (the
+    CW-VAE's "elbo ema (bpt)")."""
+
+    def __init__(self, values, name, tags=None, reduce_by=None, weight_by=None, get_best=None, log_to_console=True,
+                 log_to_framework=True):
+        super().__init__(name=name, tags=tags, get_best=get_best, log_to_console=log_to_console,
+                         log_to_framework=log_to_framework)
+        value, numel = _sum_and_numel(values)
+        reduce_by = _resolve(reduce_by, numel)
+        self.weight_by = _resolve(weight_by, reduce_by)
+        self.ema = value / reduce_by
+
+    @property
+    def value(self):
+        return self.ema
+
+    def update(self, metric: Metric):
+        avg_weight = (self.weight_by + metric.weight_by) / 2
+        self.ema = avg_weight * metric.ema + (1 - avg_weight) * self.ema
+
+
 class LossMetric(RunningMeanMetric):
     base_tags = {"losses"}
 

@@ -31,6 +31,10 @@ from blvm_tpu_torch.training.train_step import make_train_step
 from blvm_tpu_torch.utils.audio import save_wav
 
 
+# the torch.profiler span around each step of the driver's loops (the batch's upload, the step, its metrics queued)
+STEP_SPAN = "driver.step"
+
+
 def str2bool(arg) -> bool:
     if isinstance(arg, bool):
         return arg
@@ -62,6 +66,8 @@ def build_parser(description: str, batch_len: float) -> argparse.ArgumentParser:
     train_group.add_argument("--lr", type=float, default=3e-4)
     train_group.add_argument("--accum_steps", type=int, default=1, help="gradient-accumulation microbatches per step")
     train_group.add_argument("--accum_unroll", type=str2bool, default=False, help="accepted; only schedules XLA")
+    train_group.add_argument("--metric_fetch_lag", type=int, default=8,
+                             help="read a step's metrics to the host this many steps late (0: every step)")
     optim_group = parser.add_argument_group("optimizer")
     optim_group.add_argument("--optimizer", type=str, default="Adam")
     optim_group.add_argument("--optimizer_kwargs", type=json.loads, default=dict())
@@ -141,6 +147,67 @@ def make_scalar_schedules(annealers: Dict[str, object]) -> Callable[[], Dict[str
     return step_schedules
 
 
+class DeferredMetrics:
+    """Step metrics read to the host ``lag`` steps late (port of ``experiments/common.py:275-300``), so the host
+    queues the next steps' work while the card still runs a step, where a read a step would wait for the card
+    every step. ``push(mets, keep)`` starts the step's copies to page-locked host memory behind its work, without a
+    wait, and queues them with what must outlive the step (its pinned upload buffers); once more than ``lag`` are
+    queued, the oldest is handed to ``consume`` as numpy, waiting only if its copies have not run yet (a read on the
+    stream would wait for every step queued since). ``flush()`` hands over the rest; the drivers flush before anyone
+    reads the tracker, so its values are those of ``lag`` 0 (the merges run in the same order)."""
+
+    def __init__(self, consume: Callable[[dict], None], lag: int):
+        self.consume, self.lag = consume, max(0, int(lag))
+        self._pending: List[Tuple[dict, Optional[torch.cuda.Event], tuple]] = []
+
+    def push(self, mets: dict, keep: tuple = ()) -> None:
+        host, ready = _copy_to_host(mets)
+        self._pending.append((host, ready, keep))
+        while len(self._pending) > self.lag:
+            self._consume_oldest()
+
+    def flush(self) -> None:
+        while self._pending:
+            self._consume_oldest()
+
+    def _consume_oldest(self) -> None:
+        host, ready, _ = self._pending.pop(0)
+        if ready is not None and not ready.query():
+            ready.synchronize()
+        self.consume({k: v.numpy() for k, v in host.items()})
+
+
+def _copy_to_host(mets: dict) -> Tuple[dict, Optional[torch.cuda.Event]]:
+    """``(host tensors, the event after their copies)``: each card tensor copied into page-locked memory with
+    ``non_blocking=True`` on its stream; without one, the tensors themselves and no event."""
+    mets = {k: v.detach() for k, v in mets.items()}
+    cards = [v for v in mets.values() if v.is_cuda]
+    if not cards:
+        return mets, None
+    host = {}
+    for k, v in mets.items():
+        if v.is_cuda:
+            host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            host[k].copy_(v, non_blocking=True)
+        else:
+            host[k] = v
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(cards[0].device))
+    return host, ready
+
+
+def upload(array: np.ndarray, device: torch.device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``(tensor on device, pinned host buffer)``: to the card from page-locked memory with
+    ``non_blocking=True``, so the host does not wait for the copy; the buffer must live until the
+    copy has run (:class:`DeferredMetrics` keeps it with the step's metrics). On the CPU the
+    array's own tensor and no buffer."""
+    host = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type != "cuda":
+        return host, None
+    pinned = host.pin_memory()
+    return pinned.to(device, non_blocking=True), pinned
+
+
 def train(
     model: torch.nn.Module,
     args: argparse.Namespace,
@@ -157,7 +224,10 @@ def train(
     stepped once before each train step and their values handed to the forward as keyword
     arguments (:func:`loss_fn`); without any the forward sees none, as WaveNet's and
     LSTMAudio's do. Runs on ``device`` (default: the card; raises where there is none),
-    where the model must already lie. Returns the final :class:`TrainState`.
+    where the model must already lie. Each batch goes up from pinned memory without a wait, and
+    the step's metrics reach the tracker ``--metric_fetch_lag`` steps late (:class:`DeferredMetrics`,
+    flushed at the end of every epoch), so the loop waits on the card only there; each step is a
+    :data:`STEP_SPAN` profiler span. Returns the final :class:`TrainState`.
     """
     device = resolve_device(device)
     if next(model.parameters()).device.type != device.type:
@@ -176,16 +246,20 @@ def train(
     )
     crop = RandomSegment(args.random_segment_size, seed=args.seed) if args.random_segment_size else None
     schedules = make_scalar_schedules(annealers or {})
+    deferred = DeferredMetrics(lambda m: tracker.update(model.build_metrics(m), source="train"),
+                               args.metric_fetch_lag)
     model.train()
     for epoch in range(1, args.epochs + 1):
         if epoch_lr is not None:
             state.optimizer.learning_rate = epoch_lr.lr_at_epoch(epoch)
         for examples in batches_per_epoch:
-            x, x_sl = make_train_batch(examples, args, epoch, crop)
-            batch = dict(x=torch.from_numpy(x).to(device), x_sl=torch.from_numpy(x_sl).to(device),
-                         x_sl_host=torch.from_numpy(x_sl))
-            state, mets = train_step(state, batch, schedules())
-            tracker.update(model.build_metrics(to_host(mets)), source="train")
+            with torch.profiler.record_function(STEP_SPAN):
+                x, x_sl = make_train_batch(examples, args, epoch, crop)
+                (x_dev, x_buf), (sl_dev, sl_buf) = upload(x, device), upload(x_sl, device)
+                batch = dict(x=x_dev, x_sl=sl_dev, x_sl_host=torch.from_numpy(x_sl))
+                state, mets = train_step(state, batch, schedules())
+                deferred.push(mets, keep=(x_buf, sl_buf))
+        deferred.flush()
     return state
 
 
@@ -216,19 +290,25 @@ def evaluate(
 
     ``chunked``, a family's ``state_carry_eval(eval_step, model, generator, x, x_sl,
     scalars, tracker, source)``, scores each batch in its chunks; without it each
-    batch is one forward, given ``forward_kwargs`` besides ``x`` and ``x_sl``.
+    batch is one forward, given ``forward_kwargs`` besides ``x`` and ``x_sl``, uploaded
+    from pinned memory, its metrics read ``--metric_fetch_lag`` batches late
+    (:class:`DeferredMetrics`, flushed before the summary is read).
     """
     model.eval()
     eval_step = make_eval_step(loss_fn)
     device = next(model.parameters()).device
+    deferred = DeferredMetrics(lambda m: tracker.update(model.build_metrics(m), source=source),
+                               args.metric_fetch_lag)
     for x, x_sl in batches:
         if chunked is not None:
             chunked(eval_step, model, generator, x, x_sl, {}, tracker, source)
         else:
-            batch = dict(x=torch.from_numpy(x).to(device), x_sl=torch.from_numpy(x_sl).to(device),
-                         kwargs=dict(forward_kwargs or {}))
-            mets, _ = eval_step(model, generator, batch, {})
-            tracker.update(model.build_metrics(to_host(mets)), source=source)
+            with torch.profiler.record_function(STEP_SPAN):
+                (x_dev, x_buf), (sl_dev, sl_buf) = upload(x, device), upload(x_sl, device)
+                batch = dict(x=x_dev, x_sl=sl_dev, kwargs=dict(forward_kwargs or {}))
+                mets, _ = eval_step(model, generator, batch, {})
+                deferred.push(mets, keep=(x_buf, sl_buf))
+    deferred.flush()
     return tracker.values[source]
 
 

@@ -356,16 +356,23 @@ class ResidualStack(nn.Module):
 
         ``skip_mask`` (one bool per block, default all True): a block marked False runs
         without its skip (K1's skip-free mode on the card) and puts None in its place,
-        as JAX's ``ResidualStack`` does for STCN, which reads every n-th skip only."""
+        as JAX's ``ResidualStack`` does for STCN, which reads every n-th skip only. The
+        stack's last residual output is read by no caller, so the blocks after the last
+        one whose skip is read reach no output and do not run (their places hold None), as
+        XLA drops them from JAX's traced loop: a one-level STCN runs block 0 alone. With
+        ``collect_tails`` every block runs, since the fast frame loop steps every block
+        from its tail."""
         o = self.Conv1d_0(x)
         skips, tails = [], []
         if skip_mask is None:
             skip_mask = [True] * len(self.blocks)
-        for block, need_skip in zip(self.blocks, skip_mask):
+        n_run = len(self.blocks) if collect_tails else max((i + 1 for i, m in enumerate(skip_mask) if m), default=0)
+        for block, need_skip in zip(self.blocks[:n_run], skip_mask):
             if collect_tails:
                 tails.append(o[:, -block.dilation :])
             o, s = block(o, skip_size, need_skip=need_skip)
             skips.append(s)
+        skips += [None] * (len(self.blocks) - n_run)
         return (skips, tails) if collect_tails else skips
 
 

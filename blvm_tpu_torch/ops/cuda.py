@@ -35,7 +35,7 @@ _launches: Dict[str, int] = {
     "residual_glu": 0, "residual_glu_bwd": 0, "dmol_log_prob": 0, "dmol_log_prob_bwd": 0, "dmol_sample": 0,
     "wavenet_decode": 0, "lstm_recurrence": 0, "lstm_recurrence_bwd": 0, "vrnn_cell": 0,
     "vrnn_cell_bwd": 0, "gru_recurrence": 0, "gru_recurrence_bwd": 0, "srnn_chain": 0, "srnn_chain_bwd": 0,
-    "stcn_decode": 0,
+    "stcn_decode": 0, "depthwise_norm": 0, "rssm_chain": 0,
 }
 build_log = ""  # nvcc's output of the build this process ran (register / shared-memory report)
 
@@ -78,6 +78,12 @@ _SIGNATURES = {
     # params_out, trace; B, C, half, S, Le, Ld, L, M, x_cols, frame, from_d, use_mode; inv_std_n, sd_beta, sd_eps,
     # log_eps, 4 uniform maps; stream
     "blvm_stcn_decode": [_P] * 10 + [_I] * 12 + [_F] * 8 + [_P],
+    # u, scale1, bias1, w, db, scale2, bias2, out, part, stats; part doubles; B, N_in, N_out, C, k, stride, dilation,
+    # transposed, stats_rows, conv_rows; stream
+    "blvm_depthwise_norm": [_P] * 10 + [_L] + [_I] * 10 + [_P],
+    # weights[20], xg, xq, z0, h0, eps, resets, outputs[6], act, barrier; B, T, H, Z, inference, residual, precision,
+    # use_mode; sd_beta, sd_eps; stream
+    "blvm_rssm_chain": [_P] * 10 + [_I] * 8 + [_F] * 2 + [_P],
 }
 
 

@@ -96,7 +96,10 @@ def random_jax_params(model: nn.Module, seed: int) -> Dict[str, np.ndarray]:
     without a ``_{layer}`` suffix) all take U(-1/sqrt(H), 1/sqrt(H)), H the rows of
     the sibling ``w_hh`` (``blvm_tpu/modules/recurrent.py:32-38``), except the ``w_hh``
     of a module with ``orthogonal_hh`` set (the VRNN's ``GRUCell``), which is orthogonal
-    as flax draws it (``blvm_tpu/modules/recurrent.py:132``)."""
+    as flax draws it (``blvm_tpu/modules/recurrent.py:132``). As flax initializes them, a
+    ``GroupNorm_*`` module's ``scale`` is ones and its ``bias`` zeros, and a depthwise conv's
+    ``depthwise_bias`` is zeros (``blvm_tpu/models/clockwork_vae/conv_coders.py:74``); its
+    ``depthwise_kernel (k, 1, C)`` takes fan-in ``k``."""
     rng = np.random.default_rng(seed)
     shapes = param_shapes(model)
     orthogonal = {f"{name.replace('.', '/')}/w_hh" for name, m in model.named_modules()
@@ -107,6 +110,9 @@ def random_jax_params(model: nn.Module, seed: int) -> Dict[str, np.ndarray]:
             out[name] = _orthogonal_rows(rng, shape).astype(np.float32)
             continue
         *parents, leaf = name.split("/")
+        if (parents and parents[-1].startswith("GroupNorm")) or leaf == "depthwise_bias":
+            out[name] = (np.ones if leaf == "scale" else np.zeros)(shape, np.float32)
+            continue
         recurrent = _RECURRENT.fullmatch(leaf)
         if recurrent:
             fan_in = shapes["/".join([*parents, f"w_hh{recurrent.group(1) or ''}"])][0]

@@ -12,8 +12,11 @@ stack, the same DMoL head, f32), and the SRNN's test pass, generation and train 
 width of its s=64 z=256 run spec (the same widths, smoothing, f32), and STCN's test pass,
 generation and train step at the width of its s=1 z=[256,128,64,32,16] run spec (256 channels,
 5 x 5 encoder blocks, a 5-block decode stack, the same DMoL head, f32; the step in 4 microbatches
-with the clips and annealers) and one train step at its s=64 z=[256] spec, and checks the fifteen
-hand-written kernels they run against their plain PyTorch twins:
+with the clips and annealers) and one train step at its s=64 z=[256] spec, and the CW-VAE's test pass
+and generation at the width of its d=192 z=[128] s=[64] run spec (3 blocks of stride 4 a coder expanding
+192 -> 768, the precision-weighted posterior, the same DMoL head, f32), and the drivers' loops with
+their metrics read late, and checks the seventeen hand-written kernels they run against their plain
+PyTorch twins:
 
   1. device: the card's name and power limit (nvidia-smi)
   2. numerics: TF32 and reduced-precision bf16 GEMM reductions off
@@ -167,12 +170,34 @@ hand-written kernels they run against their plain PyTorch twins:
  52. a torch.profiler breakdown of the train step; no host wait on the card inside the microbatch
      loop's spans, and one step under torch's sync debug mode ("error")
  53. one train step at benchmarks.txt:27 (s=64, z=[256], 5 stacks, 20 whole utterances) through
-     stcn_audio.train: 30 K1 (24 skip-free), 6 K1-bwd (block 0 and the decode stack: the 24 blocks
-     after the only used one are off every path to the loss), 1 K2, 1 K2-bwd, 1 K3; the loss and the
-     step-0 gradients against the twins
+     stcn_audio.train: 6 K1 and 6 K1-bwd (block 0 and the decode stack: the 24 blocks after the only
+     used one reach no output and do not run), 1 K2, 1 K2-bwd, 1 K3; the loss and the step-0 gradients
+     against the twins
+
+ 54. the drivers' loops: the flagship WaveNet train loop (wavenet_audio.train, 10 steps) and whole-batch
+     test pass (evaluate, 10 batches) at --metric_fetch_lag 0 and 8: ms a step, the host's waits on the card
+     inside the steps' profiler spans (none at lag 8) and in all, the tracker's values the same at both lags
+ 55. K11 depthwise_norm vs its twin at every block shape of the benchmarks.txt:33 test pass (encoder blocks
+     0-2 from (5, 72021, 768), decoder blocks 0-2 back to (5, 72021, 768)), of its first and last --split_eval
+     chunks (4 rows in the last encoder block) and of the driver's default two-level width (96, strides
+     [64, 16]): the whole pass's and the two-level forward's blocks within 5e-5 of the f64 twin; the chunks'
+     within 1e-5 + 1e-5 |twin|, or held to the f64 twin within twice the f32 twin's error
+ 56. K10 rssm_chain vs its twin: the test pass's inference launch (5, 1125), a chunk's, the two-level
+     model's levels (the lower one with its context), and a generation's prior launch (2, 2000):
+     teacher-forced 1e-5 + 1e-5 |twin|, free-running 1e-4 + 1e-5 |twin|
+ 57. the CW-VAE test pass: flags of benchmarks.txt:33 -> driver -> model -> weights bridge, 5 mu-law
+     utterances of 24k-72k samples within --batch_len, whole and --split_eval (chunks of 277 samples
+     overlapping by 21, each level's (z, h) carried); 1 K10, 6 K11, 1 K2, 1 K3 a forward, none on the plain
+     path; bits/frame against the twins fed the same latent noise, rel 1e-5
+ 58. generation through the CW-VAE driver's hook: 2 x 128000 frames at the DMoL mode, 1 K10 (prior mode,
+     2000 steps) and 3 K11 launches, two wav files under blvm_tpu_torch/_build/cwvae_generation_hook/; a
+     generation from given latent noise against the twins, held to the f64 twins
+ 59. timing: K10 against its twin at the test pass's shape and in prior mode; K11 at the six block shapes
+     against its twin and the composite of PyTorch calls for the same chain, beside the blocks' 1x1 GEMMs
+ 60. timing of the test pass (whole and split) and of a generation, torch.profiler breakdowns of both
 
 Every phase prints one line (the profiles a few); any failure raises and exits
-non-zero before the last line (phases 14-53 print all their numbers first). A
+non-zero before the last line (phases 14-60 print all their numbers first). A
 ``[total]`` line gives the run's seconds; the second-to-last line is the
 kernels' JSON record, the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero without CUDA.
@@ -238,6 +263,14 @@ STCN27_FLAGS = (
     "--likelihood DMoL --input_coding mu_law --batch_size 20 --beta_anneal_steps 25000 --free_nats_steps 50000 "
     "--dense True --num_stack_frames 64 --latent_size 256 --num_stacks 5 --seed 0"
 )
+# the CW-VAE: the d=192 z=[128] s=[64] run spec of experiments/benchmarks.txt:33 (one level, the precision-weighted
+# posterior, 3 blocks of stride 4 a coder, DMoL 10 x 2^16, f32); the test pass at 5 utterances of 24k-72k samples within
+# the driver's --batch_len budget (16000 x 16 samples); generation 2 x 128000 frames
+CWVAE_FLAGS = (
+    "--likelihood DMoL --input_coding mu_law --precision_posterior True --num_bits 16 --num_mix 10 "
+    "--length_sampler True --hidden_size 192 --latent_size 128 --strides 64 --seed 0"
+)
+CWVAE_B, CWVAE_T, CWVAE_BUDGET = 5, 72000, 16000 * 16
 # host calls that wait on the card, and ops that read a device value to the host
 SYNC_EVENTS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "aten::item",
                "aten::_local_scalar_dense")
@@ -473,6 +506,12 @@ def main():
     # no single PyTorch call computes an STCN decode frame
     record["stcn_decode"] = dict(name="stcn_decode", route="cuda", source="blvm_tpu_torch/csrc/stcn_decode.cu",
                                  replaces="blvm_tpu/models/stcn/stcn.py:486", library_ms=None)
+    # no single PyTorch call computes the RSSM cell chain or the depthwise chain (phase 59 times the composite of
+    # PyTorch calls for the latter beside it)
+    record["rssm_chain"] = dict(name="rssm_chain", route="cuda", source="blvm_tpu_torch/csrc/rssm_cell.cu",
+                                replaces="blvm_tpu/modules/rssm.py:46", library_ms=None)
+    record["depthwise_norm"] = dict(name="depthwise_norm", route="cuda", source="blvm_tpu_torch/csrc/depthwise_norm.cu",
+                                    replaces="blvm_tpu/modules/convolutions.py:88", library_ms=None)
 
     # 4. K1 against its twin at the flagship shapes
     args = wavenet_audio.build_args(FLAGSHIP_FLAGS.split())
@@ -934,6 +973,9 @@ def main():
     stcn_phases(record, smi, dev)
     torch.cuda.empty_cache()
     stcn_train_phases(record, smi, dev)
+    torch.cuda.empty_cache()
+    driver_loop_phases(smi, dev)
+    cwvae_phases(record, smi, dev)
     phase("total", seconds=f"{time.time() - t_start:.1f}")
 
     print(json.dumps({"kernels": list(record.values())}), flush=True)
@@ -3878,8 +3920,8 @@ def stcn_train_phases(record, smi, dev):
     # 53. one train step at benchmarks.txt:27 (s = 64, z = [256], 5 stacks: 24 of the 25 encoder blocks skip-free,
     # the stacked input and the upsampling head under a gradient) on 20 whole utterances of 24k-72k samples
     # through stcn_audio.train, kernels against twins; its step-0 gradients held to the f64 twins as in 49. The
-    # one level reads block 0's skip only, so the 24 blocks after it are off every path to the loss, as in JAX:
-    # the forward runs 30 K1, the backward K1-bwd for block 0 and the 5 decode blocks
+    # one level reads block 0's skip only, so the 24 blocks after it reach no output, as in JAX: they do not run,
+    # and the forward runs 6 K1 (block 0 and the 5 decode blocks), the backward K1-bwd for the same 6
     args27 = stcn_audio.build_args(STCN27_FLAGS.split())
     targs27 = argparse_copy(args27, epochs=1, lr=3e-4)
     model27 = stcn_audio.build_model(args27)
@@ -3891,8 +3933,8 @@ def stcn_train_phases(record, smi, dev):
     steps27, counts27, skip_free27, seconds27 = run_train(model27, targs27, batch27)
     weights.load_jax_params(model27, params27)
     steps27_p, counts27_p, _, _ = run_train(model27, targs27, batch27, plain_path_=True)
-    expected27 = dict(residual_glu=30, residual_glu_bwd=6, dmol_log_prob=1, dmol_log_prob_bwd=1, dmol_sample=1)
-    expect(counts27 == {**dict.fromkeys(counts27, 0), **expected27} and skip_free27 == 24 and not any(counts27_p.values()),
+    expected27 = dict(residual_glu=6, residual_glu_bwd=6, dmol_log_prob=1, dmol_log_prob_bwd=1, dmol_sample=1)
+    expect(counts27 == {**dict.fromkeys(counts27, 0), **expected27} and skip_free27 == 0 and not any(counts27_p.values()),
            f"STCN :27 step launches {counts27} ({skip_free27} skip-free), plain {counts27_p}, expected {expected27}")
     for k, v in expected27.items():
         record[k]["launches"] = record[k].get("launches", 0) + counts27[k]
@@ -3909,6 +3951,459 @@ def stcn_train_phases(record, smi, dev):
     torch.cuda.empty_cache()
 
     require(not failures, f"STCN train phases failed: {failures}")
+
+
+def driver_loop_phases(smi, dev):
+    """Phase 54, the drivers' loops on the card (the repair of their host waits): the flagship WaveNet
+    train loop (``wavenet_audio.train``, 10 steps) and the whole-batch test pass (``evaluate``, 10 batches) at
+    ``--metric_fetch_lag`` 0 and 8: wall ms a step, the host's waits on the card inside the steps' spans and in
+    all, and the tracker's values, which must be the same at both lags."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from blvm_tpu_torch import weights
+    from blvm_tpu_torch.evaluation.tracker import Tracker
+    from blvm_tpu_torch.experiments import common, wavenet_audio
+
+    card = smi.replace(" ", "_")
+    waits = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+    args = wavenet_audio.build_args(FLAGSHIP_FLAGS.split())
+    model = wavenet_audio.build_model(args)
+    params = weights.random_jax_params(model, args.seed)
+    rng = np.random.default_rng(SEED + 54)
+    n_steps = 10
+    batches = [[(i * B + j, synthetic_speech(int(n), rng)) for j, n in enumerate(rng.integers(T, 2 * T, B))]
+               for i in range(n_steps)]
+    eval_batches = [wavenet_audio.make_batch([w for _, w in b], args) for b in batches]
+
+    def run(kind, lag, profiler=None):
+        weights.load_jax_params(model, params)
+        tracker = Tracker()
+        largs = argparse_copy(args, metric_fetch_lag=lag, epochs=1, split_eval=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "train":
+            wavenet_audio.train(model, largs, batches, tracker)
+        else:
+            with torch.no_grad():
+                wavenet_audio.evaluate(model, largs, eval_batches, tracker)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n_steps, tracker.values
+
+    failures = []
+    for kind in ("train", "evaluate"):
+        ms = {0: [], 8: []}
+        values = {}
+        for lag in (0, 8, 8, 0):
+            step_ms, values[lag] = run(kind, lag)
+            ms[lag].append(step_ms)
+        counts = {}
+        for lag in (0, 8):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run(kind, lag)
+            in_steps, total = 0, 0
+            for e_ in prof.events():
+                if e_.device_type == torch.autograd.DeviceType.CPU and e_.name in waits:
+                    total += 1
+                    parent = e_.cpu_parent
+                    while parent is not None and parent.name != common.STEP_SPAN:
+                        parent = parent.cpu_parent
+                    in_steps += parent is not None
+            counts[lag] = (in_steps, total)
+        # the same numbers in the same merge order: equal, unless cuBLAS picks another reduction order between runs
+        exact = values[0] == values[8]
+        rel = max(abs(values[8][src][name] - v) / max(abs(v), 1e-30) for src in values[0]
+                  for name, v in values[0][src].items())
+        if not (rel <= 1e-5 and counts[8][0] == 0):
+            failures.append(f"{kind}: waits (in steps, all) {counts}, values rel {rel}")
+        phase("driver-loop-lag", card=card, loop=kind, steps=n_steps, B=B, ms_per_step_lag0=f"{min(ms[0]):.3f}",
+              ms_per_step_lag8=f"{min(ms[8]):.3f}", host_waits_in_steps_lag0=counts[0][0],
+              host_waits_in_steps_lag8=counts[8][0], host_waits_all_lag0=counts[0][1],
+              host_waits_all_lag8=counts[8][1], tracker_values_exact=exact, tracker_values_rel=f"{rel:.3g}")
+    del model
+    torch.cuda.empty_cache()
+    require(not failures, f"driver loop phases failed: {failures}")
+
+
+def depthwise_work(B, N_in, N_out, C, k):
+    """``roofline`` keywords of one K11 call (f32): u read once, z written once, the six (C,) vectors and the
+    (k, C) kernel read once; relu, the statistics and the normalization of each input element (6 operations) and
+    of each output element, with the taps (2k + 6)."""
+    return dict(bytes_=4 * (B * N_in * C + B * N_out * C + (6 + k) * C),
+                flops=B * N_in * C * 6 + B * N_out * C * (2 * k + 6))
+
+
+def rssm_work(B, T, H, Z):
+    """``roofline`` keywords of one K10 launch in inference mode (f32): xg, xq, the noise, z0, h0 and the 20 kernel
+    weights read once, z, h and both heads' mu and sd written once; a row-step's multiply-adds (gru_in's z rows,
+    the GRU's two products, both MLPs' three layers and both heads, 12 H^2 + 5 H Z) at two operations each."""
+    rows = B * T
+    weights_ = Z * H + 2 * (3 * H * H + 3 * H) + 2 * (3 * H * H + 2 * H + H * 2 * Z + 2 * Z) - H
+    return dict(bytes_=4 * (rows * (2 * H + Z) + B * (Z + H) + weights_ + rows * (H + 5 * Z)),
+                flops=2 * rows * (12 * H * H + 5 * H * Z))
+
+
+def cwvae_phases(record, smi, dev):
+    """Phases 55-60, the CW-VAE's serving path at the width of ``experiments/benchmarks.txt:33`` (d = 192, z = 128,
+    strides [64], the precision-weighted posterior, 3 encoder and 3 decoder blocks expanding 192 -> 768 with k = 5
+    and stride 4, DMoL 10 x 2^16, f32): K11 and K10 against their twins at every shape the path gives them (and at
+    the driver's default two-level width 96, strides [64, 16]), the test pass whole and in carried-state chunks,
+    generation through the driver's hook, and their times. Each check is printed before any raises."""
+    import copy
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from blvm_tpu_torch import weights
+    from blvm_tpu_torch.evaluation.tracker import Tracker
+    from blvm_tpu_torch.experiments import clockwork_audio, common
+    from blvm_tpu_torch.models.clockwork_vae import clockwork_vae as cw_model
+    from blvm_tpu_torch.models.wavenet import modules
+    from blvm_tpu_torch.modules import distributions
+    from blvm_tpu_torch.ops import cuda, depthwise, likelihoods, recurrent, rssm, variational
+
+    failures = []
+
+    def expect(cond, message):
+        if not cond:
+            failures.append(message)
+            print(f"  FAIL: {message}", flush=True)
+
+    card = smi.replace(" ", "_")
+    plain = plain_path(modules, likelihoods, distributions, variational, recurrent)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 55)
+    args = clockwork_audio.build_args(CWVAE_FLAGS.split())
+    model = clockwork_audio.build_model(args)
+    require(next(model.parameters()).device.type == "cuda", "clockwork_audio.build_model did not build on the card")
+    weights.load_jax_params(model, weights.random_jax_params(model, args.seed))
+    model.eval()
+    H, Z = args.hidden_size[0], args.latent_size[0]
+    rng = np.random.default_rng(args.seed + 55)
+    # the --batch_len 16000 x 16 budget: the longest utterance of 72000 samples and four of 24k-46k
+    lengths = np.concatenate([[CWVAE_T], rng.integers(24000, 46001, CWVAE_B - 1)])
+    require(lengths.sum() <= CWVAE_BUDGET, f"the test batch {lengths} exceeds --batch_len")
+    x_np, x_sl_np = common.make_batch([synthetic_speech(int(n), rng) for n in lengths], args)
+    x_dev, x_sl_dev = torch.from_numpy(x_np).to(dev), torch.from_numpy(x_sl_np).to(dev)
+
+    def recorded(module, name):
+        """A patch that keeps every call of ``module.name``: its arguments, for the kernels' checks."""
+        calls, fn = [], getattr(module, name)
+
+        def keep(*a, **k):
+            calls.append((a, k))
+            return fn(*a, **k)
+
+        return calls, mock.patch.object(module, name, keep)
+
+    def seeded_noise():
+        g_ = torch.Generator(device=dev).manual_seed(SEED + 57)
+        return mock.patch.object(cw_model, "gaussian_noise",
+                                 lambda _, shape, like: torch.randn(shape, generator=g_, dtype=like.dtype,
+                                                                    device=like.device))
+
+    # the calls of the test pass's forward, one chunk of --split_eval (the first, then the last with same
+    # padding), and the default two-level model's forward on the first two utterances
+    k11_calls, k11_patch = recorded(depthwise, "depthwise_norm")
+    k10_calls, k10_patch = recorded(rssm, "rssm_chain")
+    chunks, chunk_lens = model.split_sequence(x_np, x_sl_np, length=args.random_segment_size or 4 * model.overall_stride)
+    args2 = clockwork_audio.build_args("--strides 64 16 --seed 0".split())
+    model2 = clockwork_audio.build_model(args2)
+    weights.load_jax_params(model2, weights.random_jax_params(model2, 1))
+    with torch.no_grad(), k11_patch, k10_patch, seeded_noise():
+        model(x_dev, x_sl_dev)
+        n_whole = len(k11_calls)
+        for i in (0, len(chunks) - 1):
+            model(torch.from_numpy(chunks[i]).to(dev), torch.from_numpy(chunk_lens[i]).to(dev), pad_strideable=False,
+                  pad_same=i == len(chunks) - 1)
+        n_chunks_calls = len(k11_calls)
+        model2(x_dev[:2], x_sl_dev[:2])
+    labels = ([f"enc{i}" for i in range(3)] + [f"dec{i}" for i in range(3)]
+              + [f"chunk_first_enc{i}" for i in range(3)] + [f"chunk_first_dec{i}" for i in range(3)]
+              + [f"chunk_last_enc{i}" for i in range(3)] + [f"chunk_last_dec{i}" for i in range(3)]
+              + [f"two_level_{s}{i}" for s in ("enc0_", "enc1_") for i in range(3)]
+              + [f"two_level_{s}{i}" for s in ("dec1_", "dec0_") for i in range(3)])
+    require(n_whole == 6 and n_chunks_calls == 18 and len(k11_calls) == 30 and len(k10_calls) == 5,
+            f"K11 calls {n_whole}, {n_chunks_calls}, {len(k11_calls)}; K10 calls {len(k10_calls)}")
+
+    # 55. K11 against its twins at every block shape. The whole test pass's and the two-level forward's blocks: within
+    # K11_F64_ATOL of the f64 twin, fixed (the kernel sums its statistics in double; the f32 twin's fast variance,
+    # E[x^2] - E[x]^2 summed in f32 over 72021 rows, lies up to 9.7e-5 from the f64 twin at encoder block 0, the kernel
+    # 1.7e-5, and 1.8e-5 at most over these shapes in an earlier run on an H100). A --split_eval chunk's blocks, where
+    # GroupNorm runs over a handful of rows (5 in a last chunk's top block) and amplifies any rounding: within 1e-5 +
+    # 1e-5 |twin| of the f32 twin, or else within twice the f32 twin's own error of the f64 twin
+    K11_F64_ATOL = 5e-5
+    k11_err = 0.0
+    for label, (a, k) in zip(labels, k11_calls):
+        with torch.no_grad():
+            cuda.reset_launch_counts()
+            got = depthwise.depthwise_norm(*a, **k)
+            torch.cuda.synchronize()
+            launches = cuda.launch_counts()["depthwise_norm"]
+            ref = depthwise.depthwise_norm_plain(*a, **k)
+            ref64 = depthwise.depthwise_norm_plain(*(t.double() for t in a), **k)
+        err = (got - ref).abs()
+        close = bool((err <= 1e-5 + 1e-5 * ref.abs()).all())
+        e64, t64 = (got.double() - ref64).abs().max().item(), (ref.double() - ref64).abs().max().item()
+        agrees = (close or e64 <= 2 * t64) if label.startswith("chunk") else e64 <= K11_F64_ATOL
+        expect(launches == 1 and bool(torch.isfinite(got).all()) and agrees,
+               f"K11 {label}: max err {err.max().item()}, vs f64 {e64} (twin {t64})")
+        if not label.startswith("chunk") and not label.startswith("two"):
+            k11_err = max(k11_err, err.max().item())
+        phase("K11", case=label, u=tuple(a[0].shape), out=tuple(got.shape), stride=k["stride"],
+              transposed=k["transposed"], max_abs_err=f"{err.max().item():.3g}", within_1e5=close,
+              kernel_vs_f64=f"{e64:.3g}", twin_vs_f64=f"{t64:.3g}")
+        del got, ref, ref64
+    record["depthwise_norm"]["max_abs_err"] = k11_err
+
+    # 56. K10 against its twin: inference mode on the test pass's hoisted products (5, 1125), teacher-forced (a twin
+    # step from the kernel's z and h entering every step) within 1e-5 + 1e-5 |twin| and free-running within 1e-4 +
+    # 1e-5 |twin|; the same at the two-level model's levels (level 0 with the context of width 96); prior mode at a
+    # generation's shape (2, 2000) from the hook below
+    def within(got, ref, atol, rtol):
+        return all(bool(((g - r).abs() <= atol + rtol * r.abs()).all()) for g, r in zip(got, ref) if r is not None)
+
+    def max_err(got, ref):
+        return max((g - r).abs().max().item() for g, r in zip(got, ref) if r is not None)
+
+    def check_k10(label, a, k):
+        kw_, xg, xq, z0, h0, eps, *rest = a
+        resets = rest[0] if rest else None
+        with torch.no_grad():
+            cuda.reset_launch_counts()
+            got = rssm.rssm_chain(*a, **k)
+            torch.cuda.synchronize()
+            launches = cuda.launch_counts()["rssm_chain"]
+            free = rssm.rssm_chain_plain(*a, **k)
+            B_, T_, H_ = xg.shape
+            z_prev = torch.cat([z0[:, None], got.z[:, :-1]], dim=1).reshape(B_ * T_, -1)
+            h_prev = torch.cat([h0[:, None], got.h[:, :-1]], dim=1).reshape(B_ * T_, -1)
+            flat = lambda t: None if t is None else t.reshape(B_ * T_, 1, -1)
+            forced = rssm.rssm_chain_plain(kw_, flat(xg), flat(xq), z_prev, h_prev, flat(eps), **k)
+        forced = [None if t is None else t.reshape(B_, T_, -1) for t in forced]
+        e_free, e_forced = max_err(got, free), max_err(got, forced)
+        ok = launches == 1 and all(bool(torch.isfinite(t).all()) for t in got if t is not None)
+        expect(ok and (resets is not None or within(got, forced, 1e-5, 1e-5)), f"K10 {label}: teacher-forced {e_forced}")
+        expect(within(got, free, 1e-4, 1e-5), f"K10 {label}: free-running {e_free}")
+        phase("K10", case=label, shape=tuple(xg.shape), Z=z0.shape[1], inference=k["inference"], launches=launches,
+              free_max_abs_err=f"{e_free:.3g}", teacher_forced_max_abs_err=f"{e_forced:.3g}")
+        return e_free
+
+    record["rssm_chain"]["max_abs_err"] = check_k10("test_pass_B5", *k10_calls[0])
+    check_k10("chunk_first", *k10_calls[1])
+    check_k10("two_level_top", *k10_calls[3])
+    check_k10("two_level_bottom_with_context", *k10_calls[4])
+
+    # 57. the test pass: flags of benchmarks.txt:33 -> driver -> model on the card -> weights bridge, whole and with
+    # --split_eval (each level's state carried), kernels against the twins with the same latent noise: 1 K10, 6 K11,
+    # 1 K2, 1 K3 a forward, none on the plain path; bits/frame rel 1e-5 (f32 throughout; only summation orders
+    # differ, and the kernel's GroupNorm statistics are summed in double)
+    n_chunks = len(chunks)
+
+    def test_pass(split, plain_path_=False):
+        with plain() if plain_path_ else contextlib.nullcontext(), seeded_noise():
+            cuda.reset_launch_counts()
+            t0 = time.time()
+            values = clockwork_audio.evaluate(model, argparse_copy(args, split_eval=split), [(x_np, x_sl_np)],
+                                              Tracker(), generator=torch.Generator(device=dev).manual_seed(SEED))
+            torch.cuda.synchronize()
+            return values, cuda.launch_counts(), time.time() - t0
+
+    path_launches = {"rssm_chain": 0, "depthwise_norm": 0}
+    bpt = "elbo (bpt)"
+    for split in (False, True):
+        values, counts, seconds = test_pass(split)
+        values_p, counts_p, seconds_p = test_pass(split, plain_path_=True)
+        forwards = n_chunks if split else 1
+        expected = dict(rssm_chain=forwards, depthwise_norm=6 * forwards, dmol_log_prob=forwards, dmol_sample=forwards)
+        expect(counts == {**dict.fromkeys(counts, 0), **expected},
+               f"CW-VAE test pass split={split}: launches {counts}, expected {expected}")
+        expect(not any(counts_p.values()), f"the plain CW-VAE test pass launched kernels: {counts_p}")
+        for k_ in path_launches:
+            path_launches[k_] += counts[k_]
+        rel = abs(values[bpt] - values_p[bpt]) / abs(values_p[bpt])
+        finite = all(math.isfinite(v) for v in values.values())
+        expect(finite and rel <= 1e-5, f"CW-VAE test pass split={split}: {values} vs twins {values_p}")
+        phase("cwvae-test-pass", split_eval=split, utterances=list(map(int, lengths)), forwards=forwards,
+              loss=f"{values['loss']:.6f}", bpt=f"{values[bpt]:.6f}", bpt_plain=f"{values_p[bpt]:.6f}",
+              bpt_rel=f"{rel:.3g}", kl_bpt=f"{values['kl (bpt)']:.4f}", rec_bpt=f"{values['rec (bpt)']:.6f}",
+              launches_per_forward={k_: v // forwards for k_, v in counts.items() if v}, seconds=f"{seconds:.2f}",
+              plain_seconds=f"{seconds_p:.2f}")
+
+    # 58. generation through the driver's hook: 2 x 128000 frames at the DMoL mode, the latents sampled: one K10
+    # launch (prior mode, 2000 steps) and the decoder's 3 K11, no K3; two wav files. Then a generation from given
+    # latent noise against the twins fed the same noise, held to the f64 twins within twice the f32 twins' error
+    out_dir = Path(__file__).resolve().parent / "blvm_tpu_torch" / "_build" / "cwvae_generation_hook"
+    hook = clockwork_audio.make_generation_hook(model, argparse_copy(args, generate_every=5))
+    k10_gen, k10_gen_patch = recorded(rssm, "rssm_chain")
+    with k10_gen_patch:
+        cuda.reset_launch_counts()
+        t0 = time.time()
+        paths = hook(5, out_dir)
+        torch.cuda.synchronize()
+        hook_s = time.time() - t0
+        counts = cuda.launch_counts()
+    n_top = args.generate_frames // model.overall_stride
+    expected = dict(rssm_chain=1, depthwise_norm=3)
+    expect(counts == {**dict.fromkeys(counts, 0), **expected}, f"CW-VAE generation launches {counts}, expected {expected}")
+    for k_ in path_launches:
+        path_launches[k_] += counts[k_]
+    shapes = []
+    for path in paths:
+        with wave.open(str(path)) as f:
+            shapes.append((f.getnchannels(), f.getsampwidth(), f.getframerate(), f.getnframes()))
+            pcm = np.frombuffer(f.readframes(f.getnframes()), "<i2")
+        expect(shapes[-1] == (1, 2, 16000, args.generate_frames) and np.abs(pcm).max() > 0,
+               f"CW-VAE hook wav {path}: {shapes[-1]}")
+    expect(len(paths) == 2, f"CW-VAE hook wrote {paths}")
+    phase("cwvae-generation-hook", frames=args.generate_frames, top_steps=n_top, launches=counts,
+          seconds=f"{hook_s:.2f}", files=[str(p_.relative_to(out_dir.parents[2])) for p_ in paths], wav=shapes)
+    record["rssm_chain"]["launches"] = path_launches["rssm_chain"]
+    record["depthwise_norm"]["launches"] = path_launches["depthwise_norm"]
+    check_k10("generation_prior", *k10_gen[0])
+
+    eps_g = [torch.randn(GEN_B, n_top, Z, generator=gen, device=dev)]
+    model64 = copy.deepcopy(model).double()
+    with torch.no_grad():
+        (frames, _), _ = model.generate(GEN_B, args.generate_frames, use_mode_observations=True, eps=eps_g)
+        with plain():
+            (twin, _), _ = model.generate(GEN_B, args.generate_frames, use_mode_observations=True, eps=eps_g)
+            (twin64, _), _ = model64.generate(GEN_B, args.generate_frames, use_mode_observations=True,
+                                             eps=[e.double() for e in eps_g])
+    del model64
+    e_twin, e_k64, e_t64 = ((a.double() - b.double()).abs().max().item()
+                            for a, b in ((frames, twin), (frames, twin64), (twin, twin64)))
+    share = ((frames - twin).abs() <= 1e-5).double().mean().item()
+    # each frame is the location of its most probable mixture component: where two components' logits lie within
+    # f32 rounding of each other the pick may differ (the f64 twins differ from both f32 paths there), at most 1e-3
+    # of the frames
+    expect(bool(torch.isfinite(frames).all()) and share >= 1 - 1e-3,
+           f"CW-VAE generation vs twins: {e_twin}, share {share} (vs f64: kernels {e_k64}, twins {e_t64})")
+    phase("cwvae-generate-vs-twins", frames=GEN_B * args.generate_frames, share_within_1e5=f"{share:.6f}",
+          max_abs_err=f"{e_twin:.3g}", kernels_vs_f64=f"{e_k64:.3g}", twins_vs_f64=f"{e_t64:.3g}")
+    del frames, twin, twin64
+
+    # 59. times: CUDA events, a different input each call, kernel and twin in turns (one warm-up: the twins take
+    # ~0.5 s a call): K10 a launch and a step at the test pass's shape and in prior mode at (2, 2000); K11 at the
+    # test pass's six block shapes, beside the composite of PyTorch calls for the same chain (relu, F.group_norm,
+    # the grouped conv, relu, F.group_norm; none computes it in one call) and the block's two 1x1 GEMMs (cuBLAS)
+    a10, k10kw = k10_calls[0]
+    eps_t = [torch.randn(a10[5].shape, generator=gen, device=dev) for _ in range(2)]
+
+    def k10(e_):
+        with torch.no_grad():
+            rssm.rssm_chain(*a10[:5], e_, **k10kw)
+
+    def k10_plain(e_):
+        with torch.no_grad():
+            rssm.rssm_chain_plain(*a10[:5], e_, **k10kw)
+
+    t10 = alternate(k10_plain, k10, eps_t, warmup=1)
+    B10, T10 = a10[1].shape[:2]
+    record["rssm_chain"].update(ms=t10["kernel"], plain_ms=t10["plain"], library_ms=None,
+                                **roofline(**rssm_work(B10, T10, H, Z), peak=F32_PEAK))
+    ag, kg = k10_gen[0]
+    eps_p = [torch.randn(ag[5].shape, generator=gen, device=dev) for _ in range(2)]
+
+    def k10_prior(e_):
+        with torch.no_grad():
+            rssm.rssm_chain(*ag[:5], e_, **kg)
+
+    def k10_prior_plain(e_):
+        with torch.no_grad():
+            rssm.rssm_chain_plain(*ag[:5], e_, **kg)
+
+    t10p = alternate(k10_prior_plain, k10_prior, eps_p, warmup=1)
+    phase("time-K10", card=card, shape=f"({B10},{T10})", H=H, Z=Z, dtype="f32", kernel_ms=f"{t10['kernel']:.4f}",
+          plain_ms=f"{t10['plain']:.4f}", us_per_step=f"{t10['kernel'] * 1e3 / T10:.3f}",
+          bound_ms=f"{record['rssm_chain']['bound_ms']:.4f}", bound_by=record["rssm_chain"]["bound_by"],
+          prior_shape=f"({ag[1].shape[0]},{ag[1].shape[1]})", prior_kernel_ms=f"{t10p['kernel']:.4f}",
+          prior_plain_ms=f"{t10p['plain']:.4f}", prior_us_per_step=f"{t10p['kernel'] * 1e3 / ag[1].shape[1]:.3f}")
+
+    def composite(a, k):
+        """The chain from PyTorch's own calls, channels first: the yardstick beside K11, not a path of the port."""
+        u, s1, b1, w, db, s2, b2 = a
+        C = u.shape[-1]
+        g = F.group_norm(torch.relu(u).transpose(1, 2), C, s1, b1, eps=1e-5)
+        conv = F.conv_transpose1d if k["transposed"] else F.conv1d
+        v = conv(g, w.permute(2, 1, 0), db, stride=k["stride"], dilation=k["dilation"], groups=C)
+        return F.group_norm(torch.relu(v), C, s2, b2, eps=1e-5).transpose(1, 2)
+
+    blocks = model.cwvae.encoder.levels[0] + model.cwvae.decoder.levels[0]
+    k11_ms = k11_plain_ms = k11_lib_ms = gemm_ms = 0.0
+    bytes_k11 = flops_k11 = gemm_flops = 0
+    for label, (a, k), block in zip(labels[:6], k11_calls[:6], blocks):
+        inputs = [a[0]] + [a[0] + 0.01 * torch.randn(a[0].shape, generator=gen, device=dev)]
+
+        def kern(u, a=a, k=k):
+            with torch.no_grad():
+                depthwise.depthwise_norm(u, *a[1:], **k)
+
+        def twin_(u, a=a, k=k):
+            with torch.no_grad():
+                depthwise.depthwise_norm_plain(u, *a[1:], **k)
+
+        def lib_(u, a=a, k=k):
+            with torch.no_grad():
+                composite((u, *a[1:]), k)
+
+        t = alternate(twin_, kern, inputs, warmup=1)
+        t_lib = alternate(lib_, kern, inputs, warmup=1)
+        B_, N_in, C = a[0].shape
+        N_out = depthwise.output_length(N_in, 5, k["stride"], k["dilation"], k["transposed"])
+        w1, w2 = block.Conv1d_0.kernel[0].detach(), block._DepthwiseSeparable_0.Conv1d_0.kernel[0].detach()
+        x_in = torch.randn(B_, N_in, H, generator=gen, device=dev)
+        z_out = torch.randn(B_, N_out, C, generator=gen, device=dev)
+
+        def gemms(_, x_in=x_in, z_out=z_out, w1=w1, w2=w2):
+            with torch.no_grad():
+                torch.addmm(block.Conv1d_0.bias, x_in.reshape(-1, H), w1)
+                z_out.reshape(-1, C) @ w2
+
+        t_gemm = cuda_time_ms(gemms, [None] * 4, warmup=1)
+        t_gemm = sorted(t_gemm)[len(t_gemm) // 2]
+        work = depthwise_work(B_, N_in, N_out, C, 5)
+        b_ = roofline(**work, peak=F32_PEAK)
+        g_flops = 2 * B_ * (N_in + N_out) * H * C
+        k11_ms, k11_plain_ms, k11_lib_ms, gemm_ms = (k11_ms + t["kernel"], k11_plain_ms + t["plain"],
+                                                     k11_lib_ms + t_lib["plain"], gemm_ms + t_gemm)
+        bytes_k11, flops_k11, gemm_flops = bytes_k11 + work["bytes_"], flops_k11 + work["flops"], gemm_flops + g_flops
+        phase("time-K11", card=card, block=label, u=f"({B_},{N_in},{C})", out_rows=N_out, kernel_ms=f"{t['kernel']:.4f}",
+              plain_ms=f"{t['plain']:.4f}", composite_ms=f"{t_lib['plain']:.4f}", bound_ms=f"{b_['bound_ms']:.4f}",
+              bound_by=b_["bound_by"], gemms_ms=f"{t_gemm:.4f}",
+              gemms_bound_ms=f"{g_flops / F32_PEAK * 1e3:.4f}")
+    record["depthwise_norm"].update(ms=k11_ms, plain_ms=k11_plain_ms, library_ms=None,
+                                    **roofline(bytes_k11, flops_k11, F32_PEAK))
+    phase("time-K11-forward", card=card, blocks=6, kernel_ms=f"{k11_ms:.4f}", plain_ms=f"{k11_plain_ms:.4f}",
+          composite_ms=f"{k11_lib_ms:.4f}", bound_ms=f"{record['depthwise_norm']['bound_ms']:.4f}",
+          bound_by=record["depthwise_norm"]["bound_by"], gemms_ms=f"{gemm_ms:.4f}",
+          gemms_GFLOP=f"{gemm_flops / 1e9:.1f}", gemms_bound_ms=f"{gemm_flops / F32_PEAK * 1e3:.4f}")
+    del k11_calls, k10_calls
+
+    # 60. the test pass (whole: samples/s; split) and a generation (frames/s), and torch.profiler breakdowns
+    test_s = {False: [], True: []}
+    for split in (False, True):
+        for _ in range(3 if not split else 2):
+            test_s[split].append(test_pass(split)[2])
+    gen_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.generate(GEN_B, args.generate_frames, use_mode_observations=True,
+                       generator=torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        gen_s.append(time.perf_counter() - t0)
+    scored = int(x_sl_np.sum())
+    phase("time-cwvae-test-pass-and-generate", card=card, test_pass_samples=scored,
+          test_pass_s=[f"{v:.4f}" for v in test_s[False]], split_eval_s=[f"{v:.4f}" for v in test_s[True]],
+          test_samples_per_s=f"{scored / min(test_s[False]):.0f}", generate_frames=args.generate_frames,
+          generate_s=[f"{v:.4f}" for v in gen_s], generate_frames_per_s=f"{GEN_B * args.generate_frames / min(gen_s):.0f}")
+    profiled(lambda: test_pass(False), "profile-cwvae-test-pass", 1, "pass", card)
+    profiled(lambda: model.generate(GEN_B, args.generate_frames, use_mode_observations=True,
+                                    generator=torch.Generator(device=dev).manual_seed(SEED)),
+             "profile-cwvae-generate", 1, "generation", card)
+    del model, model2
+    torch.cuda.empty_cache()
+    require(not failures, f"CW-VAE phases failed: {failures}")
 
 
 def argparse_copy(args, **changes):
@@ -3929,11 +4424,14 @@ def plain_path(modules, likelihoods, distributions, variational, recurrent):
                                                                      uniforms=uniforms),
                     variational.dmol_mode(logit_probs, locs))
 
+    from blvm_tpu_torch.ops import depthwise, rssm
     from blvm_tpu_torch.ops import srnn as srnn_ops
     from blvm_tpu_torch.ops import vrnn as vrnn_ops
 
     def plain():
         stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(rssm, "rssm_chain", rssm.rssm_chain_plain))
+        stack.enter_context(mock.patch.object(depthwise, "depthwise_norm", depthwise.depthwise_norm_plain))
         stack.enter_context(mock.patch.object(vrnn_ops, "vrnn_cell", vrnn_ops.vrnn_cell_plain))
         stack.enter_context(mock.patch.object(srnn_ops, "srnn_chain", srnn_ops.srnn_chain_plain))
         stack.enter_context(mock.patch.object(recurrent, "gru_recurrence", recurrent.gru_recurrence_plain))

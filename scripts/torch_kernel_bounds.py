@@ -1,7 +1,8 @@
 """Bounds on paper of the TPU kernels the PyTorch/CUDA port has still to write, at their run specs,
 of K7, K9, K7-bwd and K9-bwd (each kernel apart from the cuBLAS weight-gradient GEMMs around it)
-at the SRNN's test pass and train step shapes, and of K12, K1 and K1-bwd at STCN's width, which
-``chip_smoke.py`` also computes from its run.
+at the SRNN's test pass and train step shapes, of K12, K1 and K1-bwd at STCN's width, and of K10
+and K11 (apart from their GEMMs) at the CW-VAE's test pass, which ``chip_smoke.py`` also computes
+from its run.
 
     python scripts/torch_kernel_bounds.py
 
@@ -21,9 +22,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from chip_smoke import (  # noqa: E402
     BF16_PEAK,
     F32_PEAK,
+    depthwise_work,
     residual_glu_bwd_work,
     residual_glu_work,
     roofline,
+    rssm_work,
     stcn_frame_work,
 )
 
@@ -93,17 +96,28 @@ def main():
     chain_weights = 2 * (Z * H + 2 * (H * H + H) + H * 2 * Z + 2 * Z)
     bounds["K9 test pass"] = dict(bytes_=F32 * (rows * (2 * H + Z) + 6 * Z + chain_weights + rows * 5 * Z),
                                   flops=2 * rows * chain_macs, peak=F32_PEAK)
-    # K10: the CW-VAE RSSM cell (benchmarks.txt:33, d=192 z=128 s=64, one level: no context; the encoder's
-    # width taken as d), the driver's --batch_len 16 s: 256000 samples, 4000 row-steps
-    rows, Hd, Zd = 256000 // 64, 192, 128
-    macs = Zd * Hd + 2 * Hd * 3 * Hd + 3 * Hd * Hd + Hd * 2 * Zd + (2 * Hd) * Hd + 2 * Hd * Hd + Hd * 2 * Zd
-    bounds["K10"] = dict(bytes_=F32 * (rows * (Hd + Zd) + macs + rows * (Hd + 5 * Zd)), flops=2 * rows * macs,
-                         peak=F32_PEAK)
-    # K11: the CW-VAE level-0 encoder's depthwise-separable chain at the same batch: three blocks of stride
-    # 4 (64 = 4^3) at width 192, frames 64000, 16000, 4000; the pointwise 1x1 carries the operations
-    frames, C = (64000, 16000, 4000), 192
-    bounds["K11"] = dict(bytes_=F32 * (256000 + 2 * sum(frames) * C + 3 * C * C), flops=2 * sum(frames) * C * C,
-                         peak=F32_PEAK)
+    # K10: the CW-VAE's RSSM cell chain (benchmarks.txt:33, d=192 z=128 s=64, one level: no context) on the
+    # hoisted products (ops/rssm.py:hoist): the chain's 12 H^2 + 5 H Z multiply-adds a row-step (gru_in's z rows,
+    # the GRU's two products, both MLPs and heads; chip_smoke.rssm_work). At the test pass chip_smoke.py runs (5
+    # utterances, the longest 72000 samples: 5 x 1125 row-steps) and at the driver's --batch_len 16 s as one
+    # sequence of 4000 row-steps; the hoisted GEMM of the posterior's enc columns (H x E a row-step) apart
+    Hd, Zd = 192, 128
+    bounds["K10 test pass"] = dict(**rssm_work(5, 1125, Hd, Zd), peak=F32_PEAK)
+    bounds["K10 4000 row-steps"] = dict(**rssm_work(1, 4000, Hd, Zd), peak=F32_PEAK)
+    bounds["K10 hoisted enc GEMM test pass"] = dict(bytes_=F32 * (2 * 5 * 1125 * Hd + Hd * Hd + Hd),
+                                                    flops=2 * 5 * 1125 * Hd * Hd, peak=F32_PEAK)
+    # K11: the depthwise chain inside each coder block (ops/depthwise.py) at the same test pass: the encoder's
+    # blocks from the same-padded 72021 samples (stride 4: 18005, 4501, 1125 rows) and the decoder's back (4501,
+    # 18005, 72021), 4 x 192 = 768 channels, k = 5 (chip_smoke.depthwise_work: u read once, z written once); the
+    # blocks' 1x1 GEMMs (192 -> 768 with bias over the input rows, 768 -> 192 over the output rows) apart
+    enc = [(72021, 18005), (18005, 4501), (4501, 1125)]
+    blocks = enc + [(n_out, n_in) for n_in, n_out in reversed(enc)]
+    k11 = [depthwise_work(5, n_in, n_out, 768, 5) for n_in, n_out in blocks]
+    bounds["K11 test pass (6 blocks)"] = dict(bytes_=sum(w["bytes_"] for w in k11), flops=sum(w["flops"] for w in k11),
+                                              peak=F32_PEAK)
+    gemm_rows = sum(n_in + n_out for n_in, n_out in blocks)
+    bounds["K11 1x1 GEMMs test pass"] = dict(bytes_=F32 * 5 * gemm_rows * (Hd + 768), flops=2 * 5 * gemm_rows * Hd * 768,
+                                             peak=F32_PEAK)
     # K12: one STCN decode frame at the only spec that takes the fast path (benchmarks.txt:26, s=1,
     # z=[256,128,64,32,16], hidden 256, 5 stacks of 5 blocks of which 5 feed a level, a 5-block decode
     # stack, the 30-wide DMoL head), 2 sequences (the generation hook's), f32

@@ -3,7 +3,8 @@ K2 forward and backward (against autograd of the twins), K3 the sampler, K4 the
 Fast-WaveNet decode step, K5 the LSTM recurrence forward and backward, K8 the
 VRNN cell and K8-bwd its backward through time, K7 the GRU recurrence and K9 the
 SRNN's latent chain, their save modes and their backwards through time, K7-bwd and K9-bwd; K1 and
-K1-bwd at STCN's width (C = 256, with and without its skip) and K12, STCN's frame decode.
+K1-bwd at STCN's width (C = 256, with and without its skip) and K12, STCN's frame decode; K10, the
+CW-VAE's RSSM cell chain, and K11, its coders' depthwise chain.
 
 Marked ``cuda``: they skip without a CUDA device (here, on CPU-only machines).
 On the card, where JAX is not installed, leave out the root conftest (it imports
@@ -21,10 +22,11 @@ import pytest
 import torch
 
 from blvm_tpu_torch import weights
-from blvm_tpu_torch.models import STCN, LSTMAudio, SRNNAudio, VRNNAudio, WaveNet
+from blvm_tpu_torch.models import STCN, CWVAEAudio, LSTMAudio, SRNNAudio, VRNNAudio, WaveNet
 from blvm_tpu_torch.models.wavenet.modules import residual_glu, residual_glu_plain
 from blvm_tpu_torch.modules.distributions import DiscretizedLogisticMixtureDense
-from blvm_tpu_torch.ops import cuda, likelihoods, recurrent, variational
+from blvm_tpu_torch.ops import cuda, depthwise, likelihoods, recurrent, variational
+from blvm_tpu_torch.ops import rssm as rssm_ops
 from blvm_tpu_torch.ops import srnn as srnn_ops
 from blvm_tpu_torch.ops import vrnn as vrnn_ops
 from blvm_tpu_torch.ops.generation import STCNDecoder, WaveNetDecoder
@@ -1182,3 +1184,154 @@ def test_gru_and_srnn_chain_bwd_traces_account_for_the_loop(cuda_device):
             assert all(torch.equal(a, b) for a, b in zip(run(None), run(trace)))
             cycles = trace.cpu()
             assert (cycles >= 0).all() and 0.95 * cycles[-2] <= cycles[:-2].sum() <= cycles[-2] and cycles[-1] > 0
+
+
+# B, T', H, Z, inference, residual, precision, use_mode, resets every n steps (0: none)
+K10_CASES = [
+    (5, 300, 192, 128, True, False, True, False, 0),  # the :33 width, the precision-weighted posterior
+    (3, 40, 96, 96, True, True, False, False, 16),  # the default width 96, residual, with resets
+    (11, 25, 64, 8, True, False, False, False, 4),  # two passes of 8 rows, a plain posterior, resets
+    (2, 64, 192, 128, False, False, True, False, 0),  # a prior rollout, sampled
+    (2, 10, 192, 128, False, False, True, True, 0),  # a prior rollout at the mode
+]
+
+
+def _k10_inputs(B, T, H, Z, device, seed=0):
+    """K10's 20 kernel weights (U(+-1/sqrt(fan_in))), the hoisted xg and xq, z0, h0 and the noise."""
+    g = torch.Generator().manual_seed(seed)
+
+    def u(*shape, fan_in):
+        return (torch.rand(*shape, generator=g) * 2 - 1) / fan_in**0.5
+
+    w = [u(Z, H, fan_in=Z), u(H, 3 * H, fan_in=H), u(3 * H, fan_in=H), u(H, 3 * H, fan_in=H), u(3 * H, fan_in=H)]
+    for first in (True, False):
+        layers = [t for _ in range(3) for t in (u(H, H, fan_in=H), u(H, fan_in=H))]
+        if not first:
+            del layers[1]  # the posterior's first bias is in xq
+        w += layers + [u(H, 2 * Z, fan_in=H), u(2 * Z, fan_in=H)]
+    xg, xq = (torch.randn(B, T, H, generator=g) * 0.5 for _ in range(2))
+    z0, h0 = torch.randn(B, Z, generator=g) * 0.5, torch.randn(B, H, generator=g) * 0.5
+    eps = torch.randn(B, T, Z, generator=g)
+    return [t.to(device) for t in w], xg.to(device), xq.to(device), z0.to(device), h0.to(device), eps.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,Z,inference,residual,precision,use_mode,every", K10_CASES)
+def test_rssm_chain_kernel_matches_twin(cuda_device, B, T, H, Z, inference, residual, precision, use_mode, every):
+    """K10 against its twin, free-running over every step in f32: 1e-4 absolute plus 1e-5 relative (the products'
+    summation order, re-entering the chain every step), one launch."""
+    w, xg, xq, z0, h0, eps = _k10_inputs(B, T, H, Z, cuda_device)
+    resets = torch.arange(T, device=cuda_device) % every == 0 if every else None
+    kwargs = dict(inference=inference, residual_posterior=residual, precision_posterior=precision, use_mode=use_mode,
+                  sd_beta=0.6931478, sd_epsilon=1e-6)
+    xq = xq if inference else None
+    eps = None if use_mode else eps
+    cuda.reset_launch_counts()
+    with torch.no_grad():
+        got = rssm_ops.rssm_chain(w, xg, xq, z0, h0, eps, resets, **kwargs)
+        torch.cuda.synchronize()
+        assert cuda.launch_counts()["rssm_chain"] == 1
+        ref = rssm_ops.rssm_chain_plain(w, xg, xq, z0, h0, eps, resets, **kwargs)
+    for name, a, b in zip(got._fields, got, ref):
+        if b is None:
+            assert a is None and not inference
+            continue
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5, msg=name)
+
+
+@pytest.mark.cuda
+def test_rssm_chain_kernel_refusals(cuda_device):
+    """A gradient, float64, a wrong noise or reset shape and an unstaged width raise before a launch."""
+    w, xg, xq, z0, h0, eps = _k10_inputs(2, 6, 32, 8, cuda_device)
+    kwargs = dict(inference=True, residual_posterior=False, precision_posterior=True, sd_beta=0.69, sd_epsilon=1e-6)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        rssm_ops.rssm_chain(w, xg.requires_grad_(True), xq, z0, h0, eps, **kwargs)
+    with torch.no_grad():
+        with pytest.raises(NotImplementedError, match="float32"):
+            rssm_ops.rssm_chain(w, xg.double(), xq, z0, h0, eps, **kwargs)
+        with pytest.raises(ValueError, match="eps"):
+            rssm_ops.rssm_chain(w, xg, xq, z0, h0, eps[:, :2], **kwargs)
+        with pytest.raises(ValueError, match="resets"):
+            rssm_ops.rssm_chain(w, xg, xq, z0, h0, eps, torch.ones(3, dtype=torch.bool, device=cuda_device), **kwargs)
+
+
+# B, N_in, C, stride, dilation, transposed
+K11_CASES = [
+    (5, 1133, 768, 4, 1, False),  # an encoder block of the :33 width
+    (3, 300, 32, 4, 1, True),  # a decoder block
+    (2, 257, 64, 1, 3, False),  # dilated, unstrided
+    (2, 70, 36, 2, 2, True),  # transposed, dilated, C not a multiple of 32
+    (4, 9000, 16, 4, 1, False),  # many statistics tiles, narrow
+]
+
+
+def _k11_inputs(B, N, C, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    u = torch.randn(B, N, C, generator=g) * 1.5 + 0.3
+    p = [1 + 0.2 * torch.randn(C, generator=g), 0.2 * torch.randn(C, generator=g),
+         torch.randn(5, 1, C, generator=g) * 0.4, 0.2 * torch.randn(C, generator=g),
+         1 + 0.2 * torch.randn(C, generator=g), 0.2 * torch.randn(C, generator=g)]
+    return u.to(device), [t.to(device) for t in p]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,C,stride,dilation,transposed", K11_CASES)
+def test_depthwise_norm_kernel_matches_twin(cuda_device, B, N, C, stride, dilation, transposed):
+    """K11 against its f64 twin within 5e-5, as ``chip_smoke.py`` holds the blocks of a whole test pass: the kernel
+    sums its statistics in double, while the f32 twin's fast variance, summed in f32, may itself lie further than
+    1e-5 from the f64 twin over many rows."""
+    u, p = _k11_inputs(B, N, C, cuda_device)
+    kw = dict(stride=stride, dilation=dilation, transposed=transposed)
+    cuda.reset_launch_counts()
+    with torch.no_grad():
+        got = depthwise.depthwise_norm(u, *p, **kw)
+        torch.cuda.synchronize()
+        assert cuda.launch_counts()["depthwise_norm"] == 1
+        ref = depthwise.depthwise_norm_plain(u, *p, **kw)
+        ref64 = depthwise.depthwise_norm_plain(u.double(), *(t.double() for t in p), **kw)
+    assert got.shape == ref.shape == (B, depthwise.output_length(N, 5, stride, dilation, transposed), C)
+    assert (got.double() - ref64).abs().max() <= 5e-5
+
+
+@pytest.mark.cuda
+def test_depthwise_norm_kernel_refusals(cuda_device):
+    u, p = _k11_inputs(1, 40, 16, cuda_device)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        depthwise.depthwise_norm(u.requires_grad_(True), *p, stride=4, dilation=1, transposed=False)
+    with torch.no_grad():
+        with pytest.raises(NotImplementedError, match="float32"):
+            depthwise.depthwise_norm(u.double(), *p, stride=4, dilation=1, transposed=False)
+        with pytest.raises(NotImplementedError, match="multiple of 4"):
+            depthwise.depthwise_norm(u[..., :6], *(t[..., :6] for t in p), stride=4, dilation=1, transposed=False)
+        with pytest.raises(ValueError, match="fewer"):
+            depthwise.depthwise_norm(u[:, :3], *p, stride=4, dilation=1, transposed=False)
+
+
+@pytest.mark.cuda
+def test_cwvae_audio_on_the_card_launches_k10_and_k11(cuda_device):
+    """A two-level CWVAEAudio on the card: a forward launches K10 twice (a level), K11 twelve times (3 encoder and 3
+    decoder blocks a level), K2 and K3 once each, and its loss equals the plain path's with the same noise (f32,
+    rtol 1e-5); a generation at the mode launches K10 twice and no K3; under a gradient it raises."""
+    model = CWVAEAudio(z_size=8, h_size=16, strides=(16, 4), precision_posterior=True, num_mix=3, device=cuda_device)
+    weights.load_jax_params(model, weights.random_jax_params(model, 0))
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = (torch.rand(2, 4096, generator=g, device=cuda_device) * 2 - 1) * 0.5
+    x_sl = torch.tensor([4096, 3001], device=cuda_device)
+    eps = [torch.randn(2, 256, 8, generator=g, device=cuda_device), torch.randn(2, 64, 8, generator=g, device=cuda_device)]
+    cuda.reset_launch_counts()
+    with torch.no_grad():
+        loss, _, _ = model(x, x_sl, eps=eps)
+        counts = cuda.launch_counts()
+        assert (counts["rssm_chain"], counts["depthwise_norm"], counts["dmol_log_prob"], counts["dmol_sample"]) == (
+            2, 12, 1, 1)
+    model_cpu = CWVAEAudio(z_size=8, h_size=16, strides=(16, 4), precision_posterior=True, num_mix=3)
+    weights.load_jax_params(model_cpu, weights.random_jax_params(model_cpu, 0))
+    with torch.no_grad():
+        plain, _, _ = model_cpu(x.cpu(), x_sl.cpu(), eps=[e.cpu() for e in eps])
+    torch.testing.assert_close(loss.cpu(), plain, rtol=1e-5, atol=0)
+    cuda.reset_launch_counts()
+    (gen, _), _ = model.generate(2, 1024, use_mode_observations=True, generator=g)
+    counts = cuda.launch_counts()
+    assert gen.shape == (2, 1024, 1) and counts["rssm_chain"] == 2 and counts["dmol_sample"] == 0
+    with pytest.raises(NotImplementedError, match="no backward"):
+        model(x, x_sl, eps=eps)

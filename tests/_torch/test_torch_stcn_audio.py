@@ -301,3 +301,81 @@ def test_weights_round_trip_flax_names():
     assert weights.param_shapes(model) == {k: tuple(v.shape) for k, v in weights.flatten(variables["params"]).items()}
     golden = np.load(GOLDENS / "stcn.npz")
     assert {k[2:] for k in golden.files if k.startswith("p|")} == set(flat)
+
+
+# benchmarks.txt:27's geometry scaled down: one latent level over 5 stacks of 2 blocks, whose only read skip is block
+# 0's; stacked 4 frames a step (the forward and the test pass) and 1 (generation: JAX's windowed generation raises
+# at more than one frame a step)
+ONE_LEVEL = dict(likelihood="DMoL", n_layers=2, n_stacks=5, latent_size=(8,), res_channels=16)
+
+
+def _one_level(n_stack_frames):
+    model = STCN(**ONE_LEVEL, n_stack_frames=n_stack_frames, device="cpu")
+    params = weights.random_jax_params(model, 11)
+    weights.load_jax_params(model, params)
+    return model, weights.unflatten(params)
+
+
+@pytest.fixture(scope="module")
+def jax_one_level():
+    """The JAX forward of the stacked one-level model and the JAX fast generation of the unstacked one at the
+    mode, one compile each."""
+    patch_jax, _ = _at_the_mean()
+    x, x_sl = _batch(240, seed=9)
+    with patch_jax:
+        _, params = _one_level(4)
+        jmodel = JaxSTCN(**ONE_LEVEL, n_stack_frames=4)
+        fn = _compiled(lambda p, x_, s_: jmodel.apply({"params": p}, x_, s_, beta=1.0, free_nats=0.0,
+                                                      rngs={"sample": jax.random.PRNGKey(0)}), params, x, x_sl)
+        _, mets, o = fn(params, x, x_sl)
+        _, params1 = _one_level(1)
+        jmodel1 = JaxSTCN(**ONE_LEVEL)
+        gen = _compiled(lambda p: jmodel1.apply({"params": p}, n_samples=2, max_timesteps=GEN_FRAMES,
+                                                use_mode_observations=True, rngs={"sample": jax.random.PRNGKey(0)},
+                                                method=JaxSTCN.generate), params1)(params1)
+    return (x, x_sl), jax.tree_util.tree_map(np.asarray, (mets, o.reconstructions_mode)), np.asarray(gen[0][0])
+
+
+def test_one_level_stack_stops_after_its_only_read_skip(jax_one_level):
+    """A one-level STCN reads block 0's skip only, so the encoder stack runs block 0 alone (the 9 after it reach no
+    output, as XLA drops them from JAX's loop), in the forward, the test pass and the windowed generation, while the
+    numbers stay JAX's: the forward's loss and metrics (rtol 1e-5), the driver's test pass built from them, and the
+    generation at the mode (windowed and fast) against JAX's (1e-5). Fast generation's prime still steps every
+    block: the frame loop reads every block's buffer."""
+    from blvm_tpu_torch.models.wavenet.modules import Conv1dResidualGLU
+
+    (x, x_sl), (jmets, jmode), jgen = jax_one_level
+    ran = []
+    forward = Conv1dResidualGLU.forward
+
+    def counting(self, *args, **kwargs):
+        ran.append(self)
+        return forward(self, *args, **kwargs)
+
+    model, _ = _one_level(4)
+    encoder = model.res_stack.blocks
+    _, patch_port = _at_the_mean()
+    with patch_port, mock.patch.object(Conv1dResidualGLU, "forward", counting), torch.no_grad():
+        loss, mets, out = model(torch.from_numpy(x), torch.from_numpy(x_sl))
+        assert [b for b in ran if b in encoder] == [encoder[0]] and len(encoder) == 10
+        args = stcn_audio.build_args("--num_layers 2 --num_stacks 5 --latent_size 8 --hidden_size 16 "
+                                     "--num_stack_frames 4".split())
+        values = stcn_audio.evaluate(model, args, [(x, x_sl)], Tracker())
+        model1, _ = _one_level(1)
+        encoder1, ran[:] = model1.res_stack.blocks, []
+        (windowed, _), _ = model1.generate(2, GEN_FRAMES, use_mode_observations=True, fast=False,
+                                           eps=torch.zeros(GEN_FRAMES, 2, 8))
+        assert [b for b in ran if b in encoder1] == [encoder1[0]] * GEN_FRAMES
+        ran[:] = []
+        (fast, _), _ = model1.generate(2, GEN_FRAMES, use_mode_observations=True, eps=torch.zeros(GEN_FRAMES, 2, 8))
+        assert [b for b in ran if b in encoder1] == list(encoder1)
+    np.testing.assert_allclose(float(loss), float(jmets["loss"]), rtol=1e-5, atol=1e-6)
+    for name in METRICS[1:]:
+        np.testing.assert_allclose(mets[name].numpy(), jmets[name], rtol=1e-4, atol=1e-3, err_msg=name)
+    np.testing.assert_allclose(out.reconstructions_mode.numpy(), jmode, atol=1e-5, rtol=1e-5)
+    tracker = JaxTracker()
+    tracker.update(JaxSTCN.build_metrics(JaxSTCN(**ONE_LEVEL, n_stack_frames=4), jmets), source="test")
+    for key, value in tracker.values["test"].items():
+        np.testing.assert_allclose(values[key], value, rtol=1e-5, atol=1e-7, err_msg=key)
+    for got in (windowed, fast):
+        np.testing.assert_allclose(got.numpy(), jgen, atol=1e-5, rtol=0)

@@ -20,7 +20,7 @@ from blvm_tpu.training.train_state import TrainState as JaxTrainState
 from blvm_tpu_torch import weights
 from blvm_tpu_torch.data.transforms import RandomSegment
 from blvm_tpu_torch.evaluation.tracker import Tracker
-from blvm_tpu_torch.experiments import wavenet_audio
+from blvm_tpu_torch.experiments import common, wavenet_audio
 from blvm_tpu_torch.models import WaveNet
 from blvm_tpu_torch.training.optim import get_lr_schedule, get_optimizer
 from blvm_tpu_torch.training.train_state import TrainState
@@ -308,3 +308,34 @@ def test_train_refuses_a_model_on_another_device():
     model = wavenet_audio.build_model(args, device="cpu")
     with pytest.raises(ValueError, match="lies on"):
         wavenet_audio.train(model, args, [], Tracker(), device="meta")
+
+
+def test_metrics_read_late_give_the_values_of_lag_zero():
+    """``--metric_fetch_lag`` (default 8, as JAX's): ``train`` and the whole-batch ``evaluate`` queue each step's
+    metrics and read them that many steps late, flushing at the end of every epoch and of the pass, so the tracker
+    holds the values of lag 0 exactly, with every step counted; ``DeferredMetrics`` hands them over in order."""
+    assert wavenet_audio.build_args([]).metric_fetch_lag == 8
+    rng = np.random.default_rng(1)
+    examples = [(i, rng.uniform(-0.5, 0.5, n)) for i, n in enumerate(rng.integers(70, 160, 10))]
+    batches = [examples[i:i + 2] for i in range(0, 10, 2)]
+    eval_batches = [wavenet_audio.make_batch([w for _, w in examples[i:i + 3]], _train_args()) for i in range(0, 9, 3)]
+    results = []
+    for lag in (0, 3, 8):
+        args = _train_args("--metric_fetch_lag", str(lag))
+        model = wavenet_audio.build_model(args, device="cpu")
+        weights.load_jax_params(model, weights.random_jax_params(model, args.seed))
+        tracker, eval_tracker = Tracker(), Tracker()
+        wavenet_audio.train(model, args, batches, tracker, device="cpu")
+        args.split_eval = False  # the whole-batch pass
+        values = wavenet_audio.evaluate(model, args, eval_batches, eval_tracker)
+        results.append((tracker.values, tracker.steps["train"], values, eval_tracker.steps["test"]))
+    assert results[0][1] == 10 and results[0][3] == 3
+    assert results[0] == results[1] == results[2]
+
+    consumed = []
+    deferred = common.DeferredMetrics(consumed.append, lag=3)
+    for step in range(5):
+        deferred.push({"step": torch.tensor(step)})
+        assert len(consumed) == max(0, step + 1 - 3)
+    deferred.flush()
+    assert [int(m["step"]) for m in consumed] == list(range(5))
