@@ -36,15 +36,15 @@
 // statistics are summed in double, so the kernel's GroupNorm is closer to an exact one than a float32 twin's (whose
 // sums are float32); where a channel's variance is a small difference of large sums (a handful of rows, or a mean
 // large against the spread), the two differ by the twin's error.
+//
+// Save mode (a train step's forward): the finalize passes also write each GroupNorm's 1 / sqrt(var + eps) and the
+// slope of its clamped variance beside the mean and multiplier, for K11-bwd (depthwise_norm_bwd.cu); z is the same
+// bits as without it.
 
-#include "common.cuh"
+#include "depthwise_common.cuh"
 
 namespace blvm {
 namespace depthwise {
-
-constexpr int NT = 256;     // threads a block of the stats, conv and apply passes
-constexpr int FIN_CH = 64;  // channels a finalize block takes (NT / FIN_CH tile streams each)
-constexpr int MAXK = 8;     // taps a channel keeps in registers (the coders' k is 5)
 
 __global__ void __launch_bounds__(NT) stats_relu_kernel(const float* __restrict__ u, double* __restrict__ part, int N,
                                                         int C, int rows, int tiles) {
@@ -75,10 +75,12 @@ __global__ void __launch_bounds__(NT) stats_relu_kernel(const float* __restrict_
   }
 }
 
-// stats (B, 2, C): the mean and scale / sqrt(var + eps) of each (b, c) over `count` rows
+// stats (B, 2, C): the mean and scale / sqrt(var + eps) of each (b, c) over `count` rows; in save mode also aux
+// (B, 2, C): 1 / sqrt(var + eps) and the slope of var = max(E[x^2] - E[x]^2, 0) at its argument (1, 0.5 at 0 as
+// jnp.maximum's gradient splits a tie, 0), what K11-bwd needs of each GroupNorm
 __global__ void __launch_bounds__(NT) finalize_kernel(const double* __restrict__ part, const float* __restrict__ scale,
-                                                      float* __restrict__ stats, int tiles, int count, int C,
-                                                      float eps) {
+                                                      float* __restrict__ stats, float* __restrict__ aux, int tiles,
+                                                      int count, int C, float eps) {
   __shared__ double sh[2][NT];
   const int b = blockIdx.y, q = threadIdx.x / FIN_CH, c = blockIdx.x * FIN_CH + threadIdx.x % FIN_CH;
   double s = 0.0, s2 = 0.0;
@@ -97,66 +99,14 @@ __global__ void __launch_bounds__(NT) finalize_kernel(const double* __restrict__
       s += sh[0][threadIdx.x + j * FIN_CH];
       s2 += sh[1][threadIdx.x + j * FIN_CH];
     }
-    const double mean = s / count, var = fmax(s2 / count - mean * mean, 0.0);
+    const double mean = s / count, spread = s2 / count - mean * mean, var = fmax(spread, 0.0);
     stats[(int64_t)b * 2 * C + c] = (float)mean;
     stats[(int64_t)b * 2 * C + C + c] = (float)((double)scale[c] / sqrt(var + (double)eps));
-  }
-}
-
-// What one channel of one batch row needs to compute its conv outputs: g's statistics and the taps
-struct Channel {
-  float mean, mul, beta, bias;
-  float w[MAXK];
-};
-
-static __device__ __forceinline__ Channel load_channel(const float* stats1, const float* bias1, const float* w,
-                                                       const float* db, int b, int c, int C, int k) {
-  Channel ch;
-  ch.mean = stats1[(int64_t)b * 2 * C + c];
-  ch.mul = stats1[(int64_t)b * 2 * C + C + c];
-  ch.beta = bias1[c];
-  ch.bias = db[c];
-#pragma unroll
-  for (int j = 0; j < MAXK; ++j) ch.w[j] = j < k ? __ldg(w + (int64_t)j * C + c) : 0.0f;
-  return ch;
-}
-
-// Each tap's j d as q s + m (0 <= m < s): with o = o_div s + r, the transposed conv's tap j reads input row
-// o_div - q exactly when r == m, so no division runs inside the loops
-struct Taps {
-  int mod[MAXK], div[MAXK];
-};
-
-static __device__ __forceinline__ Taps make_taps(int k, int s, int d) {
-  Taps tp;
-#pragma unroll
-  for (int j = 0; j < MAXK; ++j) {
-    tp.div[j] = j < k ? j * d / s : 0;
-    tp.mod[j] = j < k ? j * d - tp.div[j] * s : -1;
-  }
-  return tp;
-}
-
-// y = relu(sum_j w[j] g[in(o, j)] + db) of output row o = o_div s + r, g normalized on load: VALID in(o, j) = o s + j d;
-// transposed, o = i s + j d for a whole input row i in range (a tap between input rows adds nothing)
-template <bool TRANSPOSED>
-static __device__ __forceinline__ float conv_at(const float* ub, const Channel& ch, const Taps& tp, int o, int o_div,
-                                                int r, int c, int C, int N_in, int k, int s, int d) {
-  float acc = 0.0f;
-#pragma unroll
-  for (int j = 0; j < MAXK; ++j) {
-    if (j >= k) break;
-    int i;
-    if (TRANSPOSED) {
-      i = o_div - tp.div[j];
-      if (r != tp.mod[j] || i < 0 || i >= N_in) continue;
-    } else {
-      i = o * s + j * d;
+    if (aux) {
+      aux[(int64_t)b * 2 * C + c] = (float)(1.0 / sqrt(var + (double)eps));
+      aux[(int64_t)b * 2 * C + C + c] = spread > 0.0 ? 1.0f : spread == 0.0 ? 0.5f : 0.0f;
     }
-    const float g = fmaf(fmaxf(__ldg(ub + (int64_t)i * C + c), 0.0f) - ch.mean, ch.mul, ch.beta);
-    acc = fmaf(g, ch.w[j], acc);
   }
-  return fmaxf(acc + ch.bias, 0.0f);
 }
 
 template <bool TRANSPOSED>
@@ -239,15 +189,18 @@ __global__ void __launch_bounds__(NT) conv_apply_kernel(const float* __restrict_
 
 // K11. u (B, N_in, C): the expanded block input before its relu; scale1, bias1, db, scale2, bias2 (C,); w (k, C):
 // the depthwise kernel (the JAX (k, 1, C) with its middle axis dropped); out (B, N_out, C): z; part: scratch of
-// part_doubles doubles, at least B * max(ceil(N_in / stats_rows), ceil(N_out / conv_rows)) * 2 * C; stats: scratch of
-// 4 B C floats. transposed: 0 for the encoder's strided conv, 1 for the decoder's transposed one. stats_rows and
-// conv_rows: the rows a block of the statistics and of the conv passes takes. Returns a cudaError_t:
+// part_doubles doubles, at least B * max(ceil(N_in / stats_rows), ceil(N_out / conv_rows)) * 2 * C; stats: 4 B C
+// floats (GroupNorm 1's mean and multiplier (B, 2, C), then GroupNorm 2's), or with save 8 B C floats, which then get
+// each GroupNorm's 1 / sqrt(var + eps) and variance slope (B, 2, C) (finalize_kernel) for K11-bwd. transposed: 0
+// for the encoder's strided conv, 1 for the decoder's transposed one. stats_rows and conv_rows: the rows a block of
+// the statistics and of the conv passes takes. Returns a cudaError_t:
 // cudaErrorInvalidValue for a shape it does not take (k > 8, C not a multiple of 4, an output length that the
 // geometry does not give, or too little scratch).
 extern "C" int blvm_depthwise_norm(const void* u, const void* scale1, const void* bias1, const void* w, const void* db,
                                    const void* scale2, const void* bias2, void* out, void* part, void* stats,
                                    int64_t part_doubles, int B, int N_in, int N_out, int C, int k, int stride,
-                                   int dilation, int transposed, int stats_rows, int conv_rows, void* stream) {
+                                   int dilation, int transposed, int stats_rows, int conv_rows, int save,
+                                   void* stream) {
   using namespace blvm::depthwise;
   if (B < 1 || B > 65535 || N_in < 1 || C < 4 || C % 4 != 0 || k < 1 || k > MAXK || stride < 1 || dilation < 1 ||
       stats_rows < 1 || conv_rows < 1)
@@ -263,9 +216,11 @@ extern "C" int blvm_depthwise_norm(const void* u, const void* scale1, const void
   double* pf = static_cast<double*>(part);
   float *sf = static_cast<float*>(stats), *of = static_cast<float*>(out);
   float* stats2 = sf + (int64_t)2 * B * C;
+  float* aux1 = save ? sf + (int64_t)4 * B * C : nullptr;
+  float* aux2 = save ? sf + (int64_t)6 * B * C : nullptr;
   const dim3 fin_grid((C + FIN_CH - 1) / FIN_CH, B);
   stats_relu_kernel<<<dim3(tiles_in, B), NT, 0, st>>>(uf, pf, N_in, C, stats_rows, tiles_in);
-  finalize_kernel<<<fin_grid, NT, 0, st>>>(pf, static_cast<const float*>(scale1), sf, tiles_in, N_in, C, 1e-5f);
+  finalize_kernel<<<fin_grid, NT, 0, st>>>(pf, static_cast<const float*>(scale1), sf, aux1, tiles_in, N_in, C, 1e-5f);
   const dim3 conv_grid(tiles_out, B);
   if (transposed)
     conv_kernel<true><<<conv_grid, NT, 0, st>>>(uf, sf, b1, wf, dbf, nullptr, pf, N_in, N_out, C, k, stride, dilation,
@@ -273,7 +228,8 @@ extern "C" int blvm_depthwise_norm(const void* u, const void* scale1, const void
   else
     conv_kernel<false><<<conv_grid, NT, 0, st>>>(uf, sf, b1, wf, dbf, of, pf, N_in, N_out, C, k, stride, dilation,
                                                  conv_rows, tiles_out);
-  finalize_kernel<<<fin_grid, NT, 0, st>>>(pf, static_cast<const float*>(scale2), stats2, tiles_out, N_out, C, 1e-5f);
+  finalize_kernel<<<fin_grid, NT, 0, st>>>(pf, static_cast<const float*>(scale2), stats2, aux2, tiles_out, N_out, C,
+                                           1e-5f);
   if (transposed) {
     conv_apply_kernel<<<conv_grid, NT, 0, st>>>(uf, sf, b1, wf, dbf, stats2, static_cast<const float*>(bias2), of, N_in,
                                                 N_out, C, k, stride, dilation, conv_rows);

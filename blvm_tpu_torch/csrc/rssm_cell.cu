@@ -30,6 +30,11 @@
 //   3: prior and posterior L1 from h_t (+ xq)                                4-5: prior and posterior L2, L3
 //   6: both heads, sd, the posterior's combination, z
 // No tensor cores: the JAX step is f32.
+//
+// Save mode (a train step's forward, inference mode): besides its outputs the launch writes, per row-step, what
+// K10-bwd (rssm_cell_bwd.cu) needs and cannot cheaply recompute, laid out as SAVE_* below: a (post-ReLU), the GRU's
+// gates r, u, n and h W_hn + b_hn, the six MLP layers' post-ReLU values, and both heads' pre-activations (mu, then
+// raw sd; the posterior's mu before the combination with the prior). The outputs are the same bits as without it.
 
 #include "vrnn_common.cuh"
 
@@ -44,6 +49,9 @@ constexpr int NWEIGHTS = 20;  // see blvm_rssm_chain
 constexpr int NSTAGES = 6;
 constexpr int MAX_SEGS = 4;
 constexpr int MAX_LOAD = 16;  // staged input floats a thread at most: BC x max(H, Z) <= NT x MAX_LOAD
+// the save buffer's fields of a row-step, in units of H, then the heads at 11 H: prior (mu, raw) and posterior
+// (mu, raw), 2 Z each; a row-step is 11 H + 4 Z floats
+constexpr int SAVE_A = 0, SAVE_R = 1, SAVE_U = 2, SAVE_N = 3, SAVE_GHN = 4, SAVE_P1 = 5, SAVE_Q1 = 6, SAVE_HEADS = 11;
 
 // Units [col0, col0 + n) of one (K, ld) kernel with their biases b[col0 ...], reading staged input `region`
 struct Seg {
@@ -87,6 +95,7 @@ struct Params {
   float* p_mu;
   float* p_sd;
   float* act;  // B x 10H: a, gh (3H), prior L1, posterior L1, prior L2, posterior L2, prior L3, posterior L3
+  float* save;  // null, or (B, T, 11H + 4Z) in inference mode: see SAVE_*
   unsigned int* barrier;
   int B, T, H, Z;
   int inference, residual, precision, use_mode;
@@ -147,6 +156,7 @@ __global__ void __launch_bounds__(NT, 1) rssm_chain_kernel(const Params p) {
   const int hlo = vrnn::part_lo(H, cta, NB), nh = vrnn::part_lo(H, cta + 1, NB) - hlo;
   const int zlo = vrnn::part_lo(Z, cta, NB), nz = vrnn::part_lo(Z, cta + 1, NB) - zlo;
   const int nq = p.inference ? nh : 0, nqz = p.inference ? nz : 0;
+  const int64_t SW = (int64_t)SAVE_HEADS * H + 4 * Z;  // the save buffer's row-step
   const float* const* w = p.w;
 
   Stage st[NSTAGES];
@@ -244,7 +254,9 @@ __global__ void __launch_bounds__(NT, 1) rssm_chain_kernel(const Params p) {
           if (row >= B) continue;
           const float pre = res[c * BC + b] + s0.bs[c];
           if (c < nh) {
-            __stcg(a_g + (int64_t)row * ars + hlo + c, relu(pre + side[b * nh + c]));
+            const float av = relu(pre + side[b * nh + c]);
+            __stcg(a_g + (int64_t)row * ars + hlo + c, av);
+            if (p.save) __stcg(p.save + ((int64_t)row * T + t) * SW + SAVE_A * H + hlo + c, av);
           } else {
             const int g = (c - nh) / nh, j = (c - nh) % nh;  // gate g of unit hlo + j
             __stcg(gh_g + (int64_t)row * ars + g * H + hlo + j, pre);
@@ -270,11 +282,19 @@ __global__ void __launch_bounds__(NT, 1) rssm_chain_kernel(const Params p) {
           const float gi_r = res[j * BC + b] + s1.bs[j];
           const float gi_z = res[(nh + j) * BC + b] + s1.bs[nh + j];
           const float gi_n = res[(2 * nh + j) * BC + b] + s1.bs[2 * nh + j];
+          const float ghn = __ldcg(gh + 2 * H);
           const float r = sigmoidf(gi_r + __ldcg(gh));
           const float zg = sigmoidf(gi_z + __ldcg(gh + H));
-          const float n = tanhf(gi_n + r * __ldcg(gh + 2 * H));
+          const float n = tanhf(gi_n + r * ghn);
           const float hp = h_in ? __ldcg(h_in + (int64_t)row * h_stride + hlo + j) : 0.0f;
           __stcg(p.h + ((int64_t)row * T + t) * H + hlo + j, (1.0f - zg) * n + zg * hp);
+          if (p.save) {
+            float* sv = p.save + ((int64_t)row * T + t) * SW + hlo + j;
+            __stcg(sv + SAVE_R * H, r);
+            __stcg(sv + SAVE_U * H, zg);
+            __stcg(sv + SAVE_N * H, n);
+            __stcg(sv + SAVE_GHN * H, ghn);
+          }
         }
         __syncthreads();
       }
@@ -299,7 +319,10 @@ __global__ void __launch_bounds__(NT, 1) rssm_chain_kernel(const Params p) {
           if (row >= B) continue;
           const bool prior = c < nh;
           const float pre = res[c * BC + b] + (prior ? s2.bs[c] : side[b * nh + c - nh]);
-          __stcg((prior ? pin[0] : qin[0]) + (int64_t)row * ars + hlo + (prior ? c : c - nh), relu(pre));
+          const float v = relu(pre);
+          const int unit = hlo + (prior ? c : c - nh);
+          __stcg((prior ? pin[0] : qin[0]) + (int64_t)row * ars + unit, v);
+          if (p.save) __stcg(p.save + ((int64_t)row * T + t) * SW + (prior ? SAVE_P1 : SAVE_Q1) * H + unit, v);
         }
         __syncthreads();
       }
@@ -319,8 +342,10 @@ __global__ void __launch_bounds__(NT, 1) rssm_chain_kernel(const Params p) {
           const int c = idx / BC, b = idx % BC, row = b0 + b;
           if (row >= B) continue;
           const bool prior = c < nh;
-          __stcg((prior ? pin[l] : qin[l]) + (int64_t)row * ars + hlo + (prior ? c : c - nh),
-                 relu(res[c * BC + b] + sl.bs[c]));
+          const float v = relu(res[c * BC + b] + sl.bs[c]);
+          const int unit = hlo + (prior ? c : c - nh);
+          __stcg((prior ? pin[l] : qin[l]) + (int64_t)row * ars + unit, v);
+          if (p.save) __stcg(p.save + ((int64_t)row * T + t) * SW + (SAVE_P1 + 2 * l + (prior ? 0 : 1)) * H + unit, v);
         }
         __syncthreads();
       }
@@ -345,11 +370,20 @@ __global__ void __launch_bounds__(NT, 1) rssm_chain_kernel(const Params p) {
           if (row >= B) continue;
           const int64_t o = ((int64_t)row * T + t) * Z + zlo + j;
           const float mu_p = res[j * BC + b] + s5.bs[j];
-          const float sd_p = vrnn::softplus_sd(res[(nz + j) * BC + b] + s5.bs[nz + j], p.sd_beta, p.sd_eps);
+          const float raw_p = res[(nz + j) * BC + b] + s5.bs[nz + j];
+          const float sd_p = vrnn::softplus_sd(raw_p, p.sd_beta, p.sd_eps);
           float zv;
           if (p.inference) {
             float mu_q = res[(2 * nz + j) * BC + b] + s5.bs[2 * nz + j];
-            float sd_q = vrnn::softplus_sd(res[(3 * nz + j) * BC + b] + s5.bs[3 * nz + j], p.sd_beta, p.sd_eps);
+            const float raw_q = res[(3 * nz + j) * BC + b] + s5.bs[3 * nz + j];
+            float sd_q = vrnn::softplus_sd(raw_q, p.sd_beta, p.sd_eps);
+            if (p.save) {
+              float* sv = p.save + ((int64_t)row * T + t) * SW + SAVE_HEADS * H + zlo + j;
+              __stcg(sv, mu_p);
+              __stcg(sv + Z, raw_p);
+              __stcg(sv + 2 * Z, mu_q);
+              __stcg(sv + 3 * Z, raw_q);
+            }
             if (p.residual) {
               mu_q = mu_q + mu_p;
             } else if (p.precision) {  // blvm_tpu/ops/variational.py:65-72, precisions as 1 / (sd sd)
@@ -398,18 +432,20 @@ size_t smem_bytes(int NB, int H, int Z) {
 // context columns of gru_in with its bias; xq (B, T, H): the enc columns of the posterior's first layer with its bias
 // (null in prior mode); z0 (B, Z), h0 (B, H); eps (B, T, Z), null in prior mode under use_mode; resets: null or T
 // int32 (1: the step starts from zeros). outputs: 6 device pointers z, h, q_mu, q_sd, p_mu, p_sd; q_mu and q_sd null
-// in prior mode. act: 10 B H floats of scratch; barrier: one uint32 (zeroed here). The grid is one CTA an SM, or one
-// a unit where the widths have fewer units than the card has SMs. Returns a cudaError_t: cudaErrorInvalidValue for
-// shapes it does not take (more than NT / BC units of a layer or of the latent a CTA, or BC max(H, Z) > NT x 16
-// staged floats), cudaErrorCooperativeLaunchTooLarge when the grid's weights cannot all be resident.
+// in prior mode. act: 10 B H floats of scratch; save: null, or (B, T, 11H + 4Z) floats in inference mode, which
+// receive per row-step the fields SAVE_* (see the save mode above); barrier: one uint32 (zeroed here). The grid is
+// one CTA an SM, or one a unit where the widths have fewer units than the card has SMs. Returns a cudaError_t:
+// cudaErrorInvalidValue for shapes it does not take (more than NT / BC units of a layer or of the latent a CTA, or
+// BC max(H, Z) > NT x 16 staged floats), cudaErrorCooperativeLaunchTooLarge when the grid's weights cannot all be
+// resident.
 extern "C" int blvm_rssm_chain(const void* const* weights, const void* xg, const void* xq, const void* z0,
                                const void* h0, const void* eps, const void* resets, void* const* outputs, void* act,
-                               void* barrier, int B, int T, int H, int Z, int inference, int residual, int precision,
-                               int use_mode, float sd_beta, float sd_eps, void* stream) {
+                               void* save, void* barrier, int B, int T, int H, int Z, int inference, int residual,
+                               int precision, int use_mode, float sd_beta, float sd_eps, void* stream) {
   using namespace blvm::rssm;
   float* const* o = reinterpret_cast<float* const*>(outputs);
   if (B < 1 || T < 1 || H < 1 || Z < 1 || (inference && (!xq || !eps || !o[2] || !o[3])) ||
-      (!inference && !use_mode && !eps) || (H > Z ? H : Z) * BC > NT * MAX_LOAD)
+      (!inference && !use_mode && !eps) || (save && !inference) || (H > Z ? H : Z) * BC > NT * MAX_LOAD)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   static blvm::vrnn::LaunchCache cache;
@@ -438,6 +474,7 @@ extern "C" int blvm_rssm_chain(const void* const* weights, const void* xg, const
   p.p_mu = o[4];
   p.p_sd = o[5];
   p.act = static_cast<float*>(act);
+  p.save = static_cast<float*>(save);
   p.barrier = static_cast<unsigned int*>(barrier);
   p.B = B;
   p.T = T;

@@ -1,19 +1,22 @@
-"""The Clockwork-VAE on audio: CLI, model construction, annealers, the test pass (whole and state-carry) and
-generation.
+"""The Clockwork-VAE on audio: CLI, model construction, annealers, the training loop, the test pass (whole and
+state-carry) and generation.
 
 Port of ``experiments/experiment_clockwork_audio.py``: its flags (so the CW-VAE run specs of
 ``experiments/benchmarks.txt`` parse), its model (``:54-77``, raising where the JAX package raises: strides that the
-coder's blocks cannot factor), its beta and free-nats annealers (``:79-87``), its chunked test pass with every
+coder's blocks cannot factor), its beta and free-nats annealers (``:79-87``), its training loop with them
+(``:89-99``), its chunked test pass with every
 level's ``(z, h)`` carried from chunk to chunk and same padding on the last chunk only (``:101-135``), and its
 generation hook, 128000 frames at the DMoL mode (``:137-143``). The test pass uses the scalars the JAX runner
 gives every evaluation, ``beta = 1`` and ``free_nats = 0``. The batch encoding and the whole-batch test pass are
 the shared :mod:`blvm_tpu_torch.experiments.common`. ``--scan_unroll`` only schedules XLA and is accepted and
-ignored; ``--length_sampler`` is accepted for the dataset loader that is not ported yet. The training loop comes
-with the CW-VAE's backward kernels. Models build on the card unless a device is given; there a forward runs K10
-once a level, K11 once a coder block (six a level at the run specs' three blocks), K2 and K3 once each.
+ignored; ``--length_sampler`` is accepted for the dataset loader that is not ported yet. Models build on the card
+unless a device is given; there a forward runs K10 once a level, K11 once a coder block (six a level at the run
+specs' three blocks), K2 and K3 once each, and a train step's backward K10-bwd once a level, K11-bwd once a coder
+block and K2-bwd once.
 
     args = build_args(argv)
     model = build_model(args)
+    state = train(model, args, batches_per_epoch, Tracker())
     values = evaluate(model, args, [common.make_batch(waveforms, args)], Tracker())
     make_generation_hook(model, args)(epoch, run_dir)
 """
@@ -29,6 +32,7 @@ from blvm_tpu_torch.experiments import common
 from blvm_tpu_torch.experiments.common import resolve_device, str2bool, to_host
 from blvm_tpu_torch.models.clockwork_vae.clockwork_vae import CWVAEAudio
 from blvm_tpu_torch.training.annealers import CosineAnnealer
+from blvm_tpu_torch.training.train_state import TrainState
 
 # the scalars of every evaluation (blvm_tpu experiments/common.py:768-771)
 EVAL_SCALARS = dict(beta=1.0, free_nats=0.0)
@@ -108,6 +112,16 @@ def build_annealers(args: argparse.Namespace) -> dict:
         free_nats=CosineAnnealer(anneal_steps=args.free_nats_steps // 2, constant_steps=args.free_nats_steps // 2,
                                  start_value=args.free_nats_start_value, end_value=0.0),
     )
+
+
+def train(model: CWVAEAudio, args: argparse.Namespace, batches_per_epoch: Sequence[Sequence[Tuple[int, np.ndarray]]],
+          tracker: Tracker, device=None) -> TrainState:
+    """The driver's training loop (:func:`common.train`) with :func:`build_annealers`: beta and free nats stepped
+    once a train step and handed to the forward, their values logged under the ``train`` source
+    (``CWVAEAudio.build_metrics``). The train loss's ``pad_strideable=True`` (``experiment_clockwork_audio.py:89-99``)
+    is ``CWVAEAudio.forward``'s default, as it is the flax model's. Runs on the card unless given ``device="cpu"``.
+    Returns the final :class:`TrainState`."""
+    return common.train(model, args, batches_per_epoch, tracker, device=device, annealers=build_annealers(args))
 
 
 def make_state_carry_eval(model: CWVAEAudio, args: argparse.Namespace):

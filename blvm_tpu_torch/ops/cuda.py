@@ -35,7 +35,7 @@ _launches: Dict[str, int] = {
     "residual_glu": 0, "residual_glu_bwd": 0, "dmol_log_prob": 0, "dmol_log_prob_bwd": 0, "dmol_sample": 0,
     "wavenet_decode": 0, "lstm_recurrence": 0, "lstm_recurrence_bwd": 0, "vrnn_cell": 0,
     "vrnn_cell_bwd": 0, "gru_recurrence": 0, "gru_recurrence_bwd": 0, "srnn_chain": 0, "srnn_chain_bwd": 0,
-    "stcn_decode": 0, "depthwise_norm": 0, "rssm_chain": 0,
+    "stcn_decode": 0, "depthwise_norm": 0, "depthwise_norm_bwd": 0, "rssm_chain": 0, "rssm_chain_bwd": 0,
 }
 build_log = ""  # nvcc's output of the build this process ran (register / shared-memory report)
 
@@ -79,11 +79,17 @@ _SIGNATURES = {
     # log_eps, 4 uniform maps; stream
     "blvm_stcn_decode": [_P] * 10 + [_I] * 12 + [_F] * 8 + [_P],
     # u, scale1, bias1, w, db, scale2, bias2, out, part, stats; part doubles; B, N_in, N_out, C, k, stride, dilation,
-    # transposed, stats_rows, conv_rows; stream
-    "blvm_depthwise_norm": [_P] * 10 + [_L] + [_I] * 10 + [_P],
-    # weights[20], xg, xq, z0, h0, eps, resets, outputs[6], act, barrier; B, T, H, Z, inference, residual, precision,
-    # use_mode; sd_beta, sd_eps; stream
-    "blvm_rssm_chain": [_P] * 10 + [_I] * 8 + [_F] * 2 + [_P],
+    # transposed, stats_rows, conv_rows, save; stream
+    "blvm_depthwise_norm": [_P] * 10 + [_L] + [_I] * 11 + [_P],
+    # dz, u, scale1, bias1, w, db, scale2, stats, du, dv, dparams, coef, part, part_w; part and part_w doubles; B,
+    # N_in, N_out, C, k, stride, dilation, transposed, in_rows, out_rows; stream
+    "blvm_depthwise_norm_bwd": [_P] * 14 + [_L] * 2 + [_I] * 10 + [_P],
+    # weights[20], xg, xq, z0, h0, eps, resets, outputs[6], act, save, barrier; B, T, H, Z, inference, residual,
+    # precision, use_mode; sd_beta, sd_eps; stream
+    "blvm_rssm_chain": [_P] * 11 + [_I] * 8 + [_F] * 2 + [_P],
+    # weights[20], eps, save, h, h0, resets, grads[6], dpre, dz0, dh0, barrier; B, T, H, Z, residual, precision;
+    # sd_beta, sd_eps; stream
+    "blvm_rssm_chain_bwd": [_P] * 11 + [_I] * 6 + [_F] * 2 + [_P],
 }
 
 

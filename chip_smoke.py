@@ -12,11 +12,11 @@ stack, the same DMoL head, f32), and the SRNN's test pass, generation and train 
 width of its s=64 z=256 run spec (the same widths, smoothing, f32), and STCN's test pass,
 generation and train step at the width of its s=1 z=[256,128,64,32,16] run spec (256 channels,
 5 x 5 encoder blocks, a 5-block decode stack, the same DMoL head, f32; the step in 4 microbatches
-with the clips and annealers) and one train step at its s=64 z=[256] spec, and the CW-VAE's test pass
-and generation at the width of its d=192 z=[128] s=[64] run spec (3 blocks of stride 4 a coder expanding
-192 -> 768, the precision-weighted posterior, the same DMoL head, f32), and the drivers' loops with
-their metrics read late, and checks the seventeen hand-written kernels they run against their plain
-PyTorch twins:
+with the clips and annealers) and one train step at its s=64 z=[256] spec, and the CW-VAE's test pass,
+generation and train step at the width of its d=192 z=[128] s=[64] run spec (3 blocks of stride 4 a coder
+expanding 192 -> 768, the precision-weighted posterior, the same DMoL head, f32; the step with the beta and
+free-nats annealers), and the drivers' loops with their metrics read late, and checks the nineteen
+hand-written kernels they run against their plain PyTorch twins:
 
   1. device: the card's name and power limit (nvidia-smi)
   2. numerics: TF32 and reduced-precision bf16 GEMM reductions off
@@ -195,9 +195,27 @@ PyTorch twins:
  59. timing: K10 against its twin at the test pass's shape and in prior mode; K11 at the six block shapes
      against its twin and the composite of PyTorch calls for the same chain, beside the blocks' 1x1 GEMMs
  60. timing of the test pass (whole and split) and of a generation, torch.profiler breakdowns of both
+ 61. K11-bwd depthwise_norm_backward at the six block shapes of the benchmarks.txt:33 train step's first batch
+     (5 utterances of 46k-51k samples), a --split_eval chunk's top encoder block (a handful of rows) and the
+     first block with one all-padding row: the kernel (through DepthwiseNormFunction) and autograd of the f32
+     twin held to autograd of the f64 twin over du and the six parameter gradients (twice the f32 twin's error
+     plus 1e-6); the padding row's du exactly 0; K11-bwd alone against its f64 twin
+ 62. K10-bwd rssm_chain_backward: the train step's shape (5, ~800), H = 32 and Z = 16 with a given (z0, h0) and
+     two output gradients absent, and a reset every 4 steps: kernel and f32 twin held to the f64 twin over xg, xq,
+     z0, h0 and the 20 kernel weights; K10's save mode bitwise equal to K10; K10-bwd alone against its f64 twin
+ 63. the CW-VAE train slice: flags of benchmarks.txt:33 -> driver -> model -> weights bridge ->
+     clockwork_audio.train with its annealers, 3 Adam steps on 5 utterances of 46k-51k samples a step; 1 K10,
+     1 K10-bwd, 6 K11, 6 K11-bwd, 1 K2, 1 K2-bwd, 1 K3 a step, none on the plain path; losses against the twins
+     fed the same noise; beta and free nats against the annealers
+ 64. the step-0 gradients of every parameter at the driver's scalars (beta 0, free nats 2) and at beta 1, free
+     nats 0: kernels and f32 twins held to the f64 twins
+ 65. timing: K10 in save mode against K10, K10-bwd and K11-bwd alone against their twins (K11-bwd also against
+     autograd of the composite of PyTorch calls), each beside its bound; the train step, kernels and twins in
+     turns: samples/s, the host's enqueue, peak memory; a torch.profiler breakdown, no host wait on the card
+     inside the driver's step spans, and one step under torch's sync debug mode ("error")
 
 Every phase prints one line (the profiles a few); any failure raises and exits
-non-zero before the last line (phases 14-60 print all their numbers first). A
+non-zero before the last line (phases 14-65 print all their numbers first). A
 ``[total]`` line gives the run's seconds; the second-to-last line is the
 kernels' JSON record, the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero without CUDA.
@@ -214,6 +232,7 @@ from pathlib import Path
 from unittest import mock
 
 import torch
+import torch.nn.functional as F
 
 FLAGSHIP_FLAGS = (
     "--likelihood DMoL --input_coding mu_law --n_stacks 5 --n_layers 10 --res_channels 96 --num_bits 16 "
@@ -267,10 +286,14 @@ STCN27_FLAGS = (
 # posterior, 3 blocks of stride 4 a coder, DMoL 10 x 2^16, f32); the test pass at 5 utterances of 24k-72k samples within
 # the driver's --batch_len budget (16000 x 16 samples); generation 2 x 128000 frames
 CWVAE_FLAGS = (
-    "--likelihood DMoL --input_coding mu_law --precision_posterior True --num_bits 16 --num_mix 10 "
-    "--length_sampler True --hidden_size 192 --latent_size 128 --strides 64 --seed 0"
+    "--likelihood DMoL --input_coding mu_law --beta_anneal_steps 150000 --free_nats_steps 300000 "
+    "--precision_posterior True --num_bits 16 --num_mix 10 --length_sampler True --hidden_size 192 --latent_size 128 "
+    "--strides 64 --seed 0"
 )
 CWVAE_B, CWVAE_T, CWVAE_BUDGET = 5, 72000, 16000 * 16
+# the CW-VAE train step: the same --batch_len budget (256000 samples) in 5 utterances of 46k-51k samples a step, the
+# length sampler's pool of lengths within 0.3 s of each other
+CWVAE_TRAIN_B, CWVAE_TRAIN_LENGTHS = 5, (46000, 50800)
 # host calls that wait on the card, and ops that read a device value to the host
 SYNC_EVENTS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "aten::item",
                "aten::_local_scalar_dense")
@@ -335,6 +358,39 @@ def stcn_frame_work(B, C, half, S, n_enc, n_used, n_dec, latent_size, D):
 
 def rel_norm(a, b):
     return ((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30)).item()
+
+
+def held_to_f64(got, twin, ref, names):
+    """Each gradient's largest error relative to its largest value, the kernel's and the f32 twin's, against the f64
+    twin: ``(errors, all finite, the gradients where the kernel's is above twice the twin's plus 1e-6)``."""
+    errs = {}
+    for n_, a_, b_, r_ in zip(names, got, twin, ref):
+        scale = r_.abs().max().clamp_min(1e-30)
+        errs[n_] = (((a_.double() - r_).abs().max() / scale).item(), ((b_.double() - r_).abs().max() / scale).item())
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    return errs, finite, {k: v for k, v in errs.items() if v[0] > 2 * v[1] + 1e-6}
+
+
+def recorded(module, name):
+    """A patch that keeps every call of ``module.name``: its arguments, for the kernels' checks."""
+    calls, fn = [], getattr(module, name)
+
+    def keep(*a, **k):
+        calls.append((a, k))
+        return fn(*a, **k)
+
+    return calls, mock.patch.object(module, name, keep)
+
+
+def depthwise_composite(a, k):
+    """K11's chain from PyTorch's own calls, channels first: the yardstick beside K11 and K11-bwd, not a path of the
+    port."""
+    u, s1, b1, w, db, s2, b2 = a
+    C = u.shape[-1]
+    g = F.group_norm(torch.relu(u).transpose(1, 2), C, s1, b1, eps=1e-5)
+    conv = F.conv_transpose1d if k["transposed"] else F.conv1d
+    v = conv(g, w.permute(2, 1, 0), db, stride=k["stride"], dilation=k["dilation"], groups=C)
+    return F.group_norm(torch.relu(v), C, s2, b2, eps=1e-5).transpose(1, 2)
 
 
 def device_us(event):
@@ -512,6 +568,13 @@ def main():
                                 replaces="blvm_tpu/modules/rssm.py:46", library_ms=None)
     record["depthwise_norm"] = dict(name="depthwise_norm", route="cuda", source="blvm_tpu_torch/csrc/depthwise_norm.cu",
                                     replaces="blvm_tpu/modules/convolutions.py:88", library_ms=None)
+    # the backwards of both: no PyTorch call computes the RSSM chain's; phase 65 times autograd of the composite of
+    # PyTorch calls beside K11-bwd
+    record["rssm_chain_bwd"] = dict(name="rssm_chain_bwd", route="cuda", source="blvm_tpu_torch/csrc/rssm_cell_bwd.cu",
+                                    replaces="blvm_tpu/modules/rssm.py:46", library_ms=None)
+    record["depthwise_norm_bwd"] = dict(name="depthwise_norm_bwd", route="cuda",
+                                        source="blvm_tpu_torch/csrc/depthwise_norm_bwd.cu",
+                                        replaces="blvm_tpu/modules/convolutions.py:88")
 
     # 4. K1 against its twin at the flagship shapes
     args = wavenet_audio.build_args(FLAGSHIP_FLAGS.split())
@@ -976,6 +1039,7 @@ def main():
     torch.cuda.empty_cache()
     driver_loop_phases(smi, dev)
     cwvae_phases(record, smi, dev)
+    cwvae_train_phases(record, smi, dev)
     phase("total", seconds=f"{time.time() - t_start:.1f}")
 
     print(json.dumps({"kernels": list(record.values())}), flush=True)
@@ -2861,15 +2925,6 @@ def srnn_train_phases(record, smi, dev):
     covered = int(stacks0.sum())  # the row-steps the lengths cover: past them every gradient is zero
     zeros_r, zeros_z = torch.zeros(B0, R, device=dev), torch.zeros(B0, Z, device=dev)
 
-    def held_to_f64(got, twin, ref, names):
-        """Each gradient's largest error relative to its largest value, the kernel's and the f32 twin's."""
-        errs = {}
-        for n_, a_, b_, r_ in zip(names, got, twin, ref):
-            scale = r_.abs().max().clamp_min(1e-30)
-            errs[n_] = (((a_.double() - r_).abs().max() / scale).item(), ((b_.double() - r_).abs().max() / scale).item())
-        finite = all(bool(torch.isfinite(t).all()) for t in got)
-        return errs, finite, {k: v for k, v in errs.items() if v[0] > 2 * v[1] + 1e-6}
-
     # 38. K7-bwd against its twin: the d GRU at the train shape (19 rows, the first step's stacks, its mask),
     # the a GRU (its flipped mask, zeros leading), H = 200 with a given h0 and a zero-length row, one row;
     # a random gradient of h_n in every case. K7-bwd (through GRURecurrenceFunction: K7 in save mode, one
@@ -4033,14 +4088,37 @@ def depthwise_work(B, N_in, N_out, C, k):
                 flops=B * N_in * C * 6 + B * N_out * C * (2 * k + 6))
 
 
-def rssm_work(B, T, H, Z):
+def rssm_work(B, T, H, Z, save=False):
     """``roofline`` keywords of one K10 launch in inference mode (f32): xg, xq, the noise, z0, h0 and the 20 kernel
-    weights read once, z, h and both heads' mu and sd written once; a row-step's multiply-adds (gru_in's z rows,
-    the GRU's two products, both MLPs' three layers and both heads, 12 H^2 + 5 H Z) at two operations each."""
+    weights read once, z, h and both heads' mu and sd written once (in save mode also the saved 11 H + 4 Z a
+    row-step); a row-step's multiply-adds (gru_in's z rows, the GRU's two products, both MLPs' three layers and
+    both heads, 12 H^2 + 5 H Z) at two operations each."""
     rows = B * T
     weights_ = Z * H + 2 * (3 * H * H + 3 * H) + 2 * (3 * H * H + 2 * H + H * 2 * Z + 2 * Z) - H
-    return dict(bytes_=4 * (rows * (2 * H + Z) + B * (Z + H) + weights_ + rows * (H + 5 * Z)),
+    saved = rows * (11 * H + 4 * Z) if save else 0
+    return dict(bytes_=4 * (rows * (2 * H + Z) + B * (Z + H) + weights_ + rows * (H + 5 * Z) + saved),
                 flops=2 * rows * (12 * H * H + 5 * H * Z))
+
+
+def rssm_bwd_work(B, T, H, Z, covered):
+    """``roofline`` keywords of one K10-bwd launch (f32): the 12 kernel matrices read once (the biases are not
+    read), a row-step's noise, saved values (11 H + 4 Z), h and six output gradients read and its pre-activation
+    gradients (13 H + 4 Z) written, h0 read, d z0 and d h0 written; the backward's products, one a kernel matrix a
+    row-step (12 H^2 + 5 H Z multiply-adds), over the ``covered`` row-steps the lengths reach (past them every
+    gradient is zero)."""
+    rows = B * T
+    matrices = 12 * H * H + 5 * H * Z
+    per_row = Z + (11 * H + 4 * Z) + H + (H + 5 * Z) + (13 * H + 4 * Z)
+    return dict(bytes_=4 * (matrices + rows * per_row + 2 * B * (Z + H)), flops=2 * covered * matrices)
+
+
+def depthwise_bwd_work(B, N_in, N_out, C, k):
+    """``roofline`` keywords of one K11-bwd call (f32): u and dz read once, the saved statistics (8 B C), the kernel
+    and four (C,) vectors read once, du and the (k + 5, C) parameter gradients written once; a GroupNorm's backward
+    and the relu's mask on each input element (6 operations, with the conv's input gradient 2k more) and on each
+    output element (6, with y recomputed, dv and the taps' gradients 4k more)."""
+    return dict(bytes_=4 * (2 * B * N_in * C + B * N_out * C + 8 * B * C + (2 * k + 9) * C),
+                flops=B * N_in * C * (2 * k + 6) + B * N_out * C * (4 * k + 6))
 
 
 def cwvae_phases(record, smi, dev):
@@ -4052,7 +4130,6 @@ def cwvae_phases(record, smi, dev):
     import copy
 
     import numpy as np
-    import torch.nn.functional as F
 
     from blvm_tpu_torch import weights
     from blvm_tpu_torch.evaluation.tracker import Tracker
@@ -4084,16 +4161,6 @@ def cwvae_phases(record, smi, dev):
     require(lengths.sum() <= CWVAE_BUDGET, f"the test batch {lengths} exceeds --batch_len")
     x_np, x_sl_np = common.make_batch([synthetic_speech(int(n), rng) for n in lengths], args)
     x_dev, x_sl_dev = torch.from_numpy(x_np).to(dev), torch.from_numpy(x_sl_np).to(dev)
-
-    def recorded(module, name):
-        """A patch that keeps every call of ``module.name``: its arguments, for the kernels' checks."""
-        calls, fn = [], getattr(module, name)
-
-        def keep(*a, **k):
-            calls.append((a, k))
-            return fn(*a, **k)
-
-        return calls, mock.patch.object(module, name, keep)
 
     def seeded_noise():
         g_ = torch.Generator(device=dev).manual_seed(SEED + 57)
@@ -4319,15 +4386,6 @@ def cwvae_phases(record, smi, dev):
           prior_shape=f"({ag[1].shape[0]},{ag[1].shape[1]})", prior_kernel_ms=f"{t10p['kernel']:.4f}",
           prior_plain_ms=f"{t10p['plain']:.4f}", prior_us_per_step=f"{t10p['kernel'] * 1e3 / ag[1].shape[1]:.3f}")
 
-    def composite(a, k):
-        """The chain from PyTorch's own calls, channels first: the yardstick beside K11, not a path of the port."""
-        u, s1, b1, w, db, s2, b2 = a
-        C = u.shape[-1]
-        g = F.group_norm(torch.relu(u).transpose(1, 2), C, s1, b1, eps=1e-5)
-        conv = F.conv_transpose1d if k["transposed"] else F.conv1d
-        v = conv(g, w.permute(2, 1, 0), db, stride=k["stride"], dilation=k["dilation"], groups=C)
-        return F.group_norm(torch.relu(v), C, s2, b2, eps=1e-5).transpose(1, 2)
-
     blocks = model.cwvae.encoder.levels[0] + model.cwvae.decoder.levels[0]
     k11_ms = k11_plain_ms = k11_lib_ms = gemm_ms = 0.0
     bytes_k11 = flops_k11 = gemm_flops = 0
@@ -4344,7 +4402,7 @@ def cwvae_phases(record, smi, dev):
 
         def lib_(u, a=a, k=k):
             with torch.no_grad():
-                composite((u, *a[1:]), k)
+                depthwise_composite((u, *a[1:]), k)
 
         t = alternate(twin_, kern, inputs, warmup=1)
         t_lib = alternate(lib_, kern, inputs, warmup=1)
@@ -4404,6 +4462,474 @@ def cwvae_phases(record, smi, dev):
     del model, model2
     torch.cuda.empty_cache()
     require(not failures, f"CW-VAE phases failed: {failures}")
+
+
+def cwvae_train_phases(record, smi, dev):
+    """Phases 61-65, the CW-VAE train step at the width of ``experiments/benchmarks.txt:33`` (d = 192, z = 128,
+    strides [64], the precision-weighted posterior, 3 encoder and 3 decoder blocks expanding 192 -> 768 with k = 5
+    and stride 4, DMoL 10 x 2^16, f32, the beta and free-nats annealers, Adam): K11-bwd and K10-bwd against the f64
+    twins at the shapes the step gives them, three steps of the driver's ``train``, the step-0 gradients, and their
+    times. Each check is printed before any raises."""
+    import copy
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from blvm_tpu_torch import weights
+    from blvm_tpu_torch.evaluation.tracker import Tracker
+    from blvm_tpu_torch.experiments import clockwork_audio, common
+    from blvm_tpu_torch.models.clockwork_vae import clockwork_vae as cw_model
+    from blvm_tpu_torch.models.wavenet import modules
+    from blvm_tpu_torch.modules import distributions
+    from blvm_tpu_torch.ops import cuda, depthwise, likelihoods, recurrent, rssm, variational
+    from blvm_tpu_torch.training.train_state import TrainState
+    from blvm_tpu_torch.training.train_step import make_train_step
+
+    failures = []
+
+    def expect(cond, message):
+        if not cond:
+            failures.append(message)
+            print(f"  FAIL: {message}", flush=True)
+
+    card = smi.replace(" ", "_")
+    plain = plain_path(modules, likelihoods, distributions, variational, recurrent)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    args = clockwork_audio.build_args(CWVAE_FLAGS.split())
+    targs = argparse_copy(args, epochs=1)
+    model = clockwork_audio.build_model(args)
+    params = weights.random_jax_params(model, args.seed)
+    weights.load_jax_params(model, params)
+    H, Z = args.hidden_size[0], args.latent_size[0]
+    head = model.cwvae.cells[0].prior_head
+    chain_kw = dict(residual_posterior=False, precision_posterior=True, sd_beta=head.beta, sd_epsilon=head.epsilon)
+
+    # the train batches: 5 utterances of 46k-51k samples a step within the --batch_len budget
+    rng = np.random.default_rng(args.seed + 61)
+    train_batches = []
+    for i in range(3):
+        lengths = rng.integers(CWVAE_TRAIN_LENGTHS[0], CWVAE_TRAIN_LENGTHS[1] + 1, CWVAE_TRAIN_B)
+        require(lengths.sum() <= CWVAE_BUDGET, f"the train batch {lengths} exceeds --batch_len")
+        train_batches.append([(i * CWVAE_TRAIN_B + j, synthetic_speech(int(n), rng)) for j, n in enumerate(lengths)])
+    step_batches = []
+    for b_ in train_batches:
+        xb_, slb_ = common.make_batch([w for _, w in b_], targs)
+        step_batches.append(dict(x=torch.from_numpy(xb_).to(dev), x_sl=torch.from_numpy(slb_).to(dev),
+                                 kwargs=dict(pad_strideable=True)))
+    x0, sl0 = step_batches[0]["x"], step_batches[0]["x_sl"]
+
+    def seeded_noise(seed):
+        g_ = torch.Generator(device=dev).manual_seed(seed)
+        return mock.patch.object(cw_model, "gaussian_noise", lambda _, shape, like: torch.randn(
+            shape, generator=g_, device=like.device).to(like.dtype))
+
+    # the first train batch's calls of K11 and K10 (the train loss's same padding), and a --split_eval chunk's
+    k11_calls, k11_patch = recorded(depthwise, "depthwise_norm")
+    k10_calls, k10_patch = recorded(rssm, "rssm_chain")
+    x_np0, sl_np0 = common.make_batch([w for _, w in train_batches[0]], targs)
+    chunks, chunk_lens = model.split_sequence(x_np0, sl_np0, length=4 * model.overall_stride)
+    with torch.no_grad(), k11_patch, k10_patch, seeded_noise(SEED + 61):
+        model(x0, sl0, pad_strideable=True)
+        model(torch.from_numpy(chunks[0]).to(dev), torch.from_numpy(chunk_lens[0]).to(dev), pad_strideable=False,
+              pad_same=False)
+    require(len(k11_calls) == 12 and len(k10_calls) == 2, f"K11 calls {len(k11_calls)}, K10 calls {len(k10_calls)}")
+    labels6 = [f"enc{i}" for i in range(3)] + [f"dec{i}" for i in range(3)]
+
+    # 61. K11-bwd against its twins: the first train batch's six blocks, the chunk's top encoder block (a handful of
+    # rows) and the first block with row 1 all padding (u constant along time, as x = 0 expands to the 1x1's bias,
+    # and no output gradient). The kernel (through DepthwiseNormFunction: K11 in save mode, one K11-bwd) and
+    # autograd of the f32 twin both held to autograd of the f64 twin: every gradient's largest error, relative to
+    # its largest value, at most twice the f32 twin's plus 1e-6. Then K11-bwd alone against its f64 twin on the
+    # kernel's own saved statistics at the six train shapes
+    names11 = ("u", "scale1", "bias1", "kernel", "depthwise_bias", "scale2", "bias2")
+
+    def k11_grads(a, k, dz, dtype, kernel):
+        leaves = [t.detach().to(dtype).clone().requires_grad_(True) for t in a]
+        fn = depthwise.depthwise_norm if kernel else depthwise.depthwise_norm_plain
+        return torch.autograd.grad((fn(*leaves, **k) * dz.to(dtype)).sum(), leaves)
+
+    a_first, k_first = k11_calls[0]
+    u_pad = a_first[0].detach().clone()
+    u_pad[1] = u_pad[1, :1]
+    cases11 = ([(f"train_{lb}", a, k) for lb, (a, k) in zip(labels6, k11_calls[:6])]
+               + [("chunk_enc2", *k11_calls[8]), ("train_enc0_padding_row", (u_pad, *a_first[1:]), k_first)])
+    for label, a, k in cases11:
+        B_, N_in, C = a[0].shape
+        N_out = depthwise.output_length(N_in, a[3].shape[0], k["stride"], k["dilation"], k["transposed"])
+        dz = torch.randn(B_, N_out, C, generator=gen, device=dev)
+        if label.endswith("padding_row"):
+            dz[1] = 0.0
+        cuda.reset_launch_counts()
+        got = k11_grads(a, k, dz, torch.float32, True)
+        torch.cuda.synchronize()
+        counts = cuda.launch_counts()
+        twin = k11_grads(a, k, dz, torch.float32, False)
+        ref = k11_grads(a, k, dz, torch.float64, False)
+        errs, finite, over = held_to_f64(got, twin, ref, names11)
+        pad_zero = not label.endswith("padding_row") or not bool(got[0][1].abs().any())
+        expect(finite and not over and pad_zero and (counts["depthwise_norm"], counts["depthwise_norm_bwd"]) == (1, 1),
+               f"K11-bwd {label}: launches {counts['depthwise_norm']}/{counts['depthwise_norm_bwd']}, finite {finite}, "
+               f"over {over}, padding row's du zero {pad_zero}")
+        worst = max(errs, key=lambda k_: errs[k_][0])
+        phase("K11-bwd", case=label, u=tuple(a[0].shape), out_rows=N_out, stride=k["stride"],
+              transposed=k["transposed"], launches=counts["depthwise_norm_bwd"],
+              kernel_max_rel_vs_f64=f"{errs[worst][0]:.3g}", twin_f32_max_rel_vs_f64=f"{max(v[1] for v in errs.values()):.3g}",
+              worst=worst, twin_at_worst=f"{errs[worst][1]:.3g}",
+              **({"padding_row_du_zero": pad_zero} if label.endswith("padding_row") else {}))
+        del got, twin, ref, dz
+    del u_pad
+    torch.cuda.empty_cache()
+    k11b_err = 0.0
+    saved11 = []
+    for label, (a, k) in zip(labels6, k11_calls[:6]):
+        B_, N_in, C = a[0].shape
+        N_out = depthwise.output_length(N_in, a[3].shape[0], k["stride"], k["dilation"], k["transposed"])
+        with torch.no_grad():
+            _, stats = depthwise.depthwise_norm_save(*a, **k)
+            dz = torch.randn(B_, N_out, C, generator=gen, device=dev)
+            got = depthwise.depthwise_norm_backward(dz, *a[:6], stats, **k)
+            ref = depthwise.depthwise_norm_backward_plain(dz.double(), *(t.double() for t in a[:6]), stats.double(),
+                                                          **k)
+        err = max((g_.double() - r_).abs().max().item() for g_, r_ in zip(got, ref))
+        scale = max(r_.abs().max().item() for r_ in ref)
+        expect(err <= 1e-4 * scale, f"K11-bwd alone {label} vs its f64 twin: {err} (largest {scale})")
+        k11b_err = max(k11b_err, err)
+        saved11.append(stats)
+        phase("K11-bwd-alone", case=f"train_{label}", max_abs_err_vs_f64=f"{err:.3g}", largest=f"{scale:.3g}")
+        del got, ref, dz
+    record["depthwise_norm_bwd"]["max_abs_err"] = k11b_err
+    torch.cuda.empty_cache()
+
+    # 62. K10-bwd against its twin the same way: the train step's hoisted products (5, T') with the precision
+    # posterior and gradients of all six outputs (zero past each row's steps), H = 32 and Z = 16 with a given (z0,
+    # h0) and no gradient for h and enc_sd, and a reset every 4 steps (11 rows: two passes of 8); K10's save mode
+    # against the plain launch at the train shape (bitwise); then K10-bwd alone against its f64 twin
+    a10, k10kw = k10_calls[0]
+    kernel_w = [t.detach() for t in a10[0]]
+    xg0, xq0, z00, h00 = (t.detach() for t in a10[1:5])
+    B0, T0 = xg0.shape[:2]
+    steps0 = torch.ceil(sl0.double() / model.overall_stride).long()
+    ragged = (torch.arange(T0, device=dev)[None] < steps0[:, None])[..., None].float()
+    covered = int(steps0.clamp_max(T0).sum())
+    require(k10kw["inference"] and k10kw["precision_posterior"] and not k10kw["residual_posterior"],
+            f"the train forward's K10 call: {k10kw}")
+    widths = (Z, H, Z, Z, Z, Z)
+
+    def k10_grads(w, xg, xq, z0, h0, eps, resets, g_out, dtype, kernel):
+        leaves = [t.detach().to(dtype).clone().requires_grad_(True) for t in (xg, xq, z0, h0, *w)]
+        fn = rssm.rssm_chain if kernel else rssm.rssm_chain_plain
+        outs = fn(leaves[4:], *leaves[:4], eps.to(dtype), resets, inference=True, **chain_kw)
+        loss = sum((o * g_.to(dtype)).sum() for o, g_ in zip(outs, g_out) if g_ is not None)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return [torch.zeros_like(t) if g_ is None else g_ for g_, t in zip(grads, leaves)]
+
+    g_small = torch.Generator().manual_seed(SEED + 62)
+
+    def k10_small(B_, T_, H_, Z_):
+        def u(*shape, fan_in):
+            return ((torch.rand(*shape, generator=g_small) * 2 - 1) / fan_in**0.5).to(dev)
+
+        w = [u(Z_, H_, fan_in=Z_), u(H_, 3 * H_, fan_in=H_), u(3 * H_, fan_in=H_), u(H_, 3 * H_, fan_in=H_),
+             u(3 * H_, fan_in=H_)]
+        for first in (True, False):
+            layers = [t for _ in range(3) for t in (u(H_, H_, fan_in=H_), u(H_, fan_in=H_))]
+            if not first:
+                del layers[1]  # the posterior's first bias is in xq
+            w += layers + [u(H_, 2 * Z_, fan_in=H_), u(2 * Z_, fan_in=H_)]
+        return (w, *((torch.randn(B_, T_, H_, generator=g_small) * 0.5).to(dev) for _ in range(2)),
+                (torch.randn(B_, Z_, generator=g_small) * 0.5).to(dev),
+                (torch.randn(B_, H_, generator=g_small) * 0.5).to(dev))
+
+    cases10 = {
+        "train_B5": ((kernel_w, xg0, xq0, z00, h00), None, ()),
+        "H32_Z16_given_state": (k10_small(3, 40, 32, 16), None, (1, 3)),
+        "resets_every_4": (k10_small(11, 30, 64, 16), torch.arange(30, device=dev) % 4 == 0, ()),
+    }
+    names10 = ["xg", "xq", "z0", "h0"] + [f"w{i}" for i in range(rssm.N_KERNEL_WEIGHTS)]
+    for name, ((w, xg, xq, z0, h0), resets, no_grad) in cases10.items():
+        B_, T_, H_ = xg.shape
+        Z_ = z0.shape[1]
+        mask = ragged if name == "train_B5" else 1.0
+        eps = torch.randn(B_, T_, Z_, generator=gen, device=dev)
+        g_out = [None if i in no_grad else torch.randn(B_, T_, H_ if i == 1 else Z_, generator=gen, device=dev) * mask
+                 for i in range(6)]
+        cuda.reset_launch_counts()
+        got = k10_grads(w, xg, xq, z0, h0, eps, resets, g_out, torch.float32, True)
+        torch.cuda.synchronize()
+        counts = cuda.launch_counts()
+        twin = k10_grads(w, xg, xq, z0, h0, eps, resets, g_out, torch.float32, False)
+        ref = k10_grads(w, xg, xq, z0, h0, eps, resets, g_out, torch.float64, False)
+        errs, finite, over = held_to_f64(got, twin, ref, names10)
+        expect(finite and not over and (counts["rssm_chain"], counts["rssm_chain_bwd"]) == (1, 1),
+               f"K10-bwd {name}: launches {counts['rssm_chain']}/{counts['rssm_chain_bwd']}, finite {finite}, over {over}")
+        worst = max(errs, key=lambda k_: errs[k_][0])
+        phase("K10-bwd", case=name, shape=tuple(xg.shape), Z=Z_, resets=resets is not None,
+              no_gradient=[rssm.RSSMChainOutputs._fields[i] for i in no_grad], launches=counts["rssm_chain_bwd"],
+              kernel_max_rel_vs_f64=f"{errs[worst][0]:.3g}", twin_f32_max_rel_vs_f64=f"{max(v[1] for v in errs.values()):.3g}",
+              worst=worst, twin_at_worst=f"{errs[worst][1]:.3g}")
+        del got, twin, ref
+    with torch.no_grad():
+        eps10 = torch.randn(B0, T0, Z, generator=gen, device=dev)
+        plain10 = rssm.rssm_chain(kernel_w, xg0, xq0, z00, h00, eps10, inference=True, **chain_kw)
+        outs10, saved10 = rssm.rssm_chain_save(kernel_w, xg0, xq0, z00, h00, eps10, **chain_kw)
+        same10 = all(torch.equal(a_, b_) for a_, b_ in zip(plain10, outs10))
+        g10 = [torch.randn(B0, T0, w_, generator=gen, device=dev) * ragged for w_ in widths]
+        got10 = rssm.rssm_chain_backward(kernel_w, eps10, saved10, outs10.h, h00, None, g10, **chain_kw)
+        ref10 = rssm.rssm_chain_backward_plain([t.double() for t in kernel_w], eps10.double(), saved10.double(),
+                                               outs10.h.double(), h00.double(), None, [g_.double() for g_ in g10],
+                                               **chain_kw)
+    k10b_err = max((a_.double() - r_).abs().max().item() for a_, r_ in zip(got10, ref10))
+    scale = max(r_.abs().max().item() for r_ in ref10)
+    expect(same10, "K10's save mode changed its outputs")
+    expect(k10b_err <= 1e-4 * scale, f"K10-bwd alone vs its f64 twin: {k10b_err} (largest {scale})")
+    record["rssm_chain_bwd"]["max_abs_err"] = k10b_err
+    phase("K10-bwd-alone", case="train_B5", shape=(B0, T0), max_abs_err_vs_f64=f"{k10b_err:.3g}",
+          largest=f"{scale:.3g}", save_bitwise_equal=same10, saved_MB=f"{saved10.numel() * 4 / 2**20:.1f}",
+          dpre_MB=f"{got10[0].numel() * 4 / 2**20:.1f}")
+    del got10, ref10, plain10, k10_calls
+    torch.cuda.empty_cache()
+
+    # 63. the train slice: flags of benchmarks.txt:33 -> driver -> model on the card -> weights bridge ->
+    # clockwork_audio.train with its annealers, 3 Adam steps; the latent noise from a generator of its own, alike for
+    # the kernel and the plain runs (autograd of the twins)
+    def run_train(plain_path_=False):
+        weights.load_jax_params(model, params)
+        log = StepLog(Tracker())
+        with plain() if plain_path_ else contextlib.nullcontext(), seeded_noise(SEED + 63):
+            cuda.reset_launch_counts()
+            t0 = time.time()
+            clockwork_audio.train(model, targs, train_batches, log)
+            torch.cuda.synchronize()
+            return log.steps, cuda.launch_counts(), time.time() - t0
+
+    steps_k, counts, seconds = run_train()
+    steps_p, counts_p, seconds_p = run_train(plain_path_=True)
+    expected = dict(rssm_chain=3, rssm_chain_bwd=3, depthwise_norm=18, depthwise_norm_bwd=18, dmol_log_prob=3,
+                    dmol_log_prob_bwd=3, dmol_sample=3)
+    expect(counts == {**dict.fromkeys(counts, 0), **expected},
+           f"CW-VAE train-step launches {counts}, expected {expected} (1/1/6/6/1/1/1 a step)")
+    expect(not any(counts_p.values()), f"the plain CW-VAE train path launched kernels: {counts_p}")
+    for k in ("rssm_chain", "depthwise_norm"):
+        record[k]["launches"] = record[k].get("launches", 0) + counts[k]
+    record["rssm_chain_bwd"]["launches"] = counts["rssm_chain_bwd"]
+    record["depthwise_norm_bwd"]["launches"] = counts["depthwise_norm_bwd"]
+    losses, losses_p = [st["loss"] for st in steps_k], [st["loss"] for st in steps_p]
+    loss_rel = [abs(a_ - b_) / abs(b_) for a_, b_ in zip(losses, losses_p)]
+    expect(all(math.isfinite(v) for st in steps_k for v in st.values()), f"CW-VAE train metrics not finite: {steps_k}")
+    # the same parameters at step 0, only the sums' order differs; Adam's first updates move every parameter by about
+    # lr sign(g), so a gradient element near zero whose sign the summation order flipped would show in later steps
+    expect(max(loss_rel) <= 1e-5, f"CW-VAE train losses {losses} vs plain {losses_p}")
+    ref_annealers = clockwork_audio.build_annealers(targs)
+    ref_values = [{k: float(np.float32(a.step())) for k, a in ref_annealers.items()} for _ in range(3)]
+    got_values = [{k: st[k] for k in ("beta", "free_nats")} for st in steps_k]
+    expect(got_values == ref_values and got_values[0] == dict(beta=0.0, free_nats=2.0),
+           f"annealers {got_values}, expected {ref_values}")
+    phase("cwvae-train-slice", steps=3, utterances_per_step=CWVAE_TRAIN_B,
+          samples_per_step=[sum(len(w) for _, w in b_) for b_ in train_batches],
+          top_steps_per_step=[int(math.ceil(b_["x_sl"].max().item() / model.overall_stride)) for b_ in step_batches],
+          losses=[f"{v:.6f}" for v in losses], losses_plain=[f"{v:.6f}" for v in losses_p],
+          loss_rel=[f"{v:.3g}" for v in loss_rel], beta=[v["beta"] for v in got_values],
+          free_nats=[v["free_nats"] for v in got_values], launches_per_step={k: v // 3 for k, v in counts.items() if v},
+          seconds=f"{seconds:.2f}", seconds_plain=f"{seconds_p:.2f}")
+
+    # 64. the step-0 gradients of every parameter on the first batch, at the driver's first scalars (beta 0, free
+    # nats 2: the KL's gradient cut) and at beta 1, free nats 0 (every head's backward live): the kernels and the
+    # f32 twins both held to the f64 twins, the kernels no further than twice the f32 twins plus 1e-6 (relative
+    # norms)
+    def step0_grads(m, plain_path_, dtype, scalars):
+        m.zero_grad(set_to_none=True)
+        m.train()
+        with plain() if plain_path_ else contextlib.nullcontext(), seeded_noise(SEED + 64):
+            loss, _, _ = m(x0.to(dtype), sl0, pad_strideable=True, generator=torch.Generator(device=dev).manual_seed(SEED),
+                           **scalars)
+            loss.backward()
+        grads = {n: p.grad.detach().clone() for n, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        return grads, loss.item()
+
+    for label, scalars in (("driver_step0", ref_values[0]), ("beta1_free_nats0", dict(beta=1.0, free_nats=0.0))):
+        weights.load_jax_params(model, params)
+        g_k, loss_k = step0_grads(model, False, torch.float32, scalars)
+        g_p, loss_p = step0_grads(model, True, torch.float32, scalars)
+        model64 = copy.deepcopy(model).double()
+        g_64, loss_64 = step0_grads(model64, True, torch.float64, scalars)
+        del model64
+        e_k = {n: rel_norm(g_k[n], g_64[n]) for n in g_64}
+        e_p = {n: rel_norm(g_p[n], g_64[n]) for n in g_64}
+        over = {n: (e_k[n], e_p[n]) for n in e_k if e_k[n] > 2 * e_p[n] + 1e-6}
+        expect(all(torch.isfinite(g_).all() for g_ in g_k.values()) and not over,
+               f"CW-VAE step-0 gradients at {label}: {over}")
+        worst = max(e_k, key=e_k.get)
+        phase("cwvae-train-grads", scalars=label, beta=scalars["beta"], free_nats=scalars["free_nats"],
+              loss=f"{loss_k:.6f}", loss_plain=f"{loss_p:.6f}", loss_f64=f"{loss_64:.6f}",
+              kernel_max_rel_vs_f64=f"{e_k[worst]:.3g}", twin_f32_max_rel_vs_f64=f"{max(e_p.values()):.3g}",
+              worst=worst, twin_at_worst=f"{e_p[worst]:.3g}", parameters=len(e_k))
+        del g_k, g_p, g_64
+        torch.cuda.empty_cache()
+
+    # 65. times, CUDA events, a different input each call, kernel and twin in turns: K10 in save mode against the
+    # plain launch at the train shape; K10-bwd alone against its twin, and the chain's whole backward (the kernel,
+    # the weight GEMMs); K11-bwd alone at the six block shapes against its twin and against autograd of the
+    # composite of PyTorch calls for the same chain (the yardstick; the port never calls it); the train step against
+    # one call of the twins' path; the step's host enqueue, peak memory and a torch.profiler breakdown
+    eps_t = [torch.randn(B0, T0, Z, generator=gen, device=dev) for _ in range(3)]
+
+    def k10_launch(e_):
+        with torch.no_grad():
+            return rssm.rssm_chain(kernel_w, xg0, xq0, z00, h00, e_, inference=True, **chain_kw)
+
+    def k10_save(e_):
+        with torch.no_grad():
+            return rssm.rssm_chain_save(kernel_w, xg0, xq0, z00, h00, e_, **chain_kw)
+
+    t10s = alternate(k10_launch, k10_save, eps_t)
+    save_bound = roofline(**rssm_work(B0, T0, H, Z, save=True), peak=F32_PEAK)
+    phase("time-K10-save", card=card, shape=f"({B0},{T0})", dtype="f32", save_ms=f"{t10s['kernel']:.4f}",
+          no_save_ms=f"{t10s['plain']:.4f}", us_per_step_save=f"{t10s['kernel'] * 1e3 / T0:.3f}",
+          ratio=f"{t10s['kernel'] / t10s['plain']:.4f}", save_bound_ms=f"{save_bound['bound_ms']:.4f}",
+          save_bound_by=save_bound["bound_by"])
+    g10s = [[torch.randn(B0, T0, w_, generator=gen, device=dev) * ragged for w_ in widths] for _ in range(2)]
+
+    def k10b(g_):
+        return rssm.rssm_chain_backward(kernel_w, eps10, saved10, outs10.h, h00, None, g_, **chain_kw)
+
+    def k10b_plain(g_):
+        return rssm.rssm_chain_backward_plain(kernel_w, eps10, saved10, outs10.h, h00, None, g_, **chain_kw)
+
+    t10b = alternate(k10b_plain, k10b, g10s, warmup=1)
+
+    def backward_only(graph):
+        outputs, inputs, grad_outputs = graph
+        return torch.autograd.grad(outputs, inputs, grad_outputs, retain_graph=True)
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in (xg0, xq0, *kernel_w)]
+    outs_ = rssm.rssm_chain(leaves[2:], leaves[0], leaves[1], z00, h00, eps10, inference=True, **chain_kw)
+    graph10 = (tuple(outs_), leaves, tuple(g10s[0]))
+    t10_fn = sorted(cuda_time_ms(backward_only, [graph10] * 3, warmup=1))[1]
+    del graph10, outs_, leaves
+    record["rssm_chain_bwd"].update(ms=t10b["kernel"], plain_ms=t10b["plain"], library_ms=None,
+                                    **roofline(**rssm_bwd_work(B0, T0, H, Z, covered), peak=F32_PEAK))
+    phase("time-K10-bwd", card=card, shape=f"({B0},{T0})", H=H, Z=Z, dtype="f32", kernel_ms=f"{t10b['kernel']:.4f}",
+          plain_ms=f"{t10b['plain']:.4f}", us_per_step=f"{t10b['kernel'] * 1e3 / T0:.3f}",
+          chain_backward_ms=f"{t10_fn:.4f}", bound_ms=f"{record['rssm_chain_bwd']['bound_ms']:.4f}",
+          bound_by=record["rssm_chain_bwd"]["bound_by"], covered_row_steps=covered,
+          includes="kernel: K10-bwd alone; chain backward: also the 20 weight-gradient GEMMs and the bias product")
+    del saved10, outs10, g10s
+
+    k11b_ms = k11b_plain_ms = k11b_lib_ms = 0.0
+    bytes_b = flops_b = 0
+    for label, (a, k), stats in zip(labels6, k11_calls[:6], saved11):
+        B_, N_in, C = a[0].shape
+        N_out = depthwise.output_length(N_in, a[3].shape[0], k["stride"], k["dilation"], k["transposed"])
+        dzs = [torch.randn(B_, N_out, C, generator=gen, device=dev) for _ in range(2)]
+
+        def kern(dz, a=a, k=k, stats=stats):
+            with torch.no_grad():
+                depthwise.depthwise_norm_backward(dz, *a[:6], stats, **k)
+
+        def twin_(dz, a=a, k=k, stats=stats):
+            with torch.no_grad():
+                depthwise.depthwise_norm_backward_plain(dz, *a[:6], stats, **k)
+
+        t = alternate(twin_, kern, dzs, warmup=1)
+        lib_leaves = [t_.detach().clone().requires_grad_(True) for t_ in a]
+        lib_graph = ((depthwise_composite(lib_leaves, k),), lib_leaves, (dzs[0],))
+        t_lib = sorted(cuda_time_ms(backward_only, [lib_graph] * 3, warmup=1))[1]
+        del lib_graph, lib_leaves, dzs
+        work = depthwise_bwd_work(B_, N_in, N_out, C, a[3].shape[0])
+        b_ = roofline(**work, peak=F32_PEAK)
+        k11b_ms, k11b_plain_ms, k11b_lib_ms = k11b_ms + t["kernel"], k11b_plain_ms + t["plain"], k11b_lib_ms + t_lib
+        bytes_b, flops_b = bytes_b + work["bytes_"], flops_b + work["flops"]
+        phase("time-K11-bwd", card=card, block=label, u=f"({B_},{N_in},{C})", out_rows=N_out,
+              kernel_ms=f"{t['kernel']:.4f}", plain_ms=f"{t['plain']:.4f}", composite_backward_ms=f"{t_lib:.4f}",
+              bound_ms=f"{b_['bound_ms']:.4f}", bound_by=b_["bound_by"])
+    record["depthwise_norm_bwd"].update(ms=k11b_ms, plain_ms=k11b_plain_ms, library_ms=k11b_lib_ms,
+                                        **roofline(bytes_b, flops_b, F32_PEAK))
+    phase("time-K11-bwd-step", card=card, blocks=6, kernel_ms=f"{k11b_ms:.4f}", plain_ms=f"{k11b_plain_ms:.4f}",
+          composite_backward_ms=f"{k11b_lib_ms:.4f}", bound_ms=f"{record['depthwise_norm_bwd']['bound_ms']:.4f}",
+          bound_by=record["depthwise_norm_bwd"]["bound_by"])
+    del k11_calls, saved11
+    torch.cuda.empty_cache()
+
+    # the train step, kernels against twins in turns on the first batch, the kernels alone over the three
+    tx, _ = common.build_tx_and_lr(targs)
+    weights.load_jax_params(model, params)
+    model.train()
+    state = TrainState.create(model=model, tx=tx, generator=torch.Generator(device=dev).manual_seed(SEED))
+    train_step = make_train_step(common.loss_fn)
+    scalars = dict(beta=torch.tensor(0.5), free_nats=torch.tensor(2.0))
+
+    def run_step(b_):
+        train_step(state, b_, scalars)
+
+    def run_step_plain(b_):
+        with plain():
+            train_step(state, b_, scalars)
+
+    plain_step_ms = cuda_time_ms(run_step_plain, step_batches[:1], warmup=0)[0]
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_time_ms(run_step, step_batches)
+    ts = sorted(step_ms)[1]
+    torch.cuda.synchronize()
+    enqueue = []
+    for b_ in step_batches:
+        t0 = time.perf_counter()
+        run_step(b_)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    samples = sum(int(b_["x_sl"].sum()) for b_ in step_batches) / len(step_batches)
+    phase("time-cwvae-train-step", card=card, utterances=CWVAE_TRAIN_B, samples=int(samples), kernel_ms=f"{ts:.3f}",
+          kernel_ms_all=[f"{v:.3f}" for v in step_ms], plain_ms=f"{plain_step_ms:.3f}",
+          host_enqueue_ms=f"{sorted(enqueue)[1]:.3f}", samples_per_s=f"{samples / ts * 1e3:.0f}",
+          peak_memory_GB=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+
+    # the driver's loop under the profiler (three steps, metrics read 8 steps late): the device's busy time by
+    # kernel, and no host wait on the card inside the driver's step spans (the CUDA synchronizing calls, as phase 54
+    # counts them: Adam's per-parameter step counters are host tensors, so their aten::item reads wait on nothing);
+    # then one step under torch's sync debug mode, which raises on any synchronizing call
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with seeded_noise(SEED + 65):
+            clockwork_audio.train(model, targs, train_batches, Tracker())
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+    kernels_ = device_kernels(prof)
+    busy_ms = sum(device_us(e_) for e_ in kernels_) / 1e3 / 3
+    spans, waits_in_steps = 0, []
+    for e_ in prof.events():
+        if e_.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        spans += e_.name == common.STEP_SPAN
+        if e_.name in SYNC_EVENTS[:3]:
+            parent = e_.cpu_parent
+            while parent is not None and parent.name != common.STEP_SPAN:
+                parent = parent.cpu_parent
+            if parent is not None:
+                waits_in_steps.append(e_.name)
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        run_step(step_batches[0])
+        sync_free = True
+    except RuntimeError as err:
+        sync_free = False
+        print(f"  sync debug mode: {err}", flush=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    expect(spans == 3 and not waits_in_steps and sync_free,
+           f"CW-VAE train step: {spans} step spans, host waits inside them {sorted(set(waits_in_steps))} "
+           f"({len(waits_in_steps)}), sync debug mode passed {sync_free}")
+    phase("profile-cwvae-train-step", card=card, device_ms_per_step=f"{busy_ms:.3f}", step_ms=f"{ts:.3f}",
+          idle_share=f"{1 - busy_ms / ts:.3f}" if busy_ms else "not measured",
+          wall_ms_per_step_under_profiler=f"{wall_ms:.3f}", kernel_launches_per_step=sum(e_.count for e_ in kernels_) // 3,
+          step_spans=spans, host_waits_in_steps=len(waits_in_steps),
+          sync_debug_mode_step="passed" if sync_free else "raised")
+    for e_ in sorted(kernels_, key=device_us, reverse=True)[:14]:
+        print(f"  {device_us(e_) / 1e3 / 3:9.3f} ms/step {e_.count // 3:5d} calls/step  {e_.key[:90]}", flush=True)
+    del state, model, step_batches
+    torch.cuda.empty_cache()
+    require(not failures, f"CW-VAE train phases failed: {failures}")
 
 
 def argparse_copy(args, **changes):

@@ -1,8 +1,8 @@
 """Bounds on paper of the TPU kernels the PyTorch/CUDA port has still to write, at their run specs,
 of K7, K9, K7-bwd and K9-bwd (each kernel apart from the cuBLAS weight-gradient GEMMs around it)
-at the SRNN's test pass and train step shapes, of K12, K1 and K1-bwd at STCN's width, and of K10
-and K11 (apart from their GEMMs) at the CW-VAE's test pass, which ``chip_smoke.py`` also computes
-from its run.
+at the SRNN's test pass and train step shapes, of K12, K1 and K1-bwd at STCN's width, of K10
+and K11 (apart from their GEMMs) at the CW-VAE's test pass, and of K10 in save mode, K10-bwd and
+K11-bwd at the CW-VAE's train step, which ``chip_smoke.py`` also computes from its run.
 
     python scripts/torch_kernel_bounds.py
 
@@ -22,10 +22,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from chip_smoke import (  # noqa: E402
     BF16_PEAK,
     F32_PEAK,
+    depthwise_bwd_work,
     depthwise_work,
     residual_glu_bwd_work,
     residual_glu_work,
     roofline,
+    rssm_bwd_work,
     rssm_work,
     stcn_frame_work,
 )
@@ -118,6 +120,17 @@ def main():
     gemm_rows = sum(n_in + n_out for n_in, n_out in blocks)
     bounds["K11 1x1 GEMMs test pass"] = dict(bytes_=F32 * 5 * gemm_rows * (Hd + 768), flops=2 * 5 * gemm_rows * Hd * 768,
                                              peak=F32_PEAK)
+    # The CW-VAE train step (the same spec; chip_smoke.py's 5 utterances of 46k-51k samples a step within the 256000
+    # samples of --batch_len, taken here at 50800 samples each: 794 top-level steps, the encoder's same padding to
+    # 50837 samples): K10 in save mode (11 H + 4 Z floats a row-step written besides), K10-bwd over all 3970
+    # row-steps (chip_smoke.py counts the steps the lengths cover), and K11-bwd over the step's six blocks (u and dz
+    # read once, du written once)
+    bounds["K10 save mode train step"] = dict(**rssm_work(5, 794, Hd, Zd, save=True), peak=F32_PEAK)
+    bounds["K10-bwd train step"] = dict(**rssm_bwd_work(5, 794, Hd, Zd, 5 * 794), peak=F32_PEAK)
+    enc_t = [(50837, 12709), (12709, 3177), (3177, 794)]
+    k11b = [depthwise_bwd_work(5, n_in, n_out, 768, 5) for n_in, n_out in enc_t + [(o, i) for i, o in reversed(enc_t)]]
+    bounds["K11-bwd train step (6 blocks)"] = dict(bytes_=sum(w["bytes_"] for w in k11b),
+                                                   flops=sum(w["flops"] for w in k11b), peak=F32_PEAK)
     # K12: one STCN decode frame at the only spec that takes the fast path (benchmarks.txt:26, s=1,
     # z=[256,128,64,32,16], hidden 256, 5 stacks of 5 blocks of which 5 feed a level, a 5-block decode
     # stack, the 30-wide DMoL head), 2 sequences (the generation hook's), f32

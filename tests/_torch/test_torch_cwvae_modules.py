@@ -319,21 +319,24 @@ class _OnTheCard(torch.Tensor):
 
 
 def test_card_paths_refuse_gradients_and_unported_shapes():
-    """On the card K10 and K11 have no backward yet: under a gradient each raises ``NotImplementedError`` before a
-    launch, never running a twin; K11 refuses a dtype other than f32 and a width that is not a multiple of 4."""
-    cell, _ = _cell("residual_posterior")
-    enc, ctx, z0, h0, eps = (torch.from_numpy(v).as_subclass(_OnTheCard) for v in _rssm_inputs("residual_posterior"))
-    xg, xq, kernel_weights = rssm_ops.hoist(cell.chain_weights(), enc, ctx, True)
+    """On the card K10's prior mode (a generation) has no backward: under a gradient it raises
+    ``NotImplementedError`` before a launch, never running a twin (the inference mode's gradient is K10-bwd's); K11
+    refuses a dtype other than f32 and a width that is not a multiple of 4, with or without a gradient, before a
+    launch."""
+    cell, _ = _cell("prior_at_the_mean_with_context")
+    enc, ctx, z0, h0, eps = (torch.from_numpy(v).as_subclass(_OnTheCard)
+                             for v in _rssm_inputs("prior_at_the_mean_with_context"))
+    xg, _, kernel_weights = rssm_ops.hoist(cell.chain_weights(), None, ctx, False)
     assert xg.requires_grad and xg.is_cuda
-    with pytest.raises(NotImplementedError, match="no backward"):
-        rssm_ops.rssm_chain(kernel_weights, xg, xq, z0, h0, eps, inference=True, residual_posterior=True,
-                            precision_posterior=False, sd_beta=1.0, sd_epsilon=1e-6)
+    with pytest.raises(NotImplementedError, match="inference mode only"):
+        rssm_ops.rssm_chain(kernel_weights, xg, None, z0, h0, eps, inference=False, residual_posterior=False,
+                            precision_posterior=True, sd_beta=1.0, sd_epsilon=1e-6)
     p = {k: torch.from_numpy(v).float() for k, v in _chain_params().items()}
     u = torch.ones(1, 40, C).as_subclass(_OnTheCard)
     chain = [p["scale1"], p["bias1"], p["kernel"], p["depthwise_bias"], p["scale2"], p["bias2"]]
-    with pytest.raises(NotImplementedError, match="no backward"):
-        depthwise_ops.depthwise_norm(u, *(t.requires_grad_(True) for t in chain), stride=4, dilation=1,
-                                     transposed=False)
+    with pytest.raises(NotImplementedError, match="float32"):
+        depthwise_ops.depthwise_norm(u.double(), *(t.clone().requires_grad_(True) for t in chain), stride=4,
+                                     dilation=1, transposed=False)
     with torch.no_grad(), pytest.raises(NotImplementedError, match="float32"):
         depthwise_ops.depthwise_norm(u.double(), *chain, stride=4, dilation=1, transposed=False)
     with torch.no_grad(), pytest.raises(NotImplementedError, match="multiple of 4"):

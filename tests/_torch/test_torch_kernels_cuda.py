@@ -4,7 +4,8 @@ Fast-WaveNet decode step, K5 the LSTM recurrence forward and backward, K8 the
 VRNN cell and K8-bwd its backward through time, K7 the GRU recurrence and K9 the
 SRNN's latent chain, their save modes and their backwards through time, K7-bwd and K9-bwd; K1 and
 K1-bwd at STCN's width (C = 256, with and without its skip) and K12, STCN's frame decode; K10, the
-CW-VAE's RSSM cell chain, and K11, its coders' depthwise chain.
+CW-VAE's RSSM cell chain, and K11, its coders' depthwise chain, their save modes and their backwards,
+K10-bwd and K11-bwd.
 
 Marked ``cuda``: they skip without a CUDA device (here, on CPU-only machines).
 On the card, where JAX is not installed, leave out the root conftest (it imports
@@ -1241,11 +1242,13 @@ def test_rssm_chain_kernel_matches_twin(cuda_device, B, T, H, Z, inference, resi
 
 @pytest.mark.cuda
 def test_rssm_chain_kernel_refusals(cuda_device):
-    """A gradient, float64, a wrong noise or reset shape and an unstaged width raise before a launch."""
+    """A gradient in prior mode, float64, a wrong noise or reset shape and an unstaged width raise before a
+    launch."""
     w, xg, xq, z0, h0, eps = _k10_inputs(2, 6, 32, 8, cuda_device)
     kwargs = dict(inference=True, residual_posterior=False, precision_posterior=True, sd_beta=0.69, sd_epsilon=1e-6)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        rssm_ops.rssm_chain(w, xg.requires_grad_(True), xq, z0, h0, eps, **kwargs)
+    with pytest.raises(NotImplementedError, match="inference mode only"):
+        rssm_ops.rssm_chain(w, xg.clone().requires_grad_(True), None, z0, h0, eps,
+                            **{**kwargs, "inference": False})
     with torch.no_grad():
         with pytest.raises(NotImplementedError, match="float32"):
             rssm_ops.rssm_chain(w, xg.double(), xq, z0, h0, eps, **kwargs)
@@ -1295,9 +1298,11 @@ def test_depthwise_norm_kernel_matches_twin(cuda_device, B, N, C, stride, dilati
 
 @pytest.mark.cuda
 def test_depthwise_norm_kernel_refusals(cuda_device):
+    """float64 (with a gradient too), a width that is not a multiple of 4 and too few rows raise before a
+    launch."""
     u, p = _k11_inputs(1, 40, 16, cuda_device)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        depthwise.depthwise_norm(u.requires_grad_(True), *p, stride=4, dilation=1, transposed=False)
+    with pytest.raises(NotImplementedError, match="float32"):
+        depthwise.depthwise_norm(u.double().requires_grad_(True), *p, stride=4, dilation=1, transposed=False)
     with torch.no_grad():
         with pytest.raises(NotImplementedError, match="float32"):
             depthwise.depthwise_norm(u.double(), *p, stride=4, dilation=1, transposed=False)
@@ -1311,7 +1316,8 @@ def test_depthwise_norm_kernel_refusals(cuda_device):
 def test_cwvae_audio_on_the_card_launches_k10_and_k11(cuda_device):
     """A two-level CWVAEAudio on the card: a forward launches K10 twice (a level), K11 twelve times (3 encoder and 3
     decoder blocks a level), K2 and K3 once each, and its loss equals the plain path's with the same noise (f32,
-    rtol 1e-5); a generation at the mode launches K10 twice and no K3; under a gradient it raises."""
+    rtol 1e-5); a generation at the mode launches K10 twice and no K3; under a gradient the backward launches
+    K10-bwd twice and K11-bwd twelve times."""
     model = CWVAEAudio(z_size=8, h_size=16, strides=(16, 4), precision_posterior=True, num_mix=3, device=cuda_device)
     weights.load_jax_params(model, weights.random_jax_params(model, 0))
     g = torch.Generator(device=cuda_device).manual_seed(0)
@@ -1333,5 +1339,153 @@ def test_cwvae_audio_on_the_card_launches_k10_and_k11(cuda_device):
     (gen, _), _ = model.generate(2, 1024, use_mode_observations=True, generator=g)
     counts = cuda.launch_counts()
     assert gen.shape == (2, 1024, 1) and counts["rssm_chain"] == 2 and counts["dmol_sample"] == 0
-    with pytest.raises(NotImplementedError, match="no backward"):
-        model(x, x_sl, eps=eps)
+    cuda.reset_launch_counts()
+    loss, _, _ = model(x, x_sl, eps=eps)
+    loss.backward()
+    counts = cuda.launch_counts()
+    assert (counts["rssm_chain_bwd"], counts["depthwise_norm_bwd"], counts["dmol_log_prob_bwd"]) == (2, 12, 1)
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+def _k10_grads(w, xg, xq, z0, h0, eps, resets, g_out, dtype, kernel, **kw):
+    """The gradients of ``sum(outputs * g_out)`` (an output whose ``g_out`` is None left out) by xg, xq, z0, h0 and
+    the 20 kernel weights: through ``rssm_chain`` (K10 in save mode and K10-bwd) or autograd of the twin in
+    ``dtype``."""
+    leaves = [t.detach().to(dtype).clone().requires_grad_(True) for t in (xg, xq, z0, h0, *w)]
+    fn = rssm_ops.rssm_chain if kernel else rssm_ops.rssm_chain_plain
+    outs = fn(leaves[4:], *leaves[:4], eps.to(dtype), resets, inference=True, **kw)
+    grads = torch.autograd.grad(sum((o * g.to(dtype)).sum() for o, g in zip(outs, g_out) if g is not None), leaves,
+                                allow_unused=True)
+    return [torch.zeros_like(t) if g_ is None else g_ for g_, t in zip(grads, leaves)]
+
+
+# (B, T', H, Z, residual, precision, reset every, the outputs without a gradient (z, h, q_mu, q_sd, p_mu, p_sd)):
+# the :33 width at the train step's rows, a small width with some gradients absent, resets
+K10_BWD_CASES = [
+    (5, 60, 192, 128, False, True, 0, ()),
+    (3, 25, 32, 16, True, False, 0, (1, 3)),
+    (11, 20, 64, 8, False, True, 4, (0, 4)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,Z,residual,precision,every,no_grad", K10_BWD_CASES)
+def test_rssm_chain_bwd_kernel_matches_f64_twin(cuda_device, B, T, H, Z, residual, precision, every, no_grad):
+    """K10-bwd (through ``RSSMChainFunction``: K10 in save mode, one K10-bwd launch, the weight gradients) and
+    autograd of the f32 twin, both against autograd of the f64 twin; outputs without a gradient reach the kernel as
+    null pointers, and no gradient crosses a reset. Then K10-bwd alone against its f64 twin on the same saved
+    tensors, within 1e-4 of the largest gradient."""
+    w, xg, xq, z0, h0, eps = _k10_inputs(B, T, H, Z, cuda_device, seed=B)
+    resets = torch.arange(T, device=cuda_device) % every == 0 if every else None
+    g = torch.Generator(device=cuda_device).manual_seed(B)
+    widths = (Z, H, Z, Z, Z, Z)
+    g_out = [None if i in no_grad else torch.randn(B, T, n, generator=g, device=cuda_device)
+             for i, n in enumerate(widths)]
+    kw = dict(residual_posterior=residual, precision_posterior=precision, sd_beta=0.6931478, sd_epsilon=1e-6)
+    cuda.reset_launch_counts()
+    got = _k10_grads(w, xg, xq, z0, h0, eps, resets, g_out, torch.float32, True, **kw)
+    counts = cuda.launch_counts()
+    assert (counts["rssm_chain"], counts["rssm_chain_bwd"]) == (1, 1)
+    twin = _k10_grads(w, xg, xq, z0, h0, eps, resets, g_out, torch.float32, False, **kw)
+    ref = _k10_grads(w, xg, xq, z0, h0, eps, resets, g_out, torch.float64, False, **kw)
+    _held_to_f64(got, twin, ref)
+    with torch.no_grad():
+        outs, saved = rssm_ops.rssm_chain_save(w, xg, xq, z0, h0, eps, resets, **kw)
+        alone = rssm_ops.rssm_chain_backward(w, eps, saved, outs.h, h0, resets, g_out, **kw)
+        ref_alone = rssm_ops.rssm_chain_backward_plain([t.double() for t in w], eps.double(), saved.double(),
+                                                       outs.h.double(), h0.double(), resets,
+                                                       [None if t is None else t.double() for t in g_out], **kw)
+    for a, r in zip(alone, ref_alone):
+        assert (a.double() - r).abs().max() <= 1e-4 * r.abs().max().clamp_min(1e-30)
+
+
+@pytest.mark.cuda
+def test_rssm_chain_save_mode_keeps_the_outputs(cuda_device):
+    """K10 in save mode: the same output bits as without, and saved values equal to its twin's (the products'
+    summation order only: 1e-5 absolute plus 1e-5 relative, one step from the kernel's own carry)."""
+    B, T, H, Z = 5, 40, 192, 128
+    w, xg, xq, z0, h0, eps = _k10_inputs(B, T, H, Z, cuda_device)
+    kw = dict(residual_posterior=False, precision_posterior=True, sd_beta=0.6931478, sd_epsilon=1e-6)
+    with torch.no_grad():
+        plain = rssm_ops.rssm_chain(w, xg, xq, z0, h0, eps, inference=True, **kw)
+        outs, saved = rssm_ops.rssm_chain_save(w, xg, xq, z0, h0, eps, **kw)
+        z_prev = torch.cat([z0[:, None], outs.z[:, :-1]], dim=1).reshape(B * T, 1, Z)
+        h_prev = torch.cat([h0[:, None], outs.h[:, :-1]], dim=1).reshape(B * T, 1, H)
+        flat = [t.reshape(B * T, 1, -1) for t in (xg, xq, eps)]
+        _, ref = rssm_ops._chain_plain(w, flat[0], flat[1], z_prev[:, 0], h_prev[:, 0], flat[2], None, inference=True,
+                                       use_mode=False, save=True, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(outs, plain))
+    torch.testing.assert_close(saved, ref.reshape(B, T, -1), atol=1e-5, rtol=1e-5)
+
+
+# B, N_in, C, stride, dilation, transposed, an all-padding row
+K11_BWD_CASES = [
+    (5, 1133, 768, 4, 1, False, False),  # an encoder block of the :33 width
+    (5, 70, 768, 4, 1, True, True),  # a decoder block of the :33 width, one row all padding
+    (2, 257, 64, 1, 3, False, True),  # dilated, unstrided, one row all padding
+    (3, 70, 36, 2, 2, True, False),  # transposed, dilated, C not a multiple of 32
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,C,stride,dilation,transposed,padding_row", K11_BWD_CASES)
+def test_depthwise_norm_bwd_kernel_matches_f64_twin(cuda_device, B, N, C, stride, dilation, transposed, padding_row):
+    """K11 in save mode keeps its output bits; K11-bwd (through ``DepthwiseNormFunction``: one K11 in save mode, one
+    K11-bwd) and autograd of the f32 twin, both against autograd of the f64 twin, as K10-bwd is held; an
+    all-padding row (constant u, no output gradient) gets a gradient of exactly 0; K11-bwd alone against its f64
+    twin on the kernel's saved statistics within 1e-4 of each largest gradient."""
+    u, p = _k11_inputs(B, N, C, cuda_device)
+    kw = dict(stride=stride, dilation=dilation, transposed=transposed)
+    g = torch.Generator(device=cuda_device).manual_seed(B)
+    dz = torch.randn(B, depthwise.output_length(N, 5, stride, dilation, transposed), C, generator=g,
+                     device=cuda_device)
+    if padding_row:
+        u[1] = u[1, :1]
+        dz[1] = 0.0
+    with torch.no_grad():
+        plain = depthwise.depthwise_norm(u, *p, **kw)
+        z, stats = depthwise.depthwise_norm_save(u, *p, **kw)
+    assert torch.equal(z, plain)
+
+    def grads(dtype, fn):
+        leaves = [t.detach().to(dtype).clone().requires_grad_(True) for t in (u, *p)]
+        return torch.autograd.grad((fn(*leaves, **kw) * dz.to(dtype)).sum(), leaves)
+
+    cuda.reset_launch_counts()
+    got = grads(torch.float32, depthwise.depthwise_norm)
+    counts = cuda.launch_counts()
+    assert (counts["depthwise_norm"], counts["depthwise_norm_bwd"]) == (1, 1)
+    _held_to_f64(got, grads(torch.float32, depthwise.depthwise_norm_plain),
+                 grads(torch.float64, depthwise.depthwise_norm_plain))
+    if padding_row:
+        assert not got[0][1].abs().any()
+    with torch.no_grad():
+        alone = depthwise.depthwise_norm_backward(dz, u, *p[:5], stats, **kw)
+        ref = depthwise.depthwise_norm_backward_plain(dz.double(), u.double(), *(t.double() for t in p[:5]),
+                                                      stats.double(), **kw)
+    for a, r in zip(alone, ref):
+        assert (a.double() - r).abs().max() <= 1e-4 * r.abs().max().clamp_min(1e-30)
+
+
+@pytest.mark.cuda
+def test_cwvae_train_step_on_the_card_launches_each_kernel(cuda_device):
+    """One train step of a one-level CWVAEAudio (strides [64], the run specs' 3 blocks of stride 4 a coder) through
+    the driver's ``train``: K10, K10-bwd, K2, K2-bwd and K3 once, K11 and K11-bwd six times, and finite
+    parameters."""
+    from blvm_tpu_torch.evaluation.tracker import Tracker
+    from blvm_tpu_torch.experiments import clockwork_audio
+
+    args = clockwork_audio.build_args("--hidden_size 16 --latent_size 8 --strides 64 --num_mix 3 --epochs 1 "
+                                      "--metric_fetch_lag 0 --seed 0".split())
+    model = clockwork_audio.build_model(args, device=cuda_device)
+    weights.load_jax_params(model, weights.random_jax_params(model, 0))
+    g = torch.Generator().manual_seed(0)
+    utterances = [(i, (torch.rand(n, generator=g) - 0.5).numpy()) for i, n in enumerate((4000, 3100))]
+    cuda.reset_launch_counts()
+    clockwork_audio.train(model, args, [utterances], Tracker(), device=cuda_device)
+    torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == dict(rssm_chain=1, rssm_chain_bwd=1, depthwise_norm=6,
+                                                          depthwise_norm_bwd=6, dmol_log_prob=1, dmol_log_prob_bwd=1,
+                                                          dmol_sample=1)
+    assert all(torch.isfinite(p).all() for p in model.parameters())
