@@ -9,11 +9,14 @@ built fresh each step from host values and merged into an accumulator with
   * ``weight_by``: merge weight for the running mean (defaults to reduce_by).
   * ``BitsPerDimMetric``: negated log-likelihoods divided by ln 2, running mean
     with ``reduce_by = x_sl``, i.e. bits per frame.
+  * ``ErrorRateMetric``: accumulated edit distance over reference length (WER or
+    CER by the tokenizer), from :func:`edit_distances`, the JAX package's
+    Levenshtein DP with each row taken as whole numpy arrays.
 """
 
 import math
 from copy import deepcopy
-from typing import List, Set
+from typing import List, Sequence, Set
 
 import numpy as np
 
@@ -112,6 +115,64 @@ def no_value(metrics: List[Metric]):
 
 
 GET_BEST = dict(none=no_value, min=min_value, max=max_value)
+
+
+def edit_distances(refs: Sequence[Sequence], hyps: Sequence[Sequence]) -> np.ndarray:
+    """The Levenshtein distance of each ``(ref, hyp)`` pair, the integers of the JAX package's
+    two-row DP (``blvm_tpu/evaluation/metrics.py:135-148``), all pairs at once: row ``i`` of every
+    pair's DP is ``t = [i, min(prev[1:] + 1, prev[:-1] + cost)]`` and then
+    ``curr = minimum.accumulate(t - j) + j`` (the insertions along the row), ``j = arange(len(t))``;
+    a pair whose reference has fewer than ``i`` tokens keeps its last row. Tokens are compared by
+    equality (any hashable: words, characters, indices)."""
+    n = len(refs)
+    if n == 0:
+        return np.zeros(0, np.int64)
+    vocab: dict = {}
+
+    def encode(seq):
+        return [vocab.setdefault(tok, len(vocab)) for tok in seq]
+
+    ref_ids, hyp_ids = [encode(r) for r in refs], [encode(h) for h in hyps]
+    ref_len = np.asarray([len(r) for r in ref_ids], np.int64)
+    hyp_len = np.asarray([len(h) for h in hyp_ids], np.int64)
+    width = int(hyp_len.max()) + 1
+    hyp = np.full((n, width - 1), -1, np.int64)
+    ref = np.full((n, max(int(ref_len.max()), 1)), -2, np.int64)
+    for k, (r, h) in enumerate(zip(ref_ids, hyp_ids)):
+        hyp[k, : len(h)] = h
+        ref[k, : len(r)] = r
+    j = np.arange(width, dtype=np.int64)
+    prev = np.tile(j, (n, 1))
+    t = np.empty_like(prev)
+    for i in range(1, int(ref_len.max()) + 1):
+        t[:, 0] = i
+        np.minimum(prev[:, 1:] + 1, prev[:, :-1] + (hyp != ref[:, i - 1 : i]), out=t[:, 1:])
+        curr = np.minimum.accumulate(t - j, axis=1) + j
+        prev = np.where((i <= ref_len)[:, None], curr, prev)
+    return prev[np.arange(n), hyp_len]
+
+
+def edit_distance(ref, hyp) -> int:
+    """Levenshtein distance between two sequences."""
+    return int(edit_distances([ref], [hyp])[0])
+
+
+class ErrorRateMetric(Metric):
+    """Accumulated edit-distance error rate (WER/CER via tokenizer choice)."""
+
+    def __init__(self, refs, hyps, tokenizer, name="er", tags=None):
+        super().__init__(name=name, tags=tags, get_best="min")
+        ref_tokens, hyp_tokens = [tokenizer(r) for r in refs], [tokenizer(h) for h in hyps]
+        self._edits = int(edit_distances(ref_tokens, hyp_tokens).sum())
+        self._len = sum(len(r) for r in ref_tokens)
+
+    @property
+    def value(self):
+        return self._edits / self._len if self._len else float("nan")
+
+    def update(self, metric: Metric):
+        self._edits += metric._edits
+        self._len += metric._len
 
 
 class RunningMeanMetric(Metric):

@@ -36,6 +36,7 @@ _launches: Dict[str, int] = {
     "wavenet_decode": 0, "lstm_recurrence": 0, "lstm_recurrence_bwd": 0, "vrnn_cell": 0,
     "vrnn_cell_bwd": 0, "gru_recurrence": 0, "gru_recurrence_bwd": 0, "srnn_chain": 0, "srnn_chain_bwd": 0,
     "stcn_decode": 0, "depthwise_norm": 0, "depthwise_norm_bwd": 0, "rssm_chain": 0, "rssm_chain_bwd": 0,
+    "bilstm_recurrence": 0, "bilstm_recurrence_bwd": 0, "ctc_loss": 0, "ctc_loss_bwd": 0,
 }
 build_log = ""  # nvcc's output of the build this process ran (register / shared-memory report)
 
@@ -59,6 +60,14 @@ _SIGNATURES = {
     "blvm_lstm_recurrence": [_P] * 12 + [_I] * 4 + [_P],
     # w_hh, mask, gates, c_prev, d_out, d_h_n, d_c_n, d_gates, d_h0, d_c0; B, T, H, dtype, stream
     "blvm_lstm_recurrence_bwd": [_P] * 10 + [_I] * 4 + [_P],
+    # xw, w_hh, b_hh, mask, out, gates, h_prev, c_prev; B, T, H; stream
+    "blvm_bilstm_recurrence": [_P] * 8 + [_I] * 3 + [_P],
+    # w_hh, mask, gates, c_prev, d_out, d_gates; B, T, H; stream
+    "blvm_bilstm_recurrence_bwd": [_P] * 6 + [_I] * 3 + [_P],
+    # lp, y, z_sl, y_sl, nll, phi_out, emit_out; B, T, N, K, blank; log_eps; stream
+    "blvm_ctc_loss": [_P] * 7 + [_I] * 5 + [_F, _P],
+    # lp, y, z_sl, y_sl, phi_in, emit_in, g, d_lp; B, T, N, K, blank; log_eps; stream
+    "blvm_ctc_loss_bwd": [_P] * 8 + [_I] * 5 + [_F, _P],
     # weights[28], h0, xpost, xg, eps, outputs[7], act, barrier, trace; B, T, R, H, Z, inference, residual,
     # use_mode, save; sd_beta, sd_eps; stream
     "blvm_vrnn_cell": [_P] * 9 + [_I] * 9 + [_F] * 2 + [_P],

@@ -25,6 +25,16 @@ the backward reads (:func:`gru_recurrence_save`; K7's save mode on the card), th
 is :func:`gru_recurrence_backward` (K7-bwd, ``csrc/gru_bwd.cu``, on the card;
 :func:`gru_recurrence_backward_plain` on the CPU) and the weight gradients as sums over the
 ``B T`` rows (:func:`gru_weight_grads`).
+
+K6 is one layer of the bidirectional LSTM (port of the scan of
+``blvm_tpu/modules/lstm_block.py`` ``LSTMBlock._fused_bidirectional``, ``:82-130``): K5's
+step for both directions at once, direction 1 over the whole padded sequence reversed (its
+step ``s`` reads and writes time ``T - 1 - s``), from a zero state. ``xw (B, T, 8H)`` holds
+direction ``d``'s gate columns at ``4 d H`` and ``out (B, T, 2H)`` direction ``d`` at ``d H``.
+:func:`bilstm_recurrence_plain` is its twin; :func:`bilstm_recurrence` the entry point: for
+CPU tensors the twin, for CUDA tensors one launch of ``csrc/bilstm.cu``; with a gradient
+:class:`BiLSTMRecurrenceFunction` (K6 in save mode and K6-bwd on the card, the save twin and
+:func:`bilstm_recurrence_backward_plain` on the CPU).
 """
 
 from typing import Optional, Tuple
@@ -34,7 +44,7 @@ import torch
 from blvm_tpu_torch.ops import cuda
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# csrc/lstm.cu: a CTA of the 8-CTA cluster keeps its 2 H^2 bytes of W_hh (f32) in shared memory
+# csrc/lstm_common.cuh (K5 and K6): a CTA of the 8-CTA cluster keeps its 2 H^2 bytes of W_hh (f32) in shared memory
 K5_CLUSTER, K5_MAX_HIDDEN = 8, 256
 
 
@@ -397,3 +407,211 @@ def _check_gru(xw, w_hh, b_hh, mask, h0) -> None:
                         f"{[t.dtype for t in (xw, w_hh, b_hh, h0)]}")
     if B < 1 or H < 1:
         raise ValueError(f"gru_recurrence takes B >= 1 and H >= 1, got B={B}, H={H}")
+
+
+def bilstm_recurrence_plain(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+                            mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The JAX block's fused scan in plain PyTorch, one step at a time: the twin of K6.
+
+    ``xw (B, T, 8H)`` (``x [W_ih[0] | W_ih[1]] + [b_ih[0] | b_ih[1]]``), ``w_hh (2, H, 4H)``,
+    ``b_hh (2, 4H)``, ``mask (B, T)`` of 0/1 (None: all ones). Both directions from a zero
+    state, direction 1 over the reversed sequence and mask. Returns ``out (B, T, 2H)``, the
+    directions concatenated (direction 1 back in forward time order)."""
+    return _bilstm_plain(xw, w_hh, b_hh, mask, save=False)[0]
+
+
+def _bilstm_plain(xw, w_hh, b_hh, mask, save: bool):
+    """:func:`bilstm_recurrence_plain` and, with ``save``, what the backward reads, as K6's save
+    mode writes it: the activated gates ``(B, T, 8H)`` and the carried ``h`` and ``c`` before each
+    step ``(B, T, 2H)``, at each step's own time index; else None."""
+    dtype = xw.dtype
+    B, T = xw.shape[:2]
+    H = w_hh.shape[1]
+    G = 4 * H
+    mask = torch.ones((B, T), dtype=dtype, device=xw.device) if mask is None else mask.to(dtype)
+    h = c = xw.new_zeros((2, B, H))
+    outs, saved = [[None] * T, [None] * T], [[None] * T, [None] * T]
+    for s in range(T):
+        times = (s, T - 1 - s)
+        x_t = torch.stack([xw[:, times[0], :G], xw[:, times[1], G:]])  # (2, B, 4H)
+        m = torch.stack([mask[:, times[0]], mask[:, times[1]]])[..., None]  # (2, B, 1)
+        gates = x_t + torch.bmm(h, w_hh) + b_hh[:, None]
+        i, f, g, o = gates.chunk(4, dim=-1)
+        i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+        c_new = f * c + i * g
+        h_new = o * torch.tanh(c_new)
+        for d in range(2):
+            outs[d][times[d]] = h_new[d] * m[d]
+            if save:
+                saved[d][times[d]] = torch.cat([i[d], f[d], g[d], o[d], h[d], c[d]], dim=-1)
+        h = m * h_new + (1 - m) * h
+        c = m * c_new + (1 - m) * c
+    if T == 0:
+        return xw.new_zeros((B, 0, 2 * H)), None, None, None
+    out = torch.cat([torch.stack(outs[0], dim=1), torch.stack(outs[1], dim=1)], dim=-1)
+    if not save:
+        return out, None, None, None
+    per_dir = [torch.stack(saved[d], dim=1) for d in range(2)]  # (B, T, 6H): the gates, h, c
+    gates_ = torch.cat([per_dir[0][..., :G], per_dir[1][..., :G]], dim=-1)
+    h_prev = torch.cat([per_dir[0][..., G:G + H], per_dir[1][..., G:G + H]], dim=-1)
+    c_prev = torch.cat([per_dir[0][..., G + H:], per_dir[1][..., G + H:]], dim=-1)
+    return out, gates_, h_prev, c_prev
+
+
+def bilstm_recurrence(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+                      mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """``out (B, T, 2H)`` of one bidirectional LSTM layer (:func:`bilstm_recurrence_plain`).
+
+    Without a gradient: CPU tensors, the twin; CUDA tensors, one launch of K6. With gradients
+    enabled and an input or weight that requires one: :class:`BiLSTMRecurrenceFunction`. On the
+    card ``xw``, ``w_hh`` and ``b_hh`` must be float32 on one device and ``H`` a multiple of 8 up
+    to 256, else it raises: no fallback to the twin."""
+    if xw.is_cuda:
+        _check_bilstm(xw, w_hh, b_hh, mask)
+        if mask is not None:
+            mask = mask.detach().to(torch.float32).contiguous()
+    if xw.shape[1] == 0:
+        return xw.new_zeros((xw.shape[0], 0, 2 * w_hh.shape[1]))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xw, w_hh, b_hh)):
+        return BiLSTMRecurrenceFunction.apply(xw, w_hh, b_hh, mask)
+    if not xw.is_cuda:
+        return bilstm_recurrence_plain(xw, w_hh, b_hh, mask)
+    with torch.no_grad():
+        return _bilstm_launch(xw, w_hh, b_hh, mask, save=False)[0]
+
+
+def bilstm_recurrence_save(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, mask: Optional[torch.Tensor]):
+    """The forward of :class:`BiLSTMRecurrenceFunction`: ``(out, gates, h_prev, c_prev)``. CPU
+    tensors: the twin; CUDA tensors: one launch of K6 in save mode (its ``out`` the same bits as
+    without)."""
+    if not xw.is_cuda:
+        return _bilstm_plain(xw, w_hh, b_hh, mask, save=True)
+    return _bilstm_launch(xw, w_hh, b_hh, mask, save=True)
+
+
+def _bilstm_launch(xw, w_hh, b_hh, mask, save: bool):
+    """One launch of K6: ``(out, gates, h_prev, c_prev)``, the last three None without ``save``."""
+    xw, w_hh, b_hh = (t.contiguous() for t in (xw, w_hh, b_hh))
+    B, T, G2 = xw.shape
+    H = G2 // 8
+    out = torch.empty((B, T, 2 * H), dtype=torch.float32, device=xw.device)
+    saved = [torch.empty_like(xw), torch.empty_like(out), torch.empty_like(out)] if save else [None] * 3
+    lib = cuda.library()
+    cuda.count_launch("bilstm_recurrence")
+    err = lib.blvm_bilstm_recurrence(*(_ptr(t) for t in (xw, w_hh, b_hh, mask, out, *saved)), B, T, H,
+                                     cuda.stream_handle(xw))
+    cuda.check(err, "bilstm_recurrence")
+    return (out, *saved)
+
+
+def bilstm_recurrence_backward_plain(w_hh: torch.Tensor, mask: Optional[torch.Tensor], gates: torch.Tensor,
+                                     c_prev: torch.Tensor, d_out: torch.Tensor) -> torch.Tensor:
+    """The twin of K6-bwd: each direction's chain in reverse, in plain PyTorch, one step at a time
+    (direction 0 from ``t = T - 1`` down, direction 1 from ``t = 0`` up). From ``w_hh (2, H, 4H)``,
+    the mask, the save mode's gates ``(B, T, 8H)`` and ``c_prev (B, T, 2H)`` and ``d_out (B, T, 2H)``:
+    ``d_gates (B, T, 8H)``, the gradient of ``xw``. A masked step passes dh and dc through."""
+    B, T, G2 = gates.shape
+    H, G = G2 // 8, G2 // 2
+    dtype = gates.dtype
+    mask = torch.ones((B, T), dtype=dtype, device=gates.device) if mask is None else mask.to(dtype)
+    dh = dc = gates.new_zeros((2, B, H))
+    d_gates = [[None] * T, [None] * T]
+    for s in range(T - 1, -1, -1):
+        times = (s, T - 1 - s)
+        g_t = torch.stack([gates[:, times[0], :G], gates[:, times[1], G:]])  # (2, B, 4H)
+        cp = torch.stack([c_prev[:, times[0], :H], c_prev[:, times[1], H:]])
+        do = torch.stack([d_out[:, times[0], :H], d_out[:, times[1], H:]])
+        m = torch.stack([mask[:, times[0]], mask[:, times[1]]])[..., None]
+        i, f, g, o = g_t.chunk(4, dim=-1)
+        tc = torch.tanh(f * cp + i * g)
+        dh_new = m * (dh + do)
+        dc_new = m * dc + dh_new * o * (1 - tc * tc)
+        dg = torch.cat([dc_new * g * i * (1 - i), dc_new * cp * f * (1 - f), dc_new * i * (1 - g * g),
+                        dh_new * tc * o * (1 - o)], dim=-1)
+        for d in range(2):
+            d_gates[d][times[d]] = dg[d]
+        dc = (1 - m) * dc + dc_new * f
+        dh = (1 - m) * dh + torch.bmm(dg, w_hh.transpose(1, 2))
+    if T == 0:
+        return gates.new_zeros((B, 0, G2))
+    return torch.cat([torch.stack(d_gates[0], dim=1), torch.stack(d_gates[1], dim=1)], dim=-1)
+
+
+def bilstm_recurrence_backward(w_hh: torch.Tensor, mask: Optional[torch.Tensor], gates: torch.Tensor,
+                               c_prev: torch.Tensor, d_out: torch.Tensor) -> torch.Tensor:
+    """``d_gates`` as :func:`bilstm_recurrence_backward_plain` gives it. CPU tensors: that twin;
+    CUDA tensors: one launch of K6-bwd (float32, on one device, the save mode's layouts)."""
+    if not gates.is_cuda:
+        return bilstm_recurrence_backward_plain(w_hh, mask, gates, c_prev, d_out)
+    B, T, G2 = gates.shape
+    H = G2 // 8
+    w_hh, gates, c_prev, d_out = (t.contiguous() for t in (w_hh, gates, c_prev, d_out))
+    tensors = [w_hh, gates, c_prev, d_out] + ([mask] if mask is not None else [])
+    if any(t.device != gates.device or t.dtype != torch.float32 for t in tensors):
+        raise ValueError("bilstm_recurrence_backward takes float32 tensors on one CUDA device")
+    if (tuple(w_hh.shape) != (2, H, 4 * H) or tuple(c_prev.shape) != (B, T, 2 * H) or tuple(d_out.shape) != (B, T, 2 * H)
+            or (mask is not None and tuple(mask.shape) != (B, T))):
+        raise ValueError(f"bilstm_recurrence_backward: gates {tuple(gates.shape)} are not K6's save buffer for w_hh "
+                         f"{tuple(w_hh.shape)}, or c_prev, d_out or the mask do not match them")
+    d_gates = torch.empty_like(gates)
+    lib = cuda.library()
+    cuda.count_launch("bilstm_recurrence_bwd")
+    err = lib.blvm_bilstm_recurrence_bwd(*(_ptr(t) for t in (w_hh, mask, gates, c_prev, d_out, d_gates)), B, T, H,
+                                         cuda.stream_handle(gates))
+    cuda.check(err, "bilstm_recurrence_bwd")
+    return d_gates
+
+
+def bilstm_weight_grads(h_prev: torch.Tensor, d_gates: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dW_hh (2, H, 4H), db_hh (2, 4H))``: per direction ``h_prev[d]^T d_gates[d]`` over the ``B T``
+    rows, one GEMM each (cuBLAS on the card), and the column sums of ``d_gates`` as one product with a
+    row of ones."""
+    B, T, G2 = d_gates.shape
+    H = G2 // 8
+    rows, h_rows = d_gates.reshape(B * T, G2), h_prev.reshape(B * T, 2 * H)
+    d_w_hh = torch.stack([h_rows[:, d * H:(d + 1) * H].T @ rows[:, d * 4 * H:(d + 1) * 4 * H] for d in range(2)])
+    d_b_hh = (torch.ones((1, B * T), dtype=rows.dtype, device=rows.device) @ rows).reshape(2, 4 * H)
+    return d_w_hh, d_b_hh
+
+
+class BiLSTMRecurrenceFunction(torch.autograd.Function):
+    """K6 under autograd: ``apply(xw, w_hh, b_hh, mask) -> out``. ``forward`` runs
+    :func:`bilstm_recurrence_save`; ``backward`` runs :func:`bilstm_recurrence_backward` once and
+    :func:`bilstm_weight_grads`, and returns the gradients of ``xw`` (``d_gates``; the layer's one
+    input product takes it on to ``x``, ``W_ih`` and ``b_ih``), ``w_hh`` and ``b_hh``."""
+
+    @staticmethod
+    def forward(ctx, xw, w_hh, b_hh, mask):
+        out, gates, h_prev, c_prev = bilstm_recurrence_save(xw, w_hh, b_hh, mask)
+        ctx.save_for_backward(w_hh, mask, gates, h_prev, c_prev)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        w_hh, mask, gates, h_prev, c_prev = ctx.saved_tensors
+        d_gates = bilstm_recurrence_backward(w_hh, mask, gates, c_prev, d_out)
+        d_w_hh, d_b_hh = bilstm_weight_grads(h_prev, d_gates)
+        return d_gates, d_w_hh, d_b_hh, None
+
+
+def _check_bilstm(xw, w_hh, b_hh, mask) -> None:
+    if xw.ndim != 3 or xw.shape[-1] % 8:
+        raise ValueError(f"bilstm_recurrence takes xw of shape (B, T, 8H), got {tuple(xw.shape)}")
+    B, T, G2 = xw.shape
+    H = G2 // 8
+    shapes = {"w_hh": (w_hh, (2, H, 4 * H)), "b_hh": (b_hh, (2, 4 * H))}
+    if mask is not None:
+        shapes["mask"] = (mask, (B, T))
+    wrong = {name: tuple(t.shape) for name, (t, shape) in shapes.items() if tuple(t.shape) != shape}
+    if wrong:
+        raise ValueError(f"bilstm_recurrence: for xw {tuple(xw.shape)} expected w_hh (2, {H}, {4 * H}), b_hh (2, {4 * H}) "
+                         f"and mask ({B}, {T}); got {wrong}")
+    if any(t.device != xw.device for t in [w_hh, b_hh] + ([mask] if mask is not None else [])):
+        raise ValueError("bilstm_recurrence: all inputs must lie on one CUDA device")
+    if any(t.dtype != torch.float32 for t in (xw, w_hh, b_hh)):
+        raise TypeError(f"the bilstm_recurrence kernel takes float32 xw, w_hh and b_hh (the probe is f32), got "
+                        f"{[t.dtype for t in (xw, w_hh, b_hh)]}")
+    if H % K5_CLUSTER or not K5_CLUSTER <= H <= K5_MAX_HIDDEN or B < 1:
+        raise ValueError(f"the bilstm_recurrence kernel takes a hidden size H that is a multiple of {K5_CLUSTER} up to "
+                         f"{K5_MAX_HIDDEN} (each of its {K5_CLUSTER} CTAs keeps H/{K5_CLUSTER} units' columns of one "
+                         f"direction's W_hh, 2 H^2 bytes, in shared memory) and B >= 1; got H={H}, B={B}")

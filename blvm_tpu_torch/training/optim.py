@@ -10,10 +10,17 @@ on the parameters' ``.grad`` in place before one ``torch.optim`` step:
   by ``||g|| + 1e-6`` and scale below the threshold too);
 - ``skip_nonfinite_updates`` is ``optax.apply_if_finite``: a non-finite gradient
   leaves the parameters and the optimizer state (Adam's moments and step
-  count) untouched, so the step is skipped entirely.
+  count) untouched, so the step is skipped entirely; after more than
+  ``MAX_CONSECUTIVE_ERRORS`` non-finite steps in a row the update is taken.
+  The decision stays on the device, as JAX's does: the finite flag and the
+  counters are device tensors; the parameters and Adam's state are copied,
+  stepped, and put back with ``torch.where`` where the update is dropped, so a
+  train step never waits on the card for it.
 
 ``torch.optim.Adam`` is optax's ``adam`` (eps outside the square root,
 ``eps_root = 0``); the optimizer is a library call in the JAX package too.
+Under ``skip_nonfinite_updates`` on the card it is built ``capturable``, which
+keeps its step count on the device.
 """
 
 import math
@@ -87,17 +94,25 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 
 class ClippedOptimizer:
     """The chain bound to parameters: :meth:`step` clips the parameters' ``.grad``
-    in place (value, then global norm) and takes one optimizer step, or skips
-    it when ``skip_nonfinite_updates`` is set and a gradient is not finite."""
+    in place (value, then global norm) and takes one optimizer step, or, when
+    ``skip_nonfinite_updates`` is set and a gradient is not finite, leaves the
+    parameters and Adam's state as they were. ``notfinite_count`` (consecutive
+    non-finite steps) and ``total_notfinite`` are then int32 device tensors,
+    ``apply_if_finite``'s state; read them only where they are logged."""
 
     def __init__(self, params, learning_rate: float, clip_grad_norm: Optional[float],
                  clip_grad_value: Optional[float], skip_nonfinite_updates: bool, **adam_kwargs):
         self.params = list(params)
-        self.optimizer = torch.optim.Adam(self.params, lr=learning_rate, **adam_kwargs)
+        device = self.params[0].device if self.params else torch.device("cpu")
+        # a host step count would make Adam read it back from the card on every step it may drop
+        capturable = adam_kwargs.pop("capturable", False) or (skip_nonfinite_updates and device.type == "cuda")
+        self.optimizer = torch.optim.Adam(self.params, lr=learning_rate, capturable=capturable, **adam_kwargs)
         self.clip_grad_norm, self.clip_grad_value = clip_grad_norm, clip_grad_value
         self.skip_nonfinite_updates = skip_nonfinite_updates
-        self.notfinite_count = 0  # consecutive skipped steps (apply_if_finite's state)
-        self.total_notfinite = 0
+        self.notfinite_count = self.total_notfinite = 0
+        if skip_nonfinite_updates:
+            self.notfinite_count = torch.zeros((), dtype=torch.int32, device=device)
+            self.total_notfinite = torch.zeros((), dtype=torch.int32, device=device)
 
     @property
     def learning_rate(self) -> float:
@@ -111,16 +126,20 @@ class ClippedOptimizer:
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
 
-    def step(self) -> bool:
-        """Clip and step; returns whether the update was applied."""
-        grads = [p.grad for p in self.params if p.grad is not None]
-        if self.skip_nonfinite_updates:
-            finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all()) if grads else True
-            if not finite and self.notfinite_count < MAX_CONSECUTIVE_ERRORS:
-                self.notfinite_count += 1
-                self.total_notfinite += 1
-                return False
-            self.notfinite_count = 0
+    def step(self):
+        """Clip and step. Returns whether the update was applied: True, or under
+        ``skip_nonfinite_updates`` a bool device tensor."""
+        params = [p for p in self.params if p.grad is not None]
+        grads = [p.grad for p in params]
+        apply = True
+        if self.skip_nonfinite_updates and grads:
+            # optax.apply_if_finite on the device: 0 * g is 0 where g is finite and NaN elsewhere, so the
+            # norms of 0 * g are all finite exactly when every element of every gradient is
+            finite = torch.isfinite(torch.stack(torch._foreach_norm(torch._foreach_mul(grads, 0.0)))).all()
+            zero = torch.zeros_like(self.notfinite_count)
+            self.notfinite_count = torch.where(finite, zero, self.notfinite_count + 1)
+            self.total_notfinite = torch.where(finite, self.total_notfinite, self.total_notfinite + 1)
+            apply = finite | (self.notfinite_count > MAX_CONSECUTIVE_ERRORS)
         # multi-tensor ops: a few launches a step however many gradients, the same elementwise math
         with torch.no_grad():
             if self.clip_grad_value:
@@ -133,8 +152,27 @@ class ClippedOptimizer:
                 one = torch.ones((), dtype=norm.dtype, device=norm.device)
                 torch._foreach_div_(grads, torch.where(keep, one, norm))
                 torch._foreach_mul_(grads, torch.where(keep, one, torch.full_like(one, self.clip_grad_norm)))
+            if not self.skip_nonfinite_updates:
+                self.optimizer.step()
+            elif grads:
+                self._step_if(params, apply)
+        return apply
+
+    def _step_if(self, params, apply: torch.Tensor) -> None:
+        """One Adam step of ``params`` that is kept only where the device flag ``apply`` is true: else the
+        parameters and every tensor of Adam's state (moments, step count) keep their values exactly, and a
+        state that the step created reads as Adam's fresh one, zeros (a NaN gradient's NaNs never stay)."""
+        def tensors():  # the parameters and Adam's state, by (parameter, name)
+            return {(i, name): t for i, p in enumerate(params)
+                    for name, t in (("param", p.detach()), *self.optimizer.state[p].items())}
+
+        before = tensors()
+        kept = {key: torch.empty_like(t) for key, t in before.items()}
+        torch._foreach_copy_(list(kept.values()), list(before.values()))
         self.optimizer.step()
-        return True
+        after = tensors()
+        restore = [torch.where(apply, t, kept[key] if key in kept else torch.zeros_like(t)) for key, t in after.items()]
+        torch._foreach_copy_(list(after.values()), restore)
 
 
 def get_optimizer(

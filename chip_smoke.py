@@ -15,8 +15,10 @@ generation and train step at the width of its s=1 z=[256,128,64,32,16] run spec 
 with the clips and annealers) and one train step at its s=64 z=[256] spec, and the CW-VAE's test pass,
 generation and train step at the width of its d=192 z=[128] s=[64] run spec (3 blocks of stride 4 a coder
 expanding 192 -> 768, the precision-weighted posterior, the same DMoL head, f32; the step with the beta and
-free-nats annealers), and the drivers' loops with their metrics read late, and checks the nineteen
-hand-written kernels they run against their plain PyTorch twins:
+free-nats annealers), and the drivers' loops with their metrics read late, and the CTC phoneme probe's train step
+and test pass at the width of its phoneme.txt:8 run spec (3 bidirectional LSTM layers of H = 256 over 80 log-mel
+bins, CTC over 65 classes, f32), and checks the twenty-three hand-written kernels they run against their plain
+PyTorch twins:
 
   1. device: the card's name and power limit (nvidia-smi)
   2. numerics: TF32 and reduced-precision bf16 GEMM reductions off
@@ -100,7 +102,8 @@ hand-written kernels they run against their plain PyTorch twins:
  32. timing: K8 in save mode against K8 without it at the train shape, K8-bwd alone and
      the cell's backward against autograd of the twin, K8-bwd's trace by stage and
      phase, the train step (in turns with the twins) with its host enqueue time and a
-     torch.profiler breakdown
+     torch.profiler breakdown; the driver's loop under --skip_nonfinite_updates: no host wait
+     inside its step spans, one step clean under torch's sync debug mode, a NaN step skipped
  33. K7 gru_recurrence vs its twin at the SRNN test pass's shapes: 6 utterances of 24k-72k
      samples (up to 1125 stacks), H=512, the d GRU's mask and the a GRU's flipped mask; H=32
      with a given h0 and a zero-length row; T'=1. Teacher-forced and free-running
@@ -136,7 +139,8 @@ hand-written kernels they run against their plain PyTorch twins:
      outputs), K7-bwd and K9-bwd alone against their twins, the GRU's and the chain's backward
      against autograd of the twins, torch.nn.GRU's backward (cuDNN, the yardstick), both
      kernels' traces by stage and phase, the train step (in turns with the twins) with its host
-     enqueue time and a torch.profiler breakdown
+     enqueue time and a torch.profiler breakdown; the driver's loop under --skip_nonfinite_updates (its
+     default) as in 32
  42. K1 at STCN's width (C = half = 256) vs its twin, f32 and bf16, B=6 at the test pass's
      first-block length: dilations 1 and 16, the skip at all rows and at the last 1000, skip-free
  43. the STCN test pass: flags of benchmarks.txt:26 -> driver -> model -> weights bridge, 6
@@ -213,9 +217,26 @@ hand-written kernels they run against their plain PyTorch twins:
      autograd of the composite of PyTorch calls), each beside its bound; the train step, kernels and twins in
      turns: samples/s, the host's enqueue, peak memory; a torch.profiler breakdown, no host wait on the card
      inside the driver's step spans, and one step under torch's sync debug mode ("error")
+ 66. K6 bilstm_recurrence vs its twin, free-running, at layer 0 (D = 80) and layer 1 (D = 512) of a phoneme.txt:8
+     train batch (~38 synthetic utterances of 3.0-3.3 s within --batch_len 120 s, ~830 frames), a long one (~16 of
+     7.0-7.3 s, ~1850 frames) and an eval batch (~110 of 1.5-5 s within 3 x 120 s: more clusters than are resident):
+     within 1e-5, or within twice the f32 twin's error of the f64 twin
+ 67. K6-bwd (through BiLSTMRecurrenceFunction) and autograd of the f32 twin held to autograd of the f64 twin: the
+     train batch's layer 0, its layer 1 with an all-padding row (its gradient exactly 0), the long batch's layer 1;
+     K6-bwd alone against its f64 twin; K13 ctc_loss and K13-bwd against their twin (optax's recursion) on the train
+     batch's logits, with an infeasible row (optax's finite score) and an empty one (-0.0)
+ 68. the probe's train slice: flags of phoneme.txt:8 -> driver -> model -> weights bridge -> asr_ctc.train, 3 Adam
+     steps with dropout from the train state's generator; 3 K6, 3 K6-bwd, 1 K13, 1 K13-bwd a step, none on the plain
+     path; losses against the twins within 1e-5; no host wait inside the driver's step spans, one step under torch's
+     sync debug mode; one step at phoneme.txt:7 (stacked waveform frames, D = 64)
+ 69. the test pass over the eval batch through asr_ctc.evaluate: 3 K6 and 1 K13 a forward; loss, WER and CER against
+     the twins', each utterance decoded otherwise traced to a near-tie of the twin's top two logits
+ 70. timing: K6 and K6-bwd against their twins and torch.nn.LSTM(bidirectional) on packed sequences (cuDNN, the
+     yardstick) at the train and the eval batch; K13 and K13-bwd against their twin and F.ctc_loss; the train step
+     (ms, seconds of audio a second, the host's enqueue and build_metrics, a torch.profiler split) and the test pass
 
 Every phase prints one line (the profiles a few); any failure raises and exits
-non-zero before the last line (phases 14-65 print all their numbers first). A
+non-zero before the last line (phases 14-70 print all their numbers first). A
 ``[total]`` line gives the run's seconds; the second-to-last line is the
 kernels' JSON record, the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero without CUDA.
@@ -246,6 +267,7 @@ GEN_B, N_GEN, N_K4, N_NAIVE, N_NAIVE_TIME = 2, 16000, 256, 16, 8
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W): the bound of a kernel is the
 # larger of its compulsory bytes over HBM bandwidth and its operations over the peak of their type
 HBM_BYTES_PER_S, BF16_PEAK, F32_PEAK = 3.35e12, 989e12, 67e12
+F64_PEAK = 67e12  # the data sheet's FP64 tensor-core rate: a lower bound on time for K13's double arithmetic
 DMOL_OPS_PER_COMPONENT = 40  # f32 ops of one component of the ladder (a transcendental counted as one)
 # LSTMAudio: the s=64 run spec of experiments/benchmarks.txt:10 (the driver's defaults fill in --num_bits 16,
 # --num_mix 10, f32); K5 at 10 utterances of up to 1125 stacks (72k samples)
@@ -294,6 +316,13 @@ CWVAE_B, CWVAE_T, CWVAE_BUDGET = 5, 72000, 16000 * 16
 # the CW-VAE train step: the same --batch_len budget (256000 samples) in 5 utterances of 46k-51k samples a step, the
 # length sampler's pool of lengths within 0.3 s of each other
 CWVAE_TRAIN_B, CWVAE_TRAIN_LENGTHS = 5, (46000, 50800)
+# the CTC phoneme probe: the run spec of experiments/phoneme.txt:8 (3 bidirectional layers of H = 256 over 80 log-mel
+# bins at hop 64, temporal dropout 0.3, the driver's --batch_len 120 s, clips and Adam); a train batch of ~38
+# utterances of 3.0-3.3 s (the train sampler's 0.3 s pool), a long one of ~16 of 7.0-7.3 s, an eval batch of ~110 of
+# 1.5-5 s within the eval sampler's 3 x 120 s; and :7 (stacked waveform frames, D = 64, no dropout)
+ASR_FLAGS = "--hidden_size 256 --num_layers 3 --bidirectional True --dropout_prob 0.30 --epochs 30 --data_type spectrogram --seed 0"
+ASR_WAVEFORM_FLAGS = "--hidden_size 256 --num_layers 3 --bidirectional True --dropout_prob 0.00 --epochs 30 --data_type waveform --seed 0"
+ASR_TRAIN_SECONDS, ASR_LONG_SECONDS, ASR_EVAL_SECONDS = (3.0, 3.3), (7.0, 7.3), (1.5, 5.0)
 # host calls that wait on the card, and ops that read a device value to the host
 SYNC_EVENTS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "aten::item",
                "aten::_local_scalar_dense")
@@ -575,6 +604,18 @@ def main():
     record["depthwise_norm_bwd"] = dict(name="depthwise_norm_bwd", route="cuda",
                                         source="blvm_tpu_torch/csrc/depthwise_norm_bwd.cu",
                                         replaces="blvm_tpu/modules/convolutions.py:88")
+
+    # K6's and K6-bwd's yardstick, torch.nn.LSTM(bidirectional=True) (cuDNN) and its backward, is timed in phase 70
+    record["bilstm_recurrence"] = dict(name="bilstm_recurrence", route="cuda", source="blvm_tpu_torch/csrc/bilstm.cu",
+                                       replaces="blvm_tpu/modules/lstm_block.py:82")
+    record["bilstm_recurrence_bwd"] = dict(name="bilstm_recurrence_bwd", route="cuda",
+                                           source="blvm_tpu_torch/csrc/bilstm.cu",
+                                           replaces="blvm_tpu/modules/lstm_block.py:82")
+    # K13 replaces no TPU kernel (the JAX package's optax.ctc_loss call); its yardstick, F.ctc_loss, in phase 70
+    record["ctc_loss"] = dict(name="ctc_loss", route="cuda", source="blvm_tpu_torch/csrc/ctc.cu",
+                              replaces="blvm_tpu/models/lstm_asr.py:80")
+    record["ctc_loss_bwd"] = dict(name="ctc_loss_bwd", route="cuda", source="blvm_tpu_torch/csrc/ctc.cu",
+                                  replaces="blvm_tpu/models/lstm_asr.py:80")
 
     # 4. K1 against its twin at the flagship shapes
     args = wavenet_audio.build_args(FLAGSHIP_FLAGS.split())
@@ -1040,6 +1081,8 @@ def main():
     driver_loop_phases(smi, dev)
     cwvae_phases(record, smi, dev)
     cwvae_train_phases(record, smi, dev)
+    torch.cuda.empty_cache()
+    asr_phases(record, smi, dev)
     phase("total", seconds=f"{time.time() - t_start:.1f}")
 
     print(json.dumps({"kernels": list(record.values())}), flush=True)
@@ -2402,6 +2445,7 @@ def vrnn_train_phases(record, smi, dev):
           kernel_launches_per_step=sum(e_.count for e_ in kernels_) // 3)
     for e_ in sorted(kernels_, key=device_us, reverse=True)[:12]:
         print(f"  {device_us(e_) / 1e3 / 3:9.3f} ms/step {e_.count // 3:5d} calls/step  {e_.key[:90]}", flush=True)
+    skip_checks("vrnn", vrnn_audio, model, params, targs, train_batches, train_step, step_batches, scalars, dev, expect)
 
     require(not failures, f"VRNN train phases failed: {failures}")
 
@@ -3322,6 +3366,7 @@ def srnn_train_phases(record, smi, dev):
           kernel_launches_per_step=sum(e_.count for e_ in kernels_) // 3)
     for e_ in sorted(kernels_, key=device_us, reverse=True)[:12]:
         print(f"  {device_us(e_) / 1e3 / 3:9.3f} ms/step {e_.count // 3:5d} calls/step  {e_.key[:90]}", flush=True)
+    skip_checks("srnn", srnn_audio, model, params, targs, train_batches, train_step, step_batches, scalars, dev, expect)
 
     require(not failures, f"SRNN train phases failed: {failures}")
 
@@ -4473,7 +4518,6 @@ def cwvae_train_phases(record, smi, dev):
     import copy
 
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from blvm_tpu_torch import weights
     from blvm_tpu_torch.evaluation.tracker import Tracker
@@ -4887,16 +4931,76 @@ def cwvae_train_phases(record, smi, dev):
     # kernel, and no host wait on the card inside the driver's step spans (the CUDA synchronizing calls, as phase 54
     # counts them: Adam's per-parameter step counters are host tensors, so their aten::item reads wait on nothing);
     # then one step under torch's sync debug mode, which raises on any synchronizing call
+    def run_loop():
+        with seeded_noise(SEED + 65):
+            clockwork_audio.train(model, targs, train_batches, Tracker())
+
+    checks = driver_step_checks(run_loop, lambda: run_step(step_batches[0]))
+    kernels_ = checks["kernels"]
+    busy_ms = sum(device_us(e_) for e_ in kernels_) / 1e3 / 3
+    expect(checks["spans"] == 3 and not checks["waits"] and checks["sync_free"],
+           f"CW-VAE train step: {checks['spans']} step spans, host waits inside them {sorted(set(checks['waits']))} "
+           f"({len(checks['waits'])}), sync debug mode passed {checks['sync_free']}")
+    phase("profile-cwvae-train-step", card=card, device_ms_per_step=f"{busy_ms:.3f}", step_ms=f"{ts:.3f}",
+          idle_share=f"{1 - busy_ms / ts:.3f}" if busy_ms else "not measured",
+          wall_ms_per_step_under_profiler=f"{checks['wall_ms'] / 3:.3f}",
+          kernel_launches_per_step=sum(e_.count for e_ in kernels_) // 3, step_spans=checks["spans"],
+          host_waits_in_steps=len(checks["waits"]), sync_debug_mode_step="passed" if checks["sync_free"] else "raised")
+    for e_ in sorted(kernels_, key=device_us, reverse=True)[:14]:
+        print(f"  {device_us(e_) / 1e3 / 3:9.3f} ms/step {e_.count // 3:5d} calls/step  {e_.key[:90]}", flush=True)
+    del state, model, step_batches
+    torch.cuda.empty_cache()
+    require(not failures, f"CW-VAE train phases failed: {failures}")
+
+
+def skip_checks(family, driver, model, params, targs, train_batches, train_step, step_batches, scalars, dev, expect):
+    """The driver's train loop under ``--skip_nonfinite_updates`` (the SRNN driver's default; the optimizer decides the
+    skip on the card): three steps under torch.profiler with no host wait inside the driver's step spans, one step
+    clean under torch's sync debug mode, and a step whose gradient holds a NaN leaving the parameters as they were."""
+    from blvm_tpu_torch import weights
+    from blvm_tpu_torch.evaluation.tracker import Tracker
+    from blvm_tpu_torch.experiments import common
+    from blvm_tpu_torch.training.train_state import TrainState
+
+    sargs = argparse_copy(targs, skip_nonfinite_updates=True)
+    weights.load_jax_params(model, params)
+    model.train()
+    state = TrainState.create(model=model, tx=common.build_tx_and_lr(sargs)[0],
+                              generator=torch.Generator(device=dev).manual_seed(SEED))
+    checks = driver_step_checks(lambda: driver.train(model, sargs, train_batches, Tracker()),
+                                lambda: train_step(state, step_batches[0], scalars))
+    before = [p.detach().clone() for p in model.parameters()]
+    state.optimizer.zero_grad()
+    loss = common.loss_fn(model, state.generator, step_batches[0], scalars)[0]
+    (loss * float("nan")).backward()
+    applied = state.optimizer.step()
+    kept = all(torch.equal(a, p.detach()) for a, p in zip(before, model.parameters()))
+    expect(checks["spans"] == 3 and not checks["waits"] and checks["sync_free"] and not bool(applied) and kept,
+           f"{family} train step under --skip_nonfinite_updates: {checks['spans']} step spans, host waits inside them "
+           f"{sorted(set(checks['waits']))}, sync debug mode passed {checks['sync_free']}, a NaN step applied "
+           f"{bool(applied)}, parameters kept {kept}")
+    phase(f"{family}-train-skip-nonfinite", step_spans=checks["spans"], host_waits_in_steps=len(checks["waits"]),
+          sync_debug_mode_step="passed" if checks["sync_free"] else "raised", nan_step_applied=bool(applied),
+          parameters_kept=kept, notfinite_count=int(state.optimizer.notfinite_count),
+          wall_ms_per_step_under_profiler=f"{checks['wall_ms'] / 3:.3f}")
+
+
+def driver_step_checks(run_loop, run_step):
+    """``run_loop()`` (a driver's loop over some steps) under torch.profiler, then ``run_step()`` once under torch's
+    sync debug mode ("error", which raises on any synchronizing call). Returns the loop's ``driver.step`` spans, the
+    host's waits on the card inside them (the CUDA synchronizing calls), its wall ms, its device kernels and whether
+    the step passed the sync debug mode."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from blvm_tpu_torch.experiments import common
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with seeded_noise(SEED + 65):
-            clockwork_audio.train(model, targs, train_batches, Tracker())
+        run_loop()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
-    kernels_ = device_kernels(prof)
-    busy_ms = sum(device_us(e_) for e_ in kernels_) / 1e3 / 3
-    spans, waits_in_steps = 0, []
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, waits = 0, []
     for e_ in prof.events():
         if e_.device_type != torch.autograd.DeviceType.CPU:
             continue
@@ -4906,10 +5010,10 @@ def cwvae_train_phases(record, smi, dev):
             while parent is not None and parent.name != common.STEP_SPAN:
                 parent = parent.cpu_parent
             if parent is not None:
-                waits_in_steps.append(e_.name)
+                waits.append(e_.name)
     try:
         torch.cuda.set_sync_debug_mode("error")
-        run_step(step_batches[0])
+        run_step()
         sync_free = True
     except RuntimeError as err:
         sync_free = False
@@ -4917,19 +5021,560 @@ def cwvae_train_phases(record, smi, dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    expect(spans == 3 and not waits_in_steps and sync_free,
-           f"CW-VAE train step: {spans} step spans, host waits inside them {sorted(set(waits_in_steps))} "
-           f"({len(waits_in_steps)}), sync debug mode passed {sync_free}")
-    phase("profile-cwvae-train-step", card=card, device_ms_per_step=f"{busy_ms:.3f}", step_ms=f"{ts:.3f}",
-          idle_share=f"{1 - busy_ms / ts:.3f}" if busy_ms else "not measured",
-          wall_ms_per_step_under_profiler=f"{wall_ms:.3f}", kernel_launches_per_step=sum(e_.count for e_ in kernels_) // 3,
-          step_spans=spans, host_waits_in_steps=len(waits_in_steps),
-          sync_debug_mode_step="passed" if sync_free else "raised")
-    for e_ in sorted(kernels_, key=device_us, reverse=True)[:14]:
-        print(f"  {device_us(e_) / 1e3 / 3:9.3f} ms/step {e_.count // 3:5d} calls/step  {e_.key[:90]}", flush=True)
-    del state, model, step_batches
+    return dict(spans=spans, waits=waits, wall_ms=wall_ms, kernels=device_kernels(prof), sync_free=sync_free)
+
+
+def phone_transcript(seconds, rng, phones):
+    """A TIMIT ``.PHN`` text of ``seconds`` of speech: ~12 phones a second drawn from the phone set, each line
+    ``start end phone`` in samples, ``h#`` at both ends (the driver's cleaner removes it)."""
+    import numpy as np
+
+    n = max(1, int(round(12 * seconds)))
+    seq = ["h#"] + list(rng.choice(phones, n)) + ["h#"]
+    edges = np.linspace(0, int(seconds * 16000), len(seq) + 1).astype(int)
+    return "".join(f"{a} {b} {p}\n" for a, b, p in zip(edges[:-1], edges[1:], seq))
+
+
+def bilstm_work(B, T, H, covered, backward=False):
+    """``roofline`` keywords of one K6 launch (f32): xw, the mask and W_hh read once, out written once (in save mode
+    also the gates and the carried state); each direction's h W_hh product over the row-steps the lengths cover.
+    ``backward``: K6-bwd with the dW_hh and db_hh products (the Function's backward): the saved gates, c_prev, h_prev,
+    the mask and d out read, d gates and the weight gradients written, the chain's and dW_hh's products."""
+    G = 4 * H
+    if not backward:
+        return dict(bytes_=4 * (B * T * (2 * G + 1 + 2 * H) + 2 * (H * G + G)), flops=2 * 2 * covered * H * G)
+    return dict(bytes_=4 * (B * T * (2 * G + 2 * H + 2 * H + 1 + 2 * H + 2 * G) + 2 * 2 * (H * G + G)),
+                flops=2 * 2 * 2 * covered * H * G)
+
+
+def ctc_work(B, T, K, N, covered, save=False, backward=False):
+    """``roofline`` keywords of one K13 launch: the log-probabilities of the ``covered`` frames (the rows' lengths),
+    the int64 labels and lengths read once, the f32 losses written once, and in ``save`` mode the double states
+    before every covered frame and after the last, (covered + B) x (2N + 1), written once; per covered frame three
+    double logaddexps a label, 5 operations each (a transcendental counted as one). ``backward``: K13-bwd reads the
+    log-probabilities, labels, lengths, saved states and the losses' gradient, writes d lp (B, T, K) whole, and per
+    covered frame and label redoes the three logaddexps and takes six exp-products (3 operations each). The doubles
+    are priced at ``F64_PEAK``; the bytes bound both."""
+    ints = 8 * (B * N + 2 * B)
+    states = 8 * (covered + B) * (2 * N + 1)
+    if not backward:
+        return dict(bytes_=4 * covered * K + ints + 4 * B + (states if save else 0), flops=covered * N * 3 * 5)
+    return dict(bytes_=4 * covered * K + ints + states + 4 * B + 4 * B * T * K,
+                flops=covered * N * (3 * 5 + 6 * 3))
+
+
+def asr_phases(record, smi, dev):
+    """Phases 66-70, the CTC phoneme probe at the width of ``experiments/phoneme.txt:8`` (3 bidirectional layers of
+    H = 256, 80 log-mel bins at hop 64, temporal dropout 0.3, 65 classes, CTC, f32): K6 and K6-bwd against their
+    twins at the shapes the probe gives them, three train steps and the test pass through the driver, one step at
+    ``:7``, and their times. Each check is printed before any raises."""
+    import numpy as np
+
+    from blvm_tpu_torch import weights
+    from blvm_tpu_torch.data.tokens import TIMIT_PHONESET
+    from blvm_tpu_torch.evaluation.tracker import Tracker
+    from blvm_tpu_torch.experiments import asr_ctc
+    from blvm_tpu_torch.models.wavenet import modules
+    from blvm_tpu_torch.modules import distributions
+    from blvm_tpu_torch.ops import ctc, cuda, likelihoods, recurrent, variational
+    from blvm_tpu_torch.training.train_state import TrainState
+    from blvm_tpu_torch.training.train_step import make_train_step
+
+    failures = []
+
+    def expect(cond, message):
+        if not cond:
+            failures.append(message)
+            print(f"  FAIL: {message}", flush=True)
+
+    card = smi.replace(" ", "_")
+    plain = plain_path(modules, likelihoods, distributions, variational, recurrent)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 66)
+    args = asr_ctc.build_args(ASR_FLAGS.split())
+    targs = argparse_copy(args, epochs=1)
+    token_map = asr_ctc.build_token_map(args)
+    transforms = asr_ctc.build_transforms(args, token_map)
+    rng = np.random.default_rng(args.seed + 66)
+
+    def examples(seconds_range, budget, args_=args, transforms_=transforms):
+        """Utterances of lengths drawn from ``seconds_range`` as the length samplers fill a batch: while the
+        total stays within ``budget`` seconds."""
+        seconds = rng.uniform(*seconds_range, int(budget / seconds_range[0]) + 1)
+        seconds = seconds[np.cumsum(seconds) <= budget]
+        return [asr_ctc.encode_example(synthetic_speech(int(s * 16000), rng), phone_transcript(s, rng, TIMIT_PHONESET),
+                                       args_, token_map, transforms_) for s in seconds]
+
+    # the train batches: ~38 utterances of 3.0-3.3 s (the sampler's 0.3 s pool) within --batch_len 120 s; a long one of
+    # ~16 of 7.0-7.3 s; the eval batch: ~110 utterances of 1.5-5 s within the eval sampler's 3 x 120 s
+    t0 = time.time()
+    train_batches = [examples(ASR_TRAIN_SECONDS, args.batch_len) for _ in range(3)]
+    long_batch = examples(ASR_LONG_SECONDS, args.batch_len)
+    eval_batch = examples(ASR_EVAL_SECONDS, 3 * args.batch_len)
+    features_s = time.time() - t0
+    model = asr_ctc.build_model(args, input_size=args.n_mels, token_map=token_map)
+    params = weights.random_jax_params(model, args.seed)
+    weights.load_jax_params(model, params)
+    H = args.hidden_size
+
+    def upload(batch):
+        return asr_ctc.upload_batch(asr_ctc.make_batch(batch, targs), dev)[0]
+
+    def audio_seconds(batch):
+        return sum(f.shape[0] for f, _ in batch) * args.hop_length / 16000
+
+    named_batches = {"train": train_batches[0], "long": long_batch, "eval": eval_batch}
+    on_card = {name: upload(b) for name, b in named_batches.items()}
+    lengths = {name: torch.tensor([f.shape[0] for f, _ in b]) for name, b in named_batches.items()}
+    calls = {}
+    model.eval()
+    for name, b in on_card.items():
+        k6_calls, k6_patch = recorded(recurrent, "bilstm_recurrence")
+        with torch.no_grad(), k6_patch:
+            model(b["x"], b["x_sl"], b["y"], b["y_sl"])
+        calls[name] = [a for a, _ in k6_calls]
+    require(all(len(c) == args.num_layers for c in calls.values()), f"K6 calls a forward: {[len(c) for c in calls.values()]}")
+    phase("asr-batches", features_seconds=f"{features_s:.2f}",
+          **{f"{name}_shape": tuple(b["x"].shape) for name, b in on_card.items()},
+          **{f"{name}_audio_s": f"{audio_seconds(b):.1f}" for name, b in named_batches.items()})
+
+    # 66. K6 against its twin, free-running in f32, at layer 0 (D = 80) and layer 1 (D = 512) of the train, the long
+    # and the eval batch: within K5's 1e-5, or, where the f32 twin itself lies further than that from the f64 twin,
+    # within twice the f32 twin's error of the f64 twin
+    k6_err = 0.0
+    for name, layer_calls in calls.items():
+        for layer in (0, 1):
+            xw, w_hh, b_hh, mask = layer_calls[layer]
+            cuda.reset_launch_counts()
+            with torch.no_grad():
+                got = recurrent.bilstm_recurrence(xw, w_hh, b_hh, mask)
+                torch.cuda.synchronize()
+                launches = cuda.launch_counts()["bilstm_recurrence"]
+                twin = recurrent.bilstm_recurrence_plain(xw, w_hh, b_hh, mask)
+                ref = recurrent.bilstm_recurrence_plain(xw.double(), w_hh.double(), b_hh.double(), mask)
+            err = (got - twin).abs().max().item()
+            err64, twin64 = ((t.double() - ref).abs().max().item() for t in (got, twin))
+            zeros = not got[mask == 0].any()
+            expect(launches == 1 and zeros and (err <= 1e-5 or err64 <= 2 * twin64 + 1e-6),
+                   f"K6 {name} layer {layer}: launches {launches}, max err {err} vs twin, {err64} vs f64 (twin "
+                   f"{twin64}), zeros past the lengths {zeros}")
+            k6_err = max(k6_err, err)
+            phase("K6", case=f"{name}_layer{layer}", xw=tuple(xw.shape), rows_steps=int(mask.sum().item()),
+                  max_abs_err=f"{err:.3g}", kernel_vs_f64=f"{err64:.3g}", twin_f32_vs_f64=f"{twin64:.3g}",
+                  zeros_past_lengths=zeros)
+            del got, twin, ref
+    record["bilstm_recurrence"]["max_abs_err"] = k6_err
+
+    # 67. K6-bwd: the kernel (through BiLSTMRecurrenceFunction: K6 in save mode, one K6-bwd, the dW_hh and db_hh
+    # products) and autograd of the f32 twin both held to autograd of the f64 twin, each gradient's largest error within
+    # twice the f32 twin's plus 1e-6 of its largest value: the train batch's layer 0, its layer 1 with row 1 all
+    # padding (its gradient exactly 0) and the long batch's layer 1; then K6-bwd alone against its f64 twin on the
+    # kernel's own saved forward
+    def k6_grads(a, d_out, fn, dtype):
+        leaves = [t.detach().to(dtype).requires_grad_(True) for t in a[:3]]
+        return torch.autograd.grad((fn(*leaves, a[3]) * d_out.to(dtype)).sum(), leaves)
+
+    xw1, w1, b1, m1 = calls["train"][1]
+    m_pad = m1.clone()
+    m_pad[1] = 0.0
+    cases67 = {"train_layer0": calls["train"][0], "train_layer1_padding_row": (xw1, w1, b1, m_pad),
+               "long_layer1": calls["long"][1]}
+    for name, a in cases67.items():
+        d_out = torch.randn(*a[0].shape[:2], 2 * H, generator=gen, device=dev)
+        cuda.reset_launch_counts()
+        got = k6_grads(a, d_out, recurrent.bilstm_recurrence, torch.float32)
+        torch.cuda.synchronize()
+        counts = cuda.launch_counts()
+        twin = k6_grads(a, d_out, recurrent.bilstm_recurrence_plain, torch.float32)
+        ref = k6_grads(a, d_out, recurrent.bilstm_recurrence_plain, torch.float64)
+        errs, finite, over = held_to_f64(got, twin, ref, ("xw", "w_hh", "b_hh"))
+        pad_zero = "padding" not in name or not bool(got[0][1].any())
+        expect(finite and not over and pad_zero and (counts["bilstm_recurrence"], counts["bilstm_recurrence_bwd"]) == (1, 1),
+               f"K6-bwd {name}: launches {counts['bilstm_recurrence']}/{counts['bilstm_recurrence_bwd']}, finite "
+               f"{finite}, over {over}, padding row's gradient zero {pad_zero}")
+        worst = max(errs, key=lambda k_: errs[k_][0])
+        phase("K6-bwd", case=name, xw=tuple(a[0].shape), launches=counts["bilstm_recurrence_bwd"],
+              kernel_max_rel_vs_f64=f"{errs[worst][0]:.3g}", twin_f32_max_rel_vs_f64=f"{max(v[1] for v in errs.values()):.3g}",
+              worst=worst, twin_at_worst=f"{errs[worst][1]:.3g}",
+              **({"padding_row_gradient_zero": pad_zero} if "padding" in name else {}))
+        del got, twin, ref
+    with torch.no_grad():
+        _, gates1, h_prev1, c_prev1 = recurrent.bilstm_recurrence_save(xw1, w1, b1, m1)
+        d_out1 = torch.randn(*xw1.shape[:2], 2 * H, generator=gen, device=dev)
+        got = recurrent.bilstm_recurrence_backward(w1, m1, gates1, c_prev1, d_out1)
+        ref = recurrent.bilstm_recurrence_backward_plain(w1.double(), m1, gates1.double(), c_prev1.double(),
+                                                         d_out1.double())
+    k6b_err = (got.double() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    expect(k6b_err <= 1e-4 * scale, f"K6-bwd alone vs its f64 twin: {k6b_err} (largest {scale})")
+    record["bilstm_recurrence_bwd"]["max_abs_err"] = k6b_err
+    phase("K6-bwd-alone", case="train_layer1", max_abs_err_vs_f64=f"{k6b_err:.3g}", largest=f"{scale:.3g}")
+    del got, ref
     torch.cuda.empty_cache()
-    require(not failures, f"CW-VAE train phases failed: {failures}")
+
+    # K13 and K13-bwd against the twin (optax's recursion in plain PyTorch) on the train batch's logits, and with
+    # two rows made special: one whose labels cannot fit its 3 frames (optax's finite log-epsilon score), one with
+    # no frames and no labels (-0.0); the losses within 1e-5 relative, the logits' gradient held to the f64 twin
+    b_train = on_card["train"]
+    with torch.no_grad():
+        logits_t = model(b_train["x"], b_train["x_sl"], b_train["y"], b_train["y_sl"])[2].logits
+    z_special, ysl_special = b_train["x_sl"].clone(), b_train["y_sl"].clone()
+    z_special[-2], z_special[-1], ysl_special[-1] = 3, 0, 0
+    cases13 = {"train": (b_train["x_sl"], b_train["y_sl"]), "train_special_rows": (z_special, ysl_special)}
+    k13_err = k13b_err = 0.0
+    for name, (z_, ysl_) in cases13.items():
+        row_w = torch.rand(logits_t.shape[0], generator=gen, device=dev) + 0.5
+
+        def run13(fn, dtype):
+            lg = logits_t.detach().to(dtype).requires_grad_(True)
+            loss_ = fn(lg, z_, b_train["y"], ysl_)
+            return loss_.detach(), torch.autograd.grad((loss_ * row_w.to(dtype)).sum(), lg)[0]
+
+        cuda.reset_launch_counts()
+        got, g_got = run13(ctc.ctc_loss, torch.float32)
+        torch.cuda.synchronize()
+        counts = cuda.launch_counts()
+        twin, g_twin = run13(ctc.ctc_loss_plain, torch.float32)
+        ref, g_ref = run13(ctc.ctc_loss_plain, torch.float64)
+        rel = ((got.double() - ref).abs() / ref.abs().clamp_min(1.0)).max().item()
+        g_err, g_twin_err = ((g.double() - g_ref).abs().max().item() for g in (g_got, g_twin))
+        g_scale = g_ref.abs().max().item()
+        special = name == "train" or (got[-2] > 9e4 and torch.signbit(got[-1]) and got[-1] == 0)
+        expect((counts["ctc_loss"], counts["ctc_loss_bwd"]) == (1, 1) and rel <= 1e-5 and bool(special)
+               and g_err <= 2 * g_twin_err + 1e-6 * g_scale and bool(torch.isfinite(g_got).all()),
+               f"K13 {name}: launches {counts['ctc_loss']}/{counts['ctc_loss_bwd']}, losses rel {rel}, special rows "
+               f"{got[-2:].tolist()}, gradient err {g_err} vs the f32 twin's {g_twin_err} (largest {g_scale})")
+        k13_err = max(k13_err, (got.double() - ref).abs().max().item())
+        k13b_err = max(k13b_err, g_err)
+        phase("K13", case=name, logits=tuple(logits_t.shape), labels=tuple(b_train["y"].shape), loss_rel_vs_f64=f"{rel:.3g}",
+              twin_f32_rel_vs_f64=f"{((twin.double() - ref).abs() / ref.abs().clamp_min(1.0)).max().item():.3g}",
+              grad_max_abs_err_vs_f64=f"{g_err:.3g}", twin_f32_grad_err_vs_f64=f"{g_twin_err:.3g}",
+              last_rows=[f"{v:.6g}" for v in got[-2:].tolist()])
+        del got, g_got, twin, g_twin, ref, g_ref
+    record["ctc_loss"]["max_abs_err"] = k13_err
+    record["ctc_loss_bwd"]["max_abs_err"] = k13b_err
+
+    # 68. the train slice: flags of phoneme.txt:8 -> driver -> model on the card -> weights bridge -> asr_ctc.train,
+    # 3 Adam steps (the clips, dropout from the train state's generator, so the twins' run draws the same masks)
+    def run_train(plain_path_=False, batches=train_batches, args_=targs, model_=model, params_=params):
+        weights.load_jax_params(model_, params_)
+        log = StepLog(Tracker())
+        with plain() if plain_path_ else contextlib.nullcontext():
+            cuda.reset_launch_counts()
+            t0 = time.time()
+            asr_ctc.train(model_, args_, batches, log)
+            torch.cuda.synchronize()
+            return log.steps, cuda.launch_counts(), time.time() - t0
+
+    steps_k, counts, seconds = run_train()
+    steps_p, counts_p, seconds_p = run_train(plain_path_=True)
+    expected = dict(bilstm_recurrence=3 * args.num_layers, bilstm_recurrence_bwd=3 * args.num_layers, ctc_loss=3,
+                    ctc_loss_bwd=3)
+    expect(counts == {**dict.fromkeys(counts, 0), **expected},
+           f"probe train-step launches {counts}, expected {expected} (3/3/1/1 a step)")
+    expect(not any(counts_p.values()), f"the plain probe train path launched kernels: {counts_p}")
+    for k in expected:
+        record[k]["launches"] = counts[k]
+    losses, losses_p = [st["loss"] for st in steps_k], [st["loss"] for st in steps_p]
+    loss_rel = [abs(a_ - b_) / abs(b_) for a_, b_ in zip(losses, losses_p)]
+    expect(all(math.isfinite(v) for st in steps_k for v in st.values()), f"probe train metrics not finite: {steps_k}")
+    # the same dropout masks and parameters at step 0; F.ctc_loss's backward sums with atomics in no fixed order
+    expect(max(loss_rel) <= 1e-5, f"probe train losses {losses} vs plain {losses_p}")
+    phase("asr-train-slice", steps=3, utterances_per_step=[len(b) for b in train_batches],
+          audio_seconds_per_step=[f"{audio_seconds(b):.1f}" for b in train_batches],
+          losses=[f"{v:.6f}" for v in losses], losses_plain=[f"{v:.6f}" for v in losses_p],
+          loss_rel=[f"{v:.3g}" for v in loss_rel], wer=[f"{st['wer']:.4f}" for st in steps_k],
+          cer=[f"{st['cer']:.4f}" for st in steps_k], launches_per_step={k: v // 3 for k, v in counts.items() if v},
+          seconds=f"{seconds:.2f}", seconds_plain=f"{seconds_p:.2f}")
+
+    # no host wait inside the driver's step spans (three steps, metrics read 8 steps late), one step clean under the
+    # sync debug mode; the host's build_metrics on a step's metrics
+    tx, _ = asr_ctc.common.build_tx_and_lr(targs)
+    weights.load_jax_params(model, params)
+    model.train()
+    state = TrainState.create(model=model, tx=tx, generator=torch.Generator(device=dev).manual_seed(SEED))
+    train_step = make_train_step(asr_ctc.loss_fn)
+    step_batches = [upload(b) for b in train_batches]
+
+    def run_step(b_):
+        return train_step(state, b_, {})[1]
+
+    checks = driver_step_checks(lambda: asr_ctc.train(model, targs, train_batches, Tracker()),
+                                lambda: run_step(step_batches[0]))
+    expect(checks["spans"] == 3 and not checks["waits"] and checks["sync_free"],
+           f"probe train step: {checks['spans']} step spans, host waits inside them {sorted(set(checks['waits']))}, "
+           f"sync debug mode passed {checks['sync_free']}")
+    mets_host = {k: v.cpu().numpy() for k, v in run_step(step_batches[0]).items()}
+    t0 = time.perf_counter()
+    for _ in range(3):
+        model.build_metrics(mets_host)
+    build_metrics_ms = (time.perf_counter() - t0) * 1e3 / 3
+    kernels_ = checks["kernels"]
+    busy_ms = sum(device_us(e_) for e_ in kernels_) / 1e3 / 3
+
+    # one step at phoneme.txt:7: stacked waveform frames (D = hop = 64), dropout 0
+    wargs = argparse_copy(asr_ctc.build_args(ASR_WAVEFORM_FLAGS.split()), epochs=1)
+    wbatch = examples(ASR_TRAIN_SECONDS, wargs.batch_len, wargs, asr_ctc.build_transforms(wargs, token_map))
+    wmodel = asr_ctc.build_model(wargs, input_size=wargs.hop_length, token_map=token_map)
+    wparams = weights.random_jax_params(wmodel, wargs.seed)
+    wsteps, wcounts, _ = run_train(batches=[wbatch], args_=wargs, model_=wmodel, params_=wparams)
+    wsteps_p, _, _ = run_train(plain_path_=True, batches=[wbatch], args_=wargs, model_=wmodel, params_=wparams)
+    wrel = abs(wsteps[0]["loss"] - wsteps_p[0]["loss"]) / abs(wsteps_p[0]["loss"])
+    expect((wcounts["bilstm_recurrence"], wcounts["bilstm_recurrence_bwd"], wcounts["ctc_loss"],
+            wcounts["ctc_loss_bwd"]) == (3, 3, 1, 1) and wrel <= 1e-5,
+           f"phoneme.txt:7 step: launches {wcounts}, loss {wsteps[0]['loss']} vs plain {wsteps_p[0]['loss']}")
+    phase("asr-waveform-step", features=wbatch[0][0].shape[-1], frames=max(f.shape[0] for f, _ in wbatch),
+          loss=f"{wsteps[0]['loss']:.6f}", loss_plain=f"{wsteps_p[0]['loss']:.6f}", loss_rel=f"{wrel:.3g}",
+          launches={k: v for k, v in wcounts.items() if v})
+    del wmodel
+
+    # 69. the test pass over the eval batch through asr_ctc.evaluate: 3 K6 a forward; WER and CER against the twins';
+    # an utterance decoded otherwise must hold a frame whose argmax differs where the twin's top two logits lie within
+    # 1e-5 (or within twice the frame's logit error) of each other
+    weights.load_jax_params(model, params)
+
+    def run_eval(plain_path_=False):
+        with plain() if plain_path_ else contextlib.nullcontext():
+            cuda.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = asr_ctc.evaluate(model, targs, [eval_batch], Tracker(), source="test")
+            torch.cuda.synchronize()
+            return result, cuda.launch_counts(), time.perf_counter() - t0
+
+    res_k, counts_e, eval_s = run_eval()
+    res_p, counts_ep, eval_s_p = run_eval(plain_path_=True)
+    expect(counts_e == {**dict.fromkeys(counts_e, 0), "bilstm_recurrence": args.num_layers, "ctc_loss": 1},
+           f"probe test pass launches {counts_e}, expected 3 K6 and 1 K13")
+    expect(not any(counts_ep.values()), f"the plain probe test pass launched kernels: {counts_ep}")
+    for k in ("bilstm_recurrence", "ctc_loss"):
+        record[k]["launches"] += counts_e[k]
+    b_eval = on_card["eval"]
+    with torch.no_grad():
+        logits_k = model(b_eval["x"], b_eval["x_sl"], b_eval["y"], b_eval["y_sl"])[2].logits
+        with plain():
+            logits_p = model(b_eval["x"], b_eval["x_sl"], b_eval["y"], b_eval["y_sl"])[2].logits
+    differing = [i for i, (a_, b_) in enumerate(zip(res_k["hyps"], res_p["hyps"])) if a_ != b_]
+    unexplained = []
+    for i in differing:
+        n = int(lengths["eval"][i])
+        frames = (logits_k[i, :n].argmax(-1) != logits_p[i, :n].argmax(-1)).nonzero().flatten()
+        top2 = logits_p[i, frames].topk(2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1])
+        err = (logits_k[i, frames] - logits_p[i, frames]).abs().max(-1).values
+        if not bool((gap <= torch.clamp(2 * err, min=1e-5)).any()):
+            unexplained.append(i)
+    logit_err = (logits_k - logits_p).abs().max().item()
+    expect(all(math.isfinite(res_k[k]) for k in ("loss", "wer", "cer")) and not unexplained
+           and abs(res_k["loss"] - res_p["loss"]) <= 1e-5 * abs(res_p["loss"]),
+           f"probe test pass {dict((k, res_k[k]) for k in ('loss', 'wer', 'cer'))} vs twins "
+           f"{dict((k, res_p[k]) for k in ('loss', 'wer', 'cer'))}: utterances decoded otherwise {differing}, "
+           f"unexplained {unexplained}")
+    eval_audio_s = audio_seconds(eval_batch)
+    phase("asr-test-pass", utterances=len(eval_batch), audio_seconds=f"{eval_audio_s:.1f}",
+          frames=tuple(b_eval["x"].shape[:2]), loss=f"{res_k['loss']:.6f}", loss_plain=f"{res_p['loss']:.6f}",
+          wer=f"{res_k['wer']:.6f}", wer_plain=f"{res_p['wer']:.6f}", cer=f"{res_k['cer']:.6f}",
+          cer_plain=f"{res_p['cer']:.6f}", utterances_decoded_otherwise=len(differing),
+          max_logit_err=f"{logit_err:.3g}", launches_per_forward={k: v for k, v in counts_e.items() if v},
+          seconds=f"{eval_s:.3f}", seconds_plain=f"{eval_s_p:.3f}")
+    del logits_k, logits_p
+
+    # 70. times, CUDA events, a different input each call: K6 against its twin and torch.nn.LSTM(bidirectional) on
+    # pack_padded_sequence (cuDNN, the yardstick; it also does the input projection, so the port's layer, the
+    # projection GEMM and K6, stands beside it), at the train batch's layer 1 and the eval batch's (clusters in
+    # waves); K6-bwd with the weight products against autograd of the twin and cuDNN's backward at the train batch;
+    # K13 and K13-bwd; the train step and the test pass. A kernel's time is taken in turns with the library call's; its
+    # twin, 30-500x slower, is timed once
+    def once(fn, inp):
+        return cuda_time_ms(fn, [inp], warmup=0)[0]
+
+    def k6_timing(label, layer_calls, lengths, n_inputs=3, backward=True):
+        xw, w_hh, b_hh, mask = layer_calls[1]
+        B_, T_ = xw.shape[:2]
+        D_ = 2 * H
+        inputs = [torch.relu(torch.randn(B_, T_, D_, generator=gen, device=dev)) for _ in range(n_inputs)]
+        layer = model.lstm
+        w_ih = torch.cat([layer.fwd_1.w_ih_0, layer.bwd_1.w_ih_0], dim=1).detach()
+        b_ih = torch.cat([layer.fwd_1.b_ih_0, layer.bwd_1.b_ih_0]).detach()
+        xws = [x_ @ w_ih + b_ih for x_ in inputs]
+        cudnn = torch.nn.LSTM(D_, H, batch_first=True, bidirectional=True).to(dev)
+        with torch.no_grad():
+            for d, suffix in enumerate(("", "_reverse")):
+                getattr(cudnn, f"weight_ih_l0{suffix}").copy_(w_ih[:, d * 4 * H:(d + 1) * 4 * H].T)
+                getattr(cudnn, f"weight_hh_l0{suffix}").copy_(w_hh[d].T)
+                getattr(cudnn, f"bias_ih_l0{suffix}").copy_(b_ih[d * 4 * H:(d + 1) * 4 * H])
+                getattr(cudnn, f"bias_hh_l0{suffix}").copy_(b_hh[d])
+        packed = [torch.nn.utils.rnn.pack_padded_sequence(x_, lengths, batch_first=True, enforce_sorted=False)
+                  for x_ in inputs]
+        with torch.no_grad():
+            ref_out, _ = torch.nn.utils.rnn.pad_packed_sequence(cudnn(packed[0])[0], batch_first=True, total_length=T_)
+            ours = recurrent.bilstm_recurrence(xws[0], w_hh, b_hh, mask)
+        cudnn_err = (ref_out - ours).abs().max().item()
+        expect(cudnn_err <= 1e-4, f"the yardstick torch.nn.LSTM computes another function: max err {cudnn_err}")
+
+        def k6(xw_):
+            with torch.no_grad():
+                recurrent.bilstm_recurrence(xw_, w_hh, b_hh, mask)
+
+        def k6_plain(xw_):
+            with torch.no_grad():
+                recurrent.bilstm_recurrence_plain(xw_, w_hh, b_hh, mask)
+
+        def library(pk):
+            with torch.no_grad():
+                cudnn(pk)
+
+        t_lib = alternate(lambda p_: library(p_[0]), lambda p_: k6(p_[1]), list(zip(packed, xws)), warmup=1)
+        t = dict(kernel=t_lib["kernel"], plain=once(k6_plain, xws[0]))
+        layer_ms = sorted(cuda_time_ms(lambda x_: k6(x_ @ w_ih + b_ih), inputs, warmup=1))[len(inputs) // 2]
+        covered = int(mask.sum().item())
+        bound = roofline(**bilstm_work(B_, T_, H, covered), peak=F32_PEAK)
+        phase("time-K6", card=card, batch=label, xw=f"({B_},{T_},{8 * H})", covered_row_steps=covered,
+              kernel_ms=f"{t['kernel']:.4f}", plain_ms=f"{t['plain']:.4f}",
+              cudnn_lstm_ms=f"{t_lib['plain']:.4f}", layer_ms=f"{layer_ms:.4f}",
+              us_per_step=f"{t['kernel'] * 1e3 / T_:.3f}", bound_ms=f"{bound['bound_ms']:.4f}",
+              bound_by=bound["bound_by"], cudnn_max_abs_err=f"{cudnn_err:.3g}")
+        if not backward:
+            return dict(t=t, t_lib=t_lib, bound=bound)
+
+        def backward_only(graph):
+            outputs, inputs_, grad_outputs = graph
+            return torch.autograd.grad(outputs, inputs_, grad_outputs, retain_graph=True)
+
+        def graph(fn, xw_):
+            leaves = [xw_.detach().requires_grad_(True), w_hh.detach().requires_grad_(True),
+                      b_hh.detach().requires_grad_(True)]
+            out_ = fn(*leaves, mask)
+            return (out_,), leaves, (torch.randn_like(out_),)
+
+        graphs = [graph(recurrent.bilstm_recurrence, xw_) for xw_ in xws[:2]]
+        tb = dict(kernel=sorted(cuda_time_ms(backward_only, graphs * 2, warmup=1))[2],
+                  plain=once(backward_only, graph(recurrent.bilstm_recurrence_plain, xws[0])))
+
+        def lib_graph(x_):
+            leaves = [x_.detach().requires_grad_(True)] + list(cudnn.parameters())
+            pk = torch.nn.utils.rnn.pack_padded_sequence(leaves[0], lengths, batch_first=True, enforce_sorted=False)
+            out_ = cudnn(pk)[0].data
+            return (out_,), leaves, (torch.randn_like(out_),)
+
+        def layer_graph(x_):
+            leaves = [t_.detach().requires_grad_(True) for t_ in (x_, w_ih, b_ih, w_hh, b_hh)]
+            out_ = recurrent.bilstm_recurrence(leaves[0] @ leaves[1] + leaves[2], leaves[3], leaves[4], mask)
+            return (out_,), leaves, (torch.randn_like(out_),)
+
+        lib_graphs = [(lib_graph(x_), layer_graph(x_)) for x_ in inputs[:2]]
+        tb_lib = alternate(lambda g_: backward_only(g_[0]), lambda g_: backward_only(g_[1]), lib_graphs, warmup=1)
+        bound_b = roofline(**bilstm_work(B_, T_, H, covered, backward=True), peak=F32_PEAK)
+        phase("time-K6-bwd", card=card, batch=label, xw=f"({B_},{T_},{8 * H})", kernel_ms=f"{tb['kernel']:.4f}",
+              plain_ms=f"{tb['plain']:.4f}", cudnn_lstm_bwd_ms=f"{tb_lib['plain']:.4f}",
+              layer_bwd_ms=f"{tb_lib['kernel']:.4f}", us_per_step=f"{tb['kernel'] * 1e3 / T_:.3f}",
+              bound_ms=f"{bound_b['bound_ms']:.4f}", bound_by=bound_b["bound_by"],
+              includes="kernel: K6-bwd + the dW_hh and db_hh GEMMs; cuDNN and layer: also dx, dW_ih, db_ih")
+        del graphs, lib_graphs
+        return dict(t=t, t_lib=t_lib, tb=tb, tb_lib=tb_lib, bound=bound, bound_b=bound_b)
+
+    timing = k6_timing("train", calls["train"], lengths["train"])
+    k6_timing("eval", calls["eval"], lengths["eval"], n_inputs=2, backward=False)  # the test pass runs no backward
+    record["bilstm_recurrence"].update(ms=timing["t"]["kernel"], plain_ms=timing["t"]["plain"],
+                                       library_ms=timing["t_lib"]["plain"], **timing["bound"])
+    record["bilstm_recurrence_bwd"].update(ms=timing["tb"]["kernel"], plain_ms=timing["tb"]["plain"],
+                                           library_ms=timing["tb_lib"]["plain"], **timing["bound_b"])
+
+    # K13 and K13-bwd at the train batch against the twin and F.ctc_loss (the yardstick, given the host's lengths)
+    y_t, z_t, ysl_t = (t.to(torch.int64) for t in (b_train["y"], b_train["x_sl"], b_train["y_sl"]))
+    z_host, ysl_host = tuple(lengths["train"].tolist()), tuple(int(v) for v in asr_ctc.make_batch(train_batches[0], targs)["y_sl"])
+    lps = [torch.log_softmax(logits_t + 0.1 * torch.randn(logits_t.shape, generator=gen, device=dev), -1)
+           for _ in range(3)]
+
+    def k13(lp):
+        with torch.no_grad():
+            ctc._forward(lp, y_t, z_t, ysl_t, 0, save=False)
+
+    def k13_plain(lp):
+        with torch.no_grad():
+            ctc.ctc_loss_plain(lp, z_t, y_t, ysl_t)
+
+    def k13_library(lp):
+        with torch.no_grad():
+            F.ctc_loss(lp.transpose(0, 1), y_t, z_host, ysl_host, reduction="none")
+
+    t13_lib = alternate(k13_library, k13, lps, warmup=1)
+    t13 = dict(kernel=t13_lib["kernel"], plain=once(k13_plain, lps[0]))
+
+    def ctc_graph(fn, lp):
+        leaf = lp.detach().requires_grad_(True)
+        loss_ = fn(leaf)
+        return (loss_,), [leaf], (torch.ones_like(loss_),)
+
+    def backward13(graph):
+        outputs, inputs_, grad_outputs = graph
+        return torch.autograd.grad(outputs, inputs_, grad_outputs, retain_graph=True)
+
+    graphs13 = [ctc_graph(lambda l_: ctc.CTCLossFunction.apply(l_, y_t, z_t, ysl_t, 0), lp) for lp in lps]
+    lib13 = [(ctc_graph(lambda l_: F.ctc_loss(l_.transpose(0, 1), y_t, z_host, ysl_host, reduction="none"), lp), g_)
+             for lp, g_ in zip(lps, graphs13)]
+    t13b_lib = alternate(lambda g_: backward13(g_[0]), lambda g_: backward13(g_[1]), lib13, warmup=1)
+    t13b = dict(kernel=t13b_lib["kernel"],
+                plain=once(backward13, ctc_graph(lambda l_: ctc.ctc_loss_plain(l_, z_t, y_t, ysl_t), lps[0])))
+    B13, T13, K13 = logits_t.shape
+    N13 = y_t.shape[1]
+    covered13 = int(lengths["train"].sum())
+    b13 = roofline(**ctc_work(B13, T13, K13, N13, covered13), peak=F64_PEAK)  # k13 above: no saved states
+    b13b = roofline(**ctc_work(B13, T13, K13, N13, covered13, backward=True), peak=F64_PEAK)
+    record["ctc_loss"].update(ms=t13["kernel"], plain_ms=t13["plain"], library_ms=t13_lib["plain"], **b13)
+    record["ctc_loss_bwd"].update(ms=t13b["kernel"], plain_ms=t13b["plain"], library_ms=t13b_lib["plain"], **b13b)
+    phase("time-K13", card=card, logits=f"({B13},{T13},{K13})", labels=N13, kernel_ms=f"{t13['kernel']:.4f}",
+          plain_ms=f"{t13['plain']:.4f}", library_ms=f"{t13_lib['plain']:.4f}", bwd_kernel_ms=f"{t13b['kernel']:.4f}",
+          bwd_plain_ms=f"{t13b['plain']:.4f}", bwd_library_ms=f"{t13b_lib['plain']:.4f}",
+          bound_ms=f"{b13['bound_ms']:.4f}", bwd_bound_ms=f"{b13b['bound_ms']:.4f}", bound_by=b13["bound_by"],
+          library="F.ctc_loss with the host's lengths (its CUDA path synchronizes the stream)")
+    del graphs13, lib13, lps, logits_t
+    del calls
+    torch.cuda.empty_cache()
+
+    weights.load_jax_params(model, params)
+    model.train()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_time_ms(run_step, step_batches)
+    ts = sorted(step_ms)[1]
+    torch.cuda.synchronize()
+    enqueue = []
+    for b_ in step_batches:
+        t0 = time.perf_counter()
+        run_step(b_)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    audio_s = sum(audio_seconds(b) for b in train_batches) / len(train_batches)
+    phase("time-asr-train-step", card=card, utterances=len(train_batches[0]), audio_seconds=f"{audio_s:.1f}",
+          frames=tuple(step_batches[0]["x"].shape[:2]), kernel_ms=f"{ts:.3f}", kernel_ms_all=[f"{v:.3f}" for v in step_ms],
+          plain_wall_ms=f"{seconds_p / 3 * 1e3:.1f}", host_enqueue_ms=f"{sorted(enqueue)[1]:.3f}",
+          audio_seconds_per_s=f"{audio_s / ts * 1e3:.1f}", peak_memory_GB=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    phase("profile-asr-train-step", card=card, device_ms_per_step=f"{busy_ms:.3f}" if busy_ms else "not measured",
+          step_ms=f"{ts:.3f}", idle_share=f"{1 - busy_ms / ts:.3f}" if busy_ms else "not measured",
+          wall_ms_per_step_under_profiler=f"{checks['wall_ms'] / 3:.3f}",
+          kernel_launches_per_step=sum(e_.count for e_ in kernels_) // 3 if busy_ms else "not measured",
+          host_enqueue_ms=f"{sorted(enqueue)[1]:.3f}",
+          build_metrics_ms_per_step=f"{build_metrics_ms:.3f}", step_spans=checks["spans"],
+          host_waits_in_steps=len(checks["waits"]), sync_debug_mode_step="passed" if checks["sync_free"] else "raised")
+    for e_ in sorted(kernels_, key=device_us, reverse=True)[:12]:
+        print(f"  {device_us(e_) / 1e3 / 3:9.3f} ms/step {e_.count // 3:5d} calls/step  {e_.key[:90]}", flush=True)
+
+    # the test pass: evaluate's wall time (the forward, the metrics' copies, the decode and error rates) and a
+    # torch.profiler split of its device time
+    model.eval()
+    evals = sorted(run_eval()[2] for _ in range(3))
+    eval_checks = driver_step_checks(lambda: asr_ctc.evaluate(model, targs, [eval_batch], Tracker()), lambda: None)
+    eval_busy = sum(device_us(e_) for e_ in eval_checks["kernels"]) / 1e3
+    phase("time-asr-test-pass", card=card, utterances=len(eval_batch), audio_seconds=f"{eval_audio_s:.1f}",
+          wall_ms=f"{evals[1] * 1e3:.3f}", audio_seconds_per_s=f"{eval_audio_s / evals[1]:.1f}",
+          device_ms=f"{eval_busy:.3f}" if eval_busy else "not measured",
+          idle_share=f"{1 - eval_busy / eval_checks['wall_ms']:.3f}" if eval_busy else "not measured",
+          kernel_launches=sum(e_.count for e_ in eval_checks["kernels"]) if eval_busy else "not measured",
+          host_waits_in_steps=len(eval_checks["waits"]))
+    for e_ in sorted(eval_checks["kernels"], key=device_us, reverse=True)[:6]:
+        print(f"  {device_us(e_) / 1e3:9.3f} ms {e_.count:5d} calls  {e_.key[:90]}", flush=True)
+    del state, model, step_batches, on_card
+    torch.cuda.empty_cache()
+    require(not failures, f"probe phases failed: {failures}")
 
 
 def argparse_copy(args, **changes):
@@ -4950,7 +5595,7 @@ def plain_path(modules, likelihoods, distributions, variational, recurrent):
                                                                      uniforms=uniforms),
                     variational.dmol_mode(logit_probs, locs))
 
-    from blvm_tpu_torch.ops import depthwise, rssm
+    from blvm_tpu_torch.ops import ctc, depthwise, rssm
     from blvm_tpu_torch.ops import srnn as srnn_ops
     from blvm_tpu_torch.ops import vrnn as vrnn_ops
 
@@ -4965,6 +5610,8 @@ def plain_path(modules, likelihoods, distributions, variational, recurrent):
         stack.enter_context(mock.patch.object(likelihoods, "dmol_log_prob", dmol))
         stack.enter_context(mock.patch.object(distributions, "dmol_sample_and_mode", sample_and_mode))
         stack.enter_context(mock.patch.object(recurrent, "lstm_recurrence", recurrent.lstm_recurrence_plain))
+        stack.enter_context(mock.patch.object(recurrent, "bilstm_recurrence", recurrent.bilstm_recurrence_plain))
+        stack.enter_context(mock.patch.object(ctc, "ctc_loss", ctc.ctc_loss_plain))
         return stack
 
     return plain

@@ -1,5 +1,6 @@
 """Bounds on paper of the TPU kernels the PyTorch/CUDA port has still to write, at their run specs,
-of K7, K9, K7-bwd and K9-bwd (each kernel apart from the cuBLAS weight-gradient GEMMs around it)
+of K6 and K6-bwd (the CTC probe's bi-LSTM layer) and K13 and K13-bwd (its CTC loss) at the probe's
+train batch, of K7, K9, K7-bwd and K9-bwd (each kernel apart from the cuBLAS weight-gradient GEMMs around it)
 at the SRNN's test pass and train step shapes, of K12, K1 and K1-bwd at STCN's width, of K10
 and K11 (apart from their GEMMs) at the CW-VAE's test pass, and of K10 in save mode, K10-bwd and
 K11-bwd at the CW-VAE's train step, which ``chip_smoke.py`` also computes from its run.
@@ -22,6 +23,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from chip_smoke import (  # noqa: E402
     BF16_PEAK,
     F32_PEAK,
+    F64_PEAK,
+    bilstm_work,
+    ctc_work,
     depthwise_bwd_work,
     depthwise_work,
     residual_glu_bwd_work,
@@ -57,9 +61,20 @@ def main():
     # P3: the windowed stack of the oracle generation, one window of the receptive field (5116 frames)
     # for each of 2 sequences
     bounds["P3"] = wavenet_stack(B=2, T_in=5116, C=96, blocks=10, skip_frames=1)
-    # K6: the ASR probe's bi-LSTM (experiment_asr_ctc.py: --hidden_size 128, one layer, --batch_len 120 s
-    # at hop 64: 30000 frames a batch), both directions in one launch
-    bounds["K6"] = lstm_or_gru(rows=120 * 16000 // 64, H=128, gates=4, directions=2)
+    # K6: one layer of the ASR probe's bi-LSTM at its run spec (experiments/phoneme.txt:8: --hidden_size 256,
+    # 3 bidirectional layers, --batch_len 120 s at hop 64: 30000 frames a batch), both directions in one launch;
+    # bilstm_work counts each direction's h W_hh product over the 30000 row-steps (31.46 GFLOP) and xw, the mask
+    # and out moved once. K6-bwd with its dW_hh and db_hh products: twice the operations, the saved gates and
+    # state read and d gates written
+    frames = 120 * 16000 // 64
+    bounds["K6 a layer"] = dict(**bilstm_work(1, frames, 256, frames), peak=F32_PEAK)
+    bounds["K6-bwd a layer"] = dict(**bilstm_work(1, frames, 256, frames, backward=True), peak=F32_PEAK)
+    # K13 and K13-bwd: the probe's CTC loss over the same batch as chip_smoke.py fills it (38 utterances of ~3.15 s,
+    # 832 padded frames, 65 classes, 48 padded label columns: ~12 phones a second); K13 as the test pass runs it
+    # (no saved states) and in save mode, as the train step runs it
+    bounds["K13"] = dict(**ctc_work(38, 832, 65, 48, frames), peak=F64_PEAK)
+    bounds["K13 in save mode"] = dict(**ctc_work(38, 832, 65, 48, frames, save=True), peak=F64_PEAK)
+    bounds["K13-bwd"] = dict(**ctc_work(38, 832, 65, 48, frames, backward=True), peak=F64_PEAK)
     # The SRNN train step (benchmarks.txt:22, s=64, hidden 256 -> r_dim 512, H = Z = 256): the --batch_len
     # 64 budget as chip_smoke.py packs it, 19 utterances of up to 1000 stacks, 19000 row-steps.
     rows, R, H, Z = 19 * 1000, 512, 256, 256

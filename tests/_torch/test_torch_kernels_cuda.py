@@ -5,7 +5,7 @@ VRNN cell and K8-bwd its backward through time, K7 the GRU recurrence and K9 the
 SRNN's latent chain, their save modes and their backwards through time, K7-bwd and K9-bwd; K1 and
 K1-bwd at STCN's width (C = 256, with and without its skip) and K12, STCN's frame decode; K10, the
 CW-VAE's RSSM cell chain, and K11, its coders' depthwise chain, their save modes and their backwards,
-K10-bwd and K11-bwd.
+K10-bwd and K11-bwd; K6, the CTC probe's bidirectional LSTM layer, and K6-bwd; K13, its CTC loss, and K13-bwd.
 
 Marked ``cuda``: they skip without a CUDA device (here, on CPU-only machines).
 On the card, where JAX is not installed, leave out the root conftest (it imports
@@ -23,10 +23,10 @@ import pytest
 import torch
 
 from blvm_tpu_torch import weights
-from blvm_tpu_torch.models import STCN, CWVAEAudio, LSTMAudio, SRNNAudio, VRNNAudio, WaveNet
+from blvm_tpu_torch.models import STCN, CWVAEAudio, LSTMAudio, SimpleLSTMASR, SRNNAudio, VRNNAudio, WaveNet
 from blvm_tpu_torch.models.wavenet.modules import residual_glu, residual_glu_plain
 from blvm_tpu_torch.modules.distributions import DiscretizedLogisticMixtureDense
-from blvm_tpu_torch.ops import cuda, depthwise, likelihoods, recurrent, variational
+from blvm_tpu_torch.ops import ctc, cuda, depthwise, likelihoods, recurrent, variational
 from blvm_tpu_torch.ops import rssm as rssm_ops
 from blvm_tpu_torch.ops import srnn as srnn_ops
 from blvm_tpu_torch.ops import vrnn as vrnn_ops
@@ -1489,3 +1489,204 @@ def test_cwvae_train_step_on_the_card_launches_each_kernel(cuda_device):
                                                           depthwise_norm_bwd=6, dmol_log_prob=1, dmol_log_prob_bwd=1,
                                                           dmol_sample=1)
     assert all(torch.isfinite(p).all() for p in model.parameters())
+
+
+def _k6_inputs(B, T, H, device, lengths=None, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    bound = 1 / math.sqrt(H)
+    xw = torch.randn(B, T, 8 * H, generator=g) * 0.7
+    w_hh, b_hh = ((torch.rand(*shape, generator=g) * 2 - 1) * bound for shape in ((2, H, 4 * H), (2, 4 * H)))
+    lengths = torch.randint(0, T + 1, (B,), generator=g) if lengths is None else torch.tensor(lengths)
+    mask = (torch.arange(T)[None] < lengths[:, None]).float()
+    return [t.to(device) for t in (xw, w_hh, b_hh, mask)]
+
+
+K6_SHAPES = [
+    (38, 60, 256, None),  # a train batch's rows at the probe's width, ragged with rows of length 0
+    (5, 40, 256, (40, 1, 0, 39, 17)),  # very different lengths, one row all padding
+    (120, 20, 256, None),  # an eval batch's rows: more clusters than are resident, in waves
+    (3, 33, 32, (33, 20, 2)),  # a small H
+    (4, 12, 8, (12, 12, 5, 0)),  # the smallest H, one unit a CTA
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,lengths", K6_SHAPES)
+def test_bilstm_recurrence_kernel_matches_twin(cuda_device, B, T, H, lengths):
+    """K6 against its twin, free-running over T steps in f32: the products' summation order only (1e-5,
+    K5's limit); its save mode's outputs bitwise equal to a plain launch's, the saved gates and state
+    those of one twin step from the saved state; zeros past each length in both directions."""
+    a = _k6_inputs(B, T, H, cuda_device, lengths)
+    cuda.reset_launch_counts()
+    with torch.no_grad():
+        got = recurrent.bilstm_recurrence(*a)
+        out, gates, h_prev, c_prev = recurrent.bilstm_recurrence_save(*a)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts()["bilstm_recurrence"] == 2 and torch.equal(got, out)
+    torch.testing.assert_close(got, recurrent.bilstm_recurrence_plain(*a), atol=1e-5, rtol=0)
+    xw, w_hh, b_hh, mask = a
+    assert not got[mask == 0].any()
+    for d in range(2):
+        sl = slice(d * H, (d + 1) * H)
+        pre = xw[..., d * 4 * H:(d + 1) * 4 * H] + h_prev[..., sl] @ w_hh[d] + b_hh[d]
+        i, f, g, o = pre.chunk(4, dim=-1)
+        act = torch.cat([torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)], dim=-1)
+        m = mask[..., None]
+        torch.testing.assert_close(gates[..., d * 4 * H:(d + 1) * 4 * H] * m, act * m, atol=1e-5, rtol=0)
+        c_new = torch.sigmoid(f) * c_prev[..., sl] + torch.sigmoid(i) * torch.tanh(g)
+        torch.testing.assert_close(out[..., sl], torch.sigmoid(o) * torch.tanh(c_new) * m, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_bilstm_direction_zero_is_k5_and_direction_one_is_k5_reversed(cuda_device):
+    """Each direction of K6 is K5's recurrence: direction 0 over the sequence, bit for bit (both are
+    ``csrc/lstm_common.cuh``'s kernel in f32, one cluster a group of rows), direction 1 over each row's
+    reversed valid frames (the padding, which it reads first, holds its zero state)."""
+    B, T, H = 6, 50, 256
+    xw, w_hh, b_hh, mask = _k6_inputs(B, T, H, cuda_device, (50, 31, 1, 0, 49, 12))
+    zeros = torch.zeros(B, H, device=cuda_device)
+    with torch.no_grad():
+        out = recurrent.bilstm_recurrence(xw, w_hh, b_hh, mask)
+        fwd = recurrent.lstm_recurrence(xw[..., :4 * H], w_hh[0], b_hh[0], mask, zeros, zeros)[0]
+        lengths = mask.sum(1).long().tolist()
+        rev = torch.zeros_like(xw[..., 4 * H:])
+        for b, n in enumerate(lengths):
+            rev[b, :n] = xw[b, :n, 4 * H:].flip(0)
+        bwd = recurrent.lstm_recurrence(rev, w_hh[1], b_hh[1], mask, zeros, zeros)[0]
+    assert torch.equal(out[..., :H], fwd)
+    for b, n in enumerate(lengths):
+        torch.testing.assert_close(out[b, :n, H:], bwd[b, :n].flip(0), atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,lengths", K6_SHAPES)
+def test_bilstm_recurrence_backward_kernel_matches_f64_twin(cuda_device, B, T, H, lengths):
+    """K6-bwd (through BiLSTMRecurrenceFunction, with the dW_hh and db_hh products) and autograd of the f32
+    twin, both held to autograd of the f64 twin: each gradient's largest error within twice the f32 twin's
+    plus 1e-6 of its largest value; an all-padding row's gradient exactly 0."""
+    a = _k6_inputs(B, T, H, cuda_device, lengths, seed=1)
+    d_out = torch.randn(B, T, 2 * H, generator=torch.Generator().manual_seed(2)).to(cuda_device)
+
+    def grads(fn, dtype):
+        leaves = [t.detach().to(dtype).requires_grad_(True) for t in a[:3]]
+        return torch.autograd.grad((fn(*leaves, a[3]) * d_out.to(dtype)).sum(), leaves)
+
+    cuda.reset_launch_counts()
+    got = grads(recurrent.bilstm_recurrence, torch.float32)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts()["bilstm_recurrence"] == 1 and cuda.launch_counts()["bilstm_recurrence_bwd"] == 1
+    twin = grads(recurrent.bilstm_recurrence_plain, torch.float32)
+    ref = grads(recurrent.bilstm_recurrence_plain, torch.float64)
+    for x, y, r in zip(got, twin, ref):
+        scale = r.abs().max()
+        assert (x.double() - r).abs().max() <= 2 * (y.double() - r).abs().max() + 1e-6 * scale
+    empty = (a[3].sum(1) == 0).nonzero().flatten()
+    assert not got[0][empty].any()
+
+
+@pytest.mark.cuda
+def test_bilstm_recurrence_kernel_refuses_what_it_does_not_take(cuda_device):
+    a = _k6_inputs(2, 5, 264, cuda_device)
+    with pytest.raises(ValueError, match="multiple of 8 up to 256"):
+        recurrent.bilstm_recurrence(*a)
+    a = _k6_inputs(2, 5, 32, cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        recurrent.bilstm_recurrence(a[0].bfloat16(), *a[1:])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        recurrent.bilstm_recurrence(a[0], a[1].cpu(), *a[2:])
+    with pytest.raises(ValueError, match=r"w_hh \(2, 32, 128\)"):
+        recurrent.bilstm_recurrence(a[0], a[1][0], *a[2:])
+    with pytest.raises(ValueError, match="float32 tensors on one CUDA device"):
+        out, gates, h_prev, c_prev = recurrent.bilstm_recurrence_save(*a)
+        recurrent.bilstm_recurrence_backward(a[1], a[3], gates.double(), c_prev, out)
+
+
+@pytest.mark.cuda
+def test_simple_lstm_asr_on_the_card_launches_k6(cuda_device):
+    """A small bidirectional probe on the card: a forward and backward launch K6 and K6-bwd once a layer and
+    K13 and K13-bwd once, and its loss and gradients equal the plain path's."""
+    model = SimpleLSTMASR(vocab=tuple("%abcdefg"), input_size=12, hidden_size=32, num_layers=2, bidirectional=True,
+                          device=cuda_device)
+    weights.load_jax_params(model, weights.random_jax_params(model, 0))
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 40, 12, generator=g).to(cuda_device)
+    x_sl = torch.tensor([40, 23, 9], device=cuda_device)
+    y = torch.randint(1, 8, (3, 6), generator=g).to(cuda_device)
+    y_sl = torch.tensor([6, 4, 2], device=cuda_device)
+    cuda.reset_launch_counts()
+    loss, _, _ = model(x, x_sl, y, y_sl)
+    loss.backward()
+    counts = cuda.launch_counts()
+    assert counts["bilstm_recurrence"] == 2 and counts["bilstm_recurrence_bwd"] == 2
+    assert counts["ctc_loss"] == 1 and counts["ctc_loss_bwd"] == 1
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad()
+    with mock.patch.object(recurrent, "bilstm_recurrence", recurrent.bilstm_recurrence_plain), \
+            mock.patch.object(ctc, "ctc_loss", ctc.ctc_loss_plain):
+        plain_loss, _, _ = model(x, x_sl, y, y_sl)
+        plain_loss.backward()
+    torch.testing.assert_close(loss.detach(), plain_loss.detach(), rtol=1e-5, atol=0)
+    for n, p in model.named_parameters():
+        assert ((grads[n] - p.grad).norm() / p.grad.norm().clamp_min(1e-30)).item() <= 1e-4, n
+
+
+def _ctc_inputs(B, T, K, N, device, seed=0):
+    """Logits, frames, right-padded labels (runs of repeats among them) and label counts; the last rows: one
+    whose labels cannot fit its frames, one with no frames and no labels, one with frames and no labels."""
+    g = torch.Generator().manual_seed(seed)
+    logits = torch.randn(B, T, K, generator=g) * 2
+    z_sl = torch.randint(T // 2, T + 1, (B,), generator=g)
+    y_sl = torch.minimum(torch.randint(1, N + 1, (B,), generator=g), z_sl // 3)
+    y = torch.randint(1, K, (B, N), generator=g)
+    y[:, 1:4] = y[:, :1]
+    z_sl[-3], y_sl[-3] = 3, min(N, 6)
+    z_sl[-2], y_sl[-2] = 0, 0
+    y_sl[-1] = 0
+    y[torch.arange(N)[None] >= y_sl[:, None]] = 0
+    return [t.to(device) for t in (logits, z_sl, y, y_sl)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,K,N", [(38, 220, 65, 48), (5, 40, 7, 16), (3, 9, 65, 1)])
+def test_ctc_loss_kernel_matches_twin(cuda_device, B, T, K, N):
+    """K13 against its twin (optax's recursion in plain PyTorch): the per-example losses within 1e-5
+    relative, the infeasible row's finite score and the empty row's -0.0 included; the gradient of the
+    logits through K13-bwd and autograd of the f32 twin both held to autograd of the f64 twin (twice the
+    f32 twin's largest error plus 1e-6 of the largest value); rows past their frames get no gradient."""
+    logits, z_sl, y, y_sl = _ctc_inputs(B, T, K, N, cuda_device)
+
+    def run(fn, dtype):
+        lg = logits.detach().to(dtype).requires_grad_(True)
+        loss = fn(lg, z_sl, y, y_sl)
+        (grad,) = torch.autograd.grad((loss * torch.linspace(0.5, 1.5, B, device=cuda_device, dtype=dtype)).sum(), lg)
+        return loss.detach(), grad
+
+    cuda.reset_launch_counts()
+    got, g_got = run(ctc.ctc_loss, torch.float32)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts()["ctc_loss"] == 1 and cuda.launch_counts()["ctc_loss_bwd"] == 1
+    twin, g_twin = run(ctc.ctc_loss_plain, torch.float32)
+    ref, g_ref = run(ctc.ctc_loss_plain, torch.float64)
+    assert torch.isfinite(got).all() and torch.isfinite(g_got).all()
+    torch.testing.assert_close(got.double(), ref, rtol=1e-5, atol=1e-5)
+    if B > 3:
+        assert got[-3] > 9e4 and torch.signbit(got[-2]) and got[-2] == 0
+    scale = g_ref.abs().max()
+    assert (g_got.double() - g_ref).abs().max() <= 2 * (g_twin.double() - g_ref).abs().max() + 1e-6 * scale
+    frames = torch.arange(T, device=cuda_device)[None] < z_sl[:, None]
+    assert not g_got[~frames].any()
+    with torch.no_grad():
+        assert torch.equal(ctc.ctc_loss(logits, z_sl, y, y_sl), got)
+
+
+@pytest.mark.cuda
+def test_ctc_loss_kernel_refuses_what_it_does_not_take(cuda_device):
+    logits, z_sl, y, y_sl = _ctc_inputs(4, 10, 7, 4, cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        ctc.ctc_loss(logits.double(), z_sl, y, y_sl)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ctc.ctc_loss(logits, z_sl.cpu(), y, y_sl)
+    with pytest.raises(ValueError, match="1 to 1023 label columns"):
+        ctc.ctc_loss(logits, z_sl, torch.ones(4, 1024, dtype=torch.int64, device=cuda_device), y_sl)
+    with pytest.raises(ValueError, match="logits"):
+        ctc.ctc_loss(logits[0], z_sl, y, y_sl)

@@ -169,10 +169,14 @@ def test_non_finite_step_leaves_adam_state_untouched():
     p = torch.nn.Parameter(torch.ones(3))
     chain = get_optimizer("Adam", 0.1, skip_nonfinite_updates=True)([p])
     p.grad = torch.tensor([1.0, float("inf"), 0.5])
-    assert chain.step() is False
-    assert torch.equal(p.detach(), torch.ones(3)) and not chain.optimizer.state
+    assert not bool(chain.step())  # the decision is a device tensor: read here, never inside the step
+    state = chain.optimizer.state[p]
+    assert torch.equal(p.detach(), torch.ones(3)) and int(state["step"]) == 0
+    assert not state["exp_avg"].any() and not state["exp_avg_sq"].any()
+    assert (int(chain.notfinite_count), int(chain.total_notfinite)) == (1, 1)
     p.grad = torch.tensor([1.0, 1.0, 0.5])
-    assert chain.step() is True and chain.optimizer.state[p]["step"] == 1
+    assert bool(chain.step()) and int(chain.optimizer.state[p]["step"]) == 1
+    assert (int(chain.notfinite_count), int(chain.total_notfinite)) == (0, 1)
 
 
 @pytest.mark.parametrize(
