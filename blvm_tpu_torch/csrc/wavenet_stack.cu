@@ -1,0 +1,486 @@
+// P2/P3: the fused WaveNet residual stack (L residual-GLU blocks of K1, k = 2), forward, for Hopper (sm_90a).
+//
+// Replaces the TPU kernels 1788a18^:blvm_tpu/ops/pallas/wavenet_stack.py:128 (_forward_kernel, P2: one launch
+// over a whole batch) and :219 (_forward_windowed, P3: the same stack over halo'd windows). One kernel serves
+// both: a launch over a batch (the test pass and the train step's forward) and a launch over one receptive-field
+// window a generation step (skip_size = 1). Given a stack's input x (B, T_in, C), whose left T_in - T_out rows are
+// the halo the model's receptive-field padding provides, and the L blocks' weights stacked on a leading axis, it
+// computes block after block, each exactly K1's block (residual_glu.cu):
+//
+//   o_l[t] = (r_l[t] + x_l[t + d_l]) sqrt(1/2),  [r_l | s_l] = (tanh(pre_t) sigmoid(pre_s)) W_rs + b_rs
+//
+// and returns the last block's o (B, T_in - sum d, C) and the f32 sum over the blocks, in block order, of each
+// block's skip over the last skip_size rows, (B, skip_size, S), added into the sum a caller passes with
+// `accumulate` (the model's later stacks add into the first one's). Given tap pointers it also writes the skips
+// of the blocks the model reports as z.
+//
+// What bounds it on an H100: per output row a block does 2 (4 C half + half (R + S)) operations; at the flagship
+// (C = half = R = S = 96, bf16, B = 8, a stack's input of 21117 rows, the last 16000 rows' skips) a stack is 185
+// GFLOP against ~160 MB of compulsory traffic (x read once; the output, the f32 skip sum and the two z taps written
+// once): 0.187 ms of operations at the bf16 tensor-core peak against 0.048 ms of bytes, so operations bound it
+// (chip_smoke.wavenet_stack_work, scripts/torch_kernel_bounds.py). The TPU
+// kernel kept a tile's whole halo and all L layers' weights in VMEM; here the halo (1023 rows x 96 x 2 B = 196 KB)
+// and the weights (10 x 110 KB) would not fit the 227 KB of shared memory a CTA can use. So the design keeps
+// what fits and lets L2 carry the rest:
+//   - one persistent cooperative launch a stack, one CTA an SM, the layers in turn with a grid barrier between
+//     them; the residual stream between blocks lives in device memory (two buffers in turn, or the save-mode
+//     buffer that keeps every block's input for the backward), read back through L2;
+//   - fixed row ownership: a tile of TT output rows is counted from the right end of the layer's output, and tile
+//     j of batch row b goes to CTA (j B + b) mod grid in every layer, so the owner of a skip row is the same
+//     CTA in every block, and it adds the block's skip into the f32 sum in place, in block order, with no
+//     atomics (a warp stages its rows' skips in shared memory and adds them 16 bytes a lane, every load of the
+//     lane in flight at once; one load at a time per element left the first version 27 % slower than K1's chain);
+//   - bf16 at the instantiated widths: one layer's weights (~110 KB) staged into shared memory once a layer, the
+//     tile on the tensor cores (mma.sync m16n8k16) by K1's own tile code (residual_glu_mma.cuh), the next tile's
+//     rows streaming in by cp.async while this one computes;
+//   - f32: the register-tiled FMA products of fma_tile.cuh, each thread 8 rows x 4 units, the weights streamed
+//     through shared memory in chunks of 16 k rows (a layer's f32 weights, 221 KB, do not fit beside the tiles).
+// Rounding follows K1, so that the stack matches the chain of K1 launches within K1's own limits: in bf16 the
+// residual stream is rounded to bf16 at each block's store, the gated activation before the [r | s] product, and
+// each block's skip to bf16 before it is added in f32; in f32 nothing is rounded, only the order of the sums
+// differs. wgmma, TMA and keeping weights resident across layers are later work.
+
+#include "common.cuh"
+#include "fma_tile.cuh"
+#include "residual_glu_mma.cuh"
+#include "vrnn_common.cuh"
+
+namespace blvm {
+namespace wstack {
+
+constexpr int MAX_LAYERS = 16;
+constexpr int TT = 128;  // output rows a tile, both paths
+
+template <typename T>
+struct Params {
+  const T* io[MAX_LAYERS + 1];  // io[l]: block l's input (B, T_l, C); io[L]: the stack's output
+  T* tap[MAX_LAYERS];           // null, or where block l's skip rows (B, skip_size, S) are written
+  const T *w_t, *w_s, *b_t, *b_s, *w_rs, *b_rs;  // (L, 2, C, half) x 2, (L, half) x 2, (L, half, R + S), (L, R + S)
+  float* skip_sum;                                // (B, skip_size, S)
+  unsigned int* barrier;
+  int dil[MAX_LAYERS];
+  int B, T_in, L, skip_size, accumulate;
+};
+
+// Row r of a tile of layer output length T_out: tile j of batch row b covers [T_out - (j + 1) TT, T_out - j TT).
+__device__ __forceinline__ void tile_of(int tile, int B, int T_out, int& b, int& t0) {
+  const int j = tile / B;
+  b = tile - j * B;
+  t0 = T_out - (j + 1) * TT;
+}
+
+__device__ __forceinline__ int n_tiles_of(int B, int T_out) { return B * ((T_out + TT - 1) / TT); }
+
+// a lane's k-th item of a warp-strided loop
+__device__ __forceinline__ int lane_item(int k) { return (threadIdx.x & 31) + 32 * k; }
+
+// ---- bf16: the tensor-core path (K1's tile, residual_glu_mma.cuh, with the stack's epilogue) ------------------------
+namespace tc {
+
+using glu_mma::Cfg;
+using glu_mma::WARPS;
+static_assert(glu_mma::TT == TT, "a tile of the stack is a tile of K1");
+
+// One warp's 16 rows of a tile: K1's products and gate (residual_glu_mma.cuh); the epilogue stores o, the tap and the
+// skip sum of the rows that exist (t >= 0).
+template <int C, int HALF, int RS>
+__device__ __forceinline__ void warp_tile(const __nv_bfloat16* wg, const __nv_bfloat16* wr, const __nv_bfloat16* xo,
+                                          const __nv_bfloat16* xc, const __nv_bfloat16* __restrict__ b_t,
+                                          const __nv_bfloat16* __restrict__ b_s, const __nv_bfloat16* __restrict__ b_rs,
+                                          __nv_bfloat16* o, __nv_bfloat16* tap, float* skip_sum, bool first, int b,
+                                          int t0, int T_out, int skip_size, int r0, int g, int q, float inv_std) {
+  using K = Cfg<C, HALF, RS>;
+  constexpr int S = RS - C;
+  float acc2[K::NTR][4];
+  glu_mma::warp_products<C, HALF, RS>(wg, wr, xo, xc, b_t, b_s, r0, g, q, acc2);
+
+  // the skip rows, rounded to bf16, are staged in the warp's own x[t] rows (read by no warp after the gate
+  // product), then added into the f32 sum 16 bytes a lane with every load of the lane in flight at once
+  const int skip_start = T_out - skip_size;
+  __nv_bfloat16* stage = const_cast<__nv_bfloat16*>(xo) + r0 * K::C_PAD;  // [16][C_PAD]
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < K::NTR; ++j) {
+    const int col = j * 8 + 2 * q;
+    const float br0 = __bfloat162float(b_rs[col]), br1 = __bfloat162float(b_rs[col + 1]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + g + 8 * h, t = t0 + r;
+      if (t < 0) continue;
+      const float v0 = acc2[j][2 * h] + br0, v1 = acc2[j][2 * h + 1] + br1;
+      if (j < K::NTO) {
+        const float x0 = __bfloat162float(xc[r * K::C_PAD + col]), x1 = __bfloat162float(xc[r * K::C_PAD + col + 1]);
+        *reinterpret_cast<uint32_t*>(o + ((size_t)b * T_out + t) * C + col) = pack((v0 + x0) * inv_std, (v1 + x1) * inv_std);
+      } else if (t >= skip_start) {
+        *reinterpret_cast<uint32_t*>(stage + (g + 8 * h) * K::C_PAD + (col - C)) = pack(v0, v1);
+      }
+    }
+  }
+  __syncwarp();
+  constexpr int SV = S / 8;                      // 16-byte groups of 8 skip columns a row
+  constexpr int PER_LANE = (16 * SV + 31) / 32;  // groups a lane
+  const int row_lo = max(0, skip_start - (t0 + r0));  // the warp's first row in the skip rows (skip_start >= 0)
+  const int n_items = (16 - row_lo) * SV;
+  float4 cur[PER_LANE][2];
+  if (!first) {
+#pragma unroll
+    for (int k = 0; k < PER_LANE; ++k) {
+      const int item = lane_item(k), row = row_lo + item / SV;
+      if (item < n_items) {
+        const float4* src = reinterpret_cast<const float4*>(
+            skip_sum + ((size_t)b * skip_size + (t0 + r0 + row - skip_start)) * S + (item % SV) * 8);
+        cur[k][0] = src[0];
+        cur[k][1] = src[1];
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < PER_LANE; ++k) {
+    const int item = lane_item(k), row = row_lo + item / SV;
+    if (item < n_items) {
+      const uint4 sv = *reinterpret_cast<const uint4*>(stage + row * K::C_PAD + (item % SV) * 8);
+      const size_t off = ((size_t)b * skip_size + (t0 + r0 + row - skip_start)) * S + (item % SV) * 8;
+      if (tap) *reinterpret_cast<uint4*>(tap + off) = sv;
+      const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&sv);
+      const float2 f0 = __bfloat1622float2(e[0]), f1 = __bfloat1622float2(e[1]);
+      const float2 f2 = __bfloat1622float2(e[2]), f3 = __bfloat1622float2(e[3]);
+      float4 lo = make_float4(f0.x, f0.y, f1.x, f1.y), hi = make_float4(f2.x, f2.y, f3.x, f3.y);
+      if (!first) {
+        lo = make_float4(cur[k][0].x + lo.x, cur[k][0].y + lo.y, cur[k][0].z + lo.z, cur[k][0].w + lo.w);
+        hi = make_float4(cur[k][1].x + hi.x, cur[k][1].y + hi.y, cur[k][1].z + hi.z, cur[k][1].w + hi.w);
+      }
+      float4* dst = reinterpret_cast<float4*>(skip_sum + off);
+      dst[0] = lo;
+      dst[1] = hi;
+    }
+  }
+}
+
+template <int C, int HALF, int RS>
+__global__ void __launch_bounds__(WARPS * 32, 1) stack_mma_kernel(const Params<__nv_bfloat16> p) {
+  using K = Cfg<C, HALF, RS>;
+  using bf = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf* wg = reinterpret_cast<bf*>(smem_raw);  // [2 HALF][KG_PAD]: the layer's gate kernel, n-major
+  bf* wr = wg + 2 * HALF * K::KG_PAD;        // [RS][KR_PAD]: its rs kernel, n-major
+  bf* xbuf = wr + RS * K::KR_PAD;            // 2 buffers x {[TT][C_PAD] x[t], [TT][C_PAD] x[t+d]}
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3, r0 = warp * 16;
+  const float inv_std = __bfloat162float(__float2bfloat16_rn(0.70710678118654752f));
+  unsigned int target = 0;
+  int T_cur = p.T_in;
+
+  for (int l = 0; l < p.L; ++l) {
+    const int d = p.dil[l], T_out = T_cur - d, n_tiles = n_tiles_of(p.B, T_out);
+    const bf* x = p.io[l];
+    bf* o = const_cast<bf*>(p.io[l + 1]);
+    const bf *w_t = p.w_t + (size_t)l * 2 * C * HALF, *w_s = p.w_s + (size_t)l * 2 * C * HALF;
+    const bf *w_rs = p.w_rs + (size_t)l * HALF * RS;
+    const bf *b_t = p.b_t + l * HALF, *b_s = p.b_s + l * HALF, *b_rs = p.b_rs + l * RS;
+    const bool first = l == 0 && !p.accumulate;
+
+    if (blockIdx.x < n_tiles)  // the layer's weights, as K1 stages them (a CTA without a tile skips them)
+      glu_mma::stage_weights<C, HALF, RS>(wg, wr, w_t, w_s, w_rs);
+
+    // a tile's x[t] and x[t+d] rows into buffer `buf` (rows before the layer's first, t < 0, read as 0); the
+    // stream is written by this launch, so it is read through L2 (cp.async.cg), never the read-only path
+    auto load_tile = [&](int tile, int buf) {
+      if (tile < n_tiles) {
+        int b, t0;
+        tile_of(tile, p.B, T_out, b, t0);
+        const bf* xb = x + (size_t)b * T_cur * C;
+        bf* xo = xbuf + buf * 2 * K::X_TILE;
+        for (int i = threadIdx.x; i < TT * (C / 8); i += WARPS * 32) {
+          const int r = i / (C / 8), v = i - r * (C / 8), t = t0 + r;
+          const bool valid = t >= 0;
+          cp_async16(xo + r * K::C_PAD + v * 8, xb + (valid ? (size_t)t * C + v * 8 : 0), valid);
+          cp_async16(xo + K::X_TILE + r * K::C_PAD + v * 8, xb + (valid ? (size_t)(t + d) * C + v * 8 : 0), valid);
+        }
+      }
+      cp_async_commit();
+    };
+
+    load_tile(blockIdx.x, 0);
+    int buf = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
+      int b, t0;
+      tile_of(tile, p.B, T_out, b, t0);
+      load_tile(tile + gridDim.x, buf ^ 1);
+      cp_async_wait_one();
+      __syncthreads();  // this tile's rows landed for every thread; the layer's weights staged on the first pass
+      const bf* xo = xbuf + buf * 2 * K::X_TILE;
+      if (t0 + r0 + 15 >= 0)  // else this warp's rows all lie before the layer's first row
+        warp_tile<C, HALF, RS>(wg, wr, xo, xo + K::X_TILE, b_t, b_s, b_rs, o, p.tap[l], p.skip_sum, first, b, t0, T_out,
+                               p.skip_size, r0, g, q, inv_std);
+      __syncthreads();  // every warp is done with buffer `buf` (and, after the last tile, with the weights)
+    }
+    T_cur = T_out;
+    if (l + 1 < p.L) vrnn::grid_sync(p.barrier, target);
+  }
+}
+
+}  // namespace tc
+
+// ---- f32: register-tiled FMA products (fma_tile.cuh), at C = half = R = S ---------------------------------------
+namespace f32 {
+
+constexpr int RM = 8;               // rows a thread
+constexpr int RG = TT / RM;         // row groups a tile (16)
+constexpr int KC = 16;              // k rows a staged weight chunk
+
+template <int C>
+struct Cfg {
+  static_assert(C % 16 == 0, "fma path widths");
+  static constexpr int UG = C / 4, NT = UG * RG;  // unit groups of 4 columns; threads
+  static constexpr int WCOLS = 2 * C;             // a staged weight row: [tanh | sigmoid] or [r | s]
+  static constexpr size_t smem = sizeof(float) * ((size_t)2 * TT * C + 2 * KC * WCOLS);
+};
+
+template <int C>
+__global__ void __launch_bounds__(Cfg<C>::NT, 1) stack_fma_kernel(const Params<float> p) {
+  using K = Cfg<C>;
+  constexpr int HALF = C, WCOLS = K::WCOLS;
+  extern __shared__ __align__(16) float sm[];
+  float* xo = sm;             // [TT][C] x[t]; then the gated activation [TT][HALF]
+  float* xc = xo + TT * C;    // [TT][C] x[t+d]
+  float* wbuf = xc + TT * C;  // 2 x [KC][WCOLS]
+  const int ug = threadIdx.x % K::UG, r0 = (threadIdx.x / K::UG) * RM, u0 = ug * 4;
+  const float inv_std = 0.70710678118654752f;
+  unsigned int target = 0;
+  int T_cur = p.T_in;
+
+  for (int l = 0; l < p.L; ++l) {
+    const int d = p.dil[l], T_out = T_cur - d, n_tiles = n_tiles_of(p.B, T_out);
+    const float* x = p.io[l];
+    float* o = const_cast<float*>(p.io[l + 1]);
+    const float *w_t = p.w_t + (size_t)l * 2 * C * HALF, *w_s = p.w_s + (size_t)l * 2 * C * HALF;
+    const float* w_rs = p.w_rs + (size_t)l * HALF * WCOLS;
+    const float *b_t = p.b_t + l * HALF, *b_s = p.b_s + l * HALF, *b_rs = p.b_rs + l * WCOLS;
+    float* tap = p.tap[l];
+    const bool first = l == 0 && !p.accumulate;
+    const int skip_start = T_out - p.skip_size;
+
+    // chunk k0 of the gate weights' 2C rows [tap 0 ; tap 1], each [tanh | sigmoid], into buffer buf
+    auto stage_gate = [&](int k0, int buf) {
+      float* dst = wbuf + buf * KC * WCOLS;
+      for (int i = threadIdx.x; i < KC * (WCOLS / 4); i += K::NT) {
+        const int r = i / (WCOLS / 4), col = 4 * (i % (WCOLS / 4)), k = k0 + r;
+        cp_async16(dst + r * WCOLS + col, (col < HALF ? w_t : w_s) + (size_t)k * HALF + col % HALF, true);
+      }
+      cp_async_commit();
+    };
+    // chunk k0 of the rs kernel's HALF rows of [r | s]
+    auto stage_rs = [&](int k0, int buf) {
+      float* dst = wbuf + buf * KC * WCOLS;
+      for (int i = threadIdx.x; i < KC * (WCOLS / 4); i += K::NT) {
+        const int r = i / (WCOLS / 4), col = 4 * (i % (WCOLS / 4));
+        cp_async16(dst + r * WCOLS + col, w_rs + (size_t)(k0 + r) * WCOLS + col, true);
+      }
+      cp_async_commit();
+    };
+
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      int b, t0;
+      tile_of(tile, p.B, T_out, b, t0);
+      const float* xb = x + (size_t)b * T_cur * C;
+      for (int i = threadIdx.x; i < TT * (C / 4); i += K::NT) {  // rows before the layer's first read as 0
+        const int r = i / (C / 4), v = 4 * (i % (C / 4)), t = t0 + r;
+        const bool valid = t >= 0;
+        cp_async16(xo + r * C + v, xb + (valid ? (size_t)t * C + v : 0), valid);
+        cp_async16(xc + r * C + v, xb + (valid ? (size_t)(t + d) * C + v : 0), valid);
+      }
+
+      // gate: [x[t] | x[t+d]] (TT x 2C) times [W_t | W_s] (2C x 2 HALF)
+      float acc_t[RM][4], acc_s[RM][4];
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc_t[i][j] = acc_s[i][j] = 0.f;
+      constexpr int NGC = 2 * C / KC;
+      stage_gate(0, 0);  // with the x tiles: one group
+      for (int ci = 0; ci < NGC; ++ci) {
+        if (ci + 1 < NGC) {
+          stage_gate((ci + 1) * KC, (ci + 1) & 1);
+          cp_async_wait_one();
+        } else {
+          cp_async_wait_all();
+        }
+        __syncthreads();
+        const int k0 = ci * KC;
+        fma_tile::chunk<KC, RM, WCOLS, HALF, true>(k0 < C ? xo : xc, C, k0 % C, wbuf + (ci & 1) * KC * WCOLS, r0, u0,
+                                                    acc_t, acc_s);
+        __syncthreads();  // every thread is done with this buffer (and, after the last chunk, with x[t])
+      }
+      stage_rs(0, 0);
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {  // K1's f32 gate: tanhf and sigmoidf (common.cuh), no approximation
+        float4 a;
+        a.x = tanhf(acc_t[i][0] + b_t[u0]) * sigmoidf(acc_s[i][0] + b_s[u0]);
+        a.y = tanhf(acc_t[i][1] + b_t[u0 + 1]) * sigmoidf(acc_s[i][1] + b_s[u0 + 1]);
+        a.z = tanhf(acc_t[i][2] + b_t[u0 + 2]) * sigmoidf(acc_s[i][2] + b_s[u0 + 2]);
+        a.w = tanhf(acc_t[i][3] + b_t[u0 + 3]) * sigmoidf(acc_s[i][3] + b_s[u0 + 3]);
+        *reinterpret_cast<float4*>(xo + (r0 + i) * HALF + u0) = a;
+      }
+
+      // [r | s] = act (TT x HALF) W_rs (HALF x 2C)
+      float acc_r[RM][4], acc_k[RM][4];
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc_r[i][j] = acc_k[i][j] = 0.f;
+      constexpr int NRC = HALF / KC;
+      for (int ci = 0; ci < NRC; ++ci) {
+        if (ci + 1 < NRC) {
+          stage_rs((ci + 1) * KC, (ci + 1) & 1);
+          cp_async_wait_one();
+        } else {
+          cp_async_wait_all();
+        }
+        __syncthreads();  // (the first time: the activation written too)
+        fma_tile::chunk<KC, RM, WCOLS, C, true>(xo, HALF, ci * KC, wbuf + (ci & 1) * KC * WCOLS, r0, u0, acc_r, acc_k);
+        __syncthreads();
+      }
+
+      // epilogue: o = ((acc + b) + x[t+d]) sqrt(1/2), as K1 orders it; the skip rows into the tap and the sum
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int r = r0 + i, t = t0 + r;
+        if (t < 0) continue;
+        float4 ov;
+        ov.x = (acc_r[i][0] + b_rs[u0] + xc[r * C + u0]) * inv_std;
+        ov.y = (acc_r[i][1] + b_rs[u0 + 1] + xc[r * C + u0 + 1]) * inv_std;
+        ov.z = (acc_r[i][2] + b_rs[u0 + 2] + xc[r * C + u0 + 2]) * inv_std;
+        ov.w = (acc_r[i][3] + b_rs[u0 + 3] + xc[r * C + u0 + 3]) * inv_std;
+        *reinterpret_cast<float4*>(o + ((size_t)b * T_out + t) * C + u0) = ov;
+        if (t >= skip_start) {
+          float4 sv;
+          sv.x = acc_k[i][0] + b_rs[C + u0];
+          sv.y = acc_k[i][1] + b_rs[C + u0 + 1];
+          sv.z = acc_k[i][2] + b_rs[C + u0 + 2];
+          sv.w = acc_k[i][3] + b_rs[C + u0 + 3];
+          const size_t k = ((size_t)b * p.skip_size + (t - skip_start)) * C + u0;
+          if (tap) *reinterpret_cast<float4*>(tap + k) = sv;
+          float4* dst = reinterpret_cast<float4*>(p.skip_sum + k);
+          if (!first) {
+            const float4 cur = *dst;
+            sv.x = cur.x + sv.x;
+            sv.y = cur.y + sv.y;
+            sv.z = cur.z + sv.z;
+            sv.w = cur.w + sv.w;
+          }
+          *dst = sv;
+        }
+      }
+      __syncthreads();  // every thread is done with the tiles before the next tile's rows land
+    }
+    T_cur = T_out;
+    if (l + 1 < p.L) vrnn::grid_sync(p.barrier, target);
+  }
+}
+
+}  // namespace f32
+
+// The launch of one CTA an SM, asked once per device and shared-memory size.
+struct LaunchCache {
+  int dev = -1, sms = 0, per_sm = 0;
+  size_t smem = 0;
+};
+
+template <typename P>
+int launch(LaunchCache& c, const void* kernel, int threads, size_t smem, P& params, cudaStream_t stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && dev != c.dev) {
+    err = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev);
+    c.dev = err == cudaSuccess ? dev : -1;
+    c.smem = 0;
+  }
+  if (err == cudaSuccess && smem != c.smem) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c.per_sm, kernel, threads, smem);
+    c.smem = err == cudaSuccess ? smem : 0;
+  }
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  if (c.per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  err = cudaMemsetAsync(params.barrier, 0, sizeof(unsigned int), stream);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&params};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(c.sms), dim3(threads), args, smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+Params<T> make_params(const void* const* io, void* const* taps, const void* w_t, const void* w_s, const void* b_t,
+                      const void* b_s, const void* w_rs, const void* b_rs, void* skip_sum, void* barrier,
+                      const int* dilations, int B, int T_in, int L, int skip_size, int accumulate) {
+  Params<T> p = {};
+  for (int l = 0; l < L; ++l) {
+    p.io[l] = static_cast<const T*>(io[l]);
+    p.tap[l] = static_cast<T*>(taps[l]);
+    p.dil[l] = dilations[l];
+  }
+  p.io[L] = static_cast<const T*>(io[L]);
+  p.w_t = static_cast<const T*>(w_t);
+  p.w_s = static_cast<const T*>(w_s);
+  p.b_t = static_cast<const T*>(b_t);
+  p.b_s = static_cast<const T*>(b_s);
+  p.w_rs = static_cast<const T*>(w_rs);
+  p.b_rs = static_cast<const T*>(b_rs);
+  p.skip_sum = static_cast<float*>(skip_sum);
+  p.barrier = static_cast<unsigned int*>(barrier);
+  p.B = B;
+  p.T_in = T_in;
+  p.L = L;
+  p.skip_size = skip_size;
+  p.accumulate = accumulate;
+  return p;
+}
+
+}  // namespace wstack
+}  // namespace blvm
+
+// P2/P3. io: a host array of L + 1 device pointers, io[0] the stack's input x (B, T_in, C), io[l] block l's input
+// and io[L] the stack's output (B, T_in - sum d, C): two buffers in turn, or the save-mode buffer's slots (the
+// arithmetic does not depend on which). taps: a host array of L device pointers, null or (B, skip_size, S) in the
+// compute dtype. Weights stacked on a leading axis of L blocks: w_t, w_s (L, 2, C, half), b_t, b_s (L, half), w_rs
+// (L, half, R + S), b_rs (L, R + S). skip_sum (B, skip_size, S) float32: with accumulate 0 it is overwritten,
+// with 1 added into. barrier: one uint32 (zeroed here). dilations: a host array of L ints. Every pointer 16-byte
+// aligned. Takes C = half = R = S = 96 (the run specs), float32 (dtype 0) or bfloat16 (1), 1 <= L <= 16,
+// 1 <= skip_size <= the last block's output rows; returns cudaErrorInvalidValue otherwise, else a cudaError_t.
+extern "C" int blvm_wavenet_stack(const void* const* io, void* const* taps, const void* w_t, const void* w_s,
+                                  const void* b_t, const void* b_s, const void* w_rs, const void* b_rs, void* skip_sum,
+                                  void* barrier, const int* dilations, int B, int T_in, int C, int half, int S, int L,
+                                  int skip_size, int accumulate, int dtype, void* stream) {
+  using namespace blvm;
+  using namespace blvm::wstack;
+  if (L < 1 || L > MAX_LAYERS || B < 1 || half != C || S != C || C != 96 || skip_size < 1)
+    return (int)cudaErrorInvalidValue;
+  int T_out = T_in;
+  uintptr_t align = (uintptr_t)w_t | (uintptr_t)w_s | (uintptr_t)b_t | (uintptr_t)b_s | (uintptr_t)w_rs |
+                    (uintptr_t)b_rs | (uintptr_t)skip_sum;
+  for (int l = 0; l < L; ++l) {
+    if (dilations[l] < 1) return (int)cudaErrorInvalidValue;
+    T_out -= dilations[l];
+    align |= (uintptr_t)io[l] | (uintptr_t)taps[l];
+  }
+  align |= (uintptr_t)io[L];
+  if (T_out < skip_size || align % 16 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kBFloat16) {
+    auto p = make_params<__nv_bfloat16>(io, taps, w_t, w_s, b_t, b_s, w_rs, b_rs, skip_sum, barrier, dilations, B, T_in,
+                                        L, skip_size, accumulate);
+    static LaunchCache cache;
+    return launch(cache, (const void*)tc::stack_mma_kernel<96, 96, 192>, tc::WARPS * 32, tc::Cfg<96, 96, 192>::smem,
+                  p, st);
+  }
+  if (dtype == kFloat32) {
+    auto p = make_params<float>(io, taps, w_t, w_s, b_t, b_s, w_rs, b_rs, skip_sum, barrier, dilations, B, T_in, L,
+                                skip_size, accumulate);
+    static LaunchCache cache;
+    return launch(cache, (const void*)f32::stack_fma_kernel<96>, f32::Cfg<96>::NT, f32::Cfg<96>::smem, p, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}

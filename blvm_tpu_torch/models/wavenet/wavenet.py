@@ -3,14 +3,16 @@
 Same forward geometry as the JAX model: optional frame stacking, left-pad by the
 receptive field, causal conv (drop last frame), residual stack with skips sliced
 to the output region, skips summed in f32 in block order and scaled by
-``variance_scale``, pointwise head, DMoL likelihood.
+``variance_scale``, pointwise head, DMoL likelihood. The residual stack runs one fused
+call a stack (P2, ``ops/wavenet_stack.py``) where its blocks allow it.
 
 Kept quirk of the reference: ``variance_scale = sqrt(1/n_stacks * n_layers)``,
 which operator precedence makes ``sqrt(n_layers/n_stacks)``.
 
 ``generate`` is ancestral sampling, fast (Fast-WaveNet: per-block circular
 buffers; on CUDA its frame loop is the K4 kernel, ``ops/generation.py``) or
-windowed (the oracle, K1 and K3 a frame). The embedding input is not ported yet.
+windowed (the oracle: the stacks over the receptive-field window, P3, and K3 a frame).
+The embedding input is not ported yet.
 """
 
 import math
@@ -108,21 +110,30 @@ class WaveNet(BaseModel):
         return loss, log_prob, log_prob_twise
 
     def _skip_sum(self, skips):
-        """``sum(at_least_f32(s) for s in skips) * variance_scale``, accumulated in place
-        into one f32 tensor: the same additions in the same order, without a widened
-        copy of every skip."""
-        summed = skips[0].to(torch.promote_types(skips[0].dtype, torch.float32), copy=True)
-        for s in skips[1:]:
-            summed += s
+        """``sum(at_least_f32(s) for s in skips) * variance_scale``: a list of skips is
+        accumulated in place into one f32 tensor (the same additions in the same order,
+        without a widened copy of every skip); the fused stacks' f32 sum is scaled in place."""
+        if isinstance(skips, torch.Tensor):
+            summed = skips
+        else:
+            summed = skips[0].to(torch.promote_types(skips[0].dtype, torch.float32), copy=True)
+            for s in skips[1:]:
+                summed += s
         summed *= self.variance_scale
         return summed
 
     def _network(self, x, skip_size: int, pad_causal: bool):
-        """Causal conv -> residual stack -> scaled f32 skip sum (in block order) -> head."""
+        """Causal conv -> residual stack -> scaled f32 skip sum (in block order) -> head.
+        Returns ``(logits, z)``, ``z`` every 5th block's skip (reference wavenet.py:215).
+        A fused stack (k = 2, skip = res, gate = 2 res) runs one ``wavenet_stack`` call a
+        stack, which sums the skips itself; else one block call a block."""
         output = self.causal(x, pad_causal=pad_causal)
-        skip_connections = self.res_stack(output, skip_size)
-        logits = self.out_transform(self._skip_sum(skip_connections))
-        return logits, skip_connections
+        if self.res_stack.fused:
+            summed, z = self.res_stack.forward_summed(output, skip_size, taps=range(0, len(self.res_stack.blocks), 5))
+        else:
+            summed = self.res_stack(output, skip_size)
+            z = summed[::5]
+        return self.out_transform(self._skip_sum(summed)), z
 
     def forward(
         self,
@@ -159,7 +170,7 @@ class WaveNet(BaseModel):
         if x.shape[1] - int(pad_causal) < self.receptive_field:
             raise InputSizeError(x.shape[1], self.receptive_field)
 
-        logits, skip_connections = self._network(x, skip_size, pad_causal)
+        logits, z = self._network(x, skip_size, pad_causal)
 
         if self.n_stack_frames > 1:
             B, Ts, _ = logits.shape
@@ -178,7 +189,7 @@ class WaveNet(BaseModel):
             log_prob=log_prob,
             log_prob_twise=log_prob_twise,
             parameters=parameters,
-            z=skip_connections[::5],  # every 5th skip (reference wavenet.py:215)
+            z=z,
             z_sl=x_sl_strided,
             y=y,
             predictions=predictions,
@@ -223,7 +234,7 @@ class WaveNet(BaseModel):
         loop is the K4 kernel on CUDA (:class:`WaveNetDecoder`, which raises on a
         model it does not take) and :meth:`_generate_fast_plain` on the CPU. Otherwise
         the windowed path re-runs the network over the receptive field every step
-        (K1 and K3 on CUDA); with ``n_stack_frames = s`` a step emits ``s`` frames.
+        (the fused stacks, P3, and K3 on CUDA); with ``n_stack_frames = s`` a step emits ``s`` frames.
         """
         device = self.causal.Conv1d_0.kernel.device
         keys = FrameKeys(generator, device, uniforms)

@@ -36,7 +36,7 @@ _launches: Dict[str, int] = {
     "wavenet_decode": 0, "lstm_recurrence": 0, "lstm_recurrence_bwd": 0, "vrnn_cell": 0,
     "vrnn_cell_bwd": 0, "gru_recurrence": 0, "gru_recurrence_bwd": 0, "srnn_chain": 0, "srnn_chain_bwd": 0,
     "stcn_decode": 0, "depthwise_norm": 0, "depthwise_norm_bwd": 0, "rssm_chain": 0, "rssm_chain_bwd": 0,
-    "bilstm_recurrence": 0, "bilstm_recurrence_bwd": 0, "ctc_loss": 0, "ctc_loss_bwd": 0,
+    "bilstm_recurrence": 0, "bilstm_recurrence_bwd": 0, "ctc_loss": 0, "ctc_loss_bwd": 0, "wavenet_stack": 0,
 }
 build_log = ""  # nvcc's output of the build this process ran (register / shared-memory report)
 
@@ -47,6 +47,9 @@ _SIGNATURES = {
     # x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, d_pre, act, dx, B, T_in, C, half, R, S, rs_ld, dilation, skip_size, dtype,
     # stream
     "blvm_residual_glu_bwd": [_P] * 11 + [_I] * 10 + [_P],
+    # io (host array of L + 1), taps (host array of L), w_t, w_s, b_t, b_s, w_rs, b_rs, skip_sum, barrier, dilations
+    # (host array of L); B, T_in, C, half, S, L, skip_size, accumulate, dtype; stream
+    "blvm_wavenet_stack": [_P] * 11 + [_I] * 9 + [_P],
     # y, logits, locs, log_scales, out, N, M, y/logit/loc/scale row strides, num_bins, stream
     "blvm_dmol_log_prob": [_P] * 5 + [_L, _I, _L, _L, _L, _L, _I, _P],
     # y, logits, locs, log_scales, g, d_logits, d_locs, d_log_scales, N, M, 4 row strides, num_bins, stream

@@ -17,7 +17,7 @@ generation and train step at the width of its d=192 z=[128] s=[64] run spec (3 b
 expanding 192 -> 768, the precision-weighted posterior, the same DMoL head, f32; the step with the beta and
 free-nats annealers), and the drivers' loops with their metrics read late, and the CTC phoneme probe's train step
 and test pass at the width of its phoneme.txt:8 run spec (3 bidirectional LSTM layers of H = 256 over 80 log-mel
-bins, CTC over 65 classes, f32), and checks the twenty-three hand-written kernels they run against their plain
+bins, CTC over 65 classes, f32), and checks the twenty-four hand-written kernels they run against their plain
 PyTorch twins:
 
   1. device: the card's name and power limit (nvidia-smi)
@@ -29,7 +29,7 @@ PyTorch twins:
      the ladder's edge rows
   6. the slice: CLI flags -> model -> weights bridge -> rf-chunked test pass over
      three mu-law utterances of 40k-64k samples; launch counts per chunk forward
-     (50 K1, 1 K2); the chunked bits/frame against one unchunked forward
+     (5 P2, the fused stack, no K1; 1 K2); the chunked bits/frame against one unchunked forward
   7. one forward at B=8, T=16000, kernels against plain twins (bf16 and f32)
   8. timing of that forward and of each kernel against its twin (CUDA events,
      median of a different input per iteration, run in turns)
@@ -39,21 +39,21 @@ PyTorch twins:
  11. K3 dmol_sample: fed the twin's uniforms, equal to it; its own stream on 1M
      frames by distribution (chi-square, Kolmogorov-Smirnov)
  12. the train slice: flags -> driver ``train`` -> 3 steps at B=8, T=16000 on
-     random crops, bf16, Adam; launch counts per step (50 K1, 50 K1-bwd, 1 K2,
+     random crops, bf16, Adam; launch counts per step (5 P2, 50 K1-bwd, 1 K2,
      1 K2-bwd, 1 K3); per-step losses and step-0 gradients against the twins;
      one f32 step, kernels against twins
  13. timing of the train step and of K1-bwd, K2-bwd and K3 against their twins,
      and a torch.profiler breakdown of the train step
- 14. K4 wavenet_decode vs the plain frame loop over 256 frames, f32 and bf16, from a
+ 14. K4 wavenet_decode vs the plain frame loop over 128 frames, f32 and bf16, from a
      zero history and a speech prefix, fed the same uniforms: the loop fed the
      kernel's frames (teacher forcing) and running free
- 15. the fast path (K4) vs the windowed path (K1 x 50 + K3 a frame) over 16 frames
+ 15. the fast path (K4) vs the windowed path (P3 x 5 + K3 a frame) over 16 frames
      from one generator state
  16. 2 x 16000 frames by K4 from supplied uniforms, held to the rf-padded forward of
      the generated waveform and K3 fed the same uniforms (every frame at once)
  17. timing of 2 x 16000 frames, bf16 and f32, with launch counts per generation
      (K4 x 15999, K1 x 50 and K3 x 1 for the prime); the plain loop and the windowed
-     path per frame; a torch.profiler breakdown of a generation
+     path per frame (P3 x 5 and K3 x 1 a frame); a torch.profiler breakdown of a generation
  18. the driver's generation hook writes two 16000-sample wav files under
      blvm_tpu_torch/_build/generation_hook/ (gitignored)
  19. K5 lstm_recurrence vs its twin, f32 and bf16: H=256, B=10 utterances of
@@ -101,7 +101,7 @@ PyTorch twins:
      annealers; step-0 gradients, kernels and f32 twins held to the f64 twins
  32. timing: K8 in save mode against K8 without it at the train shape, K8-bwd alone and
      the cell's backward against autograd of the twin, K8-bwd's trace by stage and
-     phase, the train step (in turns with the twins) with its host enqueue time and a
+     phase, the train step (the twins' step timed once) with its host enqueue time and a
      torch.profiler breakdown; the driver's loop under --skip_nonfinite_updates: no host wait
      inside its step spans, one step clean under torch's sync debug mode, a NaN step skipped
  33. K7 gru_recurrence vs its twin at the SRNN test pass's shapes: 6 utterances of 24k-72k
@@ -235,6 +235,16 @@ PyTorch twins:
      yardstick) at the train and the eval batch; K13 and K13-bwd against their twin and F.ctc_loss; the train step
      (ms, seconds of audio a second, the host's enqueue and build_metrics, a torch.profiler split) and the test pass
 
+ P2 and P3, the fused 10-block stack (csrc/wavenet_stack.cu), run after phase 13:
+ 71. the kernel against the chain of 10 K1 launches (within K1's limits) and its twin (no further than twice the
+     chain), f32 and bf16: a stack at (8, 21117, 96) with the last 16000 skip rows, the generation window's first
+     stack (2, 5116, 96) and last (2, 1024, 96), one skip row, adding into a sum; the whole forward at B=8, T=16000
+     against the K1 chain (rel 1e-5 f32, 1e-3 bf16), 5 P2 and no K1 a forward
+ 72. the save mode bitwise equal to a plain launch, f32 and bf16
+ 73. the step-0 gradients through WaveNetStackFunction (5 P2 in save mode, 50 K1-bwd) against autograd of the K1
+     chain, f32 and bf16
+ 74. timing: P2 and P3 in bf16 (P2 also in f32) against the twin and the K1 chain, each beside its bound
+
 Every phase prints one line (the profiles a few); any failure raises and exits
 non-zero before the last line (phases 14-70 print all their numbers first). A
 ``[total]`` line gives the run's seconds; the second-to-last line is the
@@ -262,8 +272,8 @@ FLAGSHIP_FLAGS = (
 B, T = 8, 16000
 SEED = 0
 # generation: the JAX driver's 2 x 16000 frames (experiments/experiment_wavenet_audio.py:80); K4 against its
-# twin over 256 frames; the windowed oracle over 16 frames (8 timed)
-GEN_B, N_GEN, N_K4, N_NAIVE, N_NAIVE_TIME = 2, 16000, 256, 16, 8
+# twin over 128 frames (the plain loop takes ~14 ms a frame); the windowed oracle over 16 frames (8 timed)
+GEN_B, N_GEN, N_K4, N_NAIVE, N_NAIVE_TIME = 2, 16000, 128, 16, 8
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W): the bound of a kernel is the
 # larger of its compulsory bytes over HBM bandwidth and its operations over the peak of their type
 HBM_BYTES_PER_S, BF16_PEAK, F32_PEAK = 3.35e12, 989e12, 67e12
@@ -328,8 +338,16 @@ SYNC_EVENTS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynch
                "aten::_local_scalar_dense")
 
 
+_PHASE_CLOCK = [time.time()]
+PHASE_SECONDS = {}  # wall seconds by phase tag, summed over its lines
+
+
 def phase(tag, /, **values):
-    print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in values.items()), flush=True)
+    """Print a phase's line; ``phase_s`` is the wall time since the previous line, the work that led to this one."""
+    now = time.time()
+    seconds, _PHASE_CLOCK[0] = now - _PHASE_CLOCK[0], now
+    PHASE_SECONDS[tag] = PHASE_SECONDS.get(tag, 0.0) + seconds
+    print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in values.items()) + f" phase_s={seconds:.1f}", flush=True)
 
 
 def require(cond, message):
@@ -366,6 +384,20 @@ def residual_glu_bwd_work(B, T_in, C, half, S, dilation, skip_size, weight_grads
     else:
         written = B * L * 3 * half
     return dict(bytes_=elem * (2 * B * T_in * C + B * L * C + B * skip_size * S + weights + written), flops=2 * macs)
+
+
+def wavenet_stack_work(B, T_in, C, dilations, skip_size, taps=0, accumulate=False, elem=2):
+    """``roofline`` keywords of one P2/P3 launch (C = half = R = S): x read once, the stack's output written once,
+    the f32 skip sum written once (and read once where it is added into), the taps written, every block's weights
+    read once; each block's gate and [r | s] multiply-adds over the output rows it has."""
+    rows, T_out = 0, T_in
+    for d in dilations:
+        T_out -= d
+        rows += T_out
+    weights = len(dilations) * (4 * C * C + 2 * C + 2 * C * C + 2 * C)
+    return dict(bytes_=elem * (B * T_in * C + B * T_out * C + taps * B * skip_size * C + weights)
+                + 4 * B * skip_size * C * (2 if accumulate else 1),
+                flops=2 * B * rows * (4 * C * C + 2 * C * C))
 
 
 def stcn_frame_work(B, C, half, S, n_enc, n_used, n_dec, latent_size, D):
@@ -564,9 +596,14 @@ def main():
                             replaces="blvm_tpu/ops/variational.py:149"),
         "wavenet_decode": dict(name="wavenet_decode", route="cuda", source="blvm_tpu_torch/csrc/wavenet_decode.cu",
                                replaces="blvm_tpu/models/wavenet/wavenet.py:279"),
+        # P2 and P3, one kernel: the whole-batch launch and the generation window's
+        "wavenet_stack": dict(name="wavenet_stack", route="cuda", source="blvm_tpu_torch/csrc/wavenet_stack.cu",
+                              replaces="1788a18^:blvm_tpu/ops/pallas/wavenet_stack.py:128, "
+                                       "1788a18^:blvm_tpu/ops/pallas/wavenet_stack.py:219"),
     }
     for entry in record.values():
-        # no single PyTorch call computes a residual-GLU block, the DMoL ladder, its sampler or a decode step
+        # no single PyTorch call computes a residual-GLU block or a stack of them, the DMoL ladder, its sampler or a
+        # decode step
         entry["library_ms"] = None
     # K5's yardstick, torch.nn.LSTM (cuDNN), is timed in phase 24
     record["lstm_recurrence"] = dict(name="lstm_recurrence", route="cuda", source="blvm_tpu_torch/csrc/lstm.cu",
@@ -691,7 +728,8 @@ def main():
     seconds = time.time() - t0
     counts = cuda.launch_counts()
     require(all(math.isfinite(values[k]) for k in ("loss", "ll", "bpd")), f"test pass not finite: {values}")
-    require(counts["residual_glu"] == 50 * n_chunks, f"K1 launches {counts['residual_glu']} != 50 x {n_chunks} chunks")
+    require(counts["wavenet_stack"] == 5 * n_chunks and counts["residual_glu"] == 0,
+            f"P2 launches {counts['wavenet_stack']} != 5 x {n_chunks} chunks, or K1 launched {counts['residual_glu']}")
     require(counts["dmol_log_prob"] == n_chunks, f"K2 launches {counts['dmol_log_prob']} != {n_chunks} chunks")
     require(counts["dmol_sample"] == n_chunks, f"K3 launches {counts['dmol_sample']} != {n_chunks} chunks")
     require(counts["residual_glu_bwd"] == counts["dmol_log_prob_bwd"] == counts["wavenet_decode"] == 0,
@@ -907,9 +945,9 @@ def main():
             return log.steps, cuda.launch_counts(), time.time() - t0
 
     steps_k, counts, seconds = run_train()
-    expected = dict(residual_glu=150, residual_glu_bwd=150, dmol_log_prob=3, dmol_log_prob_bwd=3, dmol_sample=3)
+    expected = dict(wavenet_stack=15, residual_glu_bwd=150, dmol_log_prob=3, dmol_log_prob_bwd=3, dmol_sample=3)
     require(counts == {**dict.fromkeys(counts, 0), **expected},
-            f"train-step launches {counts}, expected {expected} (50/50/1/1/1 a step)")
+            f"train-step launches {counts}, expected {expected} (5/50/1/1/1 a step)")
     for name in expected:
         record[name]["launches"] = counts[name]
     steps_p, counts_p, _ = run_train(plain_path_=True)
@@ -1061,6 +1099,7 @@ def main():
     for e in sorted(host_ops, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
         print(f"  host {e.self_cpu_time_total / 1e3 / 3:9.3f} ms/step {e.count // 3:5d} calls/step  {e.key[:80]}", flush=True)
 
+    stack_phases(record, smi, models, xb, dev)
     generation_phases(record, smi, args, models, dev)
     del models, model, tmodel, state
     torch.cuda.empty_cache()
@@ -1083,12 +1122,179 @@ def main():
     cwvae_train_phases(record, smi, dev)
     torch.cuda.empty_cache()
     asr_phases(record, smi, dev)
+    slowest = sorted(PHASE_SECONDS.items(), key=lambda kv: kv[1], reverse=True)[:16]
+    phase("slowest-phases", **{tag: f"{seconds:.1f}" for tag, seconds in slowest})
     phase("total", seconds=f"{time.time() - t_start:.1f}")
 
     print(json.dumps({"kernels": list(record.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def stack_phases(record, smi, models, xb, dev):
+    """Phases 71-74, P2 and P3 (the fused residual stack, ``csrc/wavenet_stack.cu``) at the flagship width: the
+    kernel against its twin and the chain of K1 launches (a stack at the forward's shape and P3's generation window,
+    f32 and bf16; the whole forward at B = 8, T = 16000), its save mode against a plain launch, the step-0 gradients
+    through WaveNetStackFunction against autograd of the K1 chain, and the times of P2 and P3 beside their bounds,
+    the twin and the K1 chain. ``models`` the forward's bf16 and f32 models (weights from seed 0), ``xb`` phase 7's
+    batch."""
+    from blvm_tpu_torch.models.wavenet import modules
+    from blvm_tpu_torch.ops import cuda
+    from blvm_tpu_torch.ops import wavenet_stack as stack_ops
+
+    card = smi.replace(" ", "_")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+    m = models[True]
+    rf, C, n_layers = m.receptive_field, m.res_channels, m.res_stack.n_layers
+    dilations = [b.dilation for b in m.res_stack.blocks[:n_layers]]
+    k1_tol = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0**-6, 5e-2)}  # phase 4's, K1's own
+
+    def weights_of(stack, dtype):
+        return stack_ops.pack_blocks(models[dtype == torch.bfloat16].res_stack.blocks[stack * n_layers:
+                                                                                    (stack + 1) * n_layers], dtype)
+
+    def k1_chain(x, ps, skip, taps=(), acc=None):
+        """The stack as 10 K1 launches, the skips summed in f32 in block order (the model's list path)."""
+        o, summed, tapped = x, acc, []
+        for l, d in enumerate(dilations):
+            o, s_ = modules.residual_glu(o, *(p[l] for p in ps), dilation=d, skip_size=skip)
+            summed = s_.to(torch.float32, copy=True) if summed is None else summed.add_(s_)
+            tapped += [s_] if l in taps else []
+        return o, summed, tapped
+
+    def max_err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    # 71. the kernel against the K1 chain within K1's limits (out, the f32 sum, the taps), and no further from the
+    # twin (which rounds after every op) than twice the chain is, K1's atol the floor. P2: the first stack of the
+    # forward's shape; P3: the generation window's first stack (one skip row) and its last, adding into a sum.
+    cases = {"P2": (B, T + rf, T, 0, False), "P3": (GEN_B, rf - 1, 1, 0, False),
+             "P3-last": (GEN_B, rf - 1 - 4 * sum(dilations), 1, 4, True)}
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, (b_, t_in, skip, stack, accumulate) in cases.items():
+            ps = weights_of(stack, dtype)
+            x = torch.randn(b_, t_in, C, generator=gen, device=dev).to(dtype)
+            acc = torch.randn(b_, skip, C, generator=gen, device=dev) if accumulate else None
+            with torch.no_grad():
+                cuda.reset_launch_counts()
+                out, summed, taps = stack_ops.wavenet_stack(x, ps, dilations, skip, (0, 5),
+                                                            acc.clone() if accumulate else None)
+                torch.cuda.synchronize()
+                launches = cuda.launch_counts()["wavenet_stack"]
+                c_out, c_sum, c_taps = k1_chain(x, ps, skip, (0, 5), acc.clone() if accumulate else None)
+                t_out, t_sum, _ = stack_ops.wavenet_stack_plain(x, ps, dilations, skip, (), acc)
+            rtol, atol = k1_tol[dtype]
+            pairs = [(out, c_out), (summed, c_sum), *zip(taps, c_taps)]
+            excess = max(((a.float() - r.float()).abs() - (atol + rtol * r.float().abs())).max().item() for a, r in pairs)
+            twin_err = max(max_err(out, t_out), max_err(summed, t_sum))
+            chain_twin_err = max(max_err(c_out, t_out), max_err(c_sum, t_sum))
+            bitwise = all(torch.equal(a, r) for a, r in pairs)
+            require(launches == 1 and all(bool(torch.isfinite(a).all()) for a, _ in pairs), f"{label} {dtype}: launches "
+                    f"{launches} or not finite")
+            require(excess <= 0, f"{label} {dtype}: against the K1 chain over K1's tolerance by {excess}")
+            require(twin_err <= max(2 * chain_twin_err, atol), f"{label} {dtype}: {twin_err} from the twin, the K1 "
+                    f"chain {chain_twin_err}")
+            worst = max(worst, twin_err)
+            phase(label, dtype=str(dtype).split(".")[1], shape=f"({b_},{t_in},{C})", skip_rows=skip, stack=stack,
+                  accumulate=accumulate, vs_k1_chain_max_abs_err=f"{max(max_err(a, r) for a, r in pairs):.3g}",
+                  k1_chain_bitwise=bitwise, vs_twin_max_abs_err=f"{twin_err:.3g}",
+                  k1_chain_vs_twin_max_abs_err=f"{chain_twin_err:.3g}")
+    record["wavenet_stack"]["max_abs_err"] = worst
+
+    # the whole forward at B = 8, T = 16000 on the fused path against the K1 chain (the list path, one K1 launch a
+    # block and the skip-sum adds): phase 7's tolerances against the twins, rel 1e-5 in f32 and 1e-3 in bf16
+    list_path = mock.patch.object(modules.ResidualStack, "fused", property(lambda self: False))
+    fwd_rel = {True: 1e-3, False: 1e-5}
+    for bf16, m_ in models.items():
+        with torch.inference_mode():
+            cuda.reset_launch_counts()
+            loss, mets, _ = m_(xb[0], xb[1], generator=torch.Generator(device=dev).manual_seed(SEED))
+            counts = cuda.launch_counts()
+            with list_path:
+                loss_c, mets_c, _ = m_(xb[0], xb[1], generator=torch.Generator(device=dev).manual_seed(SEED))
+        loss_rel = abs(loss.item() - loss_c.item()) / abs(loss_c.item())
+        row_rel = ((mets["log_prob"] - mets_c["log_prob"]).abs() / mets_c["log_prob"].abs()).max().item()
+        require(counts["wavenet_stack"] == 5 and counts["residual_glu"] == 0, f"forward launches {counts}")
+        require(loss_rel <= fwd_rel[bf16] and row_rel <= fwd_rel[bf16],
+                f"forward bf16={bf16} against the K1 chain: loss {loss_rel}, rows {row_rel}")
+        phase("P2-forward-vs-k1-chain", bf16=bf16, B=B, T=T, loss=f"{loss.item():.6f}", loss_k1_chain=f"{loss_c.item():.6f}",
+              loss_rel=f"{loss_rel:.3g}", row_rel=f"{row_rel:.3g}", tolerance=fwd_rel[bf16],
+              launches=dict(wavenet_stack=counts["wavenet_stack"], residual_glu=counts["residual_glu"]))
+
+    # 72. the save mode (every block's input kept for the backward) writes the same bits as a plain launch
+    for dtype in (torch.float32, torch.bfloat16):
+        ps = weights_of(0, dtype)
+        x = torch.randn(B, T + rf, C, generator=gen, device=dev).to(dtype)
+        with torch.no_grad():
+            plain = stack_ops._launch(x, ps, dilations, T, (0, 5), None, save=False)
+            saved = stack_ops._launch(x, ps, dilations, T, (0, 5), None, save=True)
+            torch.cuda.synchronize()
+        same = [torch.equal(a, b_) for a, b_ in ((plain[0], saved[0]), (plain[1], saved[1]), *zip(plain[3], saved[3]))]
+        require(all(same) and len(saved[2]) == n_layers, f"P2 save mode {dtype}: outputs equal {same}")
+        phase("P2-save", dtype=str(dtype).split(".")[1], shape=f"({B},{T + rf},{C})", bitwise_equal=all(same),
+              saved_inputs=len(saved[2]), saved_mb=f"{sum(t.numel() for t in saved[2][1:]) * x.element_size() / 2**20:.1f}")
+        del plain, saved
+
+    # 73. step-0 gradients of every parameter through WaveNetStackFunction (P2 in save mode, 50 K1-bwd) against
+    # autograd of the K1 chain on phase 7's batch: the same backward kernels on the same forward values. f32 rel
+    # 1e-5 (the forward's FMA order through 50 blocks); bf16 rel 2e-2, phase 9's bound for K1-bwd's weight gradients
+    grad_rel = {True: 2e-2, False: 1e-5}
+
+    def step0_grads(m_, list_path_=False):
+        m_.zero_grad(set_to_none=True)
+        with list_path if list_path_ else contextlib.nullcontext():
+            cuda.reset_launch_counts()
+            loss_, _, _ = m_(xb[0], xb[1], generator=torch.Generator(device=dev).manual_seed(SEED))
+            loss_.backward()
+        grads = {n: p.grad.detach().clone() for n, p in m_.named_parameters()}
+        m_.zero_grad(set_to_none=True)
+        return grads, cuda.launch_counts()
+
+    for bf16, m_ in models.items():
+        g_f, counts = step0_grads(m_)
+        g_c, counts_c = step0_grads(m_, list_path_=True)
+        rels = {n: rel_norm(g_f[n], g_c[n]) for n in g_c}
+        worst_name = max(rels, key=rels.get)
+        require(counts["wavenet_stack"] == 5 and counts["residual_glu_bwd"] == 50 and counts["residual_glu"] == 0,
+                f"step-0 launches {counts}")
+        require(all(torch.isfinite(g).all() for g in g_f.values()) and rels[worst_name] <= grad_rel[bf16],
+                f"step-0 gradients bf16={bf16}: {worst_name} {rels[worst_name]} from the K1 chain's")
+        phase("P2-step0-grads", bf16=bf16, parameters=len(rels), max_rel_vs_k1_chain=f"{rels[worst_name]:.3g}",
+              worst=worst_name, bitwise=all(torch.equal(g_f[n], g_c[n]) for n in g_c), tolerance=grad_rel[bf16],
+              launches=dict(wavenet_stack=counts["wavenet_stack"], residual_glu_bwd=counts["residual_glu_bwd"]),
+              k1_chain_launches=dict(residual_glu=counts_c["residual_glu"], residual_glu_bwd=counts_c["residual_glu_bwd"]))
+        del g_f, g_c
+    torch.cuda.empty_cache()
+
+    # 74. times: P2 (a stack at the forward's shape) and P3 (the window's first stack), bf16, each against its twin
+    # and the K1 chain in turns (CUDA events, a different input each call), beside its bound; f32 P2 reported
+    times = {}
+    for label, dtype in (("P2", torch.bfloat16), ("P3", torch.bfloat16), ("P2", torch.float32)):
+        b_, t_in, skip, _, _ = cases[label]
+        ps = weights_of(0, dtype)
+        xs = [torch.randn(b_, t_in, C, generator=gen, device=dev).to(dtype) for _ in range(12)]
+        with torch.no_grad():
+            t_twin = alternate(lambda x_: stack_ops.wavenet_stack_plain(x_, ps, dilations, skip, (0, 5)),
+                               lambda x_: stack_ops.wavenet_stack(x_, ps, dilations, skip, (0, 5)), xs)
+            t_chain = alternate(lambda x_: k1_chain(x_, ps, skip, (0, 5)),
+                                lambda x_: stack_ops.wavenet_stack(x_, ps, dilations, skip, (0, 5)), xs)
+        bound = roofline(**wavenet_stack_work(b_, t_in, C, dilations, skip, taps=2, elem=dtype.itemsize),
+                         peak=BF16_PEAK if dtype == torch.bfloat16 else F32_PEAK)
+        times[label, dtype] = dict(kernel=min(t_twin["kernel"], t_chain["kernel"]), plain=t_twin["plain"],
+                                   chain=t_chain["plain"], **bound)
+        t_ = times[label, dtype]
+        flops = wavenet_stack_work(b_, t_in, C, dilations, skip, taps=2)["flops"]
+        phase(f"time-{label}", card=card, dtype=str(dtype).split(".")[1], shape=f"({b_},{t_in},{C})", skip_rows=skip,
+              kernel_ms=f"{t_['kernel']:.4f}", kernel_ms_runs=[f"{t_twin['kernel']:.4f}", f"{t_chain['kernel']:.4f}"],
+              plain_ms=f"{t_['plain']:.4f}", k1_chain_ms=f"{t_['chain']:.4f}", bound_ms=f"{t_['bound_ms']:.4f}",
+              bound_by=t_["bound_by"], tflops=f"{flops / t_['kernel'] / 1e9:.1f}")
+    p2, p3, p2f = times["P2", torch.bfloat16], times["P3", torch.bfloat16], times["P2", torch.float32]
+    record["wavenet_stack"].update(
+        ms=p2["kernel"], plain_ms=p2["plain"], bound_ms=p2["bound_ms"], bound_by=p2["bound_by"], k1_chain_ms=p2["chain"],
+        p3_ms=p3["kernel"], p3_plain_ms=p3["plain"], p3_bound_ms=p3["bound_ms"], p3_k1_chain_ms=p3["chain"],
+        f32_ms=p2f["kernel"], f32_plain_ms=p2f["plain"], f32_bound_ms=p2f["bound_ms"], f32_k1_chain_ms=p2f["chain"])
 
 
 def generation_phases(record, smi, args, models, dev):
@@ -1124,7 +1330,7 @@ def generation_phases(record, smi, args, models, dev):
     # kernel's frames) holds each frame from the same history: f32 the order of the sums (1e-5);
     # bf16 both round where JAX rounds, and a one-ulp difference after another summation order,
     # amplified by the gate, stays within the JAX suite's 5e-2 (tests/models/test_wavenet.py:276).
-    # Free-running, f32 is held to the same 1e-5 over all 256 frames; bf16 is reported (an ulp
+    # Free-running, f32 is held to the same 1e-5 over all N_K4 frames; bf16 is reported (an ulp
     # that flips a Gumbel pick sends the two trajectories apart for good).
     k4_tol = {False: 1e-5, True: 5e-2}
     k4_err = 0.0
@@ -1157,8 +1363,9 @@ def generation_phases(record, smi, args, models, dev):
     # 15. the fast path against the windowed oracle from one generator state: one Philox key a
     # generation, stepped by the frame, so K4 and K3 draw the same numbers for the same frame.
     # Frame 0 comes from the same priming forward in both: equal. f32: the JAX suite's 1e-5.
-    # bf16: the windowed path's K1 rounds once at each store where K4 rounds after every op as
-    # JAX does, so the two differ by bf16 ulps from frame 1 on: reported, held by phase 16.
+    # bf16: the windowed path's stacks (P3) round as K1 does, once at each store, where K4 rounds
+    # after every op as JAX does, so the two differ by bf16 ulps from frame 1 on: reported, held by
+    # phase 16.
     for bf16, m in models.items():
         cuda.reset_launch_counts()
         fast = m.generate(GEN_B, N_NAIVE, generator=torch.Generator(device=dev).manual_seed(SEED))
@@ -1166,8 +1373,9 @@ def generation_phases(record, smi, args, models, dev):
         torch.cuda.synchronize()
         counts = cuda.launch_counts()
         err = (fast - naive).abs().amax(0)
-        expect(counts["residual_glu"] == 50 * (N_NAIVE + 1) and counts["dmol_sample"] == N_NAIVE + 1
-               and counts["wavenet_decode"] == N_NAIVE - 1, f"fast-vs-naive launches {counts}")
+        expect(counts["residual_glu"] == 50 and counts["wavenet_stack"] == 5 * N_NAIVE
+               and counts["dmol_sample"] == N_NAIVE + 1 and counts["wavenet_decode"] == N_NAIVE - 1,
+               f"fast-vs-naive launches {counts}")
         expect(err[0].item() == 0, f"fast-vs-naive {dtype_name[bf16]}: frame 0 differs by {err[0].item()}")
         if not bf16:
             expect(err.max().item() <= 1e-5, f"fast-vs-naive f32: max err {err.max().item()} over 1e-5")
@@ -1176,9 +1384,9 @@ def generation_phases(record, smi, args, models, dev):
               per_frame=[f"{v:.2g}" for v in err.tolist()])
 
     # 16. teacher forcing over the whole generation: the rf-padded forward of the generated
-    # waveform (K1, zero history) and K3 fed the generation's uniforms must give back every
+    # waveform (P2, zero history) and K3 fed the generation's uniforms must give back every
     # frame. f32: the forward's sums in another order than K4's (1e-5); a frame whose Gumbel pick
-    # sits within f32 rounding of a tie may flip (at most 1e-4 of the frames). bf16: K1 rounds
+    # sits within f32 rounding of a tie may flip (at most 1e-4 of the frames). bf16: P2 rounds
     # once at each store, K4 after every op; frames within 5e-2 counted, at least 0.9 of them
     # (a misaligned buffer or a wrong tap leaves a few percent).
     tf_tol, tf_share = {False: 1e-5, True: 5e-2}, {False: 1 - 1e-4, True: 0.9}
@@ -1232,7 +1440,11 @@ def generation_phases(record, smi, args, models, dev):
         expect(counts == {**dict.fromkeys(counts, 0), **expected}, f"generation launches {counts}, expected {expected}")
         expect(bool(torch.isfinite(x).all()) and x.shape == (GEN_B, N_GEN) and x.abs().max().item() <= 1,
                "generation: shape, finite, [-1, 1]")
+        cuda.reset_launch_counts()
         _, naive_s, _ = generate_timed(m, N_NAIVE_TIME, fast=False)
+        naive_counts = {k: v for k, v in cuda.launch_counts().items() if v}
+        naive_expected = dict(wavenet_stack=5 * N_NAIVE_TIME, dmol_sample=N_NAIVE_TIME)
+        expect(naive_counts == naive_expected, f"windowed generation launches {naive_counts}, expected {naive_expected}")
         total = min(seconds, seconds_b)
         gen_ms[bf16] = dict(frame_ms=total * 1e3 / N_GEN, plain_ms=min(plain_a, plain_b), counts=counts)
         phase("time-generate", card=card, dtype=dtype_name[bf16], sequences=GEN_B, frames=N_GEN,
@@ -1240,7 +1452,8 @@ def generation_phases(record, smi, args, models, dev):
               frames_per_s=f"{N_GEN / total:.1f}", us_per_frame=f"{total * 1e6 / N_GEN:.2f}",
               host_enqueue_us_per_frame=f"{enqueued * 1e6 / N_GEN:.2f}",
               plain_loop_us_per_frame=[f"{plain_a * 1e3:.1f}", f"{plain_b * 1e3:.1f}"],
-              naive_ms_per_frame=f"{naive_s * 1e3 / N_NAIVE_TIME:.3f}", launches=counts)
+              naive_ms_per_frame=f"{naive_s * 1e3 / N_NAIVE_TIME:.3f}", launches=counts,
+              naive_launches_per_frame={k: v // N_NAIVE_TIME for k, v in naive_counts.items()})
 
     # the bound of one K4 launch: every weight read once, each block's slot read and written, at
     # the card's HBM rate; one multiply-add a weight a sequence at the bf16 peak
@@ -1248,6 +1461,7 @@ def generation_phases(record, smi, args, models, dev):
     stack_params = sum(p.numel() for p in m.res_stack.parameters())
     f32_params = sum(p.numel() for mod in (m.causal, m.out_transform, m.likelihood_head) for p in mod.parameters())
     slot_bytes = GEN_B * len(m.res_stack.blocks) * m.res_channels * 2 * 2
+    record["residual_glu"]["launches"] = gen_ms[True]["counts"]["residual_glu"]  # the prime; STCN's paths add theirs
     record["wavenet_decode"].update(ms=gen_ms[True]["frame_ms"], plain_ms=gen_ms[True]["plain_ms"],
                                     launches=gen_ms[True]["counts"]["wavenet_decode"], **roofline(
                                         bytes_=2 * stack_params + 4 * f32_params + slot_bytes,
@@ -1981,7 +2195,7 @@ def vrnn_phases(record, smi, dev):
         with torch.no_grad():
             vrnn_ops.vrnn_cell_plain(w, enc, torch.zeros(VRNN_B, R, device=dev), eps_, inference=True, **cell_kw)
 
-    t8 = alternate(k8_plain, k8, eps_t)
+    t8 = alternate(k8_plain, k8, eps_t, warmup=1)
     H_ = args.hidden_size
     X_ = enc.shape[-1]
     macs = (R * H_ + 2 * H_ * H_ + H_ * 2 * Z) + ((R + X_) * H_ + 2 * H_ * H_ + H_ * 2 * Z) + (Z * H_ + 3 * H_ * H_) \
@@ -2396,7 +2610,7 @@ def vrnn_train_phases(record, smi, dev):
                 ("gates", "phi4", "phi3", "phi2", "phi1", "z+heads", "mlp3", "mlp2", "mlp1", "dh"))
     del bwd_inputs
 
-    # the train step, kernels against twins in turns on the first batch, the kernels alone over the three
+    # the train step: the twins once on the first batch (as phases 41 and 65 time theirs), the kernels over the three
     tx, _ = common.build_tx_and_lr(targs)
     weights.load_jax_params(model, params)
     model.train()
@@ -2411,7 +2625,7 @@ def vrnn_train_phases(record, smi, dev):
         with plain():
             train_step(state, b_, scalars)
 
-    ts_turns = alternate(run_step_plain, run_step, step_batches[:1])
+    plain_step_ms = cuda_time_ms(run_step_plain, step_batches[:1], warmup=0)[0]
     torch.cuda.reset_peak_memory_stats()
     ts = sorted(cuda_time_ms(run_step, step_batches))[1]
     torch.cuda.synchronize()
@@ -2423,7 +2637,7 @@ def vrnn_train_phases(record, smi, dev):
     torch.cuda.synchronize()
     samples = sum(int(b_["x_sl"].sum()) for b_ in step_batches) / len(step_batches)
     phase("time-vrnn-train-step", card=card, utterances=VRNN_TRAIN_B, samples=int(samples), kernel_ms=f"{ts:.3f}",
-          kernel_ms_in_turns=f"{ts_turns['kernel']:.3f}", plain_ms=f"{ts_turns['plain']:.3f}",
+          plain_ms=f"{plain_step_ms:.3f}",
           host_enqueue_ms=f"{sorted(enqueue)[1]:.3f}", samples_per_s=f"{samples / ts * 1e3:.0f}",
           peak_memory_GB=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
 
@@ -2802,7 +3016,7 @@ def srnn_phases(record, smi, dev):
         with torch.no_grad():
             srnn_ops.srnn_chain_plain(kernel_w, xp, xq, z0, eps_, **chain_inf)
 
-    t9 = alternate(k9_plain, k9, eps_t)
+    t9 = alternate(k9_plain, k9, eps_t, warmup=1)
     chain_macs = 2 * (Z * H + 2 * H * H + H * 2 * Z)
     n_weights = sum(t.numel() for t in kernel_w)
     record["srnn_chain"].update(ms=t9["kernel"], plain_ms=t9["plain"], **roofline(
@@ -3965,18 +4179,19 @@ def stcn_train_phases(record, smi, dev):
           samples_per_s=f"{samples / ts['kernel'] * 1e3:.0f}", host_enqueue_ms=f"{sorted(enqueue)[1]:.3f}",
           peak_memory_GB=f"{peak_gb:.2f}")
 
-    # 52. torch.profiler over 3 steps: device time, idle share, launches a step, the top kernels; inside the
-    # microbatch loop's spans no host wait on the card (a stream synchronization or a device value read to the
-    # host); and one step run with torch's sync debug mode raising on any synchronizing call
+    # 52. torch.profiler over one step (reading the trace of its ~11000 launches takes ~20 s a step):
+    # device time, idle share, launches, the top kernels; inside the microbatch loop's spans no host wait on the
+    # card (a stream synchronization or a device value read to the host); and one step run with torch's sync debug
+    # mode raising on any synchronizing call
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for b_ in step_batches[:3]:
-            run_step(b_)
+        run_step(step_batches[0])
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    averages = prof.key_averages()
     kernels_ = device_kernels(prof)
-    busy_ms = sum(device_us(e_) for e_ in kernels_) / 1e3 / 3
+    busy_ms = sum(device_us(e_) for e_ in kernels_) / 1e3
     spans, waits_in_loop = 0, []
     for e_ in prof.events():
         if e_.device_type != torch.autograd.DeviceType.CPU:  # the span's copy on the device's timeline
@@ -3988,7 +4203,7 @@ def stcn_train_phases(record, smi, dev):
                 parent = parent.cpu_parent
             if parent is not None:
                 waits_in_loop.append(e_.name)
-    waits_anywhere = {n: sum(e_.count for e_ in prof.key_averages() if e_.key == n) for n in SYNC_EVENTS}
+    waits_anywhere = {n: sum(e_.count for e_ in averages if e_.key == n) for n in SYNC_EVENTS}
     try:
         torch.cuda.set_sync_debug_mode("error")
         run_step(step_batches[3])
@@ -3999,7 +4214,7 @@ def stcn_train_phases(record, smi, dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    expect(spans == 3 * args.accum_steps and not waits_in_loop and sync_free,
+    expect(spans == args.accum_steps and not waits_in_loop and sync_free,
            f"STCN train step: {spans} microbatch spans, host waits inside them {waits_in_loop}, "
            f"sync debug mode passed {sync_free}")
     # the idle share against the step's time by CUDA events (51): the profiler's own host work a launch
@@ -4007,13 +4222,13 @@ def stcn_train_phases(record, smi, dev):
     phase("profile-stcn-train-step", card=card, device_ms_per_step=f"{busy_ms:.3f}", step_ms=f"{ts['kernel']:.3f}",
           idle_share=f"{1 - busy_ms / ts['kernel']:.3f}" if busy_ms else "not measured",
           wall_ms_per_step_under_profiler=f"{wall_ms:.3f}",
-          kernel_launches_per_step=sum(e_.count for e_ in kernels_) // 3,
+          kernel_launches_per_step=sum(e_.count for e_ in kernels_),
           host_enqueue_ms=f"{sorted(enqueue)[1]:.3f}", microbatch_spans=spans, host_waits_in_loop=len(waits_in_loop),
           host_waits_in_profile=waits_anywhere, sync_debug_mode_step="passed" if sync_free else "raised")
     for e_ in sorted(kernels_, key=device_us, reverse=True)[:10]:
-        print(f"  {device_us(e_) / 1e3 / 3:9.3f} ms/step {e_.count // 3:5d} calls/step  {e_.key[:90]}", flush=True)
+        print(f"  {device_us(e_) / 1e3:9.3f} ms/step {e_.count:5d} calls/step  {e_.key[:90]}", flush=True)
     for e_ in sorted(kernels_, key=lambda e: e.count, reverse=True)[:8]:  # where the launches come from
-        print(f"  launches {e_.count // 3:5d}/step {device_us(e_) / 1e3 / 3:9.3f} ms/step  {e_.key[:90]}", flush=True)
+        print(f"  launches {e_.count:5d}/step {device_us(e_) / 1e3:9.3f} ms/step  {e_.key[:90]}", flush=True)
     del state, step_batches
     torch.cuda.empty_cache()
 
@@ -4944,7 +5159,7 @@ def cwvae_train_phases(record, smi, dev):
     phase("profile-cwvae-train-step", card=card, device_ms_per_step=f"{busy_ms:.3f}", step_ms=f"{ts:.3f}",
           idle_share=f"{1 - busy_ms / ts:.3f}" if busy_ms else "not measured",
           wall_ms_per_step_under_profiler=f"{checks['wall_ms'] / 3:.3f}",
-          kernel_launches_per_step=sum(e_.count for e_ in kernels_) // 3, step_spans=checks["spans"],
+          kernel_launches_per_step=sum(e_.count for e_ in kernels_), step_spans=checks["spans"],
           host_waits_in_steps=len(checks["waits"]), sync_debug_mode_step="passed" if checks["sync_free"] else "raised")
     for e_ in sorted(kernels_, key=device_us, reverse=True)[:14]:
         print(f"  {device_us(e_) / 1e3 / 3:9.3f} ms/step {e_.count // 3:5d} calls/step  {e_.key[:90]}", flush=True)
@@ -5598,6 +5813,7 @@ def plain_path(modules, likelihoods, distributions, variational, recurrent):
     from blvm_tpu_torch.ops import ctc, depthwise, rssm
     from blvm_tpu_torch.ops import srnn as srnn_ops
     from blvm_tpu_torch.ops import vrnn as vrnn_ops
+    from blvm_tpu_torch.ops import wavenet_stack as stack_ops
 
     def plain():
         stack = contextlib.ExitStack()
@@ -5607,6 +5823,7 @@ def plain_path(modules, likelihoods, distributions, variational, recurrent):
         stack.enter_context(mock.patch.object(srnn_ops, "srnn_chain", srnn_ops.srnn_chain_plain))
         stack.enter_context(mock.patch.object(recurrent, "gru_recurrence", recurrent.gru_recurrence_plain))
         stack.enter_context(mock.patch.object(modules, "residual_glu", modules.residual_glu_plain))
+        stack.enter_context(mock.patch.object(stack_ops, "wavenet_stack", stack_ops.wavenet_stack_plain))
         stack.enter_context(mock.patch.object(likelihoods, "dmol_log_prob", dmol))
         stack.enter_context(mock.patch.object(distributions, "dmol_sample_and_mode", sample_and_mode))
         stack.enter_context(mock.patch.object(recurrent, "lstm_recurrence", recurrent.lstm_recurrence_plain))

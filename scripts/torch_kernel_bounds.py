@@ -1,4 +1,4 @@
-"""Bounds on paper of the TPU kernels the PyTorch/CUDA port has still to write, at their run specs,
+"""Bounds on paper of P2 and P3 (the fused WaveNet stack) at the shapes chip_smoke.py's phases 71-74 run,
 of K6 and K6-bwd (the CTC probe's bi-LSTM layer) and K13 and K13-bwd (its CTC loss) at the probe's
 train batch, of K7, K9, K7-bwd and K9-bwd (each kernel apart from the cuBLAS weight-gradient GEMMs around it)
 at the SRNN's test pass and train step shapes, of K12, K1 and K1-bwd at STCN's width, of K10
@@ -34,9 +34,10 @@ from chip_smoke import (  # noqa: E402
     rssm_bwd_work,
     rssm_work,
     stcn_frame_work,
+    wavenet_stack_work,
 )
 
-F32, BF16 = 4, 2
+F32 = 4
 
 
 def lstm_or_gru(rows, H, gates, directions=1):
@@ -45,22 +46,17 @@ def lstm_or_gru(rows, H, gates, directions=1):
                 flops=2 * directions * rows * H * gates * H, peak=F32_PEAK)
 
 
-def wavenet_stack(B, T_in, C, blocks, skip_frames):
-    """A fused stack of gated residual blocks (K1's block: a k=2 dilated conv C -> 2C, the residual
-    and skip 1x1s), bf16: the input read and the output written once, the f32 skip sum written once."""
-    macs = blocks * (2 * C * 2 * C + C * C + C * C)
-    return dict(bytes_=BF16 * (2 * B * T_in * C + macs) + F32 * B * skip_frames * C,
-                flops=2 * B * T_in * macs, peak=BF16_PEAK)
-
-
 def main():
     bounds = {}
-    # P2: the fused 10-block stack at the flagship shape of chip_smoke.py phase 8 (B = 8, T = 16000 plus
-    # the receptive field, C = 96, benchmarks.txt:6); one launch a stack, five a forward
-    bounds["P2"] = wavenet_stack(B=8, T_in=21117, C=96, blocks=10, skip_frames=16000)
-    # P3: the windowed stack of the oracle generation, one window of the receptive field (5116 frames)
-    # for each of 2 sequences
-    bounds["P3"] = wavenet_stack(B=2, T_in=5116, C=96, blocks=10, skip_frames=1)
+    # P2: the fused 10-block stack (dilations 1 ... 512) at the flagship shape of chip_smoke.py phase 74 (B = 8,
+    # T = 16000 plus the receptive field, C = 96, benchmarks.txt:6, bf16), the last 16000 rows' skips summed and
+    # blocks 0 and 5's kept as z; one launch a stack, five a forward. P3: the windowed generation's first stack,
+    # one window of the receptive field (5116 frames) for each of 2 sequences, one skip row.
+    # chip_smoke.wavenet_stack_work counts each block's output rows and the f32 skip sum's traffic
+    dilations = [1] + [2**i for i in range(1, 10)]
+    bounds["P2"] = dict(**wavenet_stack_work(8, 21117, 96, dilations, 16000, taps=2), peak=BF16_PEAK)
+    bounds["P2 f32"] = dict(**wavenet_stack_work(8, 21117, 96, dilations, 16000, taps=2, elem=F32), peak=F32_PEAK)
+    bounds["P3"] = dict(**wavenet_stack_work(2, 5116, 96, dilations, 1, taps=2), peak=BF16_PEAK)
     # K6: one layer of the ASR probe's bi-LSTM at its run spec (experiments/phoneme.txt:8: --hidden_size 256,
     # 3 bidirectional layers, --batch_len 120 s at hop 64: 30000 frames a batch), both directions in one launch;
     # bilstm_work counts each direction's h W_hh product over the 30000 row-steps (31.46 GFLOP) and xw, the mask

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain twins, on the card: K1 and
-K2 forward and backward (against autograd of the twins), K3 the sampler, K4 the
+K2 forward and backward (against autograd of the twins), P2/P3 the fused residual
+stack (against the chain of K1 launches: outputs, save mode, gradient), K3 the sampler, K4 the
 Fast-WaveNet decode step, K5 the LSTM recurrence forward and backward, K8 the
 VRNN cell and K8-bwd its backward through time, K7 the GRU recurrence and K9 the
 SRNN's latent chain, their save modes and their backwards through time, K7-bwd and K9-bwd; K1 and
@@ -28,6 +29,7 @@ from blvm_tpu_torch.models.wavenet.modules import residual_glu, residual_glu_pla
 from blvm_tpu_torch.modules.distributions import DiscretizedLogisticMixtureDense
 from blvm_tpu_torch.ops import ctc, cuda, depthwise, likelihoods, recurrent, variational
 from blvm_tpu_torch.ops import rssm as rssm_ops
+from blvm_tpu_torch.ops import wavenet_stack as stack_ops
 from blvm_tpu_torch.ops import srnn as srnn_ops
 from blvm_tpu_torch.ops import vrnn as vrnn_ops
 from blvm_tpu_torch.ops.generation import STCNDecoder, WaveNetDecoder
@@ -201,6 +203,132 @@ def test_residual_glu_backward_refuses_what_it_does_not_take(cuda_device):
         o, s = residual_glu(*args, dilation=2, skip_size=10, need_skip=need_skip)
         with pytest.raises(NotImplementedError, match="residual_glu_bwd kernel takes"):
             (o.float().sum() + (s.float().sum() if s is not None else 0)).backward()
+
+
+def stack_inputs(B, T_in, C, L, dtype, device, seed=0):
+    """A stack's input and ``L`` blocks' stacked weights (ops/wavenet_stack.py:pack_blocks' layout), U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)) as the model draws them, and the dilations 1, 2, 4, ..."""
+    g = torch.Generator().manual_seed(seed)
+
+    def u(*shape, fan_in):
+        return ((torch.rand(*shape, generator=g) * 2 - 1) / fan_in**0.5).to(device, dtype)
+
+    x = torch.randn(B, T_in, C, generator=g).to(device, dtype)
+    params = (u(L, 2, C, C, fan_in=2 * C), u(L, 2, C, C, fan_in=2 * C), u(L, C, fan_in=2 * C), u(L, C, fan_in=2 * C),
+              u(L, 1, C, 2 * C, fan_in=C), u(L, 2 * C, fan_in=C))
+    return x, params, [2**i for i in range(L)]
+
+
+def k1_chain(x, params, dilations, skip_size, acc=None):
+    """The stack as the chain of K1 launches, the skips summed in f32 in block order: ``(out, summed, skips)``."""
+    o, summed, skips = x, acc, []
+    for l, d in enumerate(dilations):
+        o, s = residual_glu(o, *(p[l] for p in params), dilation=d, skip_size=skip_size)
+        skips.append(s)
+        summed = s.float() if summed is None else summed + s
+    return o, summed, skips
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "C,B,T_in,L,skip,accumulate",
+    [
+        (96, 2, 1300, 10, 200, False),  # a flagship stack, ragged tiles at both ends of every layer
+        (96, 2, 1024, 10, 1, True),  # a generation window: one output row, one skip row, added into a sum
+        (96, 3, 700, 3, 5, True),  # a short stack of three blocks
+    ],
+)
+def test_wavenet_stack_kernel_matches_the_k1_chain_and_its_twin(cuda_device, dtype, C, B, T_in, L, skip, accumulate):
+    """P2/P3 against the chain of K1 launches within K1's limits (f32 the FMA order; bf16 the same roundings,
+    the same products), and no further from the twin (which rounds after every op) than twice the chain is,
+    with K1's tolerance as the floor; the taps are the chain's skips."""
+    x, params, dilations = stack_inputs(B, T_in, C, L, dtype, cuda_device)
+    acc = torch.randn(B, skip, C, device=cuda_device) if accumulate else None
+    cuda.reset_launch_counts()
+    with torch.no_grad():
+        out, summed, taps = stack_ops.wavenet_stack(x, params, dilations, skip, (0, L - 1),
+                                                    acc.clone() if accumulate else None)
+        torch.cuda.synchronize()
+        assert cuda.launch_counts()["wavenet_stack"] == 1
+        ref_out, ref_sum, ref_skips = k1_chain(x, params, dilations, skip, acc)
+        twin_out, twin_sum, _ = stack_ops.wavenet_stack_plain(x, params, dilations, skip, (), acc)
+    assert out.shape == ref_out.shape and summed.shape == ref_sum.shape and summed.dtype == torch.float32
+    torch.testing.assert_close(out, ref_out, **K1_TOL[dtype])
+    torch.testing.assert_close(summed, ref_sum, **K1_TOL[dtype])
+    for got, ref in zip(taps, (ref_skips[0], ref_skips[-1])):
+        torch.testing.assert_close(got, ref, **K1_TOL[dtype])
+    for got, ref, twin in ((out, ref_out, twin_out), (summed, ref_sum, twin_sum)):
+        chain_err = (ref.float() - twin.float()).abs().max().item()
+        assert (got.float() - twin.float()).abs().max().item() <= max(2 * chain_err, K1_TOL[dtype]["atol"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wavenet_stack_save_mode_is_a_plain_launch(cuda_device, dtype):
+    """The save mode writes every block's input (the chain's block outputs) and the same bits as a plain launch."""
+    x, params, dilations = stack_inputs(2, 1300, 96, 10, dtype, cuda_device, seed=1)
+    with torch.no_grad():
+        plain = stack_ops._launch(x, params, dilations, 100, (0, 5), None, save=False)
+        saved = stack_ops._launch(x, params, dilations, 100, (0, 5), None, save=True)
+        o = x
+        for l, d in enumerate(dilations[:-1]):
+            o, _ = residual_glu(o, *(p[l] for p in params), dilation=d, skip_size=100)
+            torch.testing.assert_close(saved[2][l + 1], o, **K1_TOL[dtype])
+    assert plain[2] is None and len(saved[2]) == 10 and saved[2][0] is x
+    for a, b in ((plain[0], saved[0]), (plain[1], saved[1]), *zip(plain[3], saved[3])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wavenet_stack_gradients_match_the_k1_chain(cuda_device, dtype):
+    """Through WaveNetStackFunction (the kernel in save mode, ten K1-bwd launches in reverse) against autograd of
+    the K1 chain: two chained stacks with taps and an output gradient on every output, the second adding into the
+    first's sum. The weight and bias gradients by their relative norm, as K1-bwd's are held (f32 1e-5, bf16 2e-2)."""
+    x, p1, dilations = stack_inputs(2, 2200, 96, 10, dtype, cuda_device, seed=2)
+    _, p2, _ = stack_inputs(2, 2200, 96, 10, dtype, cuda_device, seed=3)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    skip, T_out = 50, 2200 - 2 * 1023
+    g_out = torch.randn(2, T_out, 96, generator=g, device=cuda_device).to(dtype)
+    g_sum = torch.randn(2, skip, 96, generator=g, device=cuda_device)
+    g_taps = [torch.randn(2, skip, 96, generator=g, device=cuda_device).to(dtype) for _ in range(2)]
+
+    def leaves():
+        return [t.detach().clone().requires_grad_(True) for t in (x, *p1, *p2)]
+
+    fused = leaves()
+    cuda.reset_launch_counts()
+    o, summed, (t_a,) = stack_ops.wavenet_stack(fused[0], fused[1:7], dilations, skip, (0,))
+    o, summed, (t_b,) = stack_ops.wavenet_stack(o, fused[7:], dilations, skip, (5,), summed)
+    torch.autograd.backward([o, summed, t_a, t_b], [g_out, g_sum, *g_taps])
+    counts = cuda.launch_counts()
+    assert counts["wavenet_stack"] == 2 and counts["residual_glu_bwd"] == 20 and counts["residual_glu"] == 0
+    chain = leaves()
+    o, s1, skips1 = k1_chain(chain[0], chain[1:7], dilations, skip)
+    o, summed, skips2 = k1_chain(o, chain[7:], dilations, skip, s1)
+    torch.autograd.backward([o, summed, skips1[0], skips2[5]], [g_out, g_sum, *g_taps])
+    torch.testing.assert_close(fused[0].grad, chain[0].grad, **K1_TOL[dtype])
+    for a, b in zip(fused[1:], chain[1:]):
+        rel = ((a.grad.double() - b.grad.double()).norm() / b.grad.double().norm()).item()
+        assert rel <= (1e-5 if dtype == torch.float32 else 2e-2), rel
+
+
+@pytest.mark.cuda
+def test_wavenet_stack_kernel_refuses_what_it_does_not_take(cuda_device):
+    """Widths other than C = half = R = S = 96, other dtypes, more than 16 blocks, too few rows for the skip:
+    it raises (no plain fallback on the card)."""
+    x, params, dilations = stack_inputs(1, 300, 96, 3, torch.float32, cuda_device)
+    with pytest.raises(NotImplementedError):
+        stack_ops.wavenet_stack(*stack_inputs(1, 300, 64, 3, torch.float32, cuda_device), 10)
+    with pytest.raises(TypeError):
+        stack_ops.wavenet_stack(x.double(), [p.double() for p in params], dilations, 10)
+    with pytest.raises(ValueError):
+        stack_ops.wavenet_stack(x, params, dilations, 300 - 7 + 1)
+    with pytest.raises(ValueError):
+        stack_ops.wavenet_stack(*stack_inputs(1, 300, 96, 17, torch.float32, cuda_device)[:2], [1] * 17, 10)
+    with pytest.raises(ValueError):
+        stack_ops.wavenet_stack(x, params, dilations, 10, acc=torch.zeros(1, 10, 96, device=cuda_device).bfloat16())
 
 
 def stcn_case(device, n, history=True, **kwargs):
@@ -409,17 +537,40 @@ def test_dmol_sampler_kernel_own_stream_by_distribution(cuda_device):
 @pytest.mark.cuda
 def test_training_through_the_kernels_has_gradients(cuda_device):
     """On CUDA tensors the loss carries a gradient through K1-bwd and K2-bwd (the
-    forward kernels alone left it without one)."""
-    model = WaveNet(n_layers=3, n_stacks=2, res_channels=32, num_mix=3, num_bins=256, bf16=True, device=cuda_device)
+    forward kernels alone left it without one): the fused stacks forward (P2, one
+    launch a stack), K1-bwd a block backward."""
+    model = WaveNet(n_layers=3, n_stacks=2, res_channels=96, num_mix=3, num_bins=256, bf16=True, device=cuda_device)
     weights.load_jax_params(model, weights.random_jax_params(model, 0))
     x = torch.rand(2, 300, device=cuda_device) * 2 - 1
     cuda.reset_launch_counts()
     loss, _, _ = model(x, torch.tensor([300, 211], device=cuda_device))
     loss.backward()
     counts = cuda.launch_counts()
-    assert counts["residual_glu"] == counts["residual_glu_bwd"] == 6
+    assert counts["wavenet_stack"] == 2 and counts["residual_glu_bwd"] == 6 and counts["residual_glu"] == 0
     assert counts["dmol_log_prob"] == counts["dmol_log_prob_bwd"] == counts["dmol_sample"] == 1
     assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+def test_wavenet_at_a_width_the_stack_kernel_does_not_take_trains_and_generates(cuda_device, bf16):
+    """The driver's default --res_channels 64 is no width of the fused stack: the model keeps one K1 launch a block
+    in the forward and the windowed generation, K1-bwd in the backward, and never calls the stack kernel."""
+    model = WaveNet(n_layers=3, n_stacks=2, res_channels=64, num_mix=3, num_bins=256, bf16=bf16, device=cuda_device)
+    weights.load_jax_params(model, weights.random_jax_params(model, 1))
+    assert not model.res_stack.fused
+    x = torch.rand(2, 300, device=cuda_device) * 2 - 1
+    cuda.reset_launch_counts()
+    loss, _, _ = model(x, torch.tensor([300, 211], device=cuda_device))
+    loss.backward()
+    counts = cuda.launch_counts()
+    assert counts["residual_glu"] == counts["residual_glu_bwd"] == 6 and counts["wavenet_stack"] == 0
+    assert torch.isfinite(loss) and all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
+    cuda.reset_launch_counts()
+    frames = model.generate(2, 4, fast=False, generator=torch.Generator(device=cuda_device).manual_seed(2))
+    counts = cuda.launch_counts()
+    assert frames.shape == (2, 4) and torch.isfinite(frames).all() and frames.abs().max() <= 1
+    assert counts["residual_glu"] == 6 * 4 and counts["wavenet_stack"] == 0
 
 
 @pytest.mark.cuda
@@ -484,8 +635,8 @@ def test_wavenet_decode_kernel_refuses_what_it_does_not_take(cuda_device):
 
 @pytest.mark.cuda
 def test_generate_on_the_card_launches_k4_and_matches_the_windowed_path(cuda_device):
-    """One Philox key a generation, stepped by the frame: K4 and the windowed path (K1
-    x 20 and K3 a frame) draw the same numbers for the same frame (f32, 1e-5)."""
+    """One Philox key a generation, stepped by the frame: K4 and the windowed path (the
+    stacks, P3, and K3 a frame) draw the same numbers for the same frame (f32, 1e-5)."""
     model, *_ = decode_case(cuda_device, 32, False, 1)
     cuda.reset_launch_counts()
     fast = model.generate(2, 12, generator=torch.Generator(device=cuda_device).manual_seed(4))
