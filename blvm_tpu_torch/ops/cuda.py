@@ -67,10 +67,10 @@ _SIGNATURES = {
     "blvm_bilstm_recurrence": [_P] * 8 + [_I] * 3 + [_P],
     # w_hh, mask, gates, c_prev, d_out, d_gates; B, T, H; stream
     "blvm_bilstm_recurrence_bwd": [_P] * 6 + [_I] * 3 + [_P],
-    # lp, y, z_sl, y_sl, nll, phi_out, emit_out; B, T, N, K, blank; log_eps; stream
-    "blvm_ctc_loss": [_P] * 7 + [_I] * 5 + [_F, _P],
-    # lp, y, z_sl, y_sl, phi_in, emit_in, g, d_lp; B, T, N, K, blank; log_eps; stream
-    "blvm_ctc_loss_bwd": [_P] * 8 + [_I] * 5 + [_F, _P],
+    # lp, y, z_sl, y_sl, nll, alpha, beta, trace; B, T, N, K, blank; log_eps; stream
+    "blvm_ctc_loss": [_P] * 8 + [_I] * 5 + [_F, _P],
+    # y, z_sl, y_sl, alpha, beta, g, d_lp; B, T, N, K, blank; stream
+    "blvm_ctc_loss_bwd": [_P] * 7 + [_I] * 5 + [_P],
     # weights[28], h0, xpost, xg, eps, outputs[7], act, barrier, trace; B, T, R, H, Z, inference, residual,
     # use_mode, save; sd_beta, sd_eps; stream
     "blvm_vrnn_cell": [_P] * 9 + [_I] * 9 + [_F] * 2 + [_P],

@@ -224,7 +224,8 @@ PyTorch twins:
  67. K6-bwd (through BiLSTMRecurrenceFunction) and autograd of the f32 twin held to autograd of the f64 twin: the
      train batch's layer 0, its layer 1 with an all-padding row (its gradient exactly 0), the long batch's layer 1;
      K6-bwd alone against its f64 twin; K13 ctc_loss and K13-bwd against their twin (optax's recursion) on the train
-     batch's logits, with an infeasible row (optax's finite score) and an empty one (-0.0)
+     batch's logits, with an infeasible row (optax's finite score) and an empty one (-0.0), and at N = 300 label
+     columns (several warps a row) with both
  68. the probe's train slice: flags of phoneme.txt:8 -> driver -> model -> weights bridge -> asr_ctc.train, 3 Adam
      steps with dropout from the train state's generator; 3 K6, 3 K6-bwd, 1 K13, 1 K13-bwd a step, none on the plain
      path; losses against the twins within 1e-5; no host wait inside the driver's step spans, one step under torch's
@@ -232,8 +233,11 @@ PyTorch twins:
  69. the test pass over the eval batch through asr_ctc.evaluate: 3 K6 and 1 K13 a forward; loss, WER and CER against
      the twins', each utterance decoded otherwise traced to a near-tie of the twin's top two logits
  70. timing: K6 and K6-bwd against their twins and torch.nn.LSTM(bidirectional) on packed sequences (cuDNN, the
-     yardstick) at the train and the eval batch; K13 and K13-bwd against their twin and F.ctc_loss; the train step
-     (ms, seconds of audio a second, the host's enqueue and build_metrics, a torch.profiler split) and the test pass
+     yardstick) at the train and the eval batch; K13 (plain and in save mode), K13-bwd and save mode + K13-bwd
+     against F.ctc_loss's forward, backward and both, each in turns, and each kernel alone (20 launches of its C
+     entry point); [K13-trace], SM cycles a frame of K13 by stage, plain and in save mode; the train
+     step (ms, seconds of audio a second, the host's enqueue and build_metrics, a torch.profiler split) and the test
+     pass
 
  P2 and P3, the fused 10-block stack (csrc/wavenet_stack.cu), run after phase 13:
  71. the kernel against the chain of 10 K1 launches (within K1's limits) and its twin (no further than twice the
@@ -5262,20 +5266,28 @@ def bilstm_work(B, T, H, covered, backward=False):
                 flops=2 * 2 * 2 * covered * H * G)
 
 
-def ctc_work(B, T, K, N, covered, save=False, backward=False):
-    """``roofline`` keywords of one K13 launch: the log-probabilities of the ``covered`` frames (the rows' lengths),
-    the int64 labels and lengths read once, the f32 losses written once, and in ``save`` mode the double states
-    before every covered frame and after the last, (covered + B) x (2N + 1), written once; per covered frame three
-    double logaddexps a label, 5 operations each (a transcendental counted as one). ``backward``: K13-bwd reads the
-    log-probabilities, labels, lengths, saved states and the losses' gradient, writes d lp (B, T, K) whole, and per
-    covered frame and label redoes the three logaddexps and takes six exp-products (3 operations each). The doubles
-    are priced at ``F64_PEAK``; the bytes bound both."""
-    ints = 8 * (B * N + 2 * B)
-    states = 8 * (covered + B) * (2 * N + 1)
-    if not backward:
-        return dict(bytes_=4 * covered * K + ints + 4 * B + (states if save else 0), flops=covered * N * 3 * 5)
-    return dict(bytes_=4 * covered * K + ints + states + 4 * B + 4 * B * T * K,
-                flops=covered * N * (3 * 5 + 6 * 3))
+def ctc_work(T, K, N, frames, labels, save=False, backward=False):
+    """``roofline`` keywords of one K13 launch over rows of ``frames`` frames and ``labels`` labels each (their
+    lengths, clamped to T and N). A row of ls labels has 2 ls + 1 live states (phi_0..phi_ls, emit_0..emit_{ls-1});
+    the rest of the N padded columns have no path to the loss, and no work on them is counted. K13: the
+    log-probabilities of the covered frames (a frame's whole row of K, the sectors its blank and labels lie in), the
+    int64 labels and two lengths a row read once, the f32 losses written once, and per covered frame and live
+    position (ls + 1 a row) alpha's two logsumexps of three (10 operations each, an exp or a log counted as one).
+    ``save``: alpha and beta, the live double states before every covered frame and after the last, written once,
+    and beta's logsumexps of two and four (16 operations). ``backward``: K13-bwd runs no recursion: it reads alpha
+    and beta at the live states after each covered frame, the labels, lengths and the losses' gradient, writes d lp
+    (B, T, K) whole, and per covered frame and live state takes an exp and two sums (4 operations). The doubles are
+    priced at ``F64_PEAK``; the bytes bound all three."""
+    rows = [(min(max(int(z), 0), T), min(max(int(ls), 0), N)) for z, ls in zip(frames, labels)]
+    B = len(rows)
+    ints = 8 * (sum(ls for _, ls in rows) + 2 * B)
+    if backward:
+        live = sum(z * (2 * ls + 1) for z, ls in rows)
+        return dict(bytes_=8 * 2 * live + ints + 4 * B + 4 * B * T * K, flops=4 * live)
+    covered = sum(z for z, _ in rows)
+    flops = sum(z * (ls + 1) for z, ls in rows) * (2 * 10 + (16 if save else 0))
+    saved = 8 * 2 * sum((z + 1) * (2 * ls + 1) for z, ls in rows) if save else 0
+    return dict(bytes_=4 * covered * K + ints + 4 * B + saved, flops=flops)
 
 
 def asr_phases(record, smi, dev):
@@ -5428,20 +5440,29 @@ def asr_phases(record, smi, dev):
 
     # K13 and K13-bwd against the twin (optax's recursion in plain PyTorch) on the train batch's logits, and with
     # two rows made special: one whose labels cannot fit its 3 frames (optax's finite log-epsilon score), one with
-    # no frames and no labels (-0.0); the losses within 1e-5 relative, the logits' gradient held to the f64 twin
+    # no frames and no labels (-0.0); then at N = 300 label columns, K13's wide path (3 warps a row, a named barrier
+    # a frame), with the same two special rows; the losses within 1e-5 relative, the logits' gradient held to the
+    # f64 twin
     b_train = on_card["train"]
     with torch.no_grad():
         logits_t = model(b_train["x"], b_train["x_sl"], b_train["y"], b_train["y_sl"])[2].logits
     z_special, ysl_special = b_train["x_sl"].clone(), b_train["y_sl"].clone()
     z_special[-2], z_special[-1], ysl_special[-1] = 3, 0, 0
-    cases13 = {"train": (b_train["x_sl"], b_train["y_sl"]), "train_special_rows": (z_special, ysl_special)}
+    wide_z = torch.tensor([700, 680, 640, 3, 0], device=dev)
+    wide_ysl = torch.tensor([230, 226, 213, 6, 0], device=dev)
+    wide_y = torch.randint(1, logits_t.shape[2], (5, 300), generator=gen, device=dev)
+    wide_y[torch.arange(300, device=dev)[None] >= wide_ysl[:, None]] = 0
+    wide_logits = 2 * torch.randn(5, 700, logits_t.shape[2], generator=gen, device=dev)
+    cases13 = {"train": (logits_t, b_train["x_sl"], b_train["y"], b_train["y_sl"]),
+               "train_special_rows": (logits_t, z_special, b_train["y"], ysl_special),
+               "wide_n300": (wide_logits, wide_z, wide_y, wide_ysl)}
     k13_err = k13b_err = 0.0
-    for name, (z_, ysl_) in cases13.items():
-        row_w = torch.rand(logits_t.shape[0], generator=gen, device=dev) + 0.5
+    for name, (logits_, z_, y_, ysl_) in cases13.items():
+        row_w = torch.rand(logits_.shape[0], generator=gen, device=dev) + 0.5
 
         def run13(fn, dtype):
-            lg = logits_t.detach().to(dtype).requires_grad_(True)
-            loss_ = fn(lg, z_, b_train["y"], ysl_)
+            lg = logits_.detach().to(dtype).requires_grad_(True)
+            loss_ = fn(lg, z_, y_, ysl_)
             return loss_.detach(), torch.autograd.grad((loss_ * row_w.to(dtype)).sum(), lg)[0]
 
         cuda.reset_launch_counts()
@@ -5460,11 +5481,12 @@ def asr_phases(record, smi, dev):
                f"{got[-2:].tolist()}, gradient err {g_err} vs the f32 twin's {g_twin_err} (largest {g_scale})")
         k13_err = max(k13_err, (got.double() - ref).abs().max().item())
         k13b_err = max(k13b_err, g_err)
-        phase("K13", case=name, logits=tuple(logits_t.shape), labels=tuple(b_train["y"].shape), loss_rel_vs_f64=f"{rel:.3g}",
+        phase("K13", case=name, logits=tuple(logits_.shape), labels=tuple(y_.shape), loss_rel_vs_f64=f"{rel:.3g}",
               twin_f32_rel_vs_f64=f"{((twin.double() - ref).abs() / ref.abs().clamp_min(1.0)).max().item():.3g}",
               grad_max_abs_err_vs_f64=f"{g_err:.3g}", twin_f32_grad_err_vs_f64=f"{g_twin_err:.3g}",
               last_rows=[f"{v:.6g}" for v in got[-2:].tolist()])
         del got, g_got, twin, g_twin, ref, g_ref
+    del wide_logits
     record["ctc_loss"]["max_abs_err"] = k13_err
     record["ctc_loss_bwd"]["max_abs_err"] = k13b_err
 
@@ -5694,15 +5716,17 @@ def asr_phases(record, smi, dev):
     record["bilstm_recurrence_bwd"].update(ms=timing["tb"]["kernel"], plain_ms=timing["tb"]["plain"],
                                            library_ms=timing["tb_lib"]["plain"], **timing["bound_b"])
 
-    # K13 and K13-bwd at the train batch against the twin and F.ctc_loss (the yardstick, given the host's lengths)
-    y_t, z_t, ysl_t = (t.to(torch.int64) for t in (b_train["y"], b_train["x_sl"], b_train["y_sl"]))
+    # K13 and K13-bwd at the train batch against the twin and F.ctc_loss (the yardstick, given the host's lengths),
+    # each in turns with it: the plain launch (the test pass's), save mode (alpha and beta: the train step's forward),
+    # K13-bwd alone, and the train step's pair, save mode + K13-bwd, against F.ctc_loss's forward + backward
+    y_t, z_t, ysl_t = (t.to(torch.int64).contiguous() for t in (b_train["y"], b_train["x_sl"], b_train["y_sl"]))
     z_host, ysl_host = tuple(lengths["train"].tolist()), tuple(int(v) for v in asr_ctc.make_batch(train_batches[0], targs)["y_sl"])
     lps = [torch.log_softmax(logits_t + 0.1 * torch.randn(logits_t.shape, generator=gen, device=dev), -1)
            for _ in range(3)]
 
-    def k13(lp):
+    def k13(lp, save=False):
         with torch.no_grad():
-            ctc._forward(lp, y_t, z_t, ysl_t, 0, save=False)
+            ctc._forward(lp, y_t, z_t, ysl_t, 0, save=save)
 
     def k13_plain(lp):
         with torch.no_grad():
@@ -5714,6 +5738,7 @@ def asr_phases(record, smi, dev):
 
     t13_lib = alternate(k13_library, k13, lps, warmup=1)
     t13 = dict(kernel=t13_lib["kernel"], plain=once(k13_plain, lps[0]))
+    t13s_lib = alternate(k13_library, lambda lp: k13(lp, save=True), lps, warmup=1)
 
     def ctc_graph(fn, lp):
         leaf = lp.detach().requires_grad_(True)
@@ -5724,24 +5749,94 @@ def asr_phases(record, smi, dev):
         outputs, inputs_, grad_outputs = graph
         return torch.autograd.grad(outputs, inputs_, grad_outputs, retain_graph=True)
 
-    graphs13 = [ctc_graph(lambda l_: ctc.CTCLossFunction.apply(l_, y_t, z_t, ysl_t, 0), lp) for lp in lps]
-    lib13 = [(ctc_graph(lambda l_: F.ctc_loss(l_.transpose(0, 1), y_t, z_host, ysl_host, reduction="none"), lp), g_)
-             for lp, g_ in zip(lps, graphs13)]
+    def ours13(l_):
+        return ctc.CTCLossFunction.apply(l_, y_t, z_t, ysl_t, 0)
+
+    def library13(l_):
+        return F.ctc_loss(l_.transpose(0, 1), y_t, z_host, ysl_host, reduction="none")
+
+    graphs13 = [ctc_graph(ours13, lp) for lp in lps]
+    lib13 = [(ctc_graph(library13, lp), g_) for lp, g_ in zip(lps, graphs13)]
     t13b_lib = alternate(lambda g_: backward13(g_[0]), lambda g_: backward13(g_[1]), lib13, warmup=1)
-    t13b = dict(kernel=t13b_lib["kernel"],
-                plain=once(backward13, ctc_graph(lambda l_: ctc.ctc_loss_plain(l_, z_t, y_t, ysl_t), lps[0])))
+    t13b = dict(kernel=t13b_lib["kernel"], plain=once(backward13, ctc_graph(lambda l_: ctc.ctc_loss_plain(l_, z_t, y_t, ysl_t),
+                                                                            lps[0])))
+    t13_pair = alternate(lambda lp: backward13(ctc_graph(library13, lp)), lambda lp: backward13(ctc_graph(ours13, lp)),
+                         lps, warmup=1)
     B13, T13, K13 = logits_t.shape
     N13 = y_t.shape[1]
-    covered13 = int(lengths["train"].sum())
-    b13 = roofline(**ctc_work(B13, T13, K13, N13, covered13), peak=F64_PEAK)  # k13 above: no saved states
-    b13b = roofline(**ctc_work(B13, T13, K13, N13, covered13, backward=True), peak=F64_PEAK)
-    record["ctc_loss"].update(ms=t13["kernel"], plain_ms=t13["plain"], library_ms=t13_lib["plain"], **b13)
-    record["ctc_loss_bwd"].update(ms=t13b["kernel"], plain_ms=t13b["plain"], library_ms=t13b_lib["plain"], **b13b)
-    phase("time-K13", card=card, logits=f"({B13},{T13},{K13})", labels=N13, kernel_ms=f"{t13['kernel']:.4f}",
-          plain_ms=f"{t13['plain']:.4f}", library_ms=f"{t13_lib['plain']:.4f}", bwd_kernel_ms=f"{t13b['kernel']:.4f}",
+    # the kernels alone, the host's time around a call left out (K13-bwd's 25 us launch sits in an autograd call
+    # several times as long): the C entry points on buffers made beforehand, 20 launches between two events, queued
+    # behind a ~25 ms spin of the card so that no launch waits on the host; one input; uncounted, like every launch
+    # made to time a kernel
+    lib = cuda.library()
+    stream = cuda.stream_handle(lps[0])
+    nll_buf, g_buf, d_buf = (torch.empty(B13, device=dev), torch.ones(B13, device=dev), torch.empty_like(lps[0]))
+    alpha_buf, beta_buf = (torch.empty((B13, T13 + 1, 2 * N13 + 1), dtype=torch.float64, device=dev) for _ in range(2))
+
+    def fwd13(save):
+        saved = (alpha_buf.data_ptr(), beta_buf.data_ptr()) if save else (None, None)
+        cuda.check(lib.blvm_ctc_loss(lps[0].data_ptr(), y_t.data_ptr(), z_t.data_ptr(), ysl_t.data_ptr(),
+                                     nll_buf.data_ptr(), *saved, None, B13, T13, N13, K13, 0, ctc.LOG_EPSILON,
+                                     stream), "ctc_loss")
+
+    def bwd13():
+        cuda.check(lib.blvm_ctc_loss_bwd(y_t.data_ptr(), z_t.data_ptr(), ysl_t.data_ptr(), alpha_buf.data_ptr(),
+                                         beta_buf.data_ptr(), g_buf.data_ptr(), d_buf.data_ptr(), B13, T13, N13, K13,
+                                         0, stream), "ctc_loss_bwd")
+
+    def alone_ms(launch, reps=20):
+        launch()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        start.record()
+        for _ in range(reps):
+            launch()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    alone13 = dict(kernel=alone_ms(lambda: fwd13(False)), save=alone_ms(lambda: fwd13(True)), bwd=alone_ms(bwd13),
+                   pair=alone_ms(lambda: (fwd13(True), bwd13())))
+    rows13 = dict(frames=z_host, labels=ysl_host)  # the bounds count each row's own lengths
+    b13 = roofline(**ctc_work(T13, K13, N13, **rows13), peak=F64_PEAK)
+    b13s = roofline(**ctc_work(T13, K13, N13, **rows13, save=True), peak=F64_PEAK)
+    b13b = roofline(**ctc_work(T13, K13, N13, **rows13, backward=True), peak=F64_PEAK)
+    record["ctc_loss"].update(ms=alone13["kernel"], plain_ms=t13["plain"], library_ms=t13_lib["plain"], **b13)
+    record["ctc_loss_bwd"].update(ms=alone13["bwd"], plain_ms=t13b["plain"], library_ms=t13b_lib["plain"], **b13b)
+    # against one call of the library, by events (F.ctc_loss waits on the host inside the call: that is its cost)
+    beats = {k: bool(alone13[k] < t_["plain"]) for k, t_ in (("kernel", t13_lib), ("save", t13s_lib),
+                                                             ("bwd", t13b_lib), ("pair", t13_pair))}
+    phase("time-K13", card=card, logits=f"({B13},{T13},{K13})", labels=N13, live_labels=sum(ysl_host),
+          kernel_ms=f"{t13['kernel']:.4f}", plain_ms=f"{t13['plain']:.4f}", library_ms=f"{t13_lib['plain']:.4f}", bound_ms=f"{b13['bound_ms']:.4f}",
+          save_ms=f"{t13s_lib['kernel']:.4f}", save_library_ms=f"{t13s_lib['plain']:.4f}",
+          save_bound_ms=f"{b13s['bound_ms']:.4f}", bwd_kernel_ms=f"{t13b['kernel']:.4f}",
           bwd_plain_ms=f"{t13b['plain']:.4f}", bwd_library_ms=f"{t13b_lib['plain']:.4f}",
-          bound_ms=f"{b13['bound_ms']:.4f}", bwd_bound_ms=f"{b13b['bound_ms']:.4f}", bound_by=b13["bound_by"],
+          bwd_bound_ms=f"{b13b['bound_ms']:.4f}", pair_ms=f"{t13_pair['kernel']:.4f}",
+          pair_library_ms=f"{t13_pair['plain']:.4f}", pair_bound_ms=f"{b13s['bound_ms'] + b13b['bound_ms']:.4f}",
+          bound_by=b13["bound_by"], timed="CUDA events around each call, in turns with F.ctc_loss's",
           library="F.ctc_loss with the host's lengths (its CUDA path synchronizes the stream)")
+    phase("time-K13-alone", card=card, **{f"{k}_ms": f"{v:.4f}" for k, v in alone13.items()},
+          us_per_frame=f"{alone13['kernel'] * 1e3 / T13:.3f}", beats_library=beats,
+          timed="CUDA events around 20 launches of the C entry point, queued behind a spin")
+
+    # where a frame's time goes: SM cycles by stage of the first row's chain (csrc/ctc.cu, Stage), over the three
+    # inputs, for K13 plain and in save mode, whose traced losses must agree with an untraced launch's
+    frames0 = int(z_t[0]) * len(lps)
+    for design, save in (("warp", False), ("warp_save", True)):
+        trace = torch.zeros(ctc.TRACE_SIZE, dtype=torch.int64, device=dev)
+        with torch.no_grad():
+            losses = [ctc._forward(lp, y_t, z_t, ysl_t, 0, save=save, trace=trace)[0] for lp in lps]
+            ref_losses = [ctc._forward(lp, y_t, z_t, ysl_t, 0, save=False)[0] for lp in lps]
+        torch.cuda.synchronize()
+        agree = max(((a - r).abs() / r.abs().clamp_min(1.0)).max().item() for a, r in zip(losses, ref_losses))
+        expect(agree <= 1e-5, f"K13-trace {design}: losses {agree} from K13's")
+        cycles = trace.cpu().double() / frames0
+        ns = ctc.read_trace(trace) / frames0
+        phase("K13-trace", card=card, design=design, frames=frames0, cycles_per_frame=f"{cycles[-2].item():.1f}",
+              ns_per_frame=f"{cycles[-1].item():.1f}", losses_rel_vs_k13=f"{agree:.3g}",
+              **{f"{st}_cycles": f"{c:.1f}" for st, c in zip(ctc.TRACE_STAGES, cycles[:len(ctc.TRACE_STAGES)].tolist())},
+              **{f"{st}_ns": f"{v:.1f}" for st, v in zip(ctc.TRACE_STAGES, ns.tolist())})
     del graphs13, lib13, lps, logits_t
     del calls
     torch.cuda.empty_cache()

@@ -65,12 +65,15 @@ def main():
     frames = 120 * 16000 // 64
     bounds["K6 a layer"] = dict(**bilstm_work(1, frames, 256, frames), peak=F32_PEAK)
     bounds["K6-bwd a layer"] = dict(**bilstm_work(1, frames, 256, frames, backward=True), peak=F32_PEAK)
-    # K13 and K13-bwd: the probe's CTC loss over the same batch as chip_smoke.py fills it (38 utterances of ~3.15 s,
-    # 832 padded frames, 65 classes, 48 padded label columns: ~12 phones a second); K13 as the test pass runs it
-    # (no saved states) and in save mode, as the train step runs it
-    bounds["K13"] = dict(**ctc_work(38, 832, 65, 48, frames), peak=F64_PEAK)
-    bounds["K13 in save mode"] = dict(**ctc_work(38, 832, 65, 48, frames, save=True), peak=F64_PEAK)
-    bounds["K13-bwd"] = dict(**ctc_work(38, 832, 65, 48, frames, backward=True), peak=F64_PEAK)
+    # K13 and K13-bwd: the probe's CTC loss over the same batch as chip_smoke.py fills it (38 utterances of ~3.15 s
+    # sharing the 30000 frames, 832 padded frames, 65 classes, 48 padded label columns; ~12 phones a second, 38 a
+    # row); K13 as the test pass runs it (no saved states) and in save mode, as the train step runs it (alpha and
+    # beta written); K13-bwd reads them and redoes no recursion. chip_smoke.ctc_work counts each row's live states,
+    # 2 x 38 + 1 of the 97 columns
+    ctc_rows = dict(frames=[frames // 38 + (i < frames % 38) for i in range(38)], labels=[round(12 * 3.15)] * 38)
+    bounds["K13"] = dict(**ctc_work(832, 65, 48, **ctc_rows), peak=F64_PEAK)
+    bounds["K13 in save mode"] = dict(**ctc_work(832, 65, 48, **ctc_rows, save=True), peak=F64_PEAK)
+    bounds["K13-bwd"] = dict(**ctc_work(832, 65, 48, **ctc_rows, backward=True), peak=F64_PEAK)
     # The SRNN train step (benchmarks.txt:22, s=64, hidden 256 -> r_dim 512, H = Z = 256): the --batch_len
     # 64 budget as chip_smoke.py packs it, 19 utterances of up to 1000 stacks, 19000 row-steps.
     rows, R, H, Z = 19 * 1000, 512, 256, 256

@@ -153,10 +153,13 @@ def _ctc_case(seed=6):
     return logits, z_sl, y, y_sl
 
 
-def test_ctc_loss_equals_optax_on_every_kind_of_row():
-    """K13's twin (the CPU path of ``ctc_loss``) against ``optax.ctc_loss``: the same values on every row,
-    the infeasible row's finite log-epsilon score included (PyTorch's ``F.ctc_loss`` gives ``inf`` there),
-    and in f64 the same gradient."""
+CTC_ROWS = ("feasible", "repeats", "all_padding", "infeasible", "repeat_that_fits")  # _ctc_case's rows
+
+
+@pytest.fixture(scope="module")
+def optax_ctc():
+    """``optax.ctc_loss`` on :func:`_ctc_case`: the per-example losses in f64 and f32 and, in f64, the gradient
+    of their sum with respect to the logits; each compiled once."""
     logits, z_sl, y, y_sl = _ctc_case()
 
     def optax_loss(lg):
@@ -172,8 +175,15 @@ def test_ctc_loss_equals_optax_on_every_kind_of_row():
         lg64 = jnp.asarray(logits)
         ref64, ref_grad = (np.asarray(a) for a in _compiled(value_and_grad, lg64)(lg64))
     lg32 = jnp.asarray(logits, jnp.float32)
-    ref32 = np.asarray(_compiled(optax_loss, lg32)(lg32))
-    for dtype, ref in ((torch.float64, ref64), (torch.float32, ref32)):
+    return dict(ref64=ref64, ref_grad=ref_grad, ref32=np.asarray(_compiled(optax_loss, lg32)(lg32)))
+
+
+def test_ctc_loss_equals_optax_on_every_kind_of_row(optax_ctc):
+    """K13's twin (the CPU path of ``ctc_loss``) against ``optax.ctc_loss``: the same values on every row,
+    the infeasible row's finite log-epsilon score included (PyTorch's ``F.ctc_loss`` gives ``inf`` there),
+    and in f64 the same gradient."""
+    logits, z_sl, y, y_sl = _ctc_case()
+    for dtype, ref in ((torch.float64, optax_ctc["ref64"]), (torch.float32, optax_ctc["ref32"])):
         lg = torch.from_numpy(logits).to(dtype).requires_grad_(True)
         args = (torch.from_numpy(z_sl), torch.from_numpy(y), torch.from_numpy(y_sl))
         got = ctc.ctc_loss(lg, *args)
@@ -185,7 +195,55 @@ def test_ctc_loss_equals_optax_on_every_kind_of_row():
         assert torch.isinf(library[3]) and torch.allclose(library[[0, 1, 4]], got.detach()[[0, 1, 4]], rtol=1e-5)
         if dtype == torch.float64:
             (grad,) = torch.autograd.grad(got.sum(), lg)
-            np.testing.assert_allclose(grad.numpy(), ref_grad, rtol=1e-6, atol=1e-9)
+            np.testing.assert_allclose(grad.numpy(), optax_ctc["ref_grad"], rtol=1e-6, atol=1e-9)
+
+
+@pytest.fixture(scope="module")
+def ctc_alpha_beta():
+    """K13-bwd's twin on :func:`_ctc_case` in f64: the states, the losses of ``ctc_loss_plain``, and the
+    gradient of the logits through ``ctc_loss_grad_plain`` with row weights 1 and 0.5-1.5, the latter beside
+    autograd of ``ctc_loss_plain``."""
+    logits, z_sl, y, y_sl = (torch.from_numpy(a) for a in _ctc_case())
+    lg = logits.requires_grad_(True)
+    lp = torch.log_softmax(lg, -1)
+    alpha, beta = ctc.ctc_alpha_beta_plain(lp.detach(), z_sl, y, y_sl)
+    loss = ctc.ctc_loss_plain(lg, z_sl, y, y_sl)
+    w = torch.linspace(0.5, 1.5, len(CTC_ROWS), dtype=torch.float64)
+    out = dict(alpha=alpha, beta=beta, loss=loss.detach(), autograd=torch.autograd.grad((loss * w).sum(), lg)[0])
+    for key, g in (("ones", torch.ones_like(w)), ("weighted", w)):
+        d_lp = ctc.ctc_loss_grad_plain(alpha, beta, y, z_sl, g, logits.shape[2])
+        out[key] = torch.autograd.grad(lp, lg, d_lp, retain_graph=True)[0]
+    return out
+
+
+@pytest.mark.parametrize("row", range(len(CTC_ROWS)), ids=CTC_ROWS)
+def test_ctc_alpha_beta_gradient_equals_optax_on_every_kind_of_row(optax_ctc, ctc_alpha_beta, row):
+    """The alpha-beta form that K13-bwd computes, in plain PyTorch: a frame's gradient is the posterior of the
+    states after it. On each kind of row it equals ``jax.grad`` of ``optax.ctc_loss`` in f64 (rtol 1e-6, atol
+    1e-9, as the twin's own gradient) and autograd of ``ctc_loss_plain``; the log-likelihood it normalizes by,
+    logsumexp(alpha + beta) at any frame, is the loss's."""
+    ab = ctc_alpha_beta
+    np.testing.assert_allclose(ab["ones"][row].numpy(), optax_ctc["ref_grad"][row], rtol=1e-6, atol=1e-9)
+    np.testing.assert_allclose(ab["weighted"][row].numpy(), ab["autograd"][row].numpy(), rtol=1e-9, atol=1e-11)
+    frames = int(_ctc_case()[1][row])
+    log_likelihood = torch.logsumexp(ab["alpha"][row, :frames + 1] + ab["beta"][row, :frames + 1], -1)
+    np.testing.assert_allclose(log_likelihood.numpy(), -ab["loss"][row].item(), rtol=1e-12, atol=1e-9)
+    assert not ab["ones"][row, frames:].any()
+
+
+@pytest.mark.parametrize("row", range(len(CTC_ROWS)), ids=CTC_ROWS)
+def test_ctc_states_past_the_labels_have_no_path_to_the_loss(ctc_alpha_beta, row):
+    """Of a row's 2N + 1 states only the 2 y_sl + 1 live ones (phi up to y_sl, emit below it) reach the loss:
+    beta is ``-inf`` on the rest at every frame the row covers, so they carry no posterior. K13's save mode
+    writes the live states alone and K13-bwd reads them alone."""
+    _, z_sl, y, y_sl = _ctc_case()
+    N, ls, frames = y.shape[1], int(y_sl[row]), int(z_sl[row])
+    beta = ctc_alpha_beta["beta"][row, :frames + 1]
+    dead = torch.ones(2 * N + 1, dtype=torch.bool)
+    dead[:ls + 1] = False
+    dead[N + 1:N + 1 + ls] = False
+    assert torch.isneginf(beta[:, dead]).all()
+    assert (beta[-1, ~dead] == 0).sum() == min(ls, 1) + 1  # the states the loss reads
 
 
 def _asr_model(dtype=torch.float32):

@@ -1798,18 +1798,24 @@ def _ctc_inputs(B, T, K, N, device, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T,K,N", [(38, 220, 65, 48), (5, 40, 7, 16), (3, 9, 65, 1)])
+@pytest.mark.parametrize("B,T,K,N", [(38, 220, 65, 48), (5, 40, 7, 16), (3, 9, 65, 1), (5, 700, 65, 300),
+                                     (4, 200, 9, 1023), (3, 1100, 65, 48)])
 def test_ctc_loss_kernel_matches_twin(cuda_device, B, T, K, N):
     """K13 against its twin (optax's recursion in plain PyTorch): the per-example losses within 1e-5
     relative, the infeasible row's finite score and the empty row's -0.0 included; the gradient of the
     logits through K13-bwd and autograd of the f32 twin both held to autograd of the f64 twin (twice the
-    f32 twin's largest error plus 1e-6 of the largest value); rows past their frames get no gradient."""
+    f32 twin's largest error plus 1e-6 of the largest value); rows past their frames get no gradient. K13-bwd's
+    gradient of the log-probabilities is held the same way to the f64 alpha-beta twin (``ctc_alpha_beta_plain``,
+    ``ctc_loss_grad_plain``), with the f32 alpha-beta twin as the yardstick; save mode's losses bitwise equal
+    the plain launch's. N + 1 > 128 takes several warps a row (N = 1023, the most, eight); T = 1100 many
+    frames."""
     logits, z_sl, y, y_sl = _ctc_inputs(B, T, K, N, cuda_device)
+    weights = torch.linspace(0.5, 1.5, B, device=cuda_device)
 
     def run(fn, dtype):
         lg = logits.detach().to(dtype).requires_grad_(True)
         loss = fn(lg, z_sl, y, y_sl)
-        (grad,) = torch.autograd.grad((loss * torch.linspace(0.5, 1.5, B, device=cuda_device, dtype=dtype)).sum(), lg)
+        (grad,) = torch.autograd.grad((loss * weights.to(dtype)).sum(), lg)
         return loss.detach(), grad
 
     cuda.reset_launch_counts()
@@ -1828,6 +1834,14 @@ def test_ctc_loss_kernel_matches_twin(cuda_device, B, T, K, N):
     assert not g_got[~frames].any()
     with torch.no_grad():
         assert torch.equal(ctc.ctc_loss(logits, z_sl, y, y_sl), got)
+        lp = torch.log_softmax(logits, -1)
+
+    leaf = lp.detach().requires_grad_(True)
+    (d_lp,) = torch.autograd.grad((ctc.CTCLossFunction.apply(leaf, y, z_sl, y_sl, 0) * weights).sum(), leaf)
+    d_ref, d_f32 = (ctc.ctc_loss_grad_plain(*ctc.ctc_alpha_beta_plain(lp.to(dt), z_sl, y, y_sl), y, z_sl, weights, K)
+                    for dt in (torch.float64, torch.float32))
+    d_scale = d_ref.abs().max()
+    assert (d_lp.double() - d_ref).abs().max() <= 2 * (d_f32.double() - d_ref).abs().max() + 1e-6 * d_scale
 
 
 @pytest.mark.cuda
@@ -1839,5 +1853,7 @@ def test_ctc_loss_kernel_refuses_what_it_does_not_take(cuda_device):
         ctc.ctc_loss(logits, z_sl.cpu(), y, y_sl)
     with pytest.raises(ValueError, match="1 to 1023 label columns"):
         ctc.ctc_loss(logits, z_sl, torch.ones(4, 1024, dtype=torch.int64, device=cuda_device), y_sl)
+    with pytest.raises(ValueError, match="at most 4096 classes"):
+        ctc.ctc_loss(torch.zeros(4, 10, 4097, device=cuda_device), z_sl, y, y_sl)
     with pytest.raises(ValueError, match="logits"):
         ctc.ctc_loss(logits[0], z_sl, y, y_sl)
