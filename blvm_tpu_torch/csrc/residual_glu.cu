@@ -387,7 +387,7 @@ int launch(const void* x, const void* w_t, const void* w_s, const void* b_t, con
 //
 // The same block on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate), for bf16 at the widths it is
 // instantiated for (C = half = R = S = 96, the flagship; 32, for tests). The tile's products, the gate and the weight
-// layout are residual_glu_mma.cuh's, which the fused stack (wavenet_stack.cu) shares. Weights are staged once per
+// layout are residual_glu_mma.cuh's (the fused stack takes the same products on wgmma). Weights are staged once per
 // thread block; blocks are persistent (one per SM) and walk over (batch row, 128-row time tile) pairs, the next
 // tile's x rows streaming into a second buffer (cp.async) while the current one computes. Each of the 8 warps owns
 // 16 rows of a tile.

@@ -14,8 +14,17 @@
 // passes, race-free and without atomics: pass A recomputes the gate per output row and writes
 // d_pre = [d_pre_t | d_pre_s] (B, L, 2 half) and act (B, L, half); pass B gathers dx per input
 // row. The weight and bias gradients are sums over all B * L rows (x[t]^T d_pre, x[t+d]^T d_pre,
-// act^T d_rs and column sums): large plain products that the JAX backward left to XLA, so the
-// Python wrapper takes them with torch.matmul / sum on these outputs (f32 accumulation).
+// act^T d_rs and column sums), large products that the JAX backward left to XLA.
+//
+// Routes. bf16 at C = half = R = S = 96 with the skip (WaveNet's run specs): the warpgroup route
+// (namespace wg, below), four kernels a block on the wgmma tile of wgmma_bf16.cuh that take the
+// weight and bias gradients too and write them into the caller's slots; it is described where it
+// starts. Every other width and dtype: the two passes here, and the Python wrapper takes the weight
+// gradients with torch.matmul on their outputs (f32 accumulation). f32 and bf16 at half <= 128 and
+// R + S <= 256 run on CUDA-core FMAs with the weights streamed through shared memory in chunks, as
+// the forward's FMA path; bf16 at C = half = R = S = 32 on mma.sync m16n8k16 (mma_bf16.cuh):
+// persistent blocks, the block's weights staged once in shared memory, each warp 16 rows; f32 at
+// STCN's width (C = half = R = 256) the register-tiled path (namespace tiled).
 //
 // What bounds it on an H100: at the flagship width (C = half = R = S = 96) the two passes do
 // 2 * (4 C half + half (R+S)) + 2 * 4 half C = 184 kFLOP per row and must read x, dO and dS and
@@ -24,12 +33,6 @@
 // passes and the weight-gradient products.
 //
 // Dtypes: f32 accumulation inside, rounded once at the store to x's dtype, as the forward.
-// bf16 at the widths instantiated below runs both passes on the tensor cores (mma.sync
-// m16n8k16, mma_bf16.cuh): persistent blocks, one per SM, the block's weights staged once in
-// shared memory, each warp 16 rows, its A fragments read straight from device memory. f32 at
-// STCN's width (C = half = R = 256) runs the register-tiled path (namespace tiled, below). f32 and
-// bf16 at other widths (half <= 128, R + S <= 256) run on CUDA-core FMAs with the weights streamed
-// through shared memory in chunks, as the forward's FMA path.
 //
 // Skip-free mode (S = 0, the blocks STCN runs with need_skip=False): d_rs is only dO sqrt(1/2), no
 // row lies in a skip window, and only the R residual columns of rs_kernel (rows rs_ld wide) are read.
@@ -39,6 +42,7 @@
 #include "common.cuh"
 #include "fma_tile.cuh"
 #include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace blvm {
 namespace {
@@ -771,6 +775,402 @@ int launch(const void* x, const void* w_t, const void* w_s, const void* b_t, con
 }
 
 }  // namespace mma
+
+// ---- the warpgroup route: bf16 at C = half = R = S = 96 (the WaveNet run specs), with the skip -----------------
+//
+// Four launches a block, each a kernel of its own, on the warpgroup tile of wgmma_bf16.cuh (wgmma on 64-row tiles,
+// f32 accumulators in registers, operands staged by cp.async in the core-matrix layout, results staged in shared
+// memory and written 16 bytes a thread):
+//   pass A   persistent, two warpgroups a CTA, the gate weights and W_rs^T resident in shared memory: a 64-row tile
+//            of output rows recomputes the gate ([x[t] | x[t+d]] (64 x 192) times the gate weights (192 x 192))
+//            and d_act = dO W_r^T sqrt(1/2) + dS W_s^T (the skip half only for tiles that reach the skip window),
+//            and writes d_pre = [d_pre_t | d_pre_s] (B, L, 192) and act (B, L, 96) in bf16.
+//   weight   split-K over the rows: CTA (s, y), one warpgroup, walks split s's contiguous range of 64-row chunks
+//            with two chunks in flight and keeps in registers the f32 partial of rows 64 y .. 64 y + 63 of dW_gate =
+//            [x[t] | x[t+d]]^T d_pre (192 x 192) and of dW_rs^T = [dO | dS]^T act (192 x 96) (both operands read
+//            transposed from how they lie), and the column sums of d_pre's and [dO | dS]'s columns 64 y .. from
+//            shared memory. The three CTAs of a split read its d_pre and act chunks each (through L2): one
+//            warpgroup's two accumulators (144 registers a thread) leave no room for a second in a CTA (three
+//            warpgroups sharing the chunks spilled and ran slower on the H100).
+//   reduce   sums the partials in split order (no atomics: two runs give the same bits), scales dO's share by
+//            sqrt(1/2), rounds once to bf16 and writes each gradient into its slot in flax layout.
+// d_pre goes through device memory between A and B (row r needs row r - d of another tile) and feeds the weight
+// gradients with act. What bounds it at the flagship shape: the bytes of pass A (it writes d_pre and act) and of the
+// weight kernel (it reads them back), ~0.05 ms each a block (chip_smoke.wg_bwd_kernel_work); the whole block's
+// operations ~0.05 ms (chip_smoke.residual_glu_bwd_work).
+namespace wg {
+
+using bf = __nv_bfloat16;
+constexpr int C = 96, HALF = 96, RS = 2 * C, KG = 2 * C, H2 = 2 * HALF, KB = 2 * H2;
+constexpr int TM = 64;                     // rows a warpgroup tile
+constexpr int WGS = 2, THREADS = 128 * WGS;  // the persistent passes: two warpgroups a CTA
+
+__device__ __forceinline__ float inv_std_bf16() { return __bfloat162float(__float2bfloat16_rn(0.70710678118654752f)); }
+
+// The gate weights as B (K = [tap 0 c | tap 1 c], N = [tanh h | sigmoid h]), N-major: (2, C, HALF) each as it lies
+__device__ __forceinline__ void stage_gate(bf* sw, const bf* w_t, const bf* w_s, int tid, int nthreads) {
+  wgmma::load_tile<H2>(sw, KG, [&](int k, int col) { return (col < HALF ? w_t : w_s) + k * HALF + col % HALF; }, w_t,
+                       tid, nthreads);
+}
+
+// ---- pass A ----
+constexpr size_t SMEM_A = sizeof(bf) * ((size_t)KG * H2 + (size_t)RS * HALF + WGS * (size_t)TM * (KG + RS));
+
+__global__ void __launch_bounds__(THREADS, 1)
+pass_a_kernel(const bf* __restrict__ x, const bf* __restrict__ w_t, const bf* __restrict__ w_s,
+              const bf* __restrict__ b_t, const bf* __restrict__ b_s, const bf* __restrict__ w_rs,
+              const bf* __restrict__ d_o, const bf* __restrict__ d_s, bf* __restrict__ d_pre, bf* __restrict__ act,
+              int B, int T_in, int d, int skip_size) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf* sw = reinterpret_cast<bf*>(smem_raw);  // gate weights, B N-major [k 192][n 192]
+  bf* swr = sw + KG * H2;                    // W_rs^T, B N-major [j 192][h 96]
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31, g = lane >> 2,
+            q = lane & 3;
+  bf* sx = swr + RS * HALF + wg * TM * (KG + RS);  // this warpgroup's [x[t] | x[t+d]] tile, A K-major [64][192]
+  bf* sd = sx + TM * KG;                           // its [dO | dS or 0] tile, A K-major [64][192]
+  const int T_out = T_in - d, skip_start = T_out - skip_size, per_row = (T_out + TM - 1) / TM, n_tiles = B * per_row;
+  const int n_workers = gridDim.x * WGS;
+  const float inv_std = inv_std_bf16();
+
+  auto load = [&](int tile) {
+    const int b = tile / per_row, t0 = (tile - b * per_row) * TM;
+    const bf* xb = x + (size_t)b * T_in * C;
+    wgmma::load_tile<KG>(sx, TM, [&](int r, int col) -> const bf* {
+      const int t = t0 + r;
+      if (t >= T_out) return nullptr;
+      return col < C ? xb + (size_t)t * C + col : xb + (size_t)(t + d) * C + (col - C);
+    }, x, tid, 128);
+    wgmma::load_tile<RS>(sd, TM, [&](int r, int col) -> const bf* {
+      const int t = t0 + r;
+      if (t >= T_out || (col >= C && t < skip_start)) return nullptr;
+      return col < C ? d_o + ((size_t)b * T_out + t) * C + col : d_s + ((size_t)b * skip_size + (t - skip_start)) * C + (col - C);
+    }, d_o, tid, 128);
+    cp_async_commit();
+  };
+
+  stage_gate(sw, w_t, w_s, threadIdx.x, THREADS);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < HALF * (RS / 8); i += THREADS) {  // W_rs (HALF, RS) transposed: element (j, h)
+    const int h = i / (RS / 8), j0 = (i - h * (RS / 8)) * 8;
+    wgmma::store_transposed<HALF>(swr, j0, h, __ldg(reinterpret_cast<const uint4*>(w_rs + (size_t)h * RS + j0)));
+  }
+  const int first = blockIdx.x * WGS + wg;
+  if (first < n_tiles) load(first);
+  cp_async_wait_all();
+  wgmma::fence_async_smem();
+  __syncthreads();
+
+  for (int tile = first; tile < n_tiles; tile += n_workers) {
+    const int b = tile / per_row, t0 = (tile - b * per_row) * TM;
+    cp_async_wait_all();
+    wgmma::fence_async_smem();
+    wgmma::wg_sync(wg);  // the tile's rows landed for the whole warpgroup
+
+    float acc[H2 / 2], accd[HALF / 2];
+#pragma unroll
+    for (int i = 0; i < H2 / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < HALF / 2; ++i) accd[i] = 0.f;
+    wgmma::fence();
+#pragma unroll
+    for (int ks = 0; ks < KG / 16; ++ks)
+      wgmma::mma_ss_n192<0, 1>(acc, wgmma::desc_k(sx, KG, ks), wgmma::desc_mn(sw, H2, ks), ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < C / 16; ++ks)
+      wgmma::mma_ss_n96<0, 1>(accd, wgmma::desc_k(sd, RS, ks), wgmma::desc_mn(swr, HALF, ks), ks > 0);
+    wgmma::commit();
+    wgmma::wait<0>();
+    wgmma::fence_operand(acc);
+    wgmma::fence_operand(accd);
+#pragma unroll
+    for (int i = 0; i < HALF / 2; ++i) accd[i] *= inv_std;  // dO's share of d_act, then dS's adds on
+    if (t0 + TM > skip_start) {
+      wgmma::fence();
+#pragma unroll
+      for (int ks = C / 16; ks < RS / 16; ++ks)
+        wgmma::mma_ss_n96<0, 1>(accd, wgmma::desc_k(sd, RS, ks), wgmma::desc_mn(swr, HALF, ks), 1);
+      wgmma::commit();
+      wgmma::wait<0>();
+      wgmma::fence_operand(accd);
+    }
+    wgmma::wg_sync(wg);  // every warp's products are done with the tile buffers
+
+    // d_pre and act (tanh and sigmoid from one __expf each, as the mma.sync path: 1 - tanh^2 = 4e / (1 + e)^2 and
+    // sigmoid' = e / (1 + e)^2 keep their relative precision where they are small), staged in the tile buffers: d_pre
+    // over x's, act over the first half of d_rs's; rows past T_out are staged but not stored.
+#pragma unroll
+    for (int j = 0; j < HALF / 8; ++j) {
+      const int col = j * 8 + 2 * q;
+      const float bt[2] = {__bfloat162float(b_t[col]), __bfloat162float(b_t[col + 1])};
+      const float bs[2] = {__bfloat162float(b_s[col]), __bfloat162float(b_s[col + 1])};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * warp + g + 8 * h;
+        float va[2], dt[2], ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float pt = acc[4 * j + 2 * h + e] + bt[e], ps = acc[4 * (j + HALF / 8) + 2 * h + e] + bs[e];
+          const float da = accd[4 * j + 2 * h + e];
+          const float et = __expf(-2.f * fabsf(pt)), it = __fdividef(1.f, 1.f + et);
+          const float th = copysignf((1.f - et) * it, pt), dth = 4.f * et * it * it;
+          const float es = __expf(-fabsf(ps)), is = __fdividef(1.f, 1.f + es);
+          const float sg = ps >= 0.f ? is : es * is, dsg = es * is * is;
+          va[e] = th * sg;
+          dt[e] = da * sg * dth;
+          ds[e] = da * th * dsg;
+        }
+        wgmma::put2<HALF>(sd, r, col, pack(va[0], va[1]));
+        wgmma::put2<H2>(sx, r, col, pack(dt[0], dt[1]));
+        wgmma::put2<H2>(sx, r, HALF + col, pack(ds[0], ds[1]));
+      }
+    }
+    wgmma::wg_sync(wg);
+    const size_t row0 = (size_t)b * T_out + t0;
+    wgmma::store_tile<H2>(sx, TM, [&](int r, int col) { return t0 + r < T_out ? d_pre + (row0 + r) * H2 + col : nullptr; },
+                          tid, 128);
+    wgmma::store_tile<HALF>(sd, TM, [&](int r, int col) { return t0 + r < T_out ? act + (row0 + r) * HALF + col : nullptr; },
+                            tid, 128);
+    wgmma::wg_sync(wg);  // the staged outputs are out before the next tile's rows land over them
+    if (tile + n_workers < n_tiles) load(tile + n_workers);
+  }
+}
+
+// ---- the weight gradients' partials ----
+constexpr int WT = 128;  // one warpgroup a CTA, two CTAs an SM
+constexpr int SX = TM * 64, SP = TM * H2, SR = TM * 64, SA = TM * HALF, STAGE = SX + SP + SR + SA;  // elements
+constexpr size_t SMEM_W = sizeof(bf) * 2 * (size_t)STAGE;
+constexpr int PART = (H2 / 2 + HALF / 2) * WT + 128;  // floats a partial: the two accumulators, 128 column sums
+
+__global__ void __launch_bounds__(WT, 2)
+wgrad_kernel(const bf* __restrict__ x, const bf* __restrict__ d_o, const bf* __restrict__ d_s,
+             const bf* __restrict__ d_pre, const bf* __restrict__ act, float* __restrict__ part, int B, int T_in,
+             int d, int skip_size) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf* stage0 = reinterpret_cast<bf*>(smem_raw);
+  const int tid = threadIdx.x, y = blockIdx.y, s = blockIdx.x, n_split = gridDim.x;
+  const int T_out = T_in - d, skip_start = T_out - skip_size, per_row = (T_out + TM - 1) / TM, n_chunks = B * per_row;
+  const int per_split = (n_chunks + n_split - 1) / n_split, c_begin = s * per_split;
+  const int c_end = min(n_chunks, c_begin + per_split);
+
+  // chunk c's operands into stage buf: [x[t] | x[t+d]]'s and [dO | dS]'s columns 64 y .. 64 y + 63 (A, M-major), d_pre
+  // and act (B, N-major); rows past T_out and dS above the skip window read as 0
+  auto load = [&](int c, int buf) {
+    const int b = c / per_row, t0 = (c - b * per_row) * TM;
+    bf* sx = stage0 + buf * STAGE;
+    const bf* xb = x + (size_t)b * T_in * C;
+    wgmma::load_tile<64>(sx, TM, [&](int r, int col) -> const bf* {
+      const int t = t0 + r, f = 64 * y + col;
+      if (t >= T_out) return nullptr;
+      return f < C ? xb + (size_t)t * C + f : xb + (size_t)(t + d) * C + (f - C);
+    }, x, tid, WT);
+    wgmma::load_tile<H2>(sx + SX, TM, [&](int r, int col) -> const bf* {
+      const int t = t0 + r;
+      return t < T_out ? d_pre + ((size_t)b * T_out + t) * H2 + col : nullptr;
+    }, x, tid, WT);
+    wgmma::load_tile<64>(sx + SX + SP, TM, [&](int r, int col) -> const bf* {
+      const int t = t0 + r, j = 64 * y + col;
+      if (t >= T_out || (j >= C && t < skip_start)) return nullptr;
+      return j < C ? d_o + ((size_t)b * T_out + t) * C + j : d_s + ((size_t)b * skip_size + (t - skip_start)) * C + (j - C);
+    }, x, tid, WT);
+    wgmma::load_tile<HALF>(sx + SX + SP + SR, TM, [&](int r, int col) -> const bf* {
+      const int t = t0 + r;
+      return t < T_out ? act + ((size_t)b * T_out + t) * HALF + col : nullptr;
+    }, x, tid, WT);
+  };
+
+  float acc_g[H2 / 2], acc_r[HALF / 2], cs[8];
+#pragma unroll
+  for (int i = 0; i < H2 / 2; ++i) acc_g[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < HALF / 2; ++i) acc_r[i] = 0.f;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) cs[u] = 0.f;
+  // column sums: thread tid sums 8 columns (group cg) over 8 rows (group rg) of d_pre's columns 64 y .. (op 0) or of
+  // [dO | dS]'s (op 1), a row at a time in an order rotated by cg so that eight threads read eight bank groups
+  const int op = tid >> 6, cg = tid & 7, rg = (tid >> 3) & 7;
+
+  if (c_begin < c_end) load(c_begin, 0);
+  cp_async_commit();
+  for (int c = c_begin, buf = 0; c < c_end; ++c, buf ^= 1) {
+    if (c + 1 < c_end) load(c + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    wgmma::fence_async_smem();
+    __syncthreads();
+    const bf* sx = stage0 + buf * STAGE;
+    const bf *sp = sx + SX, *sr = sp + SP, *sa = sr + SR;
+    wgmma::fence();
+#pragma unroll
+    for (int ks = 0; ks < TM / 16; ++ks) {
+      wgmma::mma_ss_n192<1, 1>(acc_g, wgmma::desc_mn(sx, 64, ks), wgmma::desc_mn(sp, H2, ks), 1);
+      wgmma::mma_ss_n96<1, 1>(acc_r, wgmma::desc_mn(sr, 64, ks), wgmma::desc_mn(sa, HALF, ks), 1);
+    }
+    wgmma::commit();
+    const char* src = op ? reinterpret_cast<const char*>(sr) : reinterpret_cast<const char*>(sp);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = 8 * rg + ((i + cg) & 7);
+      const uint4 v = *reinterpret_cast<const uint4*>(src + (op ? wgmma::offset(r, 8 * cg, 64)
+                                                              : wgmma::offset(r, 64 * y + 8 * cg, H2)));
+      const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float2 f = __bfloat1622float2(e[u]);
+        cs[2 * u] += f.x;
+        cs[2 * u + 1] += f.y;
+      }
+    }
+    wgmma::wait<0>();
+    wgmma::fence_operand(acc_g);
+    wgmma::fence_operand(acc_r);
+    __syncthreads();  // every thread is done with this stage before the next chunk's copies overwrite it
+  }
+  cp_async_wait_all();
+
+  float* out = part + ((size_t)s * gridDim.y + y) * PART;
+#pragma unroll
+  for (int i = 0; i < H2 / 2; ++i) out[i * WT + tid] = acc_g[i];
+#pragma unroll
+  for (int i = 0; i < HALF / 2; ++i) out[(H2 / 2 + i) * WT + tid] = acc_r[i];
+  float* red = reinterpret_cast<float*>(smem_raw);  // [op][rg][64 columns]
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < 8; ++u) red[(op * 8 + rg) * 64 + 8 * cg + u] = cs[u];
+  __syncthreads();
+  float sum = 0.f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) sum += red[(op * 8 + k) * 64 + (tid & 63)];
+  out[(H2 / 2 + HALF / 2) * WT + tid] = sum;
+}
+
+// ---- the fixed-order reduction into the gradients' slots ----
+__global__ void __launch_bounds__(256)
+reduce_kernel(const float* __restrict__ part, bf* __restrict__ d_w_t, bf* __restrict__ d_w_s, bf* __restrict__ d_b_t,
+              bf* __restrict__ d_b_s, bf* __restrict__ d_w_rs, bf* __restrict__ d_b_rs, int n_split) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= 3 * PART) return;
+  const int y = idx / PART, i = idx - y * PART;
+  float sum = 0.f;
+  for (int s = 0; s < n_split; ++s) sum += part[((size_t)s * 3 + y) * PART + i];
+  const float inv_std = inv_std_bf16();
+  if (i < (H2 / 2 + HALF / 2) * WT) {
+    // accumulator element ri of thread t: row m = 16 warp + g + 8 (e / 2), column n = 8 j + 2 q + e % 2
+    const int ri = i / WT, t = i - ri * WT, gate = ri < H2 / 2, r2 = gate ? ri : ri - H2 / 2;
+    const int lane = t & 31, m = 16 * (t >> 5) + (lane >> 2) + 8 * ((r2 & 3) >> 1), n = 8 * (r2 >> 2) + 2 * (lane & 3) + (r2 & 1);
+    const int f = 64 * y + m;  // the row of dW_gate (a [x[t] | x[t+d]] feature) or of dW_rs^T (a [dO | dS] column)
+    if (gate) {
+      const int tap = f / C, c = f - tap * C, branch = n / HALF, h = n - branch * HALF;
+      (branch ? d_w_s : d_w_t)[((size_t)tap * C + c) * HALF + h] = __float2bfloat16_rn(sum);
+    } else {
+      d_w_rs[(size_t)n * RS + f] = __float2bfloat16_rn(f < C ? sum * inv_std : sum);
+    }
+  } else {
+    const int k = i - (H2 / 2 + HALF / 2) * WT, col = 64 * y + (k & 63);
+    if (k < 64)
+      (col < HALF ? d_b_t : d_b_s)[col % HALF] = __float2bfloat16_rn(sum);
+    else
+      d_b_rs[col] = __float2bfloat16_rn(col < C ? sum * inv_std : sum);
+  }
+}
+
+// ---- pass B ----
+constexpr size_t SMEM_B = sizeof(bf) * ((size_t)KB * C + WGS * (size_t)TM * (KB + C));
+
+__global__ void __launch_bounds__(THREADS, 1)
+pass_b_kernel(const bf* __restrict__ w_t, const bf* __restrict__ w_s, const bf* __restrict__ d_pre,
+              const bf* __restrict__ d_o, bf* __restrict__ dx, int B, int T_in, int d) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf* swb = reinterpret_cast<bf*>(smem_raw);  // [Wt0 | Ws0 | Wt1 | Ws1]^T as B N-major [k 384][c 96]
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31, g = lane >> 2,
+            q = lane & 3;
+  bf* sdp = swb + KB * C + wg * TM * (KB + C);  // this warpgroup's [d_pre[r] | d_pre[r - d]] tile, A K-major [64][384]
+  bf* so = sdp + TM * KB;                       // its dO[r - d] rows [64][96]
+  const int T_out = T_in - d, per_row = (T_in + TM - 1) / TM, n_tiles = B * per_row, n_workers = gridDim.x * WGS;
+  const float inv_std = inv_std_bf16();
+
+  auto load = [&](int tile) {
+    const int b = tile / per_row, r0 = (tile - b * per_row) * TM;
+    const bf* dpb = d_pre + (size_t)b * T_out * H2;
+    wgmma::load_tile<KB>(sdp, TM, [&](int rr, int col) -> const bf* {
+      const int r = r0 + rr, src = col < H2 ? r : r - d;  // tap 0 reads d_pre[r], tap 1 d_pre[r - d]
+      if (r >= T_in || src < 0 || src >= T_out) return nullptr;
+      return dpb + (size_t)src * H2 + col % H2;
+    }, d_pre, tid, 128);
+    wgmma::load_tile<C>(so, TM, [&](int rr, int col) -> const bf* {
+      const int r = r0 + rr;
+      return r < T_in && r >= d ? d_o + ((size_t)b * T_out + r - d) * C + col : nullptr;
+    }, d_pre, tid, 128);
+    cp_async_commit();
+  };
+
+  // k = 192 tap + 96 branch + h, n = c: W_{tap, branch}[c][h], each (2, C, HALF) kernel transposed
+  for (int i = threadIdx.x; i < 4 * C * (HALF / 8); i += THREADS) {
+    const int h0 = (i % (HALF / 8)) * 8, rest = i / (HALF / 8), c = rest % C, m = rest / C, tap = m >> 1;
+    const bf* src = (m & 1 ? w_s : w_t) + ((size_t)tap * C + c) * HALF + h0;
+    wgmma::store_transposed<C>(swb, m * HALF + h0, c, __ldg(reinterpret_cast<const uint4*>(src)));
+  }
+  const int first = blockIdx.x * WGS + wg;
+  if (first < n_tiles) load(first);
+  cp_async_wait_all();
+  wgmma::fence_async_smem();
+  __syncthreads();
+
+  for (int tile = first; tile < n_tiles; tile += n_workers) {
+    const int b = tile / per_row, r0 = (tile - b * per_row) * TM;
+    cp_async_wait_all();
+    wgmma::fence_async_smem();
+    wgmma::wg_sync(wg);
+    float acc[C / 2];
+#pragma unroll
+    for (int i = 0; i < C / 2; ++i) acc[i] = 0.f;
+    wgmma::fence();
+#pragma unroll
+    for (int ks = 0; ks < KB / 16; ++ks)
+      wgmma::mma_ss_n96<0, 1>(acc, wgmma::desc_k(sdp, KB, ks), wgmma::desc_mn(swb, C, ks), ks > 0);
+    wgmma::commit();
+    wgmma::wait<0>();
+    wgmma::fence_operand(acc);
+    wgmma::wg_sync(wg);
+    // dx = acc + dO[r - d] sqrt(1/2) (0 where r < d: its rows read as 0), staged over the d_pre tile, then out
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j) {
+      const int col = j * 8 + 2 * q;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * warp + g + 8 * h;
+        const float2 o = wgmma::get2<C>(so, r, col);
+        wgmma::put2<C>(sdp, r, col, pack(acc[4 * j + 2 * h] + o.x * inv_std, acc[4 * j + 2 * h + 1] + o.y * inv_std));
+      }
+    }
+    wgmma::wg_sync(wg);
+    wgmma::store_tile<C>(sdp, TM, [&](int r, int col) {
+      return r0 + r < T_in ? dx + ((size_t)b * T_in + r0 + r) * C + col : nullptr;
+    }, tid, 128);
+    wgmma::wg_sync(wg);
+    if (tile + n_workers < n_tiles) load(tile + n_workers);
+  }
+}
+
+// the SM count and the shared-memory opt-ins, asked once per process (the card does not change under it)
+int n_sm() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0, v = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) err = cudaFuncSetAttribute(pass_a_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_A);
+    if (err == cudaSuccess) err = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_W);
+    if (err == cudaSuccess) err = cudaFuncSetAttribute(pass_b_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_B);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return -(int)err;
+    }
+    sms = v;
+  }
+  return sms;
+}
+
+}  // namespace wg
 }  // namespace
 }  // namespace blvm
 
@@ -808,9 +1208,6 @@ extern "C" int blvm_residual_glu_bwd(const void* x, const void* w_t, const void*
   const bool aligned = ((uintptr_t)x | (uintptr_t)d_o | (uintptr_t)d_s | (uintptr_t)d_pre | (uintptr_t)act |
                         (uintptr_t)dx) % 4 == 0 &&
                        ((uintptr_t)w_t | (uintptr_t)w_s | (uintptr_t)w_rs) % 16 == 0;
-  if (dtype == kBFloat16 && aligned && C == 96 && half == 96 && S == 96)
-    return mma::launch<96, 96, 192>(x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, d_pre, act, dx, B, T_in, dilation,
-                                    skip_size, st);
   if (dtype == kBFloat16 && aligned && C == 32 && half == 32 && S == 32)
     return mma::launch<32, 32, 64>(x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, d_pre, act, dx, B, T_in, dilation,
                                    skip_size, st);
@@ -818,4 +1215,80 @@ extern "C" int blvm_residual_glu_bwd(const void* x, const void* w_t, const void*
     return launch<__nv_bfloat16>(x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, d_pre, act, dx, B, T_in, C, half, R, S,
                                  rs_ld, dilation, skip_size, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// ---- the warpgroup route (namespace wg): bf16 at C = half = R = S = 96 with the skip, one entry a kernel ----------
+// Shapes: x (B, T_in, 96), w_t and w_s (2, 96, 96), b_t and b_s (96), w_rs (96, 192), d_o (B, T_in - d, 96),
+// d_s (B, skip_size, 96), d_pre (B, T_in - d, 192), act (B, T_in - d, 96), dx (B, T_in, 96); part n_split x 3 x
+// 18560 floats (the weight kernel's partials: n_split CTAs for each of its 3 row blocks); the gradient slots d_w_t,
+// d_w_s (2, 96, 96), d_b_t, d_b_s (96), d_w_rs (96, 192), d_b_rs (192), each contiguous (one block's slot of the
+// stack's (L, ...) tensors). All bf16 but part; every pointer but the biases 16-byte aligned. Each returns
+// cudaErrorInvalidValue for what it does not take, else the launch's cudaError_t.
+namespace {
+int wg_geometry_ok(int B, int T_in, int dilation, int skip_size) {
+  return B >= 1 && B <= 65535 && dilation >= 1 && T_in - dilation >= 1 && skip_size >= 1 && skip_size <= T_in - dilation;
+}
+int wg_aligned(const void* a, const void* b, const void* c, const void* d, const void* e = nullptr,
+               const void* f = nullptr, const void* g = nullptr, const void* h = nullptr) {
+  return (((uintptr_t)a | (uintptr_t)b | (uintptr_t)c | (uintptr_t)d | (uintptr_t)e | (uintptr_t)f | (uintptr_t)g |
+           (uintptr_t)h) % 16) == 0;
+}
+}  // namespace
+
+// pass A: d_pre and act from x, the weights, dO and dS
+extern "C" int blvm_glu_bwd_pass_a(const void* x, const void* w_t, const void* w_s, const void* b_t, const void* b_s,
+                                   const void* w_rs, const void* d_o, const void* d_s, void* d_pre, void* act, int B,
+                                   int T_in, int dilation, int skip_size, void* stream) {
+  using namespace blvm::wg;
+  if (!wg_geometry_ok(B, T_in, dilation, skip_size) || !wg_aligned(x, w_t, w_s, w_rs, d_o, d_s, d_pre, act))
+    return (int)cudaErrorInvalidValue;
+  const int sms = n_sm();
+  if (sms < 0) return -sms;
+  const int tiles = B * ((T_in - dilation + TM - 1) / TM), want = (tiles + WGS - 1) / WGS, grid = want < sms ? want : sms;
+  pass_a_kernel<<<grid, THREADS, SMEM_A, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf*>(x), static_cast<const bf*>(w_t), static_cast<const bf*>(w_s), static_cast<const bf*>(b_t),
+      static_cast<const bf*>(b_s), static_cast<const bf*>(w_rs), static_cast<const bf*>(d_o),
+      static_cast<const bf*>(d_s), static_cast<bf*>(d_pre), static_cast<bf*>(act), B, T_in, dilation, skip_size);
+  return (int)cudaGetLastError();
+}
+
+// the weight gradients' f32 partials: n_split CTAs over the rows times the gradients' 3 row blocks
+extern "C" int blvm_glu_bwd_wgrad(const void* x, const void* d_o, const void* d_s, const void* d_pre, const void* act,
+                                  void* part, int B, int T_in, int dilation, int skip_size, int n_split, void* stream) {
+  using namespace blvm::wg;
+  if (!wg_geometry_ok(B, T_in, dilation, skip_size) || n_split < 1 || n_split > 65535 ||
+      !wg_aligned(x, d_o, d_s, d_pre, act, part))
+    return (int)cudaErrorInvalidValue;
+  const int sms = n_sm();
+  if (sms < 0) return -sms;
+  wgrad_kernel<<<dim3(n_split, 3), WT, SMEM_W, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf*>(x), static_cast<const bf*>(d_o), static_cast<const bf*>(d_s),
+      static_cast<const bf*>(d_pre), static_cast<const bf*>(act), static_cast<float*>(part), B, T_in, dilation,
+      skip_size);
+  return (int)cudaGetLastError();
+}
+
+// the partials summed in split order, scaled, rounded once and written into the block's gradient slots
+extern "C" int blvm_glu_bwd_reduce(const void* part, void* d_w_t, void* d_w_s, void* d_b_t, void* d_b_s, void* d_w_rs,
+                                   void* d_b_rs, int n_split, void* stream) {
+  using namespace blvm::wg;
+  if (n_split < 1 || !wg_aligned(part, d_w_t, d_w_s, d_w_rs)) return (int)cudaErrorInvalidValue;
+  reduce_kernel<<<(3 * PART + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), static_cast<bf*>(d_w_t), static_cast<bf*>(d_w_s), static_cast<bf*>(d_b_t),
+      static_cast<bf*>(d_b_s), static_cast<bf*>(d_w_rs), static_cast<bf*>(d_b_rs), n_split);
+  return (int)cudaGetLastError();
+}
+
+// pass B: dx from d_pre, the gate weights and dO
+extern "C" int blvm_glu_bwd_pass_b(const void* w_t, const void* w_s, const void* d_pre, const void* d_o, void* dx,
+                                   int B, int T_in, int dilation, void* stream) {
+  using namespace blvm::wg;
+  if (!wg_geometry_ok(B, T_in, dilation, 1) || !wg_aligned(w_t, w_s, d_pre, d_o, dx)) return (int)cudaErrorInvalidValue;
+  const int sms = n_sm();
+  if (sms < 0) return -sms;
+  const int tiles = B * ((T_in + TM - 1) / TM), want = (tiles + WGS - 1) / WGS, grid = want < sms ? want : sms;
+  pass_b_kernel<<<grid, THREADS, SMEM_B, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf*>(w_t), static_cast<const bf*>(w_s), static_cast<const bf*>(d_pre),
+      static_cast<const bf*>(d_o), static_cast<bf*>(dx), B, T_in, dilation);
+  return (int)cudaGetLastError();
 }

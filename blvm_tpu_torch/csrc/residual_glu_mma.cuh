@@ -1,7 +1,7 @@
-// The residual-GLU block's bf16 tensor-core tile, shared by K1's tensor-core path (residual_glu.cu) and the fused
-// stack (wavenet_stack.cu), so that both compute a tile with the same products and the same roundings: the shared-
-// memory layout, the staging of a block's weights and one warp's products for 16 rows of a tile. Each kernel writes
-// its own epilogue from the [r | s] accumulators.
+// The residual-GLU block's bf16 tensor-core tile of K1's tensor-core path (residual_glu.cu): the shared-memory layout,
+// the staging of a block's weights and one warp's products for 16 rows of a tile; the kernel writes its epilogue from
+// the [r | s] accumulators. (The fused stack, wavenet_stack.cu, runs the same products, in the same k order, on the
+// warpgroup tile of wgmma_bf16.cuh.)
 //
 // The gate is one GEMM of [x[t] | x[t+d]] (TT x 2C) with the four tap/branch kernels laid side by side (2C x 2 half);
 // tanh * sigmoid runs on the accumulator fragments (on the SFU's tanh.approx) and the gated activation is repacked in

@@ -26,30 +26,31 @@
 //     them; the residual stream between blocks lives in device memory (two buffers in turn, or the save-mode
 //     buffer that keeps every block's input for the backward), read back through L2;
 //   - fixed row ownership: a tile of TT output rows is counted from the right end of the layer's output, and tile
-//     j of batch row b goes to CTA (j B + b) mod grid in every layer, so the owner of a skip row is the same
-//     CTA in every block, and it adds the block's skip into the f32 sum in place, in block order, with no
-//     atomics (a warp stages its rows' skips in shared memory and adds them 16 bytes a lane, every load of the
-//     lane in flight at once; one load at a time per element left the first version 27 % slower than K1's chain);
-//   - bf16 at the instantiated widths: one layer's weights (~110 KB) staged into shared memory once a layer, the
-//     tile on the tensor cores (mma.sync m16n8k16) by K1's own tile code (residual_glu_mma.cuh), the next tile's
-//     rows streaming in by cp.async while this one computes;
+//     j of batch row b goes to the same worker (a CTA's warpgroup, or the CTA on the f32 path) in every layer, so
+//     the owner of a skip row is the same in every block, and it adds the block's skip into the f32 sum in place, in
+//     block order, with no atomics (a warp stages its rows' skips in shared memory and adds them 16 bytes a lane,
+//     every load of the lane in flight at once);
+//   - bf16 at C = 96: the warpgroup tile of wgmma_bf16.cuh. Two warpgroups a CTA, each with 64-row tiles and two tile
+//     buffers (the next tile's rows stream in by cp.async while this one computes); one layer's weights (108 KB)
+//     staged once a layer by 16-byte copies as they lie (B read N-major); the gate product from shared memory, the
+//     gated activation kept in registers as the [r | s] product's A operand; o and the skip staged over the tile
+//     and written 16 bytes a lane, the skip sum's rows fetched into L2 a tile ahead;
 //   - f32: the register-tiled FMA products of fma_tile.cuh, each thread 8 rows x 4 units, the weights streamed
 //     through shared memory in chunks of 16 k rows (a layer's f32 weights, 221 KB, do not fit beside the tiles).
 // Rounding follows K1, so that the stack matches the chain of K1 launches within K1's own limits: in bf16 the
 // residual stream is rounded to bf16 at each block's store, the gated activation before the [r | s] product, and
-// each block's skip to bf16 before it is added in f32; in f32 nothing is rounded, only the order of the sums
-// differs. wgmma, TMA and keeping weights resident across layers are later work.
+// each block's skip to bf16 before it is added in f32; only the order of the f32 sums differs (in bf16 the tensor
+// cores' k-steps run in K1's order). Keeping weights resident across layers, and TMA, are later work.
 
 #include "common.cuh"
 #include "fma_tile.cuh"
-#include "residual_glu_mma.cuh"
 #include "vrnn_common.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace blvm {
 namespace wstack {
 
 constexpr int MAX_LAYERS = 16;
-constexpr int TT = 128;  // output rows a tile, both paths
 
 template <typename T>
 struct Params {
@@ -62,61 +63,114 @@ struct Params {
   int B, T_in, L, skip_size, accumulate;
 };
 
-// Row r of a tile of layer output length T_out: tile j of batch row b covers [T_out - (j + 1) TT, T_out - j TT).
+// Tiles of TT output rows counted from the right end of a layer's output (T_out rows): tile j of batch row b
+// covers [T_out - (j + 1) TT, T_out - j TT), so a skip row lies in the same tile, and goes to the same worker, in
+// every layer.
+template <int TT>
 __device__ __forceinline__ void tile_of(int tile, int B, int T_out, int& b, int& t0) {
   const int j = tile / B;
   b = tile - j * B;
   t0 = T_out - (j + 1) * TT;
 }
 
+template <int TT>
 __device__ __forceinline__ int n_tiles_of(int B, int T_out) { return B * ((T_out + TT - 1) / TT); }
 
 // a lane's k-th item of a warp-strided loop
 __device__ __forceinline__ int lane_item(int k) { return (threadIdx.x & 31) + 32 * k; }
 
-// ---- bf16: the tensor-core path (K1's tile, residual_glu_mma.cuh, with the stack's epilogue) ------------------------
+// ---- bf16: the warpgroup path (wgmma_bf16.cuh) at C = half = R = S = 96 --------------------------------------------
 namespace tc {
 
-using glu_mma::Cfg;
-using glu_mma::WARPS;
-static_assert(glu_mma::TT == TT, "a tile of the stack is a tile of K1");
+using bf = __nv_bfloat16;
+constexpr int C = 96, HALF = 96, S = 96, RS = C + S, KG = 2 * C, H2 = 2 * HALF;
+constexpr int TT = 64;                       // output rows a tile: one warpgroup's wgmma rows
+constexpr int WGS = 2, THREADS = 128 * WGS;  // two warpgroups a CTA, each with its own tiles
+constexpr int XT = TT * KG;                  // elements of a staged [x[t] | x[t+d]] tile
+// the layer's weights (gate [k 192][n 192], rs [h 96][j 192], both B N-major) and two tile buffers a warpgroup
+constexpr size_t SMEM = sizeof(bf) * ((size_t)KG * H2 + (size_t)HALF * RS + (size_t)WGS * 2 * XT);
 
-// One warp's 16 rows of a tile: K1's products and gate (residual_glu_mma.cuh); the epilogue stores o, the tap and the
-// skip sum of the rows that exist (t >= 0).
-template <int C, int HALF, int RS>
-__device__ __forceinline__ void warp_tile(const __nv_bfloat16* wg, const __nv_bfloat16* wr, const __nv_bfloat16* xo,
-                                          const __nv_bfloat16* xc, const __nv_bfloat16* __restrict__ b_t,
-                                          const __nv_bfloat16* __restrict__ b_s, const __nv_bfloat16* __restrict__ b_rs,
-                                          __nv_bfloat16* o, __nv_bfloat16* tap, float* skip_sum, bool first, int b,
-                                          int t0, int T_out, int skip_size, int r0, int g, int q, float inv_std) {
-  using K = Cfg<C, HALF, RS>;
-  constexpr int S = RS - C;
-  float acc2[K::NTR][4];
-  glu_mma::warp_products<C, HALF, RS>(wg, wr, xo, xc, b_t, b_s, r0, g, q, acc2);
+__device__ __forceinline__ const bf* at(const bf* tile, int r, int col) {
+  return reinterpret_cast<const bf*>(reinterpret_cast<const char*>(tile) + wgmma::offset(r, col, KG));
+}
 
-  // the skip rows, rounded to bf16, are staged in the warp's own x[t] rows (read by no warp after the gate
-  // product), then added into the f32 sum 16 bytes a lane with every load of the lane in flight at once
+// One warpgroup's tile: the gate product ([x[t] | x[t+d]] (64 x 192) times the gate weights), the gated activation
+// in registers (rounded to bf16, as K1 rounds it) as the A operand of the [r | s] product (times W_rs), and the
+// epilogue: o, the tap and the skip sum of the rows that exist (t >= 0). sx: the tile, [64][192] K-major.
+__device__ __forceinline__ void tile_products(const bf* sw, const bf* swr, bf* sx, const bf* __restrict__ b_t,
+                                              const bf* __restrict__ b_s, const bf* __restrict__ b_rs, bf* o, bf* tap,
+                                              float* skip_sum, bool first, int b, int t0, int T_out, int skip_size,
+                                              float inv_std) {
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3, r0 = 16 * warp;
+  float acc[H2 / 2];
+#pragma unroll
+  for (int i = 0; i < H2 / 2; ++i) acc[i] = 0.f;
+  wgmma::fence();
+#pragma unroll
+  for (int ks = 0; ks < KG / 16; ++ks)
+    wgmma::mma_ss_n192<0, 1>(acc, wgmma::desc_k(sx, KG, ks), wgmma::desc_mn(sw, H2, ks), ks > 0);
+  wgmma::commit();
+  wgmma::wait<0>();
+  wgmma::fence_operand(acc);
+
+  // the gated activation, repacked as the A fragments (16 x 16 a k-step) of the [r | s] product
+  uint32_t af[HALF / 16][4];
+#pragma unroll
+  for (int j = 0; j < HALF / 8; ++j) {
+    const int col = j * 8 + 2 * q;
+    const float bt0 = __bfloat162float(b_t[col]), bt1 = __bfloat162float(b_t[col + 1]);
+    const float bs0 = __bfloat162float(b_s[col]), bs1 = __bfloat162float(b_s[col + 1]);
+    constexpr int js = HALF / 8;  // the sigmoid branch's tile of the same columns is j + HALF / 8
+    af[j / 2][(j % 2) * 2 + 0] = pack(gate(acc[4 * j + 0] + bt0, acc[4 * (j + js) + 0] + bs0),
+                                      gate(acc[4 * j + 1] + bt1, acc[4 * (j + js) + 1] + bs1));
+    af[j / 2][(j % 2) * 2 + 1] = pack(gate(acc[4 * j + 2] + bt0, acc[4 * (j + js) + 2] + bs0),
+                                      gate(acc[4 * j + 3] + bt1, acc[4 * (j + js) + 3] + bs1));
+  }
+  float acc2[RS / 2];
+#pragma unroll
+  for (int i = 0; i < RS / 2; ++i) acc2[i] = 0.f;
+  wgmma::fence();
+#pragma unroll
+  for (int kk = 0; kk < HALF / 16; ++kk) wgmma::mma_rs_n192<1>(acc2, af[kk], wgmma::desc_mn(swr, RS, kk), kk > 0);
+  wgmma::commit();
+  wgmma::wait<0>();
+  wgmma::fence_operand(acc2);
+
+  // o = ((acc + b) + x[t+d]) sqrt(1/2), as K1 orders it, rounded to bf16 over the x[t+d] pair it was made from (each
+  // pair read and written by one lane), the skip rows over the warp's own x[t] columns (no wgmma reads the tile after
+  // the gate product, which every warp has waited for); then o goes out 16 bytes a lane and the skip rows are added
+  // into the f32 sum 16 bytes a lane, every load of the lane in flight at once (the sum's rows were sent to L2 a tile
+  // ahead). (A second pass over the accumulators to stage o, or loading the sum's rows into registers while the
+  // [r | s] product runs, took registers past the 255 a thread and spilled: both were slower on the H100.)
   const int skip_start = T_out - skip_size;
-  __nv_bfloat16* stage = const_cast<__nv_bfloat16*>(xo) + r0 * K::C_PAD;  // [16][C_PAD]
   __syncwarp();
 #pragma unroll
-  for (int j = 0; j < K::NTR; ++j) {
+  for (int j = 0; j < RS / 8; ++j) {
     const int col = j * 8 + 2 * q;
     const float br0 = __bfloat162float(b_rs[col]), br1 = __bfloat162float(b_rs[col + 1]);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = r0 + g + 8 * h, t = t0 + r;
       if (t < 0) continue;
-      const float v0 = acc2[j][2 * h] + br0, v1 = acc2[j][2 * h + 1] + br1;
-      if (j < K::NTO) {
-        const float x0 = __bfloat162float(xc[r * K::C_PAD + col]), x1 = __bfloat162float(xc[r * K::C_PAD + col + 1]);
-        *reinterpret_cast<uint32_t*>(o + ((size_t)b * T_out + t) * C + col) = pack((v0 + x0) * inv_std, (v1 + x1) * inv_std);
+      const float v0 = acc2[4 * j + 2 * h] + br0, v1 = acc2[4 * j + 2 * h + 1] + br1;
+      if (j < C / 8) {  // o over the x[t+d] pair it was made from (no other lane reads that pair)
+        const float2 xc = wgmma::get2<KG>(sx, r, C + col);
+        wgmma::put2<KG>(sx, r, C + col, pack((v0 + xc.x) * inv_std, (v1 + xc.y) * inv_std));
       } else if (t >= skip_start) {
-        *reinterpret_cast<uint32_t*>(stage + (g + 8 * h) * K::C_PAD + (col - C)) = pack(v0, v1);
+        wgmma::put2<KG>(sx, r, col - C, pack(v0, v1));
       }
     }
   }
   __syncwarp();
+  // o's rows that exist (t >= 0), 16 bytes a lane: eight lanes on eight rows, four neighbouring chunks a warp
+#pragma unroll
+  for (int k = 0; k < 16 * (C / 8) / 32; ++k) {
+    const int item = lane_item(k), row = (item & 7) + 8 * (item / (8 * (C / 8))), v = (item >> 3) % (C / 8);
+    const int t = t0 + r0 + row;
+    if (t >= 0)
+      *reinterpret_cast<uint4*>(o + ((size_t)b * T_out + t) * C + 8 * v) =
+          *reinterpret_cast<const uint4*>(at(sx, r0 + row, C + 8 * v));
+  }
   constexpr int SV = S / 8;                      // 16-byte groups of 8 skip columns a row
   constexpr int PER_LANE = (16 * SV + 31) / 32;  // groups a lane
   const int row_lo = max(0, skip_start - (t0 + r0));  // the warp's first row in the skip rows (skip_start >= 0)
@@ -138,7 +192,7 @@ __device__ __forceinline__ void warp_tile(const __nv_bfloat16* wg, const __nv_bf
   for (int k = 0; k < PER_LANE; ++k) {
     const int item = lane_item(k), row = row_lo + item / SV;
     if (item < n_items) {
-      const uint4 sv = *reinterpret_cast<const uint4*>(stage + row * K::C_PAD + (item % SV) * 8);
+      const uint4 sv = *reinterpret_cast<const uint4*>(at(sx, r0 + row, (item % SV) * 8));
       const size_t off = ((size_t)b * skip_size + (t0 + r0 + row - skip_start)) * S + (item % SV) * 8;
       if (tap) *reinterpret_cast<uint4*>(tap + off) = sv;
       const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&sv);
@@ -156,65 +210,74 @@ __device__ __forceinline__ void warp_tile(const __nv_bfloat16* wg, const __nv_bf
   }
 }
 
-template <int C, int HALF, int RS>
-__global__ void __launch_bounds__(WARPS * 32, 1) stack_mma_kernel(const Params<__nv_bfloat16> p) {
-  using K = Cfg<C, HALF, RS>;
-  using bf = __nv_bfloat16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf* wg = reinterpret_cast<bf*>(smem_raw);  // [2 HALF][KG_PAD]: the layer's gate kernel, n-major
-  bf* wr = wg + 2 * HALF * K::KG_PAD;        // [RS][KR_PAD]: its rs kernel, n-major
-  bf* xbuf = wr + RS * K::KR_PAD;            // 2 buffers x {[TT][C_PAD] x[t], [TT][C_PAD] x[t+d]}
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3, r0 = warp * 16;
+__global__ void __launch_bounds__(THREADS, 1) stack_wg_kernel(const Params<bf> p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf* sw = reinterpret_cast<bf*>(smem_raw);  // the layer's gate weights, B N-major [k 192][n 192]
+  bf* swr = sw + KG * H2;                    // its rs weights, B N-major [h 96][j 192]
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  bf* xbuf = swr + HALF * RS + wg * 2 * XT;  // this warpgroup's two tile buffers
+  const int worker = blockIdx.x * WGS + wg, n_workers = gridDim.x * WGS;
   const float inv_std = __bfloat162float(__float2bfloat16_rn(0.70710678118654752f));
   unsigned int target = 0;
   int T_cur = p.T_in;
 
   for (int l = 0; l < p.L; ++l) {
-    const int d = p.dil[l], T_out = T_cur - d, n_tiles = n_tiles_of(p.B, T_out);
+    const int d = p.dil[l], T_out = T_cur - d, n_tiles = n_tiles_of<TT>(p.B, T_out);
     const bf* x = p.io[l];
     bf* o = const_cast<bf*>(p.io[l + 1]);
     const bf *w_t = p.w_t + (size_t)l * 2 * C * HALF, *w_s = p.w_s + (size_t)l * 2 * C * HALF;
-    const bf *w_rs = p.w_rs + (size_t)l * HALF * RS;
+    const bf* w_rs = p.w_rs + (size_t)l * HALF * RS;
     const bf *b_t = p.b_t + l * HALF, *b_s = p.b_s + l * HALF, *b_rs = p.b_rs + l * RS;
     const bool first = l == 0 && !p.accumulate;
 
-    if (blockIdx.x < n_tiles)  // the layer's weights, as K1 stages them (a CTA without a tile skips them)
-      glu_mma::stage_weights<C, HALF, RS>(wg, wr, w_t, w_s, w_rs);
-
-    // a tile's x[t] and x[t+d] rows into buffer `buf` (rows before the layer's first, t < 0, read as 0); the
-    // stream is written by this launch, so it is read through L2 (cp.async.cg), never the read-only path
-    auto load_tile = [&](int tile, int buf) {
+    if (blockIdx.x * WGS < n_tiles) {  // the layer's weights as they lie, 16-byte copies (a CTA without a tile skips them)
+      wgmma::load_tile<H2>(sw, KG, [&](int k, int col) { return (col < HALF ? w_t : w_s) + k * HALF + col % HALF; },
+                           w_t, threadIdx.x, THREADS);
+      wgmma::load_tile<RS>(swr, HALF, [&](int h, int col) { return w_rs + h * RS + col; }, w_rs, threadIdx.x, THREADS);
+    }
+    // a tile's x[t] and x[t+d] rows into buffer `buf` (rows before the layer's first, t < 0, read as 0); the stream
+    // is written by this launch, so it is read through L2 (cp.async.cg), never the read-only path
+    auto load = [&](int tile, int buf) {
       if (tile < n_tiles) {
         int b, t0;
-        tile_of(tile, p.B, T_out, b, t0);
+        tile_of<TT>(tile, p.B, T_out, b, t0);
         const bf* xb = x + (size_t)b * T_cur * C;
-        bf* xo = xbuf + buf * 2 * K::X_TILE;
-        for (int i = threadIdx.x; i < TT * (C / 8); i += WARPS * 32) {
-          const int r = i / (C / 8), v = i - r * (C / 8), t = t0 + r;
-          const bool valid = t >= 0;
-          cp_async16(xo + r * K::C_PAD + v * 8, xb + (valid ? (size_t)t * C + v * 8 : 0), valid);
-          cp_async16(xo + K::X_TILE + r * K::C_PAD + v * 8, xb + (valid ? (size_t)(t + d) * C + v * 8 : 0), valid);
-        }
+        wgmma::load_tile<KG>(xbuf + buf * XT, TT, [&](int r, int col) -> const bf* {
+          const int t = t0 + r;
+          if (t < 0) return nullptr;
+          return col < C ? xb + (size_t)t * C + col : xb + (size_t)(t + d) * C + (col - C);
+        }, x, tid, 128);
+        // the tile's rows of the f32 skip sum into L2, 128 bytes a thread, a tile ahead of their read
+        const int skip_start = T_out - p.skip_size, r_lo = max(0, skip_start - t0);
+        if (!(l == 0 && !p.accumulate))
+          for (int i = tid; i < (TT - r_lo) * 3; i += 128) {
+            const int r = r_lo + i / 3, part = i - (i / 3) * 3;
+            const float* a = p.skip_sum + ((size_t)b * p.skip_size + (t0 + r - skip_start)) * S + 32 * part;
+            asm volatile("prefetch.global.L2 [%0];" ::"l"(a));
+          }
       }
       cp_async_commit();
     };
 
-    load_tile(blockIdx.x, 0);
+    load(worker, 0);
+    cp_async_wait_all();
+    wgmma::fence_async_smem();
+    __syncthreads();  // the layer's weights and both warpgroups' first tiles landed
     int buf = 0;
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
+    for (int tile = worker; tile < n_tiles; tile += n_workers, buf ^= 1) {
       int b, t0;
-      tile_of(tile, p.B, T_out, b, t0);
-      load_tile(tile + gridDim.x, buf ^ 1);
+      tile_of<TT>(tile, p.B, T_out, b, t0);
+      load(tile + n_workers, buf ^ 1);
       cp_async_wait_one();
-      __syncthreads();  // this tile's rows landed for every thread; the layer's weights staged on the first pass
-      const bf* xo = xbuf + buf * 2 * K::X_TILE;
-      if (t0 + r0 + 15 >= 0)  // else this warp's rows all lie before the layer's first row
-        warp_tile<C, HALF, RS>(wg, wr, xo, xo + K::X_TILE, b_t, b_s, b_rs, o, p.tap[l], p.skip_sum, first, b, t0, T_out,
-                               p.skip_size, r0, g, q, inv_std);
-      __syncthreads();  // every warp is done with buffer `buf` (and, after the last tile, with the weights)
+      wgmma::fence_async_smem();
+      wgmma::wg_sync(wg);  // this tile's rows landed for the whole warpgroup
+      tile_products(sw, swr, xbuf + buf * XT, b_t, b_s, b_rs, o, p.tap[l], p.skip_sum, first, b, t0, T_out,
+                    p.skip_size, inv_std);
+      wgmma::wg_sync(wg);  // every warp is done with buffer `buf` before the next load overwrites it
     }
+    cp_async_wait_all();
     T_cur = T_out;
-    if (l + 1 < p.L) vrnn::grid_sync(p.barrier, target);
+    if (l + 1 < p.L) vrnn::grid_sync(p.barrier, target);  // also: every warp is done with the layer's weights
   }
 }
 
@@ -223,6 +286,7 @@ __global__ void __launch_bounds__(WARPS * 32, 1) stack_mma_kernel(const Params<_
 // ---- f32: register-tiled FMA products (fma_tile.cuh), at C = half = R = S ---------------------------------------
 namespace f32 {
 
+constexpr int TT = 128;             // output rows a tile
 constexpr int RM = 8;               // rows a thread
 constexpr int RG = TT / RM;         // row groups a tile (16)
 constexpr int KC = 16;              // k rows a staged weight chunk
@@ -249,7 +313,7 @@ __global__ void __launch_bounds__(Cfg<C>::NT, 1) stack_fma_kernel(const Params<f
   int T_cur = p.T_in;
 
   for (int l = 0; l < p.L; ++l) {
-    const int d = p.dil[l], T_out = T_cur - d, n_tiles = n_tiles_of(p.B, T_out);
+    const int d = p.dil[l], T_out = T_cur - d, n_tiles = n_tiles_of<TT>(p.B, T_out);
     const float* x = p.io[l];
     float* o = const_cast<float*>(p.io[l + 1]);
     const float *w_t = p.w_t + (size_t)l * 2 * C * HALF, *w_s = p.w_s + (size_t)l * 2 * C * HALF;
@@ -280,7 +344,7 @@ __global__ void __launch_bounds__(Cfg<C>::NT, 1) stack_fma_kernel(const Params<f
 
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
       int b, t0;
-      tile_of(tile, p.B, T_out, b, t0);
+      tile_of<TT>(tile, p.B, T_out, b, t0);
       const float* xb = x + (size_t)b * T_cur * C;
       for (int i = threadIdx.x; i < TT * (C / 4); i += K::NT) {  // rows before the layer's first read as 0
         const int r = i / (C / 4), v = 4 * (i % (C / 4)), t = t0 + r;
@@ -473,8 +537,7 @@ extern "C" int blvm_wavenet_stack(const void* const* io, void* const* taps, cons
     auto p = make_params<__nv_bfloat16>(io, taps, w_t, w_s, b_t, b_s, w_rs, b_rs, skip_sum, barrier, dilations, B, T_in,
                                         L, skip_size, accumulate);
     static LaunchCache cache;
-    return launch(cache, (const void*)tc::stack_mma_kernel<96, 96, 192>, tc::WARPS * 32, tc::Cfg<96, 96, 192>::smem,
-                  p, st);
+    return launch(cache, (const void*)tc::stack_wg_kernel, tc::THREADS, tc::SMEM, p, st);
   }
   if (dtype == kFloat32) {
     auto p = make_params<float>(io, taps, w_t, w_s, b_t, b_s, w_rs, b_rs, skip_sum, barrier, dilations, B, T_in, L,

@@ -37,6 +37,7 @@ _launches: Dict[str, int] = {
     "vrnn_cell_bwd": 0, "gru_recurrence": 0, "gru_recurrence_bwd": 0, "srnn_chain": 0, "srnn_chain_bwd": 0,
     "stcn_decode": 0, "depthwise_norm": 0, "depthwise_norm_bwd": 0, "rssm_chain": 0, "rssm_chain_bwd": 0,
     "bilstm_recurrence": 0, "bilstm_recurrence_bwd": 0, "ctc_loss": 0, "ctc_loss_bwd": 0, "wavenet_stack": 0,
+    "wgmma_tile": 0, "glu_bwd_pass_a": 0, "glu_bwd_wgrad": 0, "glu_bwd_reduce": 0, "glu_bwd_pass_b": 0,
 }
 build_log = ""  # nvcc's output of the build this process ran (register / shared-memory report)
 
@@ -47,9 +48,20 @@ _SIGNATURES = {
     # x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, d_pre, act, dx, B, T_in, C, half, R, S, rs_ld, dilation, skip_size, dtype,
     # stream
     "blvm_residual_glu_bwd": [_P] * 11 + [_I] * 10 + [_P],
+    # the warpgroup route of K1-bwd (bf16, C = 96), one entry a kernel:
+    # x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, d_pre, act; B, T_in, dilation, skip_size; stream
+    "blvm_glu_bwd_pass_a": [_P] * 10 + [_I] * 4 + [_P],
+    # x, d_o, d_s, d_pre, act, part; B, T_in, dilation, skip_size, n_split; stream
+    "blvm_glu_bwd_wgrad": [_P] * 6 + [_I] * 5 + [_P],
+    # part, d_w_t, d_w_s, d_b_t, d_b_s, d_w_rs, d_b_rs; n_split; stream
+    "blvm_glu_bwd_reduce": [_P] * 7 + [_I] + [_P],
+    # w_t, w_s, d_pre, d_o, dx; B, T_in, dilation; stream
+    "blvm_glu_bwd_pass_b": [_P] * 5 + [_I] * 3 + [_P],
     # io (host array of L + 1), taps (host array of L), w_t, w_s, b_t, b_s, w_rs, b_rs, skip_sum, barrier, dilations
     # (host array of L); B, T_in, C, half, S, L, skip_size, accumulate, dtype; stream
     "blvm_wavenet_stack": [_P] * 11 + [_I] * 9 + [_P],
+    # a, b, d; n, k, trans_a, a_regs; stream
+    "blvm_wgmma_tile": [_P] * 3 + [_I] * 4 + [_P],
     # y, logits, locs, log_scales, out, N, M, y/logit/loc/scale row strides, num_bins, stream
     "blvm_dmol_log_prob": [_P] * 5 + [_L, _I, _L, _L, _L, _L, _I, _P],
     # y, logits, locs, log_scales, g, d_logits, d_locs, d_log_scales, N, M, 4 row strides, num_bins, stream

@@ -8,9 +8,12 @@ gradient); for CUDA tensors the forward kernel ``csrc/residual_glu.cu`` and, und
 autograd, :class:`ResidualGLUFunction`, whose backward is :func:`residual_glu_backward`
 (``csrc/residual_glu_bwd.cu`` and the weight-gradient GEMMs), or it raises.
 :func:`residual_glu_backward` is also the fused stack's backward, block by block
-(``ops/wavenet_stack.py``).
+(``ops/wavenet_stack.py``). In bf16 at C = half = R = S = 96 with the skip (WaveNet's run specs) it is the warpgroup
+route, four kernels that also take the weight and bias gradients and write them into the caller's slots;
+:func:`residual_glu_backward_plain` is its twin, split as its kernels split it.
 """
 
+import functools
 import math
 
 import torch
@@ -23,6 +26,10 @@ K1_MAX_CHANNELS, K1_MAX_HALF, K1_MAX_RES_PLUS_SKIP = 256, 256, 512
 # K1-bwd's (csrc/residual_glu_bwd.cu): half <= 128 and R + S <= 256 (the WaveNet widths), or in f32 STCN's
 # C = half = R = 256 with S = 256 or skip-free (the register-tiled path); both with or without the skip
 K1_BWD_MAX_HALF, K1_BWD_MAX_RES_PLUS_SKIP, K1_BWD_TILED_WIDTH = 128, 256, 256
+# the warpgroup route's width (csrc/residual_glu_bwd.cu, namespace wg): bf16, C = half = R = S, with the skip
+K1_BWD_WG_WIDTH = 96
+_WG_TILE = 64  # rows a tile of its passes and a chunk of its weight-gradient split
+WG_PART_FLOATS = 3 * ((96 + 48) * 128 + 128)  # one split's f32 partials (csrc: 3 x PART)
 
 
 def residual_glu_plain(x, gate_kernel_t, gate_kernel_s, gate_bias_t, gate_bias_s, rs_kernel, rs_bias,
@@ -54,8 +61,7 @@ def residual_glu_plain(x, gate_kernel_t, gate_kernel_s, gate_bias_t, gate_bias_s
         r, s = rs[..., :R], rs[..., R:][:, -skip_size:]
     else:
         r, s = act @ rs_kernel[0, :, :R] + rs_bias[:R], None
-    inv_std = torch.tensor(math.sqrt(0.5), dtype=x.dtype)  # the JAX constant takes x's dtype
-    return (r + x[:, -L:]) * inv_std, s
+    return (r + x[:, -L:]) * _inv_std(x.dtype), s
 
 
 def residual_glu(x, gate_kernel_t, gate_kernel_s, gate_bias_t, gate_bias_s, rs_kernel, rs_bias,
@@ -129,23 +135,33 @@ class ResidualGLUFunction(torch.autograd.Function):
                                        need_skip=need_skip), None, None, None)
 
 
+def wg_route(x: torch.Tensor, half: int, S: int, need_skip: bool) -> bool:
+    """Whether :func:`residual_glu_backward` takes the warpgroup route for this block."""
+    return x.dtype == torch.bfloat16 and need_skip and x.shape[-1] == half == S == K1_BWD_WG_WIDTH
+
+
 def residual_glu_backward(x, w_t, w_s, b_t, b_s, w_rs, *, d_o, d_s, dilation: int, skip_size: int,
                           need_skip: bool = True):
     """The gradient of one k=2 residual-GLU block from its input and weights and the gradients of its outputs:
     ``(dx, d_w_t, d_w_s, d_b_t, d_b_s, d_w_rs, d_b_rs)``, each in its input's dtype. The backward of
-    :class:`ResidualGLUFunction` and, block after block, of the fused stack's ``WaveNetStackFunction``.
+    :class:`ResidualGLUFunction` and, in f32, block after block of the fused stack's ``WaveNetStackFunction``.
 
-    The K1-bwd kernel, which recomputes the gate (two passes: ``d_pre`` and ``act``, then ``dx``),
-    and the weight and bias gradients, sums over all ``B * L`` rows, as plain products on its outputs (cuBLAS, f32
-    accumulation), as the JAX backward left them to XLA. The kernel takes half <= 128 and
+    bf16 at C = half = R = S = 96 with the skip (:func:`wg_route`): the warpgroup route, four kernels and no other
+    launch: pass A (the gate recomputed; ``d_pre`` and ``act``), the weight gradients' f32 partials split over the
+    rows, their reduction in fixed order into the slots, pass B (``dx``); its twin is
+    :func:`residual_glu_backward_plain`. Otherwise the K1-bwd kernel, which recomputes the gate (two passes: ``d_pre``
+    and ``act``, then ``dx``), and the weight and bias gradients, sums over all ``B * L`` rows, as plain products on
+    its outputs (cuBLAS, f32 accumulation), as the JAX backward left them to XLA. That kernel takes half <= 128 and
     R + S <= 256 in f32 and bf16 (the WaveNet widths), and STCN's C = half = R = 256 in f32
-    (``K1_BWD_TILED_WIDTH``); both with the skip and skip-free. It raises for other widths (bf16 at C = 256
-    among them: no STCN run spec sets ``--bf16``). Without the skip the skip columns of ``rs_kernel`` and
-    ``rs_bias`` get a zero gradient, as JAX's column slice ``rs_kernel[0, :, :R]`` gives them. CUDA tensors only
-    (on the CPU autograd of :func:`residual_glu_plain` gives the gradient)."""
+    (``K1_BWD_TILED_WIDTH``); both with the skip and skip-free. It raises for other widths (bf16 at C = 256 among
+    them: no STCN run spec sets ``--bf16``). Without the skip the skip columns of ``rs_kernel`` and ``rs_bias`` get
+    a zero gradient, as JAX's column slice ``rs_kernel[0, :, :R]`` gives them. CUDA tensors only (on the CPU
+    autograd of :func:`residual_glu_plain` gives the gradient)."""
     B, T_in, C = x.shape
     half, rs_ld = w_t.shape[-1], w_rs.shape[-1]
     S = rs_ld - C if need_skip else 0
+    if wg_route(x, half, S, need_skip):
+        return _backward_wg(x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, dilation, skip_size)
     tiled = C == half == K1_BWD_TILED_WIDTH and S in (0, C)
     if not (tiled and x.dtype == torch.float32) and (half > K1_BWD_MAX_HALF or C + S > K1_BWD_MAX_RES_PLUS_SKIP):
         raise NotImplementedError(
@@ -154,9 +170,7 @@ def residual_glu_backward(x, w_t, w_s, b_t, b_s, w_rs, *, d_o, d_s, dilation: in
             f"C={C}, half={half}, R+S={C + S}, {x.dtype}")
     L = T_in - dilation
     # the kernel reads 16-byte rows: a view that starts off that alignment is copied (fresh tensors are aligned)
-    x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s = (
-        t if t.data_ptr() % 16 == 0 else t.clone()
-        for t in (x, w_t, w_s, b_t, b_s, w_rs, d_o.to(x.dtype).contiguous(), d_s.to(x.dtype).contiguous()))
+    x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s = _aligned(x, w_t, w_s, b_t, b_s, w_rs, d_o.to(x.dtype), d_s.to(x.dtype))
     d_pre = torch.empty((B, L, 2 * half), dtype=x.dtype, device=x.device)
     act = torch.empty((B, L, half), dtype=x.dtype, device=x.device)
     dx = torch.empty_like(x)
@@ -182,7 +196,7 @@ def residual_glu_backward(x, w_t, w_s, b_t, b_s, w_rs, *, d_o, d_s, dilation: in
     d_b = col_sum(d_pre_rows)
     # the residual half of d_rs is dO sqrt(1/2): the constant (in x's dtype, as the forward
     # multiplies by it) scales the small products instead of all of dO
-    inv_std = torch.tensor(math.sqrt(0.5), dtype=x.dtype)
+    inv_std = _inv_std(x.dtype)
     d_o_rows = d_o.reshape(-1, C)
     d_w_rs = [(act.reshape(-1, half).T @ d_o_rows) * inv_std]
     d_b_rs = [col_sum(d_o_rows) * inv_std]
@@ -194,3 +208,171 @@ def residual_glu_backward(x, w_t, w_s, b_t, b_s, w_rs, *, d_o, d_s, dilation: in
         d_w_rs.append(x.new_zeros((half, rs_ld - C)))
         d_b_rs.append(x.new_zeros(rs_ld - C))
     return dx, d_w_t, d_w_s, d_b[:half], d_b[half:], torch.cat(d_w_rs, dim=1)[None], torch.cat(d_b_rs)
+
+
+def _aligned(*tensors):
+    """Each tensor contiguous and starting on a 16-byte boundary (a view that starts off it is copied)."""
+    return tuple(t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
+                 for t in tensors)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def wg_splits(device: torch.device, B: int, L: int) -> int:
+    """How many CTAs the warpgroup route's weight-gradient kernel splits a block's ``B * L`` output rows over, for each
+    of its 3 row blocks of the gradients: two CTAs an SM in all, at most one a 64-row chunk."""
+    return max(1, min(-(-2 * _sm_count(device.index or 0) // 3), B * -(-L // _WG_TILE)))
+
+
+def _backward_wg(x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, dilation, skip_size):
+    """The warpgroup route of :func:`residual_glu_backward` for one block: a chain of one
+    (:func:`wg_chain_backward`)."""
+    weights = [t.unsqueeze(0) for t in _aligned(w_t, w_s, b_t, b_s, w_rs)]
+    slots = [torch.empty_like(t) for t in weights] + [x.new_empty((1, 2 * x.shape[-1]))]
+    x, d_o, d_s = _aligned(x, d_o.to(x.dtype), d_s.to(x.dtype))
+    dx = wg_chain_backward([x], weights, d_o, [d_s], [dilation], skip_size, slots)
+    return (dx, *(t[0] for t in slots))
+
+
+def wg_chain_backward(inputs, weights, d_out, d_skips, dilations, skip_size: int, slots) -> torch.Tensor:
+    """The warpgroup route over a chain of blocks (a fused stack's), the last block first: block ``l``'s input is
+    ``inputs[l]`` (B, T_l, C), T_{l+1} = T_l - ``dilations[l]``, its weights entry ``l`` of the five stacked
+    ``weights`` (w_t, w_s, b_t, b_s, w_rs as :func:`~blvm_tpu_torch.ops.wavenet_stack.pack_blocks` stacks them), its dO
+    block ``l + 1``'s dx (block L - 1's: ``d_out``), its dS ``d_skips[l]`` (B, skip_size, C); its weight and bias
+    gradients go into entry ``l`` of the six stacked ``slots`` (w_t, w_s, b_t, b_s, w_rs, rs_bias). Returns block 0's
+    dx. Four launches a block and no other work on the card: the buffers between the kernels are made once for the
+    chain and the blocks' arguments are addresses, so that the host's part of a block stays small (a fused stack's
+    backward ran host-bound with a Python call a block). bf16 at C = half = R = S = 96; checked once for the chain."""
+    L, x0 = len(dilations), inputs[0]
+    B, T0, C = x0.shape
+    dev, dt = x0.device, x0.dtype
+    lengths = [T0]
+    for d in dilations:
+        lengths.append(lengths[-1] - d)
+    shapes = [(L, 2, C, C), (L, 2, C, C), (L, C), (L, C), (L, 1, C, 2 * C)]
+    tensors = [*inputs, *weights, d_out, *d_skips, *slots]
+    if (len(inputs) != L or len(d_skips) != L or [tuple(t.shape) for t in weights] != shapes
+            or [tuple(t.shape) for t in slots] != shapes + [(L, 2 * C)]
+            or any(tuple(t.shape) != (B, n, C) for t, n in zip(inputs, lengths)) or tuple(d_out.shape) != (B, lengths[L], C)
+            or any(tuple(t.shape) != (B, skip_size, C) for t in d_skips)):
+        raise ValueError(f"residual_glu_bwd: a chain of {L} blocks of (B, T, C) = ({B}, {T0}, {C}): the inputs, weights, "
+                         f"cotangents or gradient slots have other shapes")
+    if min(dilations) < 1 or lengths[L] < 1 or not 1 <= skip_size <= lengths[L] or not 1 <= B <= 65535:
+        raise ValueError(f"residual_glu_bwd: bad geometry B={B}, T_in={T0}, dilations={list(dilations)}, "
+                         f"skip_size={skip_size}")
+    if any(t.dtype != dt or t.device != dev or not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
+        raise ValueError("residual_glu_bwd: every tensor of the chain must be contiguous, 16-byte aligned and of x's "
+                         "dtype and device")
+    rows = B * lengths[1]  # block 0's output rows, the chain's most
+    d_pre = torch.empty(rows * 2 * C, dtype=dt, device=dev)
+    act = torch.empty(rows * C, dtype=dt, device=dev)
+    part = torch.empty(wg_splits(dev, B, lengths[1]) * WG_PART_FLOATS, dtype=torch.float32, device=dev)
+    between = [torch.empty(rows * C, dtype=dt, device=dev) for _ in range(2 if L > 1 else 0)]  # blocks' dx, in turn
+    dx = torch.empty_like(x0)
+    lib, stream = cuda.library(), cuda.stream_handle(x0)
+    w_ptr = [(t.data_ptr(), t.stride(0) * t.element_size()) for t in weights]
+    g_ptr = [(t.data_ptr(), t.stride(0) * t.element_size()) for t in slots]
+    pre, ac, pa = d_pre.data_ptr(), act.data_ptr(), part.data_ptr()
+    d_o = d_out.data_ptr()
+    for l in reversed(range(L)):
+        x_l, d_s, T_in, d = inputs[l].data_ptr(), d_skips[l].data_ptr(), lengths[l], dilations[l]
+        w_t, w_s, b_t, b_s, w_rs = (base + l * step for base, step in w_ptr)
+        d_x = dx.data_ptr() if l == 0 else between[l % 2].data_ptr()
+        n_split = wg_splits(dev, B, lengths[l + 1])
+        cuda.count_launch("glu_bwd_pass_a")
+        cuda.check(lib.blvm_glu_bwd_pass_a(x_l, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, pre, ac, B, T_in, d, skip_size,
+                                           stream), "glu_bwd_pass_a")
+        cuda.count_launch("glu_bwd_wgrad")
+        cuda.check(lib.blvm_glu_bwd_wgrad(x_l, d_o, d_s, pre, ac, pa, B, T_in, d, skip_size, n_split, stream),
+                   "glu_bwd_wgrad")
+        cuda.count_launch("glu_bwd_reduce")
+        cuda.check(lib.blvm_glu_bwd_reduce(pa, *(base + l * step for base, step in g_ptr), n_split, stream),
+                   "glu_bwd_reduce")
+        cuda.count_launch("glu_bwd_pass_b")
+        cuda.check(lib.blvm_glu_bwd_pass_b(w_t, w_s, pre, d_o, d_x, B, T_in, d, stream), "glu_bwd_pass_b")
+        d_o = d_x
+    return dx
+
+
+# ---- the twin of the warpgroup route, split as its kernels split it ----------------------------------------------
+
+def _acc_dtype(dtype):
+    return torch.promote_types(dtype, torch.float32)
+
+
+def glu_bwd_pass_a_plain(x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, dilation: int, skip_size: int, need_skip: bool = True):
+    """Pass A: ``(d_pre, act)``, ``d_pre = [d_pre_t | d_pre_s]`` (B, L, 2 half) and the gated activation (B, L,
+    half), from the gate recomputed and ``d_act = dO W_r^T sqrt(1/2) + dS W_s^T`` (dS over the last ``skip_size``
+    rows), products in at least f32, rounded once to x's dtype."""
+    acc = _acc_dtype(x.dtype)
+    B, T_in, C = x.shape
+    half, L = w_t.shape[-1], T_in - dilation
+    xa = x.to(acc)
+    pre = (xa[:, :L] @ torch.cat([w_t[0], w_s[0]], 1).to(acc) + xa[:, dilation:] @ torch.cat([w_t[1], w_s[1]], 1).to(acc))
+    th = torch.tanh(pre[..., :half] + b_t.to(acc))
+    sg = torch.sigmoid(pre[..., half:] + b_s.to(acc))
+    w_rs = w_rs[0].to(acc)
+    d_act = (d_o.to(acc) @ w_rs[:, :C].T) * _inv_std(x.dtype).to(acc)
+    if need_skip:
+        d_act[:, L - skip_size :] += d_s.to(acc) @ w_rs[:, C:].T
+    d_pre = torch.cat([d_act * sg * (1 - th * th), d_act * th * (sg * (1 - sg))], -1)
+    return d_pre.to(x.dtype), (th * sg).to(x.dtype)
+
+
+def glu_bwd_weight_grads_plain(x, d_pre, act, d_o, d_s, dilation: int, skip_size: int, rs_ld: int,
+                               need_skip: bool = True):
+    """The weight and bias gradients ``(d_w_t, d_w_s, d_b_t, d_b_s, d_w_rs, d_b_rs)`` in flax layout: sums over all
+    ``B * L`` rows in at least f32, dO's share scaled by sqrt(1/2) after its sum, rounded once to x's dtype; the
+    skip columns zero without the skip."""
+    acc = _acc_dtype(x.dtype)
+    B, T_in, C = x.shape
+    L, half = d_pre.shape[1], act.shape[-1]
+    rows = torch.cat([x[:, :L], x[:, dilation:]], -1).to(acc).reshape(-1, 2 * C)
+    dp = d_pre.to(acc).reshape(-1, 2 * half)
+    d_w_gate = rows.T @ dp  # (2C, 2 half): rows [tap 0 | tap 1], columns [tanh | sigmoid]
+    d_b = dp.sum(0)
+    inv_std = _inv_std(x.dtype).to(acc)
+    act_a, d_o_a = act.to(acc), d_o.to(acc)
+    d_w_r = (act_a.reshape(-1, half).T @ d_o_a.reshape(-1, C)) * inv_std
+    d_b_r = d_o_a.reshape(-1, C).sum(0) * inv_std
+    if need_skip:
+        d_s_a = d_s.to(acc)
+        d_w_k = act_a[:, L - skip_size :].reshape(-1, half).T @ d_s_a.reshape(-1, rs_ld - C)
+        d_b_k = d_s_a.reshape(-1, rs_ld - C).sum(0)
+    else:
+        d_w_k, d_b_k = d_w_r.new_zeros((half, rs_ld - C)), d_w_r.new_zeros(rs_ld - C)
+    grads = (torch.stack([d_w_gate[:C, :half], d_w_gate[C:, :half]]), torch.stack([d_w_gate[:C, half:],
+                                                                                   d_w_gate[C:, half:]]),
+             d_b[:half], d_b[half:], torch.cat([d_w_r, d_w_k], 1)[None], torch.cat([d_b_r, d_b_k]))
+    return tuple(g.to(x.dtype) for g in grads)
+
+
+def glu_bwd_pass_b_plain(w_t, w_s, d_pre, d_o, dilation: int, T_in: int):
+    """Pass B: ``dx[r] = d_pre[r] W0^T + d_pre[r - d] W1^T + dO[r - d] sqrt(1/2)`` (B, T_in, C), products in at least
+    f32, rounded once to d_pre's dtype."""
+    acc = _acc_dtype(d_pre.dtype)
+    B, L, _ = d_pre.shape
+    C = w_t.shape[1]
+    dp = d_pre.to(acc)
+    dx = torch.zeros((B, T_in, C), dtype=acc, device=d_pre.device)
+    dx[:, :L] += dp @ torch.cat([w_t[0], w_s[0]], 1).to(acc).T
+    dx[:, dilation:] += dp @ torch.cat([w_t[1], w_s[1]], 1).to(acc).T + d_o.to(acc) * _inv_std(d_pre.dtype).to(acc)
+    return dx.to(d_pre.dtype)
+
+
+def residual_glu_backward_plain(x, w_t, w_s, b_t, b_s, w_rs, *, d_o, d_s, dilation: int, skip_size: int,
+                                need_skip: bool = True):
+    """The twin of the warpgroup route, :func:`residual_glu_backward`'s contract, split as its kernels split it:
+    pass A, the weight gradients from its rounded ``d_pre`` and ``act``, pass B. In float64 it is the exact gradient
+    (autograd of :func:`residual_glu_plain`)."""
+    d_pre, act = glu_bwd_pass_a_plain(x, w_t, w_s, b_t, b_s, w_rs, d_o, d_s, dilation, skip_size, need_skip)
+    grads = glu_bwd_weight_grads_plain(x, d_pre, act, d_o, d_s, dilation, skip_size, w_rs.shape[-1], need_skip)
+    return (glu_bwd_pass_b_plain(w_t, w_s, d_pre, d_o, dilation, x.shape[1]), *grads)
+
+
+def _inv_std(dtype):
+    """sqrt(1/2) in ``dtype``, the constant the forward multiplies by (JAX's takes x's dtype)."""
+    return torch.tensor(math.sqrt(0.5), dtype=dtype)

@@ -10,17 +10,20 @@ place and it is returned as ``summed``, so that a model's five stacks leave one 
 CPU tensors run the twin :func:`wavenet_stack_plain` (autograd gives its gradient). CUDA tensors launch the
 hand-written kernel ``csrc/wavenet_stack.cu`` (one cooperative launch a stack, float32 or bfloat16 at
 C = half = R = S = 96, the run specs' width) or raise; with a gradient, :class:`WaveNetStackFunction`: its
-forward is the kernel in save mode, which also keeps every block's input; its backward runs the blocks' backward
-in reverse (:func:`residual_glu_backward`: K1-bwd and its weight-gradient GEMMs).
+forward is the kernel in save mode, which also keeps every block's input; its backward is :func:`stack_backward`, the
+blocks' backward in reverse (:func:`residual_glu_backward`: in bf16 its warpgroup route, which writes each block's
+gradients into its slot of the stacked gradients; in f32 K1-bwd and its weight-gradient GEMMs).
 """
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from blvm_tpu_torch.ops import cuda
-from blvm_tpu_torch.ops.residual_glu import _DTYPE_CODES, residual_glu_backward, residual_glu_plain
+from blvm_tpu_torch.ops.residual_glu import (_DTYPE_CODES, _aligned, residual_glu_backward,
+                                             residual_glu_backward_plain, residual_glu_plain, wg_chain_backward,
+                                             wg_route)
 
 # the block parameters, in the order of residual_glu's arguments; stacked each keeps its flax shape behind the
 # block axis
@@ -70,14 +73,55 @@ def wavenet_stack(x: torch.Tensor, params: Sequence[torch.Tensor], dilations: Se
     return out, summed, tapped
 
 
+def _skip_grads(d_sum, d_taps, taps, L, dtype):
+    """Each block's skip gradient: the summed skip's, cast to the compute dtype as the f32 sum's autograd casts it,
+    plus the tap's where the block is tapped (``d_taps[i]`` of ``taps[i]``, None read as zero)."""
+    d_skip = d_sum.to(dtype)
+    return [d_skip + d_taps[taps.index(l)] if l in taps and d_taps[taps.index(l)] is not None else d_skip
+            for l in range(L)]
+
+
+def stack_backward(inputs, params, dilations, skip_size, taps, d_out, d_sum, d_taps):
+    """The gradient of one stack from every block's input (``inputs``, as the save mode keeps them) and the
+    gradients of its outputs: ``(d_x, grads)``, ``grads`` the six stacked ``(L, ...)`` gradients of ``params`` (the
+    last, ``rs_bias``'s, included). The blocks' backward runs in reverse. CUDA tensors: in bf16 at C = 96 the
+    warpgroup route over the whole chain (:func:`~blvm_tpu_torch.ops.residual_glu.wg_chain_backward`, each block's
+    gradients written into its slot of the stacked tensors), else :func:`residual_glu_backward` block by block, its
+    gradients stacked at the end. Its twin is :func:`stack_backward_plain`."""
+    L, x0 = len(dilations), inputs[0]
+    d_skips = _skip_grads(d_sum, d_taps, taps, L, x0.dtype)
+    if wg_route(x0, params[0].shape[-1], params[4].shape[-1] - x0.shape[-1], True):
+        grads = [torch.empty_like(p) for p in params]
+        d_x = wg_chain_backward(inputs, _aligned(*params[:5]), *_aligned(d_out), _aligned(*d_skips), dilations,
+                                skip_size, grads)
+        return d_x, grads
+    return _blockwise_backward(residual_glu_backward, inputs, params, dilations, skip_size, d_out, d_skips)
+
+
+def stack_backward_plain(inputs, params, dilations, skip_size, taps, d_out, d_sum, d_taps):
+    """The twin of :func:`stack_backward`: the warpgroup route's twin
+    (:func:`~blvm_tpu_torch.ops.residual_glu.residual_glu_backward_plain`) block by block, its gradients stacked. In
+    float64 it is the exact gradient (autograd of :func:`wavenet_stack_plain`)."""
+    d_skips = _skip_grads(d_sum, d_taps, taps, len(dilations), inputs[0].dtype)
+    return _blockwise_backward(residual_glu_backward_plain, inputs, params, dilations, skip_size, d_out, d_skips)
+
+
+def _blockwise_backward(block_backward, inputs, params, dilations, skip_size, d_out, d_skips):
+    grads, d_x = [[] for _ in params], d_out
+    for l in reversed(range(len(dilations))):
+        d_x, *block_grads = block_backward(inputs[l], *(p[l] for p in params[:5]), d_o=d_x, d_s=d_skips[l],
+                                           dilation=dilations[l], skip_size=skip_size)
+        for g, bg in zip(grads, block_grads):
+            g.append(bg)
+    return d_x, [torch.stack(g[::-1]) for g in grads]
+
+
 class WaveNetStackFunction(torch.autograd.Function):
     """The kernel under autograd (CUDA tensors): ``apply(x, acc, dilations, skip_size, taps, *params)`` ->
     ``(out, summed, *tapped)``. The forward keeps every block's input, the same tensors the chain of
     ``ResidualGLUFunction`` launches saves: one launch of the kernel in save mode (its outputs the same bits as
     without). ``acc``, when given, is summed into in place (``mark_dirty``) and its
-    gradient is the sum's. The backward runs :func:`residual_glu_backward` block by block in reverse; each block's
-    skip gradient is the summed skip's, cast to the compute dtype as the f32 sum's autograd casts it, plus the
-    tap's where the block is tapped. Absent output gradients are read as zero."""
+    gradient is the sum's. The backward is :func:`stack_backward`. Absent output gradients are read as zero."""
 
     @staticmethod
     def forward(ctx, x, acc, dilations, skip_size, taps, *params):
@@ -96,18 +140,10 @@ class WaveNetStackFunction(torch.autograd.Function):
         inputs, params = ctx.saved_tensors[:L], ctx.saved_tensors[L:]
         dtype, device = inputs[0].dtype, inputs[0].device
         d_x = d_out if d_out is not None else torch.zeros(out_shape, dtype=dtype, device=device)
-        d_skip = (d_sum if d_sum is not None else torch.zeros(sum_shape, device=device)).to(dtype)
-        grads: List[List[torch.Tensor]] = [[] for _ in params]
-        for l in reversed(range(L)):
-            d_s = d_skip
-            if l in taps and d_taps[taps.index(l)] is not None:
-                d_s = d_s + d_taps[taps.index(l)]
-            d_x, *block_grads = residual_glu_backward(inputs[l], *(p[l] for p in params[:5]), d_o=d_x, d_s=d_s,
-                                                      dilation=dilations[l], skip_size=skip_size)
-            for g, bg in zip(grads, block_grads):
-                g.append(bg)
+        d_skip = d_sum if d_sum is not None else torch.zeros(sum_shape, device=device)
+        d_x, grads = stack_backward(inputs, params, dilations, skip_size, taps, d_x, d_skip, d_taps)
         d_acc = d_sum if accumulated else None
-        return (d_x, d_acc, None, None, None, *(torch.stack(g[::-1]) for g in grads))
+        return (d_x, d_acc, None, None, None, *grads)
 
 
 def _check(x, params, dilations, skip_size, taps, acc) -> None:

@@ -59,7 +59,7 @@ PyTorch twins:
  19. K5 lstm_recurrence vs its twin, f32 and bf16: H=256, B=10 utterances of
      300-1125 stacks; H=32; a given (h0, c0). f32 free-running, bf16 teacher-forced
  20. K5-bwd vs autograd of the twin at the same cases (dxw, dW_hh, db_hh, dh0, dc0)
- 21. the LSTM test pass: flags of benchmarks.txt:10 -> driver -> model -> weights
+ 21. the LSTM test pass: flags of benchmarks.txt:12 -> driver -> model -> weights
      bridge, 6 mu-law utterances of 24k-72k samples, whole and --split_eval
      (chunks of 16 stacks, s_n carried); 1 K5, 1 K2, 1 K3 a forward; bits/frame
      against the twins
@@ -283,7 +283,7 @@ GEN_B, N_GEN, N_K4, N_NAIVE, N_NAIVE_TIME = 2, 16000, 128, 16, 8
 HBM_BYTES_PER_S, BF16_PEAK, F32_PEAK = 3.35e12, 989e12, 67e12
 F64_PEAK = 67e12  # the data sheet's FP64 tensor-core rate: a lower bound on time for K13's double arithmetic
 DMOL_OPS_PER_COMPONENT = 40  # f32 ops of one component of the ladder (a transcendental counted as one)
-# LSTMAudio: the s=64 run spec of experiments/benchmarks.txt:10 (the driver's defaults fill in --num_bits 16,
+# LSTMAudio: the s=64 run spec of experiments/benchmarks.txt:12 (the driver's defaults fill in --num_bits 16,
 # --num_mix 10, f32); K5 at 10 utterances of up to 1125 stacks (72k samples)
 LSTM_FLAGS = (
     "--likelihood DMoL --input_coding mu_law --batch_len 32 --hidden_size 256 --num_layers 1 --stack_size 64 --seed 0"
@@ -376,12 +376,13 @@ def residual_glu_work(B, T_in, C, half, S, dilation, skip_size, elem=4):
 
 def residual_glu_bwd_work(B, T_in, C, half, S, dilation, skip_size, weight_grads=True, elem=4):
     """``roofline`` keywords of one K1-bwd call (S = 0: the skip-free mode): x, dO, dS and the weights read
-    once, dx written once; the two passes' multiply-adds (the gate recomputed, d_act, dx). With
+    once, dx written once; the multiply-adds this call's rows need: the gate recomputed over the L output rows,
+    d_act (dO's share over every row, dS's over the skip rows), dx (each d_pre row times both taps). With
     ``weight_grads`` (the whole backward) also the weight-gradient products and the weight gradients written;
     without (the kernel alone) d_pre and act written instead."""
     L = T_in - dilation
     weights = 4 * C * half + 2 * half + half * (C + S) + C + S
-    macs = B * L * (4 * C * half + half * (C + S)) + B * T_in * 4 * half * C
+    macs = B * L * 4 * C * half + B * L * half * C + B * skip_size * half * S + B * L * 2 * half * 2 * C
     if weight_grads:
         macs += B * L * (4 * C * half + half * C) + B * skip_size * half * S
         written = weights
@@ -390,17 +391,52 @@ def residual_glu_bwd_work(B, T_in, C, half, S, dilation, skip_size, weight_grads
     return dict(bytes_=elem * (2 * B * T_in * C + B * L * C + B * skip_size * S + weights + written), flops=2 * macs)
 
 
-def wavenet_stack_work(B, T_in, C, dilations, skip_size, taps=0, accumulate=False, elem=2):
+def wg_bwd_kernel_work(kernel, B, T_in, dilation, skip_size, n_split=0, C=96):
+    """``roofline`` keywords of one launch of a kernel of K1-bwd's warpgroup route (bf16, C = half = R = S): each
+    input read once, each output written once, the multiply-adds its rows need. pass_a: x, dO, dS and the weights
+    in, d_pre and act out; wgrad: x, d_pre, act, dO and dS in, the weight and bias gradients out (the function's
+    outputs: the ``n_split`` f32 partials it writes for reduce are the split's own overhead, which reduce's bound
+    shows); reduce: the partials in, the weight gradients out; pass_b: d_pre, dO and the gate weights in, dx out."""
+    L = T_in - dilation
+    weights = 6 * C * C + 2 * C + 2 * C * C + 2 * C
+    part = 4 * n_split * 3 * ((96 + 48) * 128 + 128)
+    if kernel == "pass_a":
+        return dict(bytes_=2 * (B * T_in * C + B * L * C + B * skip_size * C + weights + B * L * 3 * C),
+                    flops=2 * (B * L * 4 * C * C + B * L * C * C + B * skip_size * C * C))
+    if kernel == "wgrad":
+        return dict(bytes_=2 * (B * T_in * C + B * L * 4 * C + B * skip_size * C + weights),
+                    flops=2 * (B * L * 4 * C * C + B * L * C * C + B * skip_size * C * C))
+    if kernel == "reduce":
+        return dict(bytes_=part + 2 * weights, flops=part // 4)
+    return dict(bytes_=2 * (B * L * 2 * C + B * L * C + 4 * C * C + B * T_in * C), flops=2 * B * L * 4 * C * C)
+
+
+def wavenet_step_bwd_work(B, T_in, C, dilations, skip_size, elem=2):
+    """``roofline`` keywords of the residual stacks' backward in one WaveNet train step: K1-bwd with its weight
+    gradients (:func:`residual_glu_bwd_work`) summed over every block of every stack, ``dilations`` all of them in
+    order, ``T_in`` the first block's input rows."""
+    total = dict(bytes_=0, flops=0)
+    for d in dilations:
+        work = residual_glu_bwd_work(B, T_in, C, C, C, d, skip_size, elem=elem)
+        total = {k: total[k] + work[k] for k in total}
+        T_in -= d
+    return total
+
+
+def wavenet_stack_work(B, T_in, C, dilations, skip_size, taps=0, accumulate=False, save=False, elem=2):
     """``roofline`` keywords of one P2/P3 launch (C = half = R = S): x read once, the stack's output written once,
     the f32 skip sum written once (and read once where it is added into), the taps written, every block's weights
-    read once; each block's gate and [r | s] multiply-adds over the output rows it has."""
-    rows, T_out = 0, T_in
-    for d in dilations:
+    read once, in save mode every later block's input written too; each block's gate and [r | s] multiply-adds over
+    the output rows it has."""
+    rows, T_out, inner = 0, T_in, 0
+    for l, d in enumerate(dilations):
+        if l > 0:
+            inner += T_out
         T_out -= d
         rows += T_out
     weights = len(dilations) * (4 * C * C + 2 * C + 2 * C * C + 2 * C)
-    return dict(bytes_=elem * (B * T_in * C + B * T_out * C + taps * B * skip_size * C + weights)
-                + 4 * B * skip_size * C * (2 if accumulate else 1),
+    return dict(bytes_=elem * (B * T_in * C + B * T_out * C + taps * B * skip_size * C + weights
+                               + (B * inner * C if save else 0)) + 4 * B * skip_size * C * (2 if accumulate else 1),
                 flops=2 * B * rows * (4 * C * C + 2 * C * C))
 
 
@@ -419,6 +455,112 @@ def stcn_frame_work(B, C, half, S, n_enc, n_used, n_dec, latent_size, D):
               + 2 * D)
     state = B * (2 * C * (n_enc + n_dec) + Z + 1)
     return dict(bytes_=4 * (2 * C + macs + biases + state), flops=2 * B * macs)
+
+
+WG_BWD_KERNELS = ("glu_bwd_pass_a", "glu_bwd_wgrad", "glu_bwd_reduce", "glu_bwd_pass_b")
+
+
+class WgRoute:
+    """K1-bwd's warpgroup route kernel by kernel through its C entry points (no launch counted), on buffers made
+    once, for holding each kernel to its plain part on the same inputs and for timing each alone. ``w``: the five
+    weights the backward reads (bf16, C = 96)."""
+
+    def __init__(self, cuda, x, w, d_o, d_s, dilation, skip_size):
+        from blvm_tpu_torch.ops import residual_glu as rg
+
+        self.cuda, self.lib, self.rg = cuda, cuda.library(), rg
+        self.x, self.w, self.d_o, self.d_s, self.d, self.skip = x, w, d_o, d_s, dilation, skip_size
+        B, T_in, C = x.shape
+        L = T_in - dilation
+        self.B, self.T_in, self.L = B, T_in, L
+        self.n_split = rg.wg_splits(x.device, B, L)
+        self.d_pre = torch.empty(B, L, 2 * C, dtype=x.dtype, device=x.device)
+        self.act = torch.empty(B, L, C, dtype=x.dtype, device=x.device)
+        self.dx = torch.empty_like(x)
+        self.part = torch.empty(self.n_split * rg.WG_PART_FLOATS, device=x.device)
+        self.out = [torch.empty_like(t) for t in w] + [torch.empty(2 * C, dtype=x.dtype, device=x.device)]
+        self.stream = cuda.stream_handle(x)
+
+    def pass_a(self, _=None):
+        self.cuda.check(self.lib.blvm_glu_bwd_pass_a(
+            *(t.data_ptr() for t in (self.x, *self.w, self.d_o, self.d_s, self.d_pre, self.act)), self.B, self.T_in,
+            self.d, self.skip, self.stream), "glu_bwd_pass_a")
+
+    def wgrad(self, _=None):
+        self.cuda.check(self.lib.blvm_glu_bwd_wgrad(
+            *(t.data_ptr() for t in (self.x, self.d_o, self.d_s, self.d_pre, self.act, self.part)), self.B,
+            self.T_in, self.d, self.skip, self.n_split, self.stream), "glu_bwd_wgrad")
+
+    def reduce(self, _=None):
+        self.cuda.check(self.lib.blvm_glu_bwd_reduce(self.part.data_ptr(), *(t.data_ptr() for t in self.out),
+                                                     self.n_split, self.stream), "glu_bwd_reduce")
+
+    def pass_b(self, _=None):
+        self.cuda.check(self.lib.blvm_glu_bwd_pass_b(
+            *(t.data_ptr() for t in (self.w[0], self.w[1], self.d_pre, self.d_o, self.dx)), self.B, self.T_in,
+            self.d, self.stream), "glu_bwd_pass_b")
+
+    # the plain parts (ops/residual_glu.py), on the same inputs
+    def pass_a_plain(self, _=None):
+        return self.rg.glu_bwd_pass_a_plain(self.x, *self.w, self.d_o, self.d_s, self.d, self.skip)
+
+    def weight_grads_plain(self, _=None):
+        return self.rg.glu_bwd_weight_grads_plain(self.x, self.d_pre, self.act, self.d_o, self.d_s, self.d, self.skip,
+                                                  2 * self.x.shape[-1])
+
+    def reduce_plain(self, _=None):
+        return self.part.view(self.n_split, -1).sum(0)
+
+    def pass_b_plain(self, _=None):
+        return self.rg.glu_bwd_pass_b_plain(self.w[0], self.w[1], self.d_pre, self.d_o, self.d, self.T_in)
+
+
+def wg_route_checks(cuda, x, w, d_o, d_s, dilation, skip, got, worst):
+    """Phase 9's holds on the warpgroup route at one shape (bf16): each kernel against its plain part on the same
+    inputs (pass A's d_pre and act, and pass B's dx, within K1's bf16 limits; the weight gradients from the twin's
+    d_pre and act by the partials and their sum, each within 4e-3 of its norm, one bf16 rounding of f32 sums taken
+    in another order), the whole route (``got``, through autograd) against its twin and the twin in f64 (each
+    gradient's relative-norm error at most twice the bf16 twin's plus 1e-3), and two runs bitwise equal. Updates
+    ``worst`` (each kernel's largest absolute error); returns the phase's fields."""
+    from blvm_tpu_torch.ops import residual_glu as rg
+
+    rtol, atol = 2.0**-6, 5e-2  # phase 4's bf16 limits, K1's own
+    route = WgRoute(cuda, x, w, d_o, d_s, dilation, skip)
+
+    def held(a, ref, what):
+        err = (a.float() - ref.float()).abs()
+        require((err - (atol + rtol * ref.float().abs())).max().item() <= 0, f"{what} d={dilation}: over K1's limits")
+        return err.max().item()
+
+    route.pass_a()
+    d_pre_t, act_t = route.pass_a_plain()
+    e_a = max(held(route.d_pre, d_pre_t, "glu_bwd_pass_a d_pre"), held(route.act, act_t, "glu_bwd_pass_a act"))
+    route.d_pre.copy_(d_pre_t)
+    route.act.copy_(act_t)
+    route.wgrad()
+    route.reduce()
+    ref_w = route.weight_grads_plain()
+    rels_w = [rel_norm(a, b) for a, b in zip(route.out, ref_w)]
+    require(max(rels_w) <= 4e-3, f"glu_bwd_wgrad + reduce d={dilation}: relative errors {rels_w}")
+    e_w = max((a.float() - b.float()).abs().max().item() for a, b in zip(route.out, ref_w))
+    route.pass_b()
+    e_b = held(route.dx, route.pass_b_plain(), "glu_bwd_pass_b dx")
+    for name, e in zip(WG_BWD_KERNELS, (e_a, e_w, e_w, e_b)):
+        worst[name] = max(worst[name], e)
+
+    again = rg.residual_glu_backward(x, *w, d_o=d_o, d_s=d_s, dilation=dilation, skip_size=skip)
+    twice = rg.residual_glu_backward(x, *w, d_o=d_o, d_s=d_s, dilation=dilation, skip_size=skip)
+    require(all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(again, twice, got)),
+            f"the warpgroup route d={dilation}: two runs (and the autograd run) not bitwise equal")
+    twin = rg.residual_glu_backward_plain(x, *w, d_o=d_o, d_s=d_s, dilation=dilation, skip_size=skip)
+    ref = rg.residual_glu_backward_plain(x.double(), *(t.double() for t in w), d_o=d_o.double(), d_s=d_s.double(),
+                                         dilation=dilation, skip_size=skip)
+    errs = [(rel_norm(k, r), rel_norm(t, r)) for k, t, r in zip(again, twin, ref)]
+    require(all(e_k <= 2 * e_t + 1e-3 for e_k, e_t in errs), f"the warpgroup route d={dilation} against the f64 "
+            f"twin: (kernel, bf16 twin) relative errors {errs}")
+    return dict(kernels_max_abs_err=[f"{e:.3g}" for e in (e_a, e_w, e_b)], weight_grads_rel=f"{max(rels_w):.3g}",
+                route_vs_f64=f"{max(e for e, _ in errs):.3g}", twin_vs_f64=f"{max(e for _, e in errs):.3g}",
+                bitwise_repeat=True)
 
 
 def rel_norm(a, b):
@@ -604,6 +746,9 @@ def main():
         "wavenet_stack": dict(name="wavenet_stack", route="cuda", source="blvm_tpu_torch/csrc/wavenet_stack.cu",
                               replaces="1788a18^:blvm_tpu/ops/pallas/wavenet_stack.py:128, "
                                        "1788a18^:blvm_tpu/ops/pallas/wavenet_stack.py:219"),
+        # K1-bwd's warpgroup route (bf16, C = 96): the same VJP, with the weight gradients XLA took beside it
+        **{name: dict(name=name, route="cuda", source="blvm_tpu_torch/csrc/residual_glu_bwd.cu",
+                      replaces="1788a18^:blvm_tpu/ops/pallas/wavenet_block.py:144") for name in WG_BWD_KERNELS},
     }
     for entry in record.values():
         # no single PyTorch call computes a residual-GLU block or a stack of them, the DMoL ladder, its sampler or a
@@ -822,7 +967,9 @@ def main():
     phase("time-K2", card=smi.replace(" ", "_"), frames=B * T, mixtures=M, kernel_ms=f"{k2['kernel']:.4f}",
           plain_ms=f"{k2['plain']:.4f}")
 
-    # 9. K1-bwd against autograd of its twin at the flagship shapes, the cases of phase 4
+    # 9. K1-bwd against autograd of its twin at the flagship shapes, the cases of phase 4: in f32 K1-bwd and its
+    # GEMMs, in bf16 the warpgroup route (four kernels). The route is also held to its own twin (split as its
+    # kernels split it) and to that twin in f64, and each of its kernels to its plain part on the same inputs.
     def glu_grads(fn, inputs, d, skip, d_o, d_s):
         leaves = [t.detach().requires_grad_(True) for t in inputs]
         o, s = fn(*leaves, dilation=d, skip_size=skip)
@@ -836,6 +983,7 @@ def main():
     # 2^-8 on each term's path in the twin).
     k1b_rel = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
     k1b_err = 0.0
+    wg_err = dict.fromkeys(WG_BWD_KERNELS, 0.0)
     for dtype in (torch.float32, torch.bfloat16):
         for d in (1, 64, 512):
             block = int(math.log2(d))
@@ -844,8 +992,13 @@ def main():
             for skip in (T + rf - d, T):
                 d_o = torch.randn(B, T + rf - d, 96, generator=gen, device=dev).to(dtype)
                 d_s = torch.randn(B, skip, 96, generator=gen, device=dev).to(dtype)
+                cuda.reset_launch_counts()
                 got = glu_grads(modules.residual_glu, [x, *w], d, skip, d_o, d_s)
                 torch.cuda.synchronize()
+                counts = {k: v for k, v in cuda.launch_counts().items() if v}
+                expected = dict(residual_glu=1, **({k: 1 for k in WG_BWD_KERNELS} if dtype == torch.bfloat16
+                                                   else dict(residual_glu_bwd=1)))
+                require(counts == expected, f"K1-bwd {dtype} d={d}: launches {counts}, expected {expected}")
                 ref = glu_grads(modules.residual_glu_plain, [x, *w], d, skip, d_o, d_s)
                 rtol, atol = k1_tol[dtype]
                 err = (got[0].float() - ref[0].float()).abs()
@@ -854,10 +1007,16 @@ def main():
                         f"K1-bwd {dtype} d={d} skip={skip}: dx max err {err.max().item()} over tolerance")
                 rels = {n: rel_norm(a, b) for n, a, b in zip(block_names, got[1:], ref[1:])}
                 require(max(rels.values()) <= k1b_rel[dtype], f"K1-bwd {dtype} d={d} skip={skip}: {rels}")
-                k1b_err = max(k1b_err, err.max().item())
+                extra = {}
+                if dtype == torch.bfloat16:
+                    extra = wg_route_checks(cuda, x, w[:5], d_o, d_s, d, skip, got, wg_err)
+                else:
+                    k1b_err = max(k1b_err, err.max().item())
                 phase("K1-bwd", dtype=str(dtype).split(".")[1], dilation=d, skip_rows=skip,
-                      dx_max_abs_err=f"{err.max().item():.3g}", param_grad_max_rel=f"{max(rels.values()):.3g}")
+                      dx_max_abs_err=f"{err.max().item():.3g}", param_grad_max_rel=f"{max(rels.values()):.3g}", **extra)
     record["residual_glu_bwd"]["max_abs_err"] = k1b_err
+    for name, e in wg_err.items():
+        record[name]["max_abs_err"] = e
 
     # 10. K2-bwd at the flagship head shapes with phase 5's edge rows: the gradient by the
     # head's output (its strided logits, locs and log-scales) of a weighted sum of frames
@@ -949,9 +1108,10 @@ def main():
             return log.steps, cuda.launch_counts(), time.time() - t0
 
     steps_k, counts, seconds = run_train()
-    expected = dict(wavenet_stack=15, residual_glu_bwd=150, dmol_log_prob=3, dmol_log_prob_bwd=3, dmol_sample=3)
+    expected = dict(wavenet_stack=15, **dict.fromkeys(WG_BWD_KERNELS, 150), dmol_log_prob=3, dmol_log_prob_bwd=3,
+                    dmol_sample=3)
     require(counts == {**dict.fromkeys(counts, 0), **expected},
-            f"train-step launches {counts}, expected {expected} (5/50/1/1/1 a step)")
+            f"train-step launches {counts}, expected {expected} (5 P2, 50 of each of K1-bwd's four, 1/1/1 a step)")
     for name in expected:
         record[name]["launches"] = counts[name]
     steps_p, counts_p, _ = run_train(plain_path_=True)
@@ -1032,17 +1192,70 @@ def main():
         o, s = fn(*leaves, dilation=64, skip_size=T)
         return (o, s), leaves, (torch.randn_like(o), torch.randn_like(s))
 
+    card = smi.replace(" ", "_")
     w6 = [torch.from_numpy(params[f"res_stack/Conv1dResidualGLU_6/{n}"]).to(dev, torch.bfloat16) for n in block_names]
     graphs = []
     for _ in range(8):
         x_ = torch.randn(B, T + rf, 96, generator=gen, device=dev).to(torch.bfloat16)
         graphs.append((glu_graph(modules.residual_glu_plain, x_.clone()), glu_graph(modules.residual_glu, x_.clone())))
     k1b = alternate(lambda g_: backward_only(g_[0]), lambda g_: backward_only(g_[1]), graphs)
-    record["residual_glu_bwd"].update(ms=k1b["kernel"], plain_ms=k1b["plain"], **roofline(
-        **residual_glu_bwd_work(B, T + rf, 96, 96, 96, 64, T, elem=2), peak=BF16_PEAK))
-    phase("time-K1-bwd", card=smi.replace(" ", "_"), shape=f"({B},{T + rf},96)", dilation=64, dtype="bf16",
-          kernel_ms=f"{k1b['kernel']:.4f}", plain_ms=f"{k1b['plain']:.4f}", includes="both passes + weight-gradient GEMMs")
-    del graphs
+    k1b_bound = roofline(**residual_glu_bwd_work(B, T + rf, 96, 96, 96, 64, T, elem=2), peak=BF16_PEAK)
+    phase("time-K1-bwd", card=card, shape=f"({B},{T + rf},96)", dilation=64, dtype="bf16",
+          kernel_ms=f"{k1b['kernel']:.4f}", plain_ms=f"{k1b['plain']:.4f}", bound_ms=f"{k1b_bound['bound_ms']:.4f}",
+          bound_by=k1b_bound["bound_by"], includes="the warpgroup route: its four kernels through autograd")
+
+    # each kernel of the route alone (its C entry point on buffers made beforehand) against its plain part on the same
+    # inputs, in turns, beside its bound
+    routes = []
+    for g_ in graphs:
+        (outs, leaves, cots) = g_[1]
+        routes.append(WgRoute(cuda, leaves[0].detach(), [t.detach() for t in leaves[1:6]], cots[0], cots[1], 64, T))
+    for r_ in routes:  # d_pre and act for the kernels after pass A
+        r_.pass_a()
+    plain_parts = dict(glu_bwd_pass_a="pass_a_plain", glu_bwd_wgrad="weight_grads_plain", glu_bwd_reduce="reduce_plain",
+                       glu_bwd_pass_b="pass_b_plain")
+    for name, kernel in zip(WG_BWD_KERNELS, ("pass_a", "wgrad", "reduce", "pass_b")):
+        t_ = alternate(lambda r_: getattr(r_, plain_parts[name])(), lambda r_: getattr(r_, kernel)(), routes)
+        bound = roofline(**wg_bwd_kernel_work(kernel, B, T + rf, 64, T, n_split=routes[0].n_split), peak=BF16_PEAK)
+        record[name].update(ms=t_["kernel"], plain_ms=t_["plain"], **bound)
+        phase(f"time-{name}", card=card, shape=f"({B},{T + rf},96)", dilation=64, dtype="bf16", alone_ms=f"{t_['kernel']:.4f}",
+              plain_ms=f"{t_['plain']:.4f}", bound_ms=f"{bound['bound_ms']:.4f}", bound_by=bound["bound_by"],
+              splits=routes[0].n_split if kernel in ("wgrad", "reduce") else None)
+    del graphs, routes
+
+    # a stack's backward (10 blocks, dilations 1 .. 512) at the step's shapes, from the first stack's saved inputs:
+    # the route a block (stack_backward, the gradients written into the stacked slots) against its twin in turns, its
+    # counted launches, the host's enqueue and the device time; five a step
+    from blvm_tpu_torch.ops import wavenet_stack as stack_ops
+
+    sdil = [b_.dilation for b_ in tmodel.res_stack.blocks[:10]]
+    sparams = [p_.detach() for p_ in stack_ops.pack_blocks(tmodel.res_stack.blocks[:10], torch.bfloat16)]
+    cases_ = []
+    for _ in range(4):
+        x_ = torch.randn(B, T + rf, 96, generator=gen, device=dev).to(torch.bfloat16)
+        with torch.no_grad():
+            out_, sum_, inputs_, taps_ = stack_ops._launch(x_, sparams, sdil, T, (0, 5), None, save=True)
+        cases_.append((inputs_, torch.randn(out_.shape, generator=gen, device=dev).to(torch.bfloat16),
+                       torch.randn(sum_.shape, generator=gen, device=dev),
+                       [torch.randn(t_.shape, generator=gen, device=dev).to(torch.bfloat16) for t_ in taps_]))
+
+    def stack_bwd(c_, backward=stack_ops.stack_backward):
+        return backward(c_[0], sparams, sdil, T, (0, 5), c_[1], c_[2], c_[3])
+
+    sb = alternate(lambda c_: stack_bwd(c_, stack_ops.stack_backward_plain), stack_bwd, cases_, warmup=1)
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    stack_bwd(cases_[0])
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    launches_ = {k: v for k, v in cuda.launch_counts().items() if v}
+    require(launches_ == dict.fromkeys(WG_BWD_KERNELS, 10), f"a stack's backward launched {launches_}")
+    sb_bound = roofline(**wavenet_step_bwd_work(B, T + rf, 96, sdil, T), peak=BF16_PEAK)
+    phase("time-K1-bwd-stack", card=card, shape=f"({B},{T + rf},96)", blocks=10, device_ms=f"{sb['kernel']:.4f}",
+          plain_ms=f"{sb['plain']:.4f}", bound_ms=f"{sb_bound['bound_ms']:.4f}", bound_by=sb_bound["bound_by"],
+          host_enqueue_ms=f"{enqueue_ms:.3f}", launches=sum(launches_.values()), per_step_ms=f"{5 * sb['kernel']:.3f}")
+    del cases_
 
     def dmol_graph(fn, h):  # the backward of K2 alone: gradients by its three (strided) inputs
         inputs = list(split_head(h.requires_grad_(True)))
@@ -1130,6 +1343,10 @@ def main():
     phase("slowest-phases", **{tag: f"{seconds:.1f}" for tag, seconds in slowest})
     phase("total", seconds=f"{time.time() - t_start:.1f}")
 
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    lacking = {e["name"]: [k for k in keys if k not in e] for e in record.values() if any(k not in e for k in keys)}
+    phase("record-keys", complete=not lacking, lacking=lacking)
     print(json.dumps({"kernels": list(record.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                "count": torch.cuda.device_count()}}), flush=True)
@@ -1261,31 +1478,62 @@ def stack_phases(record, smi, models, xb, dev):
         g_c, counts_c = step0_grads(m_, list_path_=True)
         rels = {n: rel_norm(g_f[n], g_c[n]) for n in g_c}
         worst_name = max(rels, key=rels.get)
-        require(counts["wavenet_stack"] == 5 and counts["residual_glu_bwd"] == 50 and counts["residual_glu"] == 0,
+        bwd = dict.fromkeys(WG_BWD_KERNELS, 50) if bf16 else dict(residual_glu_bwd=50)  # the warpgroup route in bf16
+        require(counts["wavenet_stack"] == 5 and counts["residual_glu"] == 0 and all(counts[k] == v for k, v in bwd.items()),
                 f"step-0 launches {counts}")
         require(all(torch.isfinite(g).all() for g in g_f.values()) and rels[worst_name] <= grad_rel[bf16],
                 f"step-0 gradients bf16={bf16}: {worst_name} {rels[worst_name]} from the K1 chain's")
         phase("P2-step0-grads", bf16=bf16, parameters=len(rels), max_rel_vs_k1_chain=f"{rels[worst_name]:.3g}",
               worst=worst_name, bitwise=all(torch.equal(g_f[n], g_c[n]) for n in g_c), tolerance=grad_rel[bf16],
-              launches=dict(wavenet_stack=counts["wavenet_stack"], residual_glu_bwd=counts["residual_glu_bwd"]),
-              k1_chain_launches=dict(residual_glu=counts_c["residual_glu"], residual_glu_bwd=counts_c["residual_glu_bwd"]))
+              launches=dict(wavenet_stack=counts["wavenet_stack"], **{k: counts[k] for k in bwd}),
+              k1_chain_launches=dict(residual_glu=counts_c["residual_glu"], **{k: counts_c[k] for k in bwd}))
         del g_f, g_c
+    torch.cuda.empty_cache()
+
+    # the stacked form on the card: a stack's backward (stack_backward, every block's gradients written into its slot
+    # of the stacked tensors) at the forward's shape from P2's saved inputs, against its twin (the same blocks'
+    # twin, in bf16) and the twin in f64 on the same inputs: each stacked gradient's relative-norm error at most twice
+    # the bf16 twin's plus 1e-3, as phase 9 holds one block
+    ps = weights_of(0, torch.bfloat16)
+    x = torch.randn(B, T + rf, C, generator=gen, device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        out, summed, inputs, taps = stack_ops._launch(x, ps, dilations, T, (0, 5), None, save=True)
+        cots = (torch.randn(out.shape, generator=gen, device=dev).to(torch.bfloat16),
+                torch.randn(summed.shape, generator=gen, device=dev),
+                [torch.randn(t.shape, generator=gen, device=dev).to(torch.bfloat16) for t in taps])
+        cuda.reset_launch_counts()
+        got = stack_ops.stack_backward(inputs, ps, dilations, T, (0, 5), *cots)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in cuda.launch_counts().items() if v}
+        twin = stack_ops.stack_backward_plain(inputs, ps, dilations, T, (0, 5), *cots)
+        ref = stack_ops.stack_backward_plain([t.double() for t in inputs], [p.double() for p in ps], dilations, T,
+                                             (0, 5), cots[0].double(), cots[1].double(), [t.double() for t in cots[2]])
+    errs = [(rel_norm(k, r), rel_norm(t, r)) for k, t, r in zip([got[0], *got[1]], [twin[0], *twin[1]], [ref[0], *ref[1]])]
+    require(launches == dict.fromkeys(WG_BWD_KERNELS, n_layers), f"a stack's backward launched {launches}")
+    require(all(e_k <= 2 * e_t + 1e-3 for e_k, e_t in errs), f"the stack's backward against the f64 twin: {errs}")
+    phase("P2-stack-backward-vs-f64", shape=f"({B},{T + rf},{C})", blocks=n_layers, launches=sum(launches.values()),
+          max_rel_vs_f64=f"{max(e for e, _ in errs):.3g}", twin_max_rel_vs_f64=f"{max(e for _, e in errs):.3g}")
+    del out, summed, inputs, taps, cots, got, twin, ref
     torch.cuda.empty_cache()
 
     # 74. times: P2 (a stack at the forward's shape) and P3 (the window's first stack), bf16, each against its twin
     # and the K1 chain in turns (CUDA events, a different input each call), beside its bound; f32 P2 reported
     times = {}
-    for label, dtype in (("P2", torch.bfloat16), ("P3", torch.bfloat16), ("P2", torch.float32)):
+    for label, dtype, save in (("P2", torch.bfloat16, False), ("P2", torch.bfloat16, True), ("P3", torch.bfloat16, False),
+                               ("P3-last", torch.bfloat16, False), ("P2", torch.float32, False)):
         b_, t_in, skip, _, _ = cases[label]
         ps = weights_of(0, dtype)
         xs = [torch.randn(b_, t_in, C, generator=gen, device=dev).to(dtype) for _ in range(12)]
+
+        def kernel(x_):  # save mode: the train step's forward, every block's input kept for the backward
+            return stack_ops._launch(x_, ps, dilations, skip, (0, 5), None, save=save)
+
         with torch.no_grad():
-            t_twin = alternate(lambda x_: stack_ops.wavenet_stack_plain(x_, ps, dilations, skip, (0, 5)),
-                               lambda x_: stack_ops.wavenet_stack(x_, ps, dilations, skip, (0, 5)), xs)
-            t_chain = alternate(lambda x_: k1_chain(x_, ps, skip, (0, 5)),
-                                lambda x_: stack_ops.wavenet_stack(x_, ps, dilations, skip, (0, 5)), xs)
-        bound = roofline(**wavenet_stack_work(b_, t_in, C, dilations, skip, taps=2, elem=dtype.itemsize),
+            t_twin = alternate(lambda x_: stack_ops.wavenet_stack_plain(x_, ps, dilations, skip, (0, 5)), kernel, xs)
+            t_chain = alternate(lambda x_: k1_chain(x_, ps, skip, (0, 5)), kernel, xs)
+        bound = roofline(**wavenet_stack_work(b_, t_in, C, dilations, skip, taps=2, save=save, elem=dtype.itemsize),
                          peak=BF16_PEAK if dtype == torch.bfloat16 else F32_PEAK)
+        label = label + ("-save" if save else "")
         times[label, dtype] = dict(kernel=min(t_twin["kernel"], t_chain["kernel"]), plain=t_twin["plain"],
                                    chain=t_chain["plain"], **bound)
         t_ = times[label, dtype]
@@ -1295,9 +1543,12 @@ def stack_phases(record, smi, models, xb, dev):
               plain_ms=f"{t_['plain']:.4f}", k1_chain_ms=f"{t_['chain']:.4f}", bound_ms=f"{t_['bound_ms']:.4f}",
               bound_by=t_["bound_by"], tflops=f"{flops / t_['kernel'] / 1e9:.1f}")
     p2, p3, p2f = times["P2", torch.bfloat16], times["P3", torch.bfloat16], times["P2", torch.float32]
+    p2s, p3l = times["P2-save", torch.bfloat16], times["P3-last", torch.bfloat16]
     record["wavenet_stack"].update(
         ms=p2["kernel"], plain_ms=p2["plain"], bound_ms=p2["bound_ms"], bound_by=p2["bound_by"], k1_chain_ms=p2["chain"],
+        save_ms=p2s["kernel"], save_bound_ms=p2s["bound_ms"],
         p3_ms=p3["kernel"], p3_plain_ms=p3["plain"], p3_bound_ms=p3["bound_ms"], p3_k1_chain_ms=p3["chain"],
+        p3_last_ms=p3l["kernel"], p3_last_bound_ms=p3l["bound_ms"],
         f32_ms=p2f["kernel"], f32_plain_ms=p2f["plain"], f32_bound_ms=p2f["bound_ms"], f32_k1_chain_ms=p2f["chain"])
 
 
@@ -1507,7 +1758,7 @@ def generation_phases(record, smi, args, models, dev):
 
 
 def lstm_phases(record, smi, dev):
-    """Phases 19-24, the LSTMAudio paths at the width of ``experiments/benchmarks.txt:10``:
+    """Phases 19-24, the LSTMAudio paths at the width of ``experiments/benchmarks.txt:12``:
     K5 and K5-bwd against their twins, the test pass (whole and with carried state), the
     train step, generation through the driver's hook, and their times. Each check is printed
     before any raises, so one run shows every number."""
@@ -1673,7 +1924,7 @@ def lstm_phases(record, smi, dev):
                       twin_max_rel_vs_f32=f"{max(e_p.values()):.3g}", kernel_vs_twin=f"{max(rels.values()):.3g}")
     record["lstm_recurrence_bwd"]["max_abs_err"] = k5b_err
 
-    # 21. the test pass: flags of benchmarks.txt:10 -> driver -> model on the card -> weights bridge,
+    # 21. the test pass: flags of benchmarks.txt:12 -> driver -> model on the card -> weights bridge,
     # over 6 synthetic mu-law utterances, whole and with --split_eval (chunks of 16 stacks, s_n carried)
     args = lstm_audio.build_args(LSTM_FLAGS.split())
     model = lstm_audio.build_model(args)
@@ -1857,7 +2108,7 @@ def lstm_phases(record, smi, dev):
           cudnn_lstm_ms=f"{k5_lib['plain']:.4f}", layer_ms=f"{layer_ms:.4f}",
           us_per_step=f"{k5['kernel'] * 1e3 / LSTM_T:.3f}", cudnn_max_abs_err=f"{cudnn_err:.3g}")
 
-    # the s=1 shape (benchmarks.txt:9): T' = 16000 steps, the chain's latency per step
+    # the s=1 shape (benchmarks.txt:11): T' = 16000 steps, the chain's latency per step
     xw_s1 = [torch.randn(LSTM_B, 16000, G, generator=gen, device=dev) * 0.7]
     mask_s1 = torch.ones(LSTM_B, 16000, device=dev)
     pk_s1 = [torch.nn.utils.rnn.pack_padded_sequence(torch.relu(torch.randn(LSTM_B, 16000, H, generator=gen,
@@ -4134,6 +4385,8 @@ def stcn_train_phases(record, smi, dev):
         alone = sorted(cuda_time_ms(kernel_alone, bufs, warmup=1))[1]
         bound = roofline(**residual_glu_bwd_work(micro, T_in, C, C, S, d, skip), peak=F32_PEAK)
         bound_alone = roofline(**residual_glu_bwd_work(micro, T_in, C, C, S, d, skip, weight_grads=False), peak=F32_PEAK)
+        if label == "skip":  # K1-bwd's own kernel (the WaveNet step takes the warpgroup route): STCN's block with its skip
+            record["residual_glu_bwd"].update(ms=t["kernel"], plain_ms=t["plain"], **bound)
         record["residual_glu_bwd"].update({
             f"stcn_{label}_ms": t["kernel"], f"stcn_{label}_plain_ms": t["plain"], f"stcn_{label}_bound_ms": bound["bound_ms"],
             f"stcn_{label}_kernel_alone_ms": alone, f"stcn_{label}_kernel_alone_bound_ms": bound_alone["bound_ms"]})

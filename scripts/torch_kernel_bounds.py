@@ -1,4 +1,5 @@
-"""Bounds on paper of P2 and P3 (the fused WaveNet stack) at the shapes chip_smoke.py's phases 71-74 run,
+"""Bounds on paper of P2 and P3 (the fused WaveNet stack) at the shapes chip_smoke.py's phases 71-74 run, of
+K1-bwd with its weight gradients (the warpgroup route's four kernels) over the WaveNet train step's 50 blocks,
 of K6 and K6-bwd (the CTC probe's bi-LSTM layer) and K13 and K13-bwd (its CTC loss) at the probe's
 train batch, of K7, K9, K7-bwd and K9-bwd (each kernel apart from the cuBLAS weight-gradient GEMMs around it)
 at the SRNN's test pass and train step shapes, of K12, K1 and K1-bwd at STCN's width, of K10
@@ -31,6 +32,8 @@ from chip_smoke import (  # noqa: E402
     residual_glu_bwd_work,
     residual_glu_work,
     roofline,
+    wavenet_step_bwd_work,
+    wg_bwd_kernel_work,
     rssm_bwd_work,
     rssm_work,
     stcn_frame_work,
@@ -57,6 +60,18 @@ def main():
     bounds["P2"] = dict(**wavenet_stack_work(8, 21117, 96, dilations, 16000, taps=2), peak=BF16_PEAK)
     bounds["P2 f32"] = dict(**wavenet_stack_work(8, 21117, 96, dilations, 16000, taps=2, elem=F32), peak=F32_PEAK)
     bounds["P3"] = dict(**wavenet_stack_work(2, 5116, 96, dilations, 1, taps=2), peak=BF16_PEAK)
+    # P2 in save mode, as the train step's forward runs it: every later block's input written too
+    bounds["P2 save mode"] = dict(**wavenet_stack_work(8, 21117, 96, dilations, 16000, taps=2, save=True),
+                                  peak=BF16_PEAK)
+    # K1-bwd with its weight gradients over the WaveNet train step's 50 blocks (5 stacks of dilations 1 ... 512, the
+    # first block's input 21117 rows, each later one d fewer; the last 16000 rows' skips), bf16:
+    # chip_smoke.wavenet_step_bwd_work sums residual_glu_bwd_work over the blocks. And the warpgroup route's four
+    # kernels apart at one block of phase 13's shape (d = 64; 132 SMs: 88 weight-kernel splits)
+    bounds["K1-bwd with its weight gradients, a step's 50 blocks"] = dict(
+        **wavenet_step_bwd_work(8, 21117, 96, dilations * 5, 16000), peak=BF16_PEAK)
+    for kernel in ("pass_a", "wgrad", "reduce", "pass_b"):
+        bounds[f"K1-bwd {kernel}, a block"] = dict(**wg_bwd_kernel_work(kernel, 8, 21117, 64, 16000, n_split=88),
+                                                   peak=BF16_PEAK)
     # K6: one layer of the ASR probe's bi-LSTM at its run spec (experiments/phoneme.txt:8: --hidden_size 256,
     # 3 bidirectional layers, --batch_len 120 s at hop 64: 30000 frames a batch), both directions in one launch;
     # bilstm_work counts each direction's h W_hh product over the 30000 row-steps (31.46 GFLOP) and xw, the mask

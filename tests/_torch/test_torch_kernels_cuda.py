@@ -6,7 +6,8 @@ VRNN cell and K8-bwd its backward through time, K7 the GRU recurrence and K9 the
 SRNN's latent chain, their save modes and their backwards through time, K7-bwd and K9-bwd; K1 and
 K1-bwd at STCN's width (C = 256, with and without its skip) and K12, STCN's frame decode; K10, the
 CW-VAE's RSSM cell chain, and K11, its coders' depthwise chain, their save modes and their backwards,
-K10-bwd and K11-bwd; K6, the CTC probe's bidirectional LSTM layer, and K6-bwd; K13, its CTC loss, and K13-bwd.
+K10-bwd and K11-bwd; K6, the CTC probe's bidirectional LSTM layer, and K6-bwd; K13, its CTC loss, and K13-bwd; the
+warpgroup tile alone (wgmma_bf16.cuh) and K1-bwd's warpgroup route (bf16 at C = 96) against its twin.
 
 Marked ``cuda``: they skip without a CUDA device (here, on CPU-only machines).
 On the card, where JAX is not installed, leave out the root conftest (it imports
@@ -30,6 +31,8 @@ from blvm_tpu_torch.modules.distributions import DiscretizedLogisticMixtureDense
 from blvm_tpu_torch.ops import ctc, cuda, depthwise, likelihoods, recurrent, variational
 from blvm_tpu_torch.ops import rssm as rssm_ops
 from blvm_tpu_torch.ops import wavenet_stack as stack_ops
+from blvm_tpu_torch.ops import wgmma_tile
+from blvm_tpu_torch.ops.residual_glu import residual_glu_backward, residual_glu_backward_plain, wg_chain_backward
 from blvm_tpu_torch.ops import srnn as srnn_ops
 from blvm_tpu_torch.ops import vrnn as vrnn_ops
 from blvm_tpu_torch.ops.generation import STCNDecoder, WaveNetDecoder
@@ -280,38 +283,56 @@ def test_wavenet_stack_save_mode_is_a_plain_launch(cuda_device, dtype):
         assert torch.equal(a, b)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_wavenet_stack_gradients_match_the_k1_chain(cuda_device, dtype):
-    """Through WaveNetStackFunction (the kernel in save mode, ten K1-bwd launches in reverse) against autograd of
-    the K1 chain: two chained stacks with taps and an output gradient on every output, the second adding into the
-    first's sum. The weight and bias gradients by their relative norm, as K1-bwd's are held (f32 1e-5, bf16 2e-2)."""
-    x, p1, dilations = stack_inputs(2, 2200, 96, 10, dtype, cuda_device, seed=2)
-    _, p2, _ = stack_inputs(2, 2200, 96, 10, dtype, cuda_device, seed=3)
-    g = torch.Generator(device=cuda_device).manual_seed(4)
-    skip, T_out = 50, 2200 - 2 * 1023
-    g_out = torch.randn(2, T_out, 96, generator=g, device=cuda_device).to(dtype)
-    g_sum = torch.randn(2, skip, 96, generator=g, device=cuda_device)
-    g_taps = [torch.randn(2, skip, 96, generator=g, device=cuda_device).to(dtype) for _ in range(2)]
+def stack_gradients_against_the_k1_chain(device, dtype, L, T_in, taps):
+    """Two chained stacks of ``L`` blocks through WaveNetStackFunction, taps ``taps[0]`` of the first and ``taps[1]``
+    of the second, an output gradient on every output, the second adding into the first's sum, against autograd of
+    the K1 chain: the input's gradient within K1's limits, the weight and bias gradients by their relative norm, as
+    K1-bwd's are held (f32 1e-5, bf16 2e-2)."""
+    x, p1, dilations = stack_inputs(2, T_in, 96, L, dtype, device, seed=2)
+    _, p2, _ = stack_inputs(2, T_in, 96, L, dtype, device, seed=3)
+    g = torch.Generator(device=device).manual_seed(4)
+    skip, T_out = 50, T_in - 2 * sum(dilations)
+    g_out = torch.randn(2, T_out, 96, generator=g, device=device).to(dtype)
+    g_sum = torch.randn(2, skip, 96, generator=g, device=device)
+    g_taps = [torch.randn(2, skip, 96, generator=g, device=device).to(dtype) for _ in range(2)]
 
     def leaves():
         return [t.detach().clone().requires_grad_(True) for t in (x, *p1, *p2)]
 
     fused = leaves()
     cuda.reset_launch_counts()
-    o, summed, (t_a,) = stack_ops.wavenet_stack(fused[0], fused[1:7], dilations, skip, (0,))
-    o, summed, (t_b,) = stack_ops.wavenet_stack(o, fused[7:], dilations, skip, (5,), summed)
+    o, summed, (t_a,) = stack_ops.wavenet_stack(fused[0], fused[1:7], dilations, skip, (taps[0],))
+    o, summed, (t_b,) = stack_ops.wavenet_stack(o, fused[7:], dilations, skip, (taps[1],), summed)
     torch.autograd.backward([o, summed, t_a, t_b], [g_out, g_sum, *g_taps])
     counts = cuda.launch_counts()
-    assert counts["wavenet_stack"] == 2 and counts["residual_glu_bwd"] == 20 and counts["residual_glu"] == 0
+    expected = {name: 2 * L for name in WG_BWD} if dtype == torch.bfloat16 else {"residual_glu_bwd": 2 * L}
+    assert counts["wavenet_stack"] == 2 and bwd_launches(counts) == expected and counts["residual_glu"] == 0
     chain = leaves()
     o, s1, skips1 = k1_chain(chain[0], chain[1:7], dilations, skip)
     o, summed, skips2 = k1_chain(o, chain[7:], dilations, skip, s1)
-    torch.autograd.backward([o, summed, skips1[0], skips2[5]], [g_out, g_sum, *g_taps])
+    torch.autograd.backward([o, summed, skips1[taps[0]], skips2[taps[1]]], [g_out, g_sum, *g_taps])
     torch.testing.assert_close(fused[0].grad, chain[0].grad, **K1_TOL[dtype])
     for a, b in zip(fused[1:], chain[1:]):
         rel = ((a.grad.double() - b.grad.double()).norm() / b.grad.double().norm()).item()
         assert rel <= (1e-5 if dtype == torch.float32 else 2e-2), rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wavenet_stack_gradients_match_the_k1_chain(cuda_device, dtype):
+    """Through WaveNetStackFunction (the kernel in save mode, ten blocks' backward in reverse: in bf16 the warpgroup
+    route's four kernels a block, in f32 K1-bwd) against autograd of the K1 chain
+    (:func:`stack_gradients_against_the_k1_chain`), taps 0 and 5."""
+    stack_gradients_against_the_k1_chain(cuda_device, dtype, 10, 2200, (0, 5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 2, 3])
+def test_short_bf16_stack_gradients_match_the_k1_chain(cuda_device, L):
+    """bf16 stacks of 1, 2 and 3 blocks (the warpgroup chain with no buffer for a block's dx between blocks, and with
+    its two buffers used once and in turn) against autograd of the K1 chain
+    (:func:`stack_gradients_against_the_k1_chain`), the first and the last block tapped."""
+    stack_gradients_against_the_k1_chain(cuda_device, torch.bfloat16, L, 300, (0, L - 1))
 
 
 @pytest.mark.cuda
@@ -461,12 +482,110 @@ def test_residual_glu_backward_kernel_matches_autograd_of_twin(cuda_device, dtyp
     cuda.reset_launch_counts()
     got = _glu_grads(residual_glu, args, dilation, skip)
     torch.cuda.synchronize()
-    assert cuda.launch_counts()["residual_glu_bwd"] == 1
+    wg = dtype == torch.bfloat16 and C == half == S == 96  # the warpgroup route's four kernels
+    assert bwd_launches(cuda.launch_counts()) == ({name: 1 for name in WG_BWD} if wg else {"residual_glu_bwd": 1})
     ref = _glu_grads(residual_glu_plain, args, dilation, skip)
     for name, a, b in zip(("x", "w_t", "w_s", "b_t", "b_s", "w_rs", "b_rs"), got, ref):
         assert a.shape == b.shape and a.dtype == b.dtype and torch.isfinite(a).all(), name
         rel = ((a.double() - b.double()).norm() / b.double().norm()).item()
         assert rel <= K1_BWD_REL[dtype], (name, rel)
+
+
+WG_BWD = ("glu_bwd_pass_a", "glu_bwd_wgrad", "glu_bwd_reduce", "glu_bwd_pass_b")
+
+
+def bwd_launches(counts):
+    """The launches of K1-bwd's kernels in ``counts`` that are not 0."""
+    return {k: v for k, v in counts.items() if v and (k in WG_BWD or k == "residual_glu_bwd")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,layout", [(96, "a_k_major"), (96, "a_m_major"), (192, "a_k_major"), (192, "a_m_major"),
+                                      (192, "a_registers")])
+def test_wgmma_tile_matches_a_plain_product(cuda_device, n, layout):
+    """The warpgroup tile alone, in each operand layout the kernels use (A from registers at N = 192 only, the stack's
+    [r | s] product), against the product of the same bf16 values in f32 (f32 accumulation both: the order of the
+    sums, 1e-5 of the largest |D|), at K = 16 (one k-step), 64 and 192."""
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    for K in (16, 64, 192):
+        trans_a = layout == "a_m_major"
+        a = torch.randn((K, 64) if trans_a else (64, K), generator=g, device=cuda_device).bfloat16()
+        b = torch.randn(K, n, generator=g, device=cuda_device).bfloat16()
+        cuda.reset_launch_counts()
+        d = wgmma_tile.wgmma_tile(a, b, trans_a, layout == "a_registers")
+        torch.cuda.synchronize()
+        assert cuda.launch_counts()["wgmma_tile"] == 1
+        ref = wgmma_tile.wgmma_tile_plain(a, b, trans_a)
+        assert (d - ref).abs().max().item() <= 1e-5 * ref.abs().max().item(), (K, layout)
+
+
+def _wg_case(B, T_in, dilation, skip, device, seed=0):
+    x, *w = glu_inputs(B, T_in, 96, 96, 96, torch.bfloat16, device, seed=seed)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    d_o = torch.randn(B, T_in - dilation, 96, generator=g, device=device).bfloat16()
+    d_s = torch.randn(B, skip, 96, generator=g, device=device).bfloat16()
+    return x, w[:5], d_o, d_s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,T_in,dilation,skip",
+    [
+        (8, 2600, 64, 2536),  # the step's rows in miniature: the skip over every output row
+        (2, 700, 512, 150),  # a dilation longer than a tile, a skip window that starts inside one
+        (1, 301, 7, 1),  # B = 1, one skip row, a ragged last tile
+        (3, 100, 4, 37),  # T_out = 96: one full tile and a part a row
+        (2, 65, 1, 64),  # T_out = 64: exactly one tile, no rows past it
+    ],
+)
+def test_residual_glu_backward_wg_route_matches_its_twin(cuda_device, B, T_in, dilation, skip):
+    """K1-bwd's warpgroup route (four launches, no other) against its twin on the same bf16 inputs, both held to the
+    twin in float64: each gradient's relative-norm error at most twice the bf16 twin's plus 1e-3 (the kernels round
+    d_pre and act once, as the twin does; the sums run in another order). Two runs give the same bits. As a chain
+    of one given a block's slots of stacked gradients (``wg_chain_backward``), it writes that block's and no other's,
+    the same bits."""
+    x, w, d_o, d_s = _wg_case(B, T_in, dilation, skip, cuda_device)
+    cuda.reset_launch_counts()
+    got = residual_glu_backward(x, *w, d_o=d_o, d_s=d_s, dilation=dilation, skip_size=skip)
+    torch.cuda.synchronize()
+    assert bwd_launches(cuda.launch_counts()) == {name: 1 for name in WG_BWD}
+    again = residual_glu_backward(x, *w, d_o=d_o, d_s=d_s, dilation=dilation, skip_size=skip)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    slots = [torch.full((3, *t.shape), float("nan"), dtype=t.dtype, device=cuda_device) for t in w]
+    slots.append(torch.full((3, 192), float("nan"), dtype=torch.bfloat16, device=cuda_device))
+    dx = wg_chain_backward([x], [t.unsqueeze(0) for t in w], d_o, [d_s], [dilation], skip, [t[1:2] for t in slots])
+    assert torch.equal(dx, got[0]) and all(torch.equal(t[1], g) for t, g in zip(slots, got[1:]))
+    assert all(t[0].isnan().all() and t[2].isnan().all() for t in slots)
+    twin = residual_glu_backward_plain(x, *w, d_o=d_o, d_s=d_s, dilation=dilation, skip_size=skip)
+    ref = residual_glu_backward_plain(x.double(), *(t.double() for t in w), d_o=d_o.double(), d_s=d_s.double(),
+                                      dilation=dilation, skip_size=skip)
+    for name, k, t, r in zip(("x", "w_t", "w_s", "b_t", "b_s", "w_rs", "b_rs"), got, twin, ref):
+        assert k.shape == r.shape and k.dtype == torch.bfloat16 and torch.isfinite(k).all(), name
+        err_k, err_t = ((k.double() - r).norm() / r.norm()).item(), ((t.double() - r).norm() / r.norm()).item()
+        assert err_k <= 2 * err_t + 1e-3, (name, err_k, err_t)
+
+
+@pytest.mark.cuda
+def test_residual_glu_backward_wg_route_refuses_what_it_does_not_take(cuda_device):
+    """Gradient slots of the wrong shape, dtype or layout, and a skip window longer than the output: it raises.
+    Skip-free at C = 96 and f32 keep K1-bwd (no warpgroup launch)."""
+    x, w, d_o, d_s = _wg_case(1, 200, 4, 50, cuda_device)
+    weights_ = [t.unsqueeze(0) for t in w]
+    good = [torch.empty_like(t) for t in weights_] + [torch.empty(1, 192, dtype=torch.bfloat16, device=cuda_device)]
+    for bad in ([t.float() for t in good], good[:5] + [good[0]],
+                [good[0].transpose(2, 3).contiguous().transpose(2, 3)] + good[1:]):
+        with pytest.raises(ValueError):
+            wg_chain_backward([x], weights_, d_o, [d_s], [4], 50, bad)
+    with pytest.raises(ValueError):
+        residual_glu_backward(x, *w, d_o=d_o, d_s=torch.zeros(1, 197, 96, device=cuda_device).bfloat16(), dilation=4,
+                              skip_size=197)
+    for dtype, need_skip in ((torch.bfloat16, False), (torch.float32, True)):
+        cuda.reset_launch_counts()
+        args = [t.to(dtype) for t in (x, *w)]
+        residual_glu_backward(*args, d_o=d_o.to(dtype), d_s=d_s.to(dtype), dilation=4, skip_size=50,
+                              need_skip=need_skip)
+        torch.cuda.synchronize()
+        assert bwd_launches(cuda.launch_counts()) == {"residual_glu_bwd": 1}
 
 
 @pytest.mark.cuda
@@ -538,7 +657,7 @@ def test_dmol_sampler_kernel_own_stream_by_distribution(cuda_device):
 def test_training_through_the_kernels_has_gradients(cuda_device):
     """On CUDA tensors the loss carries a gradient through K1-bwd and K2-bwd (the
     forward kernels alone left it without one): the fused stacks forward (P2, one
-    launch a stack), K1-bwd a block backward."""
+    launch a stack), K1-bwd's warpgroup route (four kernels) a block backward."""
     model = WaveNet(n_layers=3, n_stacks=2, res_channels=96, num_mix=3, num_bins=256, bf16=True, device=cuda_device)
     weights.load_jax_params(model, weights.random_jax_params(model, 0))
     x = torch.rand(2, 300, device=cuda_device) * 2 - 1
@@ -546,8 +665,8 @@ def test_training_through_the_kernels_has_gradients(cuda_device):
     loss, _, _ = model(x, torch.tensor([300, 211], device=cuda_device))
     loss.backward()
     counts = cuda.launch_counts()
-    assert counts["wavenet_stack"] == 2 and counts["residual_glu_bwd"] == 6 and counts["residual_glu"] == 0
-    assert counts["dmol_log_prob"] == counts["dmol_log_prob_bwd"] == counts["dmol_sample"] == 1
+    assert counts["wavenet_stack"] == 2 and bwd_launches(counts) == {name: 6 for name in WG_BWD}
+    assert counts["residual_glu"] == 0 and counts["dmol_log_prob"] == counts["dmol_log_prob_bwd"] == counts["dmol_sample"] == 1
     assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
 
 
