@@ -33,7 +33,7 @@ _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 _launches: Dict[str, int] = {
     "residual_glu": 0, "residual_glu_bwd": 0, "dmol_log_prob": 0, "dmol_log_prob_bwd": 0, "dmol_sample": 0,
-    "wavenet_decode": 0, "lstm_recurrence": 0, "lstm_recurrence_bwd": 0, "vrnn_cell": 0,
+    "wavenet_decode": 0, "wavenet_decode_resident": 0, "lstm_recurrence": 0, "lstm_recurrence_bwd": 0, "vrnn_cell": 0,
     "vrnn_cell_bwd": 0, "gru_recurrence": 0, "gru_recurrence_bwd": 0, "srnn_chain": 0, "srnn_chain_bwd": 0,
     "stcn_decode": 0, "depthwise_norm": 0, "depthwise_norm_bwd": 0, "rssm_chain": 0, "rssm_chain_bwd": 0,
     "bilstm_recurrence": 0, "bilstm_recurrence_bwd": 0, "ctc_loss": 0, "ctc_loss_bwd": 0, "wavenet_stack": 0,
@@ -71,6 +71,10 @@ _SIGNATURES = {
     # 12 weights, dilations, offsets, buffers, x, seed, u_cat, u_log; B, L, C, half, S, M, D, x_cols, frame;
     # variance_scale, log_eps, 4 uniform maps; dtype, stream
     "blvm_wavenet_decode": [_P] * 19 + [_I] * 9 + [_F] * 6 + [_I, _P],
+    # w_blocks, b_blocks, w_in, b_in, w_causal, b_causal, w_out, b_out, w_head, b_head, dilations, offsets, buffers,
+    # boxes, x, seed, u_cat, u_log, status, trace; B, L, M, D, n_frames; variance_scale, log_eps, 4 uniform maps;
+    # wait limit (ns); stream
+    "blvm_wavenet_decode_resident": [_P] * 20 + [_I] * 5 + [_F] * 6 + [_L, _P],
     # xw, w_hh, b_hh, mask, h0, c0, out, h_n, c_n, gates, h_prev, c_prev; B, T, H, dtype, stream
     "blvm_lstm_recurrence": [_P] * 12 + [_I] * 4 + [_P],
     # w_hh, mask, gates, c_prev, d_out, d_h_n, d_c_n, d_gates, d_h0, d_c0; B, T, H, dtype, stream
@@ -98,10 +102,10 @@ _SIGNATURES = {
     "blvm_srnn_chain": [_P] * 10 + [_I] * 7 + [_F] * 2 + [_P],
     # weights[14], eps, save, grads[5], dpre, dz0, barrier, trace; B, T, H, Z, residual; sd_beta; stream
     "blvm_srnn_chain_bwd": [_P] * 8 + [_I] * 5 + [_F] + [_P],
-    # weights[18 + 6 L] (host array), geometry (host ints), state[11] (host array), eps, seed, u_cat, u_log, z_out,
-    # params_out, trace; B, C, half, S, Le, Ld, L, M, x_cols, frame, from_d, use_mode; inv_std_n, sd_beta, sd_eps,
-    # log_eps, 4 uniform maps; stream
-    "blvm_stcn_decode": [_P] * 10 + [_I] * 12 + [_F] * 8 + [_P],
+    # biases[8 + 3 L] (host array), geometry (host ints), layout (host ints), state[13] (host array), stream, head,
+    # eps, seed, u_cat, u_log, z_out, params_out, trace, status; B, C, half, S, Le, Ld, L, M, NB, n_frames, use_mode;
+    # inv_std_n, sd_beta, sd_eps, log_eps, 4 uniform maps; wait limit (ns); stream
+    "blvm_stcn_decode": [_P] * 14 + [_I] * 11 + [_F] * 8 + [_L, _P],
     # u, scale1, bias1, w, db, scale2, bias2, out, part, stats; part doubles; B, N_in, N_out, C, k, stride, dilation,
     # transposed, stats_rows, conv_rows, save; stream
     "blvm_depthwise_norm": [_P] * 10 + [_L] + [_I] * 11 + [_P],

@@ -17,7 +17,7 @@ generation and train step at the width of its d=192 z=[128] s=[64] run spec (3 b
 expanding 192 -> 768, the precision-weighted posterior, the same DMoL head, f32; the step with the beta and
 free-nats annealers), and the drivers' loops with their metrics read late, and the CTC phoneme probe's train step
 and test pass at the width of its phoneme.txt:8 run spec (3 bidirectional LSTM layers of H = 256 over 80 log-mel
-bins, CTC over 65 classes, f32), and checks the twenty-four hand-written kernels they run against their plain
+bins, CTC over 65 classes, f32), and checks the twenty-nine hand-written kernels they run against their plain
 PyTorch twins:
 
   1. device: the card's name and power limit (nvidia-smi)
@@ -44,16 +44,18 @@ PyTorch twins:
      one f32 step, kernels against twins
  13. timing of the train step and of K1-bwd, K2-bwd and K3 against their twins,
      and a torch.profiler breakdown of the train step
- 14. K4 wavenet_decode vs the plain frame loop over 128 frames, f32 and bf16, from a
-     zero history and a speech prefix, fed the same uniforms: the loop fed the
-     kernel's frames (teacher forcing) and running free
+ 14. K4 wavenet_decode vs the plain frame loop over 128 frames, f32 (the per-frame route, one
+     launch a frame) and bf16 (the resident route, one launch a generation), from a zero
+     history and a speech prefix, fed the same uniforms: the loop fed the kernel's frames
+     (teacher forcing) and running free; two resident launches bitwise equal
  15. the fast path (K4) vs the windowed path (P3 x 5 + K3 a frame) over 16 frames
      from one generator state
  16. 2 x 16000 frames by K4 from supplied uniforms, held to the rf-padded forward of
      the generated waveform and K3 fed the same uniforms (every frame at once)
- 17. timing of 2 x 16000 frames, bf16 and f32, with launch counts per generation
-     (K4 x 15999, K1 x 50 and K3 x 1 for the prime); the plain loop and the windowed
-     path per frame (P3 x 5 and K3 x 1 a frame); a torch.profiler breakdown of a generation
+ 17. timing of 2 x 2000 and 2 x 16000 frames by CUDA events, bf16 and f32, with the host's
+     enqueue and launch counts per generation (bf16: K4's resident route x 1; f32: its per-frame
+     route x 15999; K1 x 50 and K3 x 1 for the prime); the plain loop and the windowed path per
+     frame (P3 x 5 and K3 x 1 a frame); a torch.profiler breakdown of a generation
  18. the driver's generation hook writes two 16000-sample wav files under
      blvm_tpu_torch/_build/generation_hook/ (gitignored)
  19. K5 lstm_recurrence vs its twin, f32 and bf16: H=256, B=10 utterances of
@@ -148,15 +150,16 @@ PyTorch twins:
      receptive field's overlap); 30 K1 (20 skip-free), 1 K2, 1 K3 a forward, none on the plain
      path; loss, ELBO, KL per level and bits/frame against the twins fed the same latent noise;
      the chunked bits/frame against the whole pass
- 44. K12 stcn_decode vs the plain frame loop over 256 frames from a zero history and a speech
-     prefix, fed the same prior noise and uniforms: teacher-forced (each frame's z and DMoL
-     parameters) and free-running; the fast path (K12) vs the windowed path (K1 x 30 + K3 a
-     frame) over 16 frames from one generator state
- 45. generation through the STCN driver's hook: 2 x 16000 frames, 16000 K12 and 30 K1 launches
+ 44. K12 stcn_decode (one launch a generation) vs the plain frame loop over 256 frames from a
+     zero history and a speech prefix, fed the same prior noise and uniforms: teacher-forced (each
+     frame's z and DMoL parameters) and free-running; two launches bitwise equal; the fast path
+     (K12) vs the windowed path (K1 x 30 + K3 a frame) over 16 frames from one generator state
+ 45. generation through the STCN driver's hook: 2 x 16000 frames, 1 K12 and 30 K1 launches
      (the primes), two wav files under blvm_tpu_torch/_build/stcn_generation_hook/
- 46. timing: K1 at STCN's width (with the skip and skip-free) against its twin, K12 a frame
-     against the plain loop and the windowed path a frame, the test pass (samples/s) and a
-     generation (frames/s), torch.profiler breakdowns of both
+ 46. timing: K1 at STCN's width (with the skip and skip-free) against its twin, K12 a frame over
+     2000 and 16000 frames by CUDA events with the host's enqueue, its own trace by phase, against
+     the plain loop and the windowed path a frame, the test pass (samples/s) and a generation
+     (frames/s), torch.profiler breakdowns of both
  47. K1-bwd at STCN's width (f32, the register-tiled path) at the train step's shapes, skip-free at
      d=1 (5, 1156, 256) and with the skip at d=16 (5, 1141, 256): the kernel and the f32 twin held
      to autograd of the f64 twin over every gradient
@@ -440,21 +443,38 @@ def wavenet_stack_work(B, T_in, C, dilations, skip_size, taps=0, accumulate=Fals
                 flops=2 * B * rows * (4 * C * C + 2 * C * C))
 
 
-def stcn_frame_work(B, C, half, S, n_enc, n_used, n_dec, latent_size, D):
-    """``roofline`` keywords of one K12 launch (one frame of B sequences, f32): every weight the frame
-    touches read once (the causal tap, the encoder's in_transform and blocks, the used blocks' skip
-    columns only, the prior heads at their input widths, the decode in_transform and blocks, the upsample
-    and likelihood Dense), each buffer slot read and written, the noise read and the frame written; two
-    operations a multiply-add a row."""
-    Z, H, L = sum(latent_size), C, len(latent_size)
+def wavenet_frame_work(B, C, dilations, M, elem, frames=1):
+    """``roofline`` keywords of a K4 frame (B sequences, blocks of the given dilations at C = half = R = S, a DMoL
+    head of M mixtures) in a launch of ``frames`` frames, a launch's bytes shared over its frames: every weight read
+    once a launch (the stack's in ``elem`` bytes, the causal tap, out_transform and head in f32), each buffer slot
+    the launch touches (min(d, frames) of a block) read once and written once, each frame's sample written; one
+    multiply-add a weight a sequence a frame. ``frames`` = 1 is the per-frame route's launch, and the yardstick
+    PR 3 set for either route: every weight read every frame."""
+    L = len(dilations)
+    stack = C * C + C + L * (4 * C * C + 2 * C + 2 * C * C + 2 * C)
+    f32 = 3 * C + C * C + C + C * 3 * M + 3 * M
+    slots = sum(min(d, frames) for d in dilations)
+    return dict(bytes_=(elem * stack + 4 * f32 + 2 * B * slots * C * elem) / frames + 4 * B,
+                flops=2 * B * (stack + f32))
+
+
+def stcn_frame_work(B, C, half, S, enc_dilations, n_used, n_dec, latent_size, D, frames=1):
+    """``roofline`` keywords of a K12 frame (B sequences, f32) in a launch of ``frames`` frames, a launch's bytes
+    shared over its frames: every weight the frame touches read once a launch (the causal tap, the encoder's
+    in_transform and blocks, the used blocks' skip columns only, the prior heads at their input widths, the
+    decode in_transform and blocks, the upsample and likelihood Dense), each buffer slot the launch touches
+    (min(d, frames) of an encoder block, one of a decode block) read once and written once, each frame's noise
+    read and sample written; two operations a multiply-add a row. ``frames`` = 1 is the yardstick of the
+    per-frame design: every weight read every frame."""
+    n_enc, Z, H, L = len(enc_dilations), sum(latent_size), C, len(latent_size)
     prior = sum(2 * ((S + (latent_size[l + 1] if l + 1 < L else 0)) * H + H * H + H * z)
                 for l, z in enumerate(latent_size))
     macs = (C * C + n_enc * 2 * C * 2 * half + (n_enc * C + n_used * S) * half + prior + Z * C
             + n_dec * (2 * C * 2 * half + half * (C + S)) + S * D + D * D)
     biases = (3 * C + n_enc * (2 * half + C) + n_used * S + 2 * (2 * H * L + Z) + C + n_dec * (2 * half + C + S)
               + 2 * D)
-    state = B * (2 * C * (n_enc + n_dec) + Z + 1)
-    return dict(bytes_=4 * (2 * C + macs + biases + state), flops=2 * B * macs)
+    slots = sum(min(d, frames) for d in enc_dilations) + n_dec
+    return dict(bytes_=4 * ((2 * C + macs + biases + 2 * B * C * slots) / frames + B * (Z + 1)), flops=2 * B * macs)
 
 
 WG_BWD_KERNELS = ("glu_bwd_pass_a", "glu_bwd_wgrad", "glu_bwd_reduce", "glu_bwd_pass_b")
@@ -740,6 +760,10 @@ def main():
                                   replaces="blvm_tpu/ops/likelihoods.py:142"),
         "dmol_sample": dict(name="dmol_sample", route="cuda", source="blvm_tpu_torch/csrc/dmol_sample.cu",
                             replaces="blvm_tpu/ops/variational.py:149"),
+        # K4's two routes: the resident one (bf16 at C = 96, the flagship's) and the per-frame one (f32, other widths)
+        "wavenet_decode_resident": dict(name="wavenet_decode_resident", route="cuda",
+                                        source="blvm_tpu_torch/csrc/wavenet_decode.cu",
+                                        replaces="blvm_tpu/models/wavenet/wavenet.py:279"),
         "wavenet_decode": dict(name="wavenet_decode", route="cuda", source="blvm_tpu_torch/csrc/wavenet_decode.cu",
                                replaces="blvm_tpu/models/wavenet/wavenet.py:279"),
         # P2 and P3, one kernel: the whole-batch launch and the generation window's
@@ -1586,9 +1610,11 @@ def generation_phases(record, smi, args, models, dev):
     # bf16 both round where JAX rounds, and a one-ulp difference after another summation order,
     # amplified by the gate, stays within the JAX suite's 5e-2 (tests/models/test_wavenet.py:276).
     # Free-running, f32 is held to the same 1e-5 over all N_K4 frames; bf16 is reported (an ulp
-    # that flips a Gumbel pick sends the two trajectories apart for good).
+    # that flips a Gumbel pick sends the two trajectories apart for good). bf16 runs K4's resident
+    # route (one launch), f32 its per-frame route (one launch a frame).
     k4_tol = {False: 1e-5, True: 5e-2}
-    k4_err = 0.0
+    k4_err = {False: 0.0, True: 0.0}
+    route = {True: "wavenet_decode_resident", False: "wavenet_decode"}
     for bf16, m in models.items():
         for name, hist in histories.items():
             keys = variational.FrameKeys(None, dev, uniforms(N_K4))
@@ -1597,23 +1623,28 @@ def generation_phases(record, smi, args, models, dev):
                 cuda.reset_launch_counts()
                 got = WaveNetDecoder(m, tails).run(hist[:, -1, 0], pred0.reshape(-1), N_K4, keys)
                 torch.cuda.synchronize()
-                launches = cuda.launch_counts()["wavenet_decode"]
+                counts = cuda.launch_counts()
+                launches = counts[route[bf16]]
+                again = WaveNetDecoder(m, tails).run(hist[:, -1, 0], pred0.reshape(-1), N_K4, keys)
                 forced = m._generate_fast_plain(hist[:, -1:], pred0, tails, N_K4, keys, forced=got)
                 free = m._generate_fast_plain(hist[:, -1:], pred0, tails, N_K4, keys)
             err = (got - forced).abs().max().item()
             free_err = (got - free).abs().amax(0)
             over = (free_err > k4_tol[bf16]).nonzero()
             agree = int(over[0]) if len(over) else N_K4
-            expect(launches == N_K4 - 1, f"K4 launches {launches} != {N_K4 - 1}")
+            expected = {route[bf16]: 1 if bf16 else N_K4 - 1, route[not bf16]: 0}
+            expect(all(counts[k] == v for k, v in expected.items()), f"K4 {name} launches {counts}, expected {expected}")
+            expect(torch.equal(got, again), f"K4 {dtype_name[bf16]} {name}: two runs differ")
             expect(bool(torch.isfinite(got).all()) and got.abs().max().item() <= 1, f"K4 {name}: not finite or outside [-1, 1]")
             expect(err <= k4_tol[bf16], f"K4 {dtype_name[bf16]} {name}: teacher-forced max err {err} over {k4_tol[bf16]}")
             if not bf16:
                 expect(agree == N_K4, f"K4 f32 {name}: free-running err {free_err.max().item()} over 1e-5 from frame {agree}")
-            k4_err = max(k4_err, err)
-            phase("K4", dtype=dtype_name[bf16], history=name, frames=N_K4, launches=launches,
+            k4_err[bf16] = max(k4_err[bf16], err)
+            phase("K4", dtype=dtype_name[bf16], history=name, frames=N_K4, kernel=route[bf16], launches=launches,
                   forced_max_abs_err=f"{err:.3g}", tolerance=k4_tol[bf16], free_max_abs_err=f"{free_err.max().item():.3g}",
                   free_frames_before_divergence=agree)
-    record["wavenet_decode"]["max_abs_err"] = k4_err
+    record["wavenet_decode_resident"]["max_abs_err"] = k4_err[True]
+    record["wavenet_decode"]["max_abs_err"] = k4_err[False]
 
     # 15. the fast path against the windowed oracle from one generator state: one Philox key a
     # generation, stepped by the frame, so K4 and K3 draw the same numbers for the same frame.
@@ -1629,8 +1660,8 @@ def generation_phases(record, smi, args, models, dev):
         counts = cuda.launch_counts()
         err = (fast - naive).abs().amax(0)
         expect(counts["residual_glu"] == 50 and counts["wavenet_stack"] == 5 * N_NAIVE
-               and counts["dmol_sample"] == N_NAIVE + 1 and counts["wavenet_decode"] == N_NAIVE - 1,
-               f"fast-vs-naive launches {counts}")
+               and counts["dmol_sample"] == N_NAIVE + 1 and counts[route[bf16]] == (1 if bf16 else N_NAIVE - 1)
+               and counts[route[not bf16]] == 0, f"fast-vs-naive launches {counts}")
         expect(err[0].item() == 0, f"fast-vs-naive {dtype_name[bf16]}: frame 0 differs by {err[0].item()}")
         if not bf16:
             expect(err.max().item() <= 1e-5, f"fast-vs-naive f32: max err {err.max().item()} over 1e-5")
@@ -1660,7 +1691,10 @@ def generation_phases(record, smi, args, models, dev):
               share_within=f"{share:.6f}", required=tf_share[bf16], frames_outside=int((err > tf_tol[bf16]).sum().item()),
               max_abs_err=f"{err.max().item():.3g}", median_abs_err=f"{err.median().item():.3g}")
 
-    # 17. timing, 2 x 16000 frames; the launch counts of a generation (the generation path's main run)
+    # 17. timing: the frame loop alone by CUDA events over 2000 and 16000 frames (the host's time in the wrapper
+    # beside it: on the resident route it includes the one wait for the status word), a whole generation of
+    # 2 x 16000 frames with its launch counts (the generation path's main run), the plain loop and the windowed
+    # path a frame
     def generate_timed(m, n, fast=True):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1668,6 +1702,22 @@ def generation_phases(record, smi, args, models, dev):
         enqueued = time.perf_counter() - t0
         torch.cuda.synchronize()
         return x, time.perf_counter() - t0, enqueued
+
+    def decoder_timed(m, n):
+        keys = variational.FrameKeys(torch.Generator(device=dev).manual_seed(SEED), dev)
+        hist = histories["zero"]
+        with torch.no_grad():
+            tails, pred0 = m._prime(hist, keys)
+            decoder = WaveNetDecoder(m, tails)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            decoder.run(hist[:, -1, 0], pred0.reshape(-1), n, keys)
+            end.record()
+            host = time.perf_counter() - t0
+            end.synchronize()
+        return start.elapsed_time(end) / (n - 1), host * 1e3 / (n - 1)
 
     def plain_loop_ms(m, n):
         keys = variational.FrameKeys(torch.Generator(device=dev).manual_seed(SEED), dev)
@@ -1685,13 +1735,14 @@ def generation_phases(record, smi, args, models, dev):
         m = models[bf16]
         generate_timed(m, 64)  # warm-up
         plain_a = plain_loop_ms(m, N_K4)
+        loop = {n: [decoder_timed(m, n) for _ in range(2)] for n in (2000, N_GEN)}
         cuda.reset_launch_counts()
         x, seconds, enqueued = generate_timed(m, N_GEN)
         counts = cuda.launch_counts()
         _, seconds_b, _ = generate_timed(m, N_GEN)
         plain_b = plain_loop_ms(m, N_K4)
         expected = dict(residual_glu=50, residual_glu_bwd=0, dmol_log_prob=0, dmol_log_prob_bwd=0, dmol_sample=1,
-                        wavenet_decode=N_GEN - 1)
+                        **{route[bf16]: 1 if bf16 else N_GEN - 1})
         expect(counts == {**dict.fromkeys(counts, 0), **expected}, f"generation launches {counts}, expected {expected}")
         expect(bool(torch.isfinite(x).all()) and x.shape == (GEN_B, N_GEN) and x.abs().max().item() <= 1,
                "generation: shape, finite, [-1, 1]")
@@ -1701,26 +1752,65 @@ def generation_phases(record, smi, args, models, dev):
         naive_expected = dict(wavenet_stack=5 * N_NAIVE_TIME, dmol_sample=N_NAIVE_TIME)
         expect(naive_counts == naive_expected, f"windowed generation launches {naive_counts}, expected {naive_expected}")
         total = min(seconds, seconds_b)
-        gen_ms[bf16] = dict(frame_ms=total * 1e3 / N_GEN, plain_ms=min(plain_a, plain_b), counts=counts)
-        phase("time-generate", card=card, dtype=dtype_name[bf16], sequences=GEN_B, frames=N_GEN,
-              total_ms=f"{total * 1e3:.1f}", runs_ms=[f"{seconds * 1e3:.1f}", f"{seconds_b * 1e3:.1f}"],
+        gen_ms[bf16] = dict(frame_ms=min(ms for ms, _ in loop[N_GEN]), plain_ms=min(plain_a, plain_b), counts=counts)
+        phase("time-generate", card=card, dtype=dtype_name[bf16], kernel=route[bf16], sequences=GEN_B,
+              loop_us_per_frame={n: [f"{ms * 1e3:.2f}" for ms, _ in v] for n, v in loop.items()},
+              loop_host_us_per_frame={n: [f"{h * 1e3:.2f}" for _, h in v] for n, v in loop.items()},
+              frames=N_GEN, total_ms=f"{total * 1e3:.1f}", runs_ms=[f"{seconds * 1e3:.1f}", f"{seconds_b * 1e3:.1f}"],
               frames_per_s=f"{N_GEN / total:.1f}", us_per_frame=f"{total * 1e6 / N_GEN:.2f}",
               host_enqueue_us_per_frame=f"{enqueued * 1e6 / N_GEN:.2f}",
               plain_loop_us_per_frame=[f"{plain_a * 1e3:.1f}", f"{plain_b * 1e3:.1f}"],
               naive_ms_per_frame=f"{naive_s * 1e3 / N_NAIVE_TIME:.3f}", launches=counts,
               naive_launches_per_frame={k: v // N_NAIVE_TIME for k, v in naive_counts.items()})
 
-    # the bound of one K4 launch: every weight read once, each block's slot read and written, at
-    # the card's HBM rate; one multiply-add a weight a sequence at the bf16 peak
-    m = models[True]
-    stack_params = sum(p.numel() for p in m.res_stack.parameters())
-    f32_params = sum(p.numel() for mod in (m.causal, m.out_transform, m.likelihood_head) for p in mod.parameters())
-    slot_bytes = GEN_B * len(m.res_stack.blocks) * m.res_channels * 2 * 2
+    # the bound of a frame of K4 from what one launch moves (the resident route: every weight once over the
+    # generation's N_GEN - 1 frames, and the buffers' slots once; the per-frame route: every weight every frame), at
+    # the card's HBM rate, against one multiply-add a weight a sequence at the peak of the stack's type; beside it
+    # the yardstick PR 3 set for either route (every weight every frame), for before and after
     record["residual_glu"]["launches"] = gen_ms[True]["counts"]["residual_glu"]  # the prime; STCN's paths add theirs
-    record["wavenet_decode"].update(ms=gen_ms[True]["frame_ms"], plain_ms=gen_ms[True]["plain_ms"],
-                                    launches=gen_ms[True]["counts"]["wavenet_decode"], **roofline(
-                                        bytes_=2 * stack_params + 4 * f32_params + slot_bytes,
-                                        flops=2 * GEN_B * (stack_params + f32_params), peak=BF16_PEAK))
+    for bf16 in (True, False):
+        m = models[bf16]
+        dilations = [b.dilation for b in m.res_stack.blocks]
+        elem, peak = (2, BF16_PEAK) if bf16 else (4, F32_PEAK)
+        work = wavenet_frame_work(GEN_B, m.res_channels, dilations, args.num_mix, elem, N_GEN - 1 if bf16 else 1)
+        legacy = wavenet_frame_work(GEN_B, m.res_channels, dilations, args.num_mix, elem)
+        bound = roofline(**work, peak=peak)
+        legacy_ms = legacy["bytes_"] / HBM_BYTES_PER_S * 1e3
+        record[route[bf16]].update(ms=gen_ms[bf16]["frame_ms"], plain_ms=gen_ms[bf16]["plain_ms"],
+                                   launches=gen_ms[bf16]["counts"][route[bf16]], **bound,
+                                   **(dict(legacy_bytes_ms=legacy_ms) if bf16 else {}))
+        phase("K4-bound", dtype=dtype_name[bf16], kernel=route[bf16],
+              bytes_ms_per_frame=f"{work['bytes_'] / HBM_BYTES_PER_S * 1e3:.7f}",
+              operations_ms_per_frame=f"{work['flops'] / peak * 1e3:.7f}",
+              card_ms_per_frame=f"{gen_ms[bf16]['frame_ms']:.5f}",
+              times_bound=f"{gen_ms[bf16]['frame_ms'] / bound['bound_ms']:.1f}",
+              legacy_bytes_ms_per_frame=f"{legacy_ms:.5f}",
+              times_legacy=f"{gen_ms[bf16]['frame_ms'] / legacy_ms:.1f}")
+
+    # where a frame's time goes inside K4's resident route: its own trace (SM cycles by phase of each CTA's thread 0
+    # over 2000 frames, converted at the rate the io CTA's cycles over the launch's CUDA-event time give): a block's
+    # old tap, its wait for h, the h tap and gate, [r | s] and the send; the io CTA's causal tap and in_transform,
+    # its wait for the skip sum, the head, the sampler
+    m = models[True]
+    n_trace, n_blocks = 2000, len(m.res_stack.blocks)
+    trace = torch.zeros(8 * -(-(n_blocks + 1) // 8), 4, dtype=torch.int64, device=dev)
+    keys = variational.FrameKeys(torch.Generator(device=dev).manual_seed(SEED), dev)
+    with torch.no_grad():
+        tails, pred0 = m._prime(histories["zero"], keys)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        WaveNetDecoder(m, tails).run(histories["zero"][:, -1, 0], pred0.reshape(-1), n_trace, keys, trace=trace)
+        end.record()
+        end.synchronize()
+    cyc = trace.double()
+    ghz = cyc[n_blocks].sum().item() / (start.elapsed_time(end) * 1e6)
+    us = cyc / (ghz * 1e3) / (n_trace - 1)
+    blocks = us[:n_blocks].mean(0).tolist()
+    phase("K4-trace", card=card, frames=n_trace, clock_ghz=f"{ghz:.3f}",
+          block_us_per_frame={k: f"{v:.3f}" for k, v in zip(("old_tap", "wait", "h_tap_and_gate", "rs_and_send"), blocks)},
+          io_us_per_frame={k: f"{v:.3f}" for k, v in zip(("causal_and_in", "wait", "head", "sampler"),
+                                                             us[n_blocks].tolist())},
+          compute_on_chain_us_per_frame=f"{sum(blocks[2:]) * n_blocks + sum(us[n_blocks].tolist()) - us[n_blocks, 1].item():.2f}")
 
     # where a generated frame's time goes: torch.profiler over 600 frames, kernels by name
     from torch.profiler import ProfilerActivity, profile
@@ -1734,9 +1824,10 @@ def generation_phases(record, smi, args, models, dev):
     decode = [e for e in kernels_ if "wavenet_decode" in e.key]
     phase("profile-generate", card=card, dtype="bf16", frames=n_prof, wall_us_per_frame=f"{prof_s * 1e6 / n_prof:.2f}",
           device_us_per_frame=f"{busy_us / n_prof:.2f}",
-          k4_device_us_per_launch=f"{device_us(decode[0]) / decode[0].count:.2f}" if decode else "not measured",
+          k4_launches=decode[0].count if decode else 0,
+          k4_device_us_per_frame=f"{device_us(decode[0]) / (n_prof - 1):.2f}" if decode else "not measured",
           idle_share=f"{1 - busy_us / (prof_s * 1e6):.3f}" if busy_us else "not measured",
-          host_enqueue_us_per_frame=f"{prof_enqueued * 1e6 / n_prof:.2f}")
+          host_us_per_frame=f"{prof_enqueued * 1e6 / n_prof:.2f}")
     for e in sorted(kernels_, key=device_us, reverse=True)[:6]:
         print(f"  {device_us(e) / n_prof:9.3f} us/frame {e.count:6d} calls  {e.key[:90]}", flush=True)
 
@@ -3968,10 +4059,10 @@ def stcn_phases(record, smi, dev):
     phase("stcn-chunked-vs-whole", elbo_bpx_chunked=f"{passes[True]['elbo (bpx)']:.6f}",
           elbo_bpx_whole=f"{passes[False]['elbo (bpx)']:.6f}", rel={k: f"{v:.3g}" for k, v in chunk_rel.items()})
 
-    # 44. K12 against the plain frame loop over 256 frames, from a zero history and a speech prefix, fed the
-    # same prior noise and uniforms. Teacher-forced (the loop fed K12's frames): each frame's z and DMoL
-    # parameters within the order of the sums, 1e-5 + 1e-5 |twin|. Free-running, the share of frames within
-    # 1e-5 (a Gumbel pick within f32 rounding of a tie sends the two apart for good)
+    # 44. K12 (one launch for all frames) against the plain frame loop over 256 frames, from a zero history and a
+    # speech prefix, fed the same prior noise and uniforms. Teacher-forced (the loop fed K12's frames): each
+    # frame's z and DMoL parameters within the order of the sums, 1e-5 + 1e-5 |twin|; free-running, every frame
+    # within the same (and the share within 1e-5 reported). Two launches give the same bits.
     speech, _ = common.make_batch([synthetic_speech(rf, rng) for _ in range(GEN_B)], args)  # mu-law coded
     histories = {"zero": None, "speech": torch.from_numpy(speech).to(dev)}
     k12_err = 0.0
@@ -3988,23 +4079,25 @@ def stcn_phases(record, smi, dev):
                                                                            record=True)
             torch.cuda.synchronize()
             launches = cuda.launch_counts()["stcn_decode"]
+            again = STCNDecoder(model, enc_tails, dec_tails).run(window[:, -1, 0], d0, N_K12, eps, keys, record=True)
+            expect(all(torch.equal(a, b) for a, b in zip((x_k, z_k, p_k), again)), f"K12 {name}: two runs differ")
             x_t, z_t, p_t = model._generate_fast_plain(*fixed, forced=x_k)
             x_f, _, _ = model._generate_fast_plain(*fixed)
             errs = {}
-            for label, got, ref in (("z", z_k, z_t), ("params", p_k, p_t), ("frames", x_k, x_t)):
+            for label, got, ref in (("z", z_k, z_t), ("params", p_k, p_t), ("frames", x_k, x_t),
+                                    ("free-running frames", x_k, x_f)):
                 err = (got - ref).abs()
                 errs[label] = err.max().item()
                 expect(bool(torch.isfinite(got).all()) and bool((err <= 1e-5 + 1e-5 * ref.abs()).all()),
-                       f"K12 {name} teacher-forced {label}: max err {errs[label]}")
-            k12_err = max(k12_err, *errs.values())
+                       f"K12 {name} {label}: max err {errs[label]}")
+            k12_err = max(k12_err, *(v for k, v in errs.items() if not k.startswith("free")))
             share = ((x_k - x_f).abs() <= 1e-5).double().mean().item()
-            expect(launches == N_K12, f"K12 launches {launches} for {N_K12} frames")
+            expect(launches == 1, f"K12 launches {launches} for {N_K12} frames")
             phase("K12", history=name, frames=N_K12, launches=launches,
-                  teacher_forced_max_abs_err={k: f"{v:.3g}" for k, v in errs.items()},
-                  free_running_share_within_1e5=f"{share:.4f}")
+                  max_abs_err={k: f"{v:.3g}" for k, v in errs.items()}, free_running_share_within_1e5=f"{share:.4f}")
     record["stcn_decode"]["max_abs_err"] = k12_err
 
-    # the fast path (K12 a frame) against the windowed one (K1 x 30 and K3 a frame) over 16 frames, from one
+    # the fast path (K12, one launch) against the windowed one (K1 x 30 and K3 a frame) over 16 frames, from one
     # generator state and the same prior noise: one Philox key a generation, stepped by the frame, so both
     # draw the same numbers for the same frame (f32, 1e-5)
     for name, hist in histories.items():
@@ -4016,13 +4109,13 @@ def stcn_phases(record, smi, dev):
                                                 generator=torch.Generator(device=dev).manual_seed(SEED + 44))
             counts[fast] = {k: v for k, v in cuda.launch_counts().items() if v}
         err = (outs[True] - outs[False]).abs().max().item()
-        expect(err <= 1e-5 and counts[True] == dict(residual_glu=30, stcn_decode=N_NAIVE)
+        expect(err <= 1e-5 and counts[True] == dict(residual_glu=30, stcn_decode=1)
                and counts[False] == dict(residual_glu=30 * N_NAIVE, dmol_sample=N_NAIVE),
                f"STCN fast vs windowed {name}: err {err}, launches {counts}")
         phase("stcn-fast-vs-windowed", history=name, frames=N_NAIVE, max_abs_err=f"{err:.3g}",
               fast_launches=counts[True], windowed_launches=counts[False])
 
-    # 45. generation through the driver's hook: 2 x 16000 frames, K12 once a frame, K1 30 times (the primes)
+    # 45. generation through the driver's hook: 2 x 16000 frames, K12 once a generation, K1 30 times (the primes)
     out_dir = Path(__file__).resolve().parent / "blvm_tpu_torch" / "_build" / "stcn_generation_hook"
     hook = stcn_audio.make_generation_hook(model, argparse_copy(args, generate_every=5))
     cuda.reset_launch_counts()
@@ -4031,7 +4124,7 @@ def stcn_phases(record, smi, dev):
     torch.cuda.synchronize()
     hook_s = time.time() - t0
     counts = cuda.launch_counts()
-    expected = dict(residual_glu=30, stcn_decode=args.generate_frames)
+    expected = dict(residual_glu=30, stcn_decode=1)
     expect(counts == {**dict.fromkeys(counts, 0), **expected}, f"STCN generation launches {counts}, expected {expected}")
     path_k1 += counts["residual_glu"]
     shapes = []
@@ -4069,22 +4162,23 @@ def stcn_phases(record, smi, dev):
     window = model._window(GEN_B, None)
     with torch.no_grad():
         enc_tails, dec_tails, d0 = model._prime(window)
-    n_time = 2000
-    eps_t = torch.randn(n_time, GEN_B, sum(args.latent_size), generator=gen, device=dev)
+    eps_t = torch.randn(N_GEN, GEN_B, sum(args.latent_size), generator=gen, device=dev)
     keys_t = variational.FrameKeys(gen, dev)
 
-    def k12_run(n):
+    def k12_run(n, trace=None):
+        """K12 over n frames: its time a frame by CUDA events, and the host's time in the wrapper a frame (the
+        launch and the one wait for the status word)."""
         with torch.no_grad():
             decoder = STCNDecoder(model, enc_tails, dec_tails)
             torch.cuda.synchronize()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
             start.record()
-            decoder.run(window[:, -1, 0], d0, n, eps_t[:n], keys_t)
+            decoder.run(window[:, -1, 0], d0, n, eps_t[:n], keys_t, trace=trace)
             end.record()
-            enqueue = time.perf_counter() - t0
+            host = time.perf_counter() - t0
             end.synchronize()
-            return start.elapsed_time(end) / n, enqueue * 1e3 / n
+            return start.elapsed_time(end) / n, host * 1e3 / n
 
     def plain_frame_ms(n):
         keys_p = variational.FrameKeys(gen, dev)
@@ -4104,27 +4198,38 @@ def stcn_phases(record, smi, dev):
 
     k12_run(50)  # warm-up
     # where a frame's time goes inside K12: its own trace (SM cycles of CTA 0's thread 0 by phase, summed over
-    # every product of 200 frames, converted at the launch's clock rate)
+    # every product of 2000 frames, converted at the launch's clock rate): the waits for inputs and the frames'
+    # barriers, the waits for streamed weights, the sums, the finishes, the head, the whole launch
+    n_trace = 2000
     trace = torch.zeros(7, dtype=torch.int64, device=dev)
     with torch.no_grad():
-        STCNDecoder(model, enc_tails, dec_tails).run(window[:, -1, 0], d0, 200, eps_t[:200], keys_t, trace=trace)
+        STCNDecoder(model, enc_tails, dec_tails).run(window[:, -1, 0], d0, n_trace, eps_t[:n_trace], keys_t,
+                                                     trace=trace)
     cyc = trace.tolist()
-    us = [c / max(cyc[5], 1) * cyc[6] / 1e3 / 200 for c in cyc[:6]]  # each phase's share of the launch's time
-    phase("K12-trace", card=card, frames=200, us_per_frame={name: f"{v:.2f}" for name, v in zip(
-        ("loads_and_barrier", "inputs", "products", "finish", "head", "launch"), us)},
+    us = [c / max(cyc[5], 1) * cyc[6] / 1e3 / n_trace for c in cyc[:6]]  # each phase's share of the launch's time
+    phase("K12-trace", card=card, frames=n_trace, us_per_frame={name: f"{v:.2f}" for name, v in zip(
+        ("waits", "weights", "products", "finish", "head", "launch"), us)},
           clock_ghz=f"{cyc[5] / max(cyc[6], 1):.3f}")
     plain_a = plain_frame_ms(32)
-    k12_a, enq_a = k12_run(n_time)
-    k12_b, enq_b = k12_run(n_time)
+    k12 = {n: [k12_run(n) for _ in range(2)] for n in (2000, N_GEN)}
     plain_b = plain_frame_ms(32)
     naive = windowed_frame_ms(N_NAIVE_TIME)
-    bound = roofline(**stcn_frame_work(GEN_B, C, C, C, len(model.res_stack.blocks), levels,
-                                       len(model.out_transform.blocks), args.latent_size, 30), peak=F32_PEAK)
-    record["stcn_decode"].update(ms=min(k12_a, k12_b), plain_ms=min(plain_a, plain_b), **bound)
-    phase("time-K12", card=card, sequences=GEN_B, frames=n_time, ms_per_frame=[f"{k12_a:.4f}", f"{k12_b:.4f}"],
-          host_enqueue_ms_per_frame=[f"{enq_a:.4f}", f"{enq_b:.4f}"],
+    # the bound of a frame from what the 16000-frame launch moves (every weight once, each slot once), and the
+    # per-frame design's yardstick (every weight every frame) beside it for before and after
+    enc_dilations = [b.dilation for b in model.res_stack.blocks]
+    work, legacy = (stcn_frame_work(GEN_B, C, C, C, enc_dilations, levels, len(model.out_transform.blocks),
+                                    args.latent_size, 30, frames) for frames in (N_GEN, 1))
+    bound = roofline(**work, peak=F32_PEAK)
+    legacy_ms = legacy["bytes_"] / HBM_BYTES_PER_S * 1e3
+    k12_ms = min(ms for ms, _ in k12[N_GEN])
+    record["stcn_decode"].update(ms=k12_ms, plain_ms=min(plain_a, plain_b), legacy_bytes_ms=legacy_ms, **bound)
+    phase("time-K12", card=card, sequences=GEN_B, ms_per_frame={n: [f"{ms:.5f}" for ms, _ in v] for n, v in k12.items()},
+          host_ms_per_frame={n: [f"{h:.5f}" for _, h in v] for n, v in k12.items()},
           plain_loop_ms_per_frame=[f"{plain_a:.3f}", f"{plain_b:.3f}"], windowed_ms_per_frame=f"{naive:.3f}",
-          bound_ms=f"{bound['bound_ms']:.5f}", bound_by=bound["bound_by"])
+          bound_ms=f"{bound['bound_ms']:.7f}", bound_by=bound["bound_by"],
+          bytes_ms=f"{work['bytes_'] / HBM_BYTES_PER_S * 1e3:.7f}",
+          operations_ms=f"{work['flops'] / F32_PEAK * 1e3:.7f}", times_bound=f"{k12_ms / bound['bound_ms']:.1f}",
+          legacy_bytes_ms=f"{legacy_ms:.5f}", times_legacy=f"{k12_ms / legacy_ms:.1f}")
 
     # the test pass (one whole-batch forward, kernels and twins in turns) and a generation of 2 x 16000 frames
     def forward_pass(plain_path_=False):

@@ -2,7 +2,8 @@
 K1-bwd with its weight gradients (the warpgroup route's four kernels) over the WaveNet train step's 50 blocks,
 of K6 and K6-bwd (the CTC probe's bi-LSTM layer) and K13 and K13-bwd (its CTC loss) at the probe's
 train batch, of K7, K9, K7-bwd and K9-bwd (each kernel apart from the cuBLAS weight-gradient GEMMs around it)
-at the SRNN's test pass and train step shapes, of K12, K1 and K1-bwd at STCN's width, of K10
+at the SRNN's test pass and train step shapes, of a K4 frame at the flagship width (bf16 and f32), of K12, K1 and
+K1-bwd at STCN's width, of K10
 and K11 (apart from their GEMMs) at the CW-VAE's test pass, and of K10 in save mode, K10-bwd and
 K11-bwd at the CW-VAE's train step, which ``chip_smoke.py`` also computes from its run.
 
@@ -25,6 +26,7 @@ from chip_smoke import (  # noqa: E402
     BF16_PEAK,
     F32_PEAK,
     F64_PEAK,
+    HBM_BYTES_PER_S,
     bilstm_work,
     ctc_work,
     depthwise_bwd_work,
@@ -37,6 +39,7 @@ from chip_smoke import (  # noqa: E402
     rssm_bwd_work,
     rssm_work,
     stcn_frame_work,
+    wavenet_frame_work,
     wavenet_stack_work,
 )
 
@@ -160,11 +163,21 @@ def main():
     k11b = [depthwise_bwd_work(5, n_in, n_out, 768, 5) for n_in, n_out in enc_t + [(o, i) for i, o in reversed(enc_t)]]
     bounds["K11-bwd train step (6 blocks)"] = dict(bytes_=sum(w["bytes_"] for w in k11b),
                                                    flops=sum(w["flops"] for w in k11b), peak=F32_PEAK)
+    # K4: one generated frame of the flagship (benchmarks.txt:6, 5 x 10 blocks at C = 96, dilations 1 .. 512, 10
+    # mixtures), 2 sequences (the generation hook's): bf16 on the resident route (one launch of 15999 frames), f32
+    # on the per-frame route; "legacy": the per-frame yardstick (every weight every frame) for either route
+    k4_dilations = [2**i for i in range(10)] * 5
+    bounds["K4 frame bf16"] = dict(**wavenet_frame_work(2, 96, k4_dilations, 10, 2, 15999), peak=BF16_PEAK)
+    bounds["K4 frame bf16 legacy"] = dict(**wavenet_frame_work(2, 96, k4_dilations, 10, 2), peak=BF16_PEAK)
+    bounds["K4 frame f32"] = dict(**wavenet_frame_work(2, 96, k4_dilations, 10, 4), peak=F32_PEAK)
     # K12: one STCN decode frame at the only spec that takes the fast path (benchmarks.txt:26, s=1,
-    # z=[256,128,64,32,16], hidden 256, 5 stacks of 5 blocks of which 5 feed a level, a 5-block decode
-    # stack, the 30-wide DMoL head), 2 sequences (the generation hook's), f32
-    bounds["K12"] = dict(**stcn_frame_work(B=2, C=256, half=256, S=256, n_enc=25, n_used=5, n_dec=5,
-                                           latent_size=(256, 128, 64, 32, 16), D=30), peak=F32_PEAK)
+    # z=[256,128,64,32,16], hidden 256, 5 stacks of 5 blocks at dilations 1 .. 16 of which 5 feed a level, a
+    # 5-block decode stack, the 30-wide DMoL head), 2 sequences (the generation hook's), f32, in one launch of
+    # 16000 frames; "legacy": the per-frame yardstick
+    for name, frames in (("K12", 16000), ("K12 legacy", 1)):
+        bounds[name] = dict(**stcn_frame_work(B=2, C=256, half=256, S=256, enc_dilations=[1, 2, 4, 8, 16] * 5,
+                                              n_used=5, n_dec=5, latent_size=(256, 128, 64, 32, 16), D=30,
+                                              frames=frames), peak=F32_PEAK)
     # K1 at STCN's width (the same spec): the test pass's first block (dilation 1) over 6 utterances of up
     # to 72000 samples plus the receptive field less one (157 - 1), f32, with its skip (the used blocks',
     # skip_size T + 1) and skip-free (the other 20 blocks'; here at dilation 16)
@@ -183,7 +196,9 @@ def main():
     bounds["K1-bwd STCN skip with GEMMs"] = dict(**residual_glu_bwd_work(5, seg - 15, 256, 256, 256, 16, 1001),
                                                  peak=F32_PEAK)
     bounds["K1-bwd STCN skip-free with GEMMs"] = dict(**residual_glu_bwd_work(5, seg, 256, 256, 0, 1, 0), peak=F32_PEAK)
-    print(json.dumps({name: roofline(**b) for name, b in bounds.items()}, indent=1))
+    # each bound beside its two terms: the bytes over the HBM rate and the operations over the peak of their type
+    print(json.dumps({name: {**roofline(**b), "bytes_ms": b["bytes_"] / HBM_BYTES_PER_S * 1e3,
+                             "operations_ms": b["flops"] / b["peak"] * 1e3} for name, b in bounds.items()}, indent=1))
 
 
 if __name__ == "__main__":

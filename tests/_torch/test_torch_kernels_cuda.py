@@ -28,7 +28,7 @@ from blvm_tpu_torch import weights
 from blvm_tpu_torch.models import STCN, CWVAEAudio, LSTMAudio, SimpleLSTMASR, SRNNAudio, VRNNAudio, WaveNet
 from blvm_tpu_torch.models.wavenet.modules import residual_glu, residual_glu_plain
 from blvm_tpu_torch.modules.distributions import DiscretizedLogisticMixtureDense
-from blvm_tpu_torch.ops import ctc, cuda, depthwise, likelihoods, recurrent, variational
+from blvm_tpu_torch.ops import ctc, cuda, depthwise, generation, likelihoods, recurrent, variational
 from blvm_tpu_torch.ops import rssm as rssm_ops
 from blvm_tpu_torch.ops import wavenet_stack as stack_ops
 from blvm_tpu_torch.ops import wgmma_tile
@@ -352,18 +352,18 @@ def test_wavenet_stack_kernel_refuses_what_it_does_not_take(cuda_device):
         stack_ops.wavenet_stack(x, params, dilations, 10, acc=torch.zeros(1, 10, 96, device=cuda_device).bfloat16())
 
 
-def stcn_case(device, n, history=True, **kwargs):
+def stcn_case(device, n, history=True, B=2, **kwargs):
     """An STCN with random weights, its primes over a history (or zeros), the prior noise and the uniforms."""
     model = STCN(device=device, **kwargs)
     weights.load_jax_params(model, weights.random_jax_params(model, 5))
     g = torch.Generator(device=device).manual_seed(6)
-    hist = torch.rand(2, 200, generator=g, device=device) * 2 - 1 if history else None
+    hist = torch.rand(B, 200, generator=g, device=device) * 2 - 1 if history else None
     with torch.no_grad():
-        window = model._window(2, hist)
+        window = model._window(B, hist)
         enc_tails, dec_tails, d0 = model._prime(window)
-    eps = torch.randn(n, 2, sum(model.latent_size), generator=g, device=device)
-    keys = variational.FrameKeys(None, device, (torch.rand(n, 2, 10, generator=g, device=device),
-                                                torch.rand(n, 2, 1, generator=g, device=device)))
+    eps = torch.randn(n, B, sum(model.latent_size), generator=g, device=device)
+    keys = variational.FrameKeys(None, device, (torch.rand(n, B, 10, generator=g, device=device),
+                                                torch.rand(n, B, 1, generator=g, device=device)))
     return model, window, enc_tails, dec_tails, d0, eps, keys
 
 
@@ -381,13 +381,61 @@ def test_stcn_decode_kernel_matches_plain_loop(cuda_device, width, history):
     with torch.no_grad():
         got, z, params = STCNDecoder(model, enc_tails, dec_tails).run(window[:, -1, 0], d0, n, eps, keys, record=True)
         torch.cuda.synchronize()
-        assert cuda.launch_counts()["stcn_decode"] == n
+        assert cuda.launch_counts()["stcn_decode"] == 1
         ref, z_ref, params_ref = model._generate_fast_plain(window[:, -1:], d0, enc_tails, dec_tails, n, eps, keys,
                                                             forced=got)
     assert got.shape == (2, n) and torch.isfinite(got).all() and got.abs().max() <= 1
     torch.testing.assert_close(z, z_ref, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(params, params_ref, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def within(got, ref, atol, rtol):
+    """The largest excess of |got - ref| over atol + rtol |ref| (<= 0: within), and the largest difference."""
+    err = (got - ref).abs()
+    return (err - atol - rtol * ref.abs()).max().item(), err.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 300])
+@pytest.mark.parametrize("B", [1, 2, 8])
+def test_stcn_decode_kernel_over_a_generation_at_the_run_spec_width(cuda_device, B, n):
+    """K12 at benchmarks.txt:26's width (C = 256, 5 x 5 encoder blocks, z = [256, 128, 64, 32, 16]), one launch for
+    all n frames, against the plain loop: teacher-forced (every frame's z, DMoL parameters and sample) and running
+    free, each within the order of the sums (1e-5 + 1e-5 |twin|); two launches give the same bits."""
+    model, window, enc_tails, dec_tails, d0, eps, keys = stcn_case(cuda_device, n, B=B)
+    outs = []
+    for _ in range(2):
+        cuda.reset_launch_counts()
+        with torch.no_grad():
+            outs.append(STCNDecoder(model, enc_tails, dec_tails).run(window[:, -1, 0], d0, n, eps, keys, record=True))
+        assert cuda.launch_counts()["stcn_decode"] == 1
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    got, z, params = outs[0]
+    with torch.no_grad():
+        forced = model._generate_fast_plain(window[:, -1:], d0, enc_tails, dec_tails, n, eps, keys, forced=got)
+        free = model._generate_fast_plain(window[:, -1:], d0, enc_tails, dec_tails, n, eps, keys)
+    assert got.shape == (B, n) and torch.isfinite(got).all() and got.abs().max() <= 1
+    for label, a, ref in (("z", z, forced[1]), ("params", params, forced[2]), ("frames", got, forced[0]),
+                          ("free-running frames", got, free[0])):
+        excess, err = within(a, ref, 1e-5, 1e-5)
+        assert excess <= 0, f"{label}: max err {err}"
+
+
+@pytest.mark.cuda
+def test_stcn_decode_kernel_refuses_a_batch_it_does_not_take_and_raises_on_a_timeout(cuda_device, monkeypatch):
+    model, window, enc_tails, dec_tails, d0, eps, keys = stcn_case(cuda_device, 4, B=9, n_layers=2,
+                                                                     latent_size=(8, 4), res_channels=16)
+    with pytest.raises(ValueError):
+        STCNDecoder(model, enc_tails, dec_tails)  # nine rows
+    model, window, enc_tails, dec_tails, d0, eps, keys = stcn_case(cuda_device, 4)
+    with monkeypatch.context() as patch, pytest.raises(RuntimeError, match="gave up"):
+        patch.setattr(generation, "WAIT_LIMIT_NS", 1)  # a 1 ns wait limit: the first wait that must wait gives up
+        STCNDecoder(model, enc_tails, dec_tails).run(window[:, -1, 0], d0, 4, eps, keys)
+    with torch.no_grad():  # the card is still usable
+        got = STCNDecoder(model, enc_tails, dec_tails).run(window[:, -1, 0], d0, 4, eps, keys)
+    assert torch.isfinite(got).all()
 
 
 @pytest.mark.cuda
@@ -400,7 +448,7 @@ def test_stcn_generate_on_the_card_launches_k12_and_matches_the_windowed_path(cu
     cuda.reset_launch_counts()
     (fast, _), _ = model.generate(2, 10, generator=torch.Generator(device=cuda_device).manual_seed(4), eps=eps)
     counts = cuda.launch_counts()
-    assert counts["stcn_decode"] == 10 and counts["residual_glu"] == 6 and counts["dmol_sample"] == 0
+    assert counts["stcn_decode"] == 1 and counts["residual_glu"] == 6 and counts["dmol_sample"] == 0
     (naive, _), _ = model.generate(2, 10, fast=False, generator=torch.Generator(device=cuda_device).manual_seed(4),
                                    eps=eps)
     torch.testing.assert_close(fast, naive, rtol=0, atol=1e-5)
@@ -700,16 +748,16 @@ def test_kernel_wrappers_refuse_targets_that_want_a_gradient(cuda_device):
                                   torch.zeros(4, 1, 2, device=cuda_device), num_bins=256)
 
 
-def decode_case(device, C, bf16, n_frames, seed=0, **kwargs):
-    """A WaveNet of two 10-block stacks at width ``C``, primed on a uniform-noise
+def decode_case(device, C, bf16, n_frames, seed=0, B=2, n_stacks=2, **kwargs):
+    """A WaveNet of ``n_stacks`` 10-block stacks at width ``C``, primed on a uniform-noise
     history, and its uniforms: ``(model, keys, x_last, pred0, tails)``."""
-    model = WaveNet(n_layers=10, n_stacks=2, res_channels=C, num_mix=10, num_bins=2**16, bf16=bf16, device=device,
-                    **kwargs)
+    model = WaveNet(n_layers=10, n_stacks=n_stacks, res_channels=C, num_mix=10, num_bins=2**16, bf16=bf16,
+                    device=device, **kwargs)
     weights.load_jax_params(model, weights.random_jax_params(model, seed))
     g = torch.Generator(device=device).manual_seed(seed)
-    uniforms = (torch.rand(n_frames, 2, 10, generator=g, device=device), torch.rand(n_frames, 2, 1, generator=g, device=device))
+    uniforms = (torch.rand(n_frames, B, 10, generator=g, device=device), torch.rand(n_frames, B, 1, generator=g, device=device))
     keys = variational.FrameKeys(None, device, uniforms)
-    x = torch.rand(2, model.receptive_field, 1, generator=g, device=device) * 2 - 1
+    x = torch.rand(B, model.receptive_field, 1, generator=g, device=device) * 2 - 1
     with torch.no_grad():
         tails, pred0 = model._prime(x, keys)
     return model, keys, x[:, -1:], pred0, tails
@@ -723,17 +771,50 @@ def test_wavenet_decode_kernel_matches_plain_loop(cuda_device, C, bf16):
     (teacher forcing: each frame from the same history, so differences do not
     compound). f32: the order of the sums (1e-5). bf16: both round where JAX rounds;
     a one-ulp difference after a dot's other summation order, amplified by the gate,
-    stays within the JAX suite's 5e-2."""
+    stays within the JAX suite's 5e-2. bf16 at C = 96 runs the resident route (one
+    launch a generation), the rest the per-frame route (one a frame)."""
     n = 48
     model, keys, x_last, pred0, tails = decode_case(cuda_device, C, bf16, n)
     cuda.reset_launch_counts()
     with torch.no_grad():
         got = WaveNetDecoder(model, tails).run(x_last.reshape(-1), pred0.reshape(-1), n, keys)
         torch.cuda.synchronize()
-        assert cuda.launch_counts()["wavenet_decode"] == n - 1
+        counts = cuda.launch_counts()
+        resident = bf16 and C == 96
+        assert (counts["wavenet_decode_resident"], counts["wavenet_decode"]) == ((1, 0) if resident else (0, n - 1))
         ref = model._generate_fast_plain(x_last, pred0, tails, n, keys, forced=got)
     assert got.shape == (2, n) and torch.isfinite(got).all() and got.abs().max() <= 1
     torch.testing.assert_close(got, ref, rtol=0, atol=5e-2 if bf16 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16,C,B", [(True, 96, 1), (True, 96, 2), (True, 96, 8), (False, 32, 2)])
+def test_wavenet_decode_kernel_past_every_buffer_wrap(cuda_device, bf16, C, B):
+    """K4 over 1100 frames of a 5 x 10-block WaveNet (dilations 1 .. 512, so every buffer wraps at least twice)
+    against the plain loop fed the kernel's frames, at the tolerances above: the resident route (bf16, C = 96) at
+    B = 1, 2 and 8, the per-frame route at C = 32 in f32. Two runs give the same bits."""
+    n = 1100
+    model, keys, x_last, pred0, tails = decode_case(cuda_device, C, bf16, n, B=B, n_stacks=5)
+    with torch.no_grad():
+        runs = [WaveNetDecoder(model, tails).run(x_last.reshape(-1), pred0.reshape(-1), n, keys) for _ in range(2)]
+        assert torch.equal(runs[0], runs[1])
+        ref = model._generate_fast_plain(x_last, pred0, tails, n, keys, forced=runs[0])
+    assert runs[0].shape == (B, n) and torch.isfinite(runs[0]).all() and runs[0].abs().max() <= 1
+    torch.testing.assert_close(runs[0], ref, rtol=0, atol=5e-2 if bf16 else 1e-5)
+
+
+@pytest.mark.cuda
+def test_wavenet_decode_resident_route_refuses_nine_rows_and_raises_on_a_timeout(cuda_device, monkeypatch):
+    model, keys, x_last, pred0, tails = decode_case(cuda_device, 96, True, 8, B=9)
+    with pytest.raises(ValueError):
+        WaveNetDecoder(model, tails)
+    model, keys, x_last, pred0, tails = decode_case(cuda_device, 96, True, 8)
+    with monkeypatch.context() as patch, pytest.raises(RuntimeError, match="gave up"):
+        patch.setattr(generation, "WAIT_LIMIT_NS", 1)  # a 1 ns wait limit: the first wait that must wait gives up
+        WaveNetDecoder(model, tails).run(x_last.reshape(-1), pred0.reshape(-1), 8, keys)
+    with torch.no_grad():  # the card is still usable
+        got = WaveNetDecoder(model, tails).run(x_last.reshape(-1), pred0.reshape(-1), 8, keys)
+    assert torch.isfinite(got).all()
 
 
 @pytest.mark.cuda
