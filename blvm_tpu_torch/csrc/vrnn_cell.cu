@@ -17,39 +17,47 @@
 // ~2.2M multiply-adds in the kernel (~30 GFLOP in all, ~0.45 ms at 67 TFLOP/s) and moves ~10 KB, with
 // ~10.7 MB of weights read once a launch. But the step is a chain of nine dependent products (the
 // three MLP layers, the heads, the four phi layers, the GRU's input product; h W_hh runs beside the
-// first), each only B rows deep: the latency of a product and of the barrier after it sets the pace.
+// first), each only B rows deep and each followed by an all-to-all handoff among the CTAs: on the H100 the
+// handoffs take ~60 % of a step (the trace), ~2 us a stage at B = 6 and 3-4 at B = 19, where every CTA reads
+// ~0.5 MB of tagged words a step.
 //
-// The design: one persistent cooperative launch for all T' steps. Each of the NB CTAs (one an SM)
-// owns whole output units of every stage and keeps their weight columns in shared memory for the
-// whole launch (~70 KB a CTA at the spec width, 8.9 MB in all after hoisting, which no cluster could
-// hold): H units of each MLP layer, Z latent units (the mu and sd columns of both heads, so z is formed
-// where its four values are), R GRU units (the r, z, n columns of W_hh in stage 1 and of W_ih's phi
-// rows in stage 9, so the CTA keeps gh on chip in between). A stage reads its input rows from L2 into
-// shared memory (every load of a thread issued before the first is waited for), each warp reduces
-// whole columns (lanes split K, shuffles sum), the CTA finishes its units and stores them; a grid-wide
-// barrier (a release fence and a reduction on one counter, acquire loads polling it; all CTAs
-// co-resident by the cooperative launch) orders the stages:
+// The design (tagged_chain.cuh): one persistent cooperative launch for all T' steps. Each of the NB CTAs (one
+// an SM) owns whole output units of every stage and keeps their weight columns in shared memory for the whole
+// launch (~68 KB a CTA at the spec width): H units of each MLP layer, Z latent units (the mu and sd columns of
+// both heads, so z is formed where its four values are), R GRU units (the r, z, n columns of W_hh in stage 1 and
+// of W_ih's phi rows in stage 9, so the CTA keeps gh and its units' h on chip in between). The stages:
 //   1: prior L1, posterior L1 (h part + xpost), gh = h W_hh + b_hh    2-3: prior and posterior L2, L3
 //   4: both heads, sd, z    5-8: phi L1-L4    9: gi = phi W_ih[X:] + xg + b_ih, the gates, h'
-// Values that cross CTAs go through L2 (__ldcg / __stcg: never the non-coherent L1 or texture path).
-// No tensor cores: the JAX step is f32, and TF32 or bf16 products would break parity. Given a trace
-// buffer, the first CTA adds up the SM cycles of each stage's phases (inputs in, products, finish and
-// store, barrier), so a run can see where a step's time goes; without one it costs a branch a phase.
+// A stage gathers all rows of its input (up to 32 a pass: B = 19 is one) from the tagged words the stage before
+// published; its products split (column, row) tiles over the warps; its finish publishes each unit's value as a
+// tagged word (payload the f32, tag (step, stage)) and stores the plain f32 outputs and, in save mode, the saved
+// activations beside it. Stage 1 publishes its L1 columns before it computes h W_hh, which only stage 9 reads. No
+// grid barrier: each tagged buffer has two copies, by the step's parity, and a word of step t is overwritten at
+// step t + 2 only after every CTA that read it has published something of step t + 1 (each CTA owns a unit of the
+// widest of R, H and Z, and every unit of step t + 1 is an ancestor of every stage of step t + 2), so no word is
+// overwritten before every reader has taken it. No tensor cores: the JAX step is f32, and TF32 or bf16 products
+// would break parity. Given a trace buffer, the first CTA adds up the SM cycles of each stage's phases (inputs in,
+// waiting included, products, finish and publish) and counts the words it had to load again, so a run can see
+// where a step's time goes; without one it costs a branch a phase.
 //
 // Save mode, for a forward that will be differentiated (K8-bwd, vrnn_cell_bwd.cu, reads what it keeps):
-// the nine MLP activations of every step go to a (B, T', 9H + 2Z + 4R) buffer instead of one step's
-// scratch, and stage 4 adds both heads' raw sd pre-activations, stage 9 the GRU's r, u, n and gh_n.
+// the nine MLP activations of every step go to a (B, T', 9H + 2Z + 4R) buffer, stage 4 adds both heads' raw sd
+// pre-activations, stage 9 the GRU's r, u, n and gh_n.
 
-#include "vrnn_common.cuh"
+#include "tagged_chain.cuh"
 
 namespace blvm {
-namespace vrnn {
+namespace k8 {
+
+using namespace chain;
+using vrnn::part_lo;
+using vrnn::relu;
+using vrnn::softplus_sd;
 
 constexpr int NSTAGES = 9;
-constexpr int NTRACE = NSTAGES * NPHASES + 2;  // and the loop's SM cycles and nanoseconds, to convert
 
 struct Params {
-  const float* w[NWEIGHTS];
+  const float* w[vrnn::NWEIGHTS];
   const float* h0;
   const float* xpost;  // null in prior mode
   const float* xg;     // null without condition_h_on_x
@@ -61,376 +69,396 @@ struct Params {
   float* q_sd;
   float* p_mu;
   float* p_sd;
-  // the activations of prior L1, posterior L1, prior L2, posterior L2, prior L3, posterior L3, phi L1-L3 (H
-  // each) of row b at step t from act + b act_rs + t act_ts; in save mode (act_ts > 0) followed by raw_p,
-  // raw_q (Z each), r, u, n, gh_n (R each)
-  float* act;
-  int64_t act_rs, act_ts;
-  unsigned int* barrier;
-  long long* trace;  // null, or NTRACE sums: SM cycles of each (stage, phase) as CTA 0 sees them, the totals
-  int B, T, R, H, Z;
-  int inference, residual, use_mode, save;
+  // null, or the (B, T', 9H + 2Z + 4R) save buffer: the activations of prior L1, posterior L1, prior L2,
+  // posterior L2, prior L3, posterior L3, phi L1-L3 (H each), raw_p, raw_q (Z each), r, u, n, gh_n (R each)
+  float* save;
+  // the tagged words, two copies by the step's parity, each B x (10H + Z + R): prior and posterior L1, L2, L3
+  // (H each, interleaved P1 Q1 P2 Q2 P3 Q3), z (Z), phi L1-L4 (H each), h (R); zeroed by the entry point
+  unsigned long long* hand;
+  decode::Watch watch;
+  long long* trace;  // null, or the sums of blvm_vrnn_cell's `trace`
+  int B, T, R, H, Z, RB, act_floats;
+  int inference, residual, use_mode;
   float sd_beta, sd_eps;
 };
 
+// the words of one copy of the handoff buffers
+__host__ __device__ inline int64_t hand_words(int B, int R, int H, int Z) {
+  return (int64_t)B * (10 * H + Z + R);
+}
+
 __global__ void __launch_bounds__(NT, 1) vrnn_cell_kernel(const Params p) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
+  __shared__ Prod prod[NSTAGES];
+  __shared__ Prod split[2];  // stage 1's L1 columns and its W_hh columns apart
   const int NB = gridDim.x, cta = blockIdx.x, tid = threadIdx.x;
-  const int B = p.B, T = p.T, R = p.R, H = p.H, Z = p.Z, G = 3 * R;
+  const int B = p.B, T = p.T, R = p.R, H = p.H, Z = p.Z, G3 = 3 * R, RB = p.RB;
   const int hlo = part_lo(H, cta, NB), nh = part_lo(H, cta + 1, NB) - hlo;
   const int zlo = part_lo(Z, cta, NB), nz = part_lo(Z, cta + 1, NB) - zlo;
   const int rlo = part_lo(R, cta, NB), nr = part_lo(R, cta + 1, NB) - rlo;
-  const int nq = p.inference ? nh : 0;  // posterior units: none in prior mode
-
-  // the stages' column segments, in the order their columns lie in shared memory
-  Stage st[NSTAGES];
+  const int nq = p.inference ? nh : 0, nzq = p.inference ? nz : 0;  // posterior units: none in prior mode
+  const int KR = pad4(R), KH = pad4(H), KZ = pad4(Z);
   const float* const* w = p.w;
-  st[0].K = R;
-  st[0].nseg = 5;
-  st[0].seg[0] = make_seg(w[0], w[1], H, hlo, nh, 0);   // prior L1
-  st[0].seg[1] = make_seg(w[8], w[9], H, hlo, nq, 0);   // posterior L1, h rows
-  for (int g = 0; g < 3; ++g) st[0].seg[2 + g] = make_seg(w[26], w[27], G, g * R + rlo, nr, 0);  // W_hh r, z, n
-  for (int l = 1; l < 3; ++l) {  // prior and posterior L2, L3
-    st[l].K = H;
-    st[l].nseg = 2;
-    st[l].seg[0] = make_seg(w[2 * l], w[2 * l + 1], H, hlo, nh, 0);
-    st[l].seg[1] = make_seg(w[8 + 2 * l], w[9 + 2 * l], H, hlo, nq, 1);
-  }
-  st[3].K = H;  // heads: mu and sd columns of latent units [zlo, zlo + nz)
-  st[3].nseg = 4;
-  st[3].seg[0] = make_seg(w[6], w[7], 2 * Z, zlo, nz, 0);
-  st[3].seg[1] = make_seg(w[6], w[7], 2 * Z, Z + zlo, nz, 0);
-  st[3].seg[2] = make_seg(w[14], w[15], 2 * Z, zlo, p.inference ? nz : 0, 1);
-  st[3].seg[3] = make_seg(w[14], w[15], 2 * Z, Z + zlo, p.inference ? nz : 0, 1);
-  for (int l = 0; l < 4; ++l) {  // phi L1-L4
-    st[4 + l].K = l == 0 ? Z : H;
-    st[4 + l].nseg = 1;
-    st[4 + l].seg[0] = make_seg(w[16 + 2 * l], w[17 + 2 * l], H, hlo, nh, 0);
-  }
-  st[8].K = H;  // W_ih's phi rows: r, z, n of GRU units [rlo, rlo + nr)
-  st[8].nseg = 3;
-  for (int g = 0; g < 3; ++g) st[8].seg[g] = make_seg(w[24], w[25], G, g * R + rlo, nr, 0);
 
-  // shared memory: every stage's weight columns and biases, the input rows, the products, gh
+  // resident weights, stage after stage in the column order of its groups, then every stage's biases
+  const int ncols[NSTAGES] = {nh + nq + 3 * nr, nh + nq, nh + nq, 2 * nz + 2 * nzq, nh, nh, nh, nh, 3 * nr};
+  const int Ks[NSTAGES] = {R, H, H, H, Z, H, H, H, H};
+  float* ws[NSTAGES];
   float* cursor = smem;
+  for (int s = 0; s < NSTAGES; ++s) {
+    ws[s] = cursor;
+    cursor += (size_t)ncols[s] * pad4(Ks[s]);
+  }
+  float* bs[NSTAGES];
+  for (int s = 0; s < NSTAGES; ++s) {
+    bs[s] = cursor;
+    cursor += ncols[s];
+  }
+  cursor = smem + (((size_t)(cursor - smem) + 3) & ~(size_t)3);
+  float* const act = cursor;  // the staged input rows
+  cursor += p.act_floats;
   int max_cols = 0;
-  for (int s = 0; s < NSTAGES; ++s) {
-    st[s].ncols = 0;
-    for (int i = 0; i < st[s].nseg; ++i) st[s].ncols += st[s].seg[i].n;
-    st[s].ws = cursor;
-    cursor += (size_t)st[s].ncols * st[s].K;
-    max_cols = max(max_cols, st[s].ncols);
-  }
-  for (int s = 0; s < NSTAGES; ++s) {
-    st[s].bs = cursor;
-    cursor += st[s].ncols;
-  }
-  float* act = cursor;  // 2 regions of BC x max(R, H, Z)
-  cursor += 2 * BC * max(R, max(H, Z));
-  float* res = cursor;  // max_cols x BC
-  cursor += max_cols * BC;
-  float* side = cursor;  // a stage's other inputs for its units: xpost, e, or xg and h (BC x max(nh, nz, 4 nr))
-  cursor += BC * max(nh, max(nz, 4 * nr));
-  float* gh = cursor;  // B x 3 x nr: h W_hh + b_hh of this CTA's GRU units, stage 1 to stage 9
+  for (int s = 0; s < NSTAGES; ++s) max_cols = max(max_cols, ncols[s]);
+  float* const res = cursor;  // the k-parts' sums, 4 x max_cols x RB
+  cursor += (size_t)4 * max_cols * RB;
+  const int side_n = RB * max(nq, max(nz, 3 * nr));
+  float* const side = cursor;  // a stage's read-only inputs for its finish, two buffers
+  cursor += 2 * side_n;
+  float* const gh = cursor;  // B x 3 nr: h W_hh + b_hh of this CTA's GRU units, stage 1 to stage 9
+  cursor += (size_t)B * 3 * nr;
+  float* const h_own = cursor;  // B x nr: h of this CTA's GRU units
 
-  for (int s = 0; s < NSTAGES; ++s) {  // a thread copies rows k of a segment's few columns, all loads first
-    int first = 0;
-    const int K = st[s].K;
-    for (int i = 0; i < st[s].nseg; ++i) {
-      const Seg& sg = st[s].seg[i];
-      float* ws = st[s].ws + (size_t)first * K;
-      for (int j0 = 0; j0 < sg.n; j0 += 4) {
-        for (int k = tid; k < K; k += NT) {
-          float v[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) v[j] = j0 + j < sg.n ? __ldg(sg.w + (int64_t)k * sg.ld + sg.col0 + j0 + j) : 0.0f;
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (j0 + j < sg.n) ws[(size_t)(j0 + j) * K + k] = v[j];
-        }
-      }
-      for (int j = tid; j < sg.n; j += NT) st[s].bs[first + j] = __ldg(sg.b + sg.col0 + j);
-      first += sg.n;
+  {  // the weights: stage 1 (prior L1, posterior L1's h rows, W_hh r, z, n), ...
+    float* c = ws[0];
+    load_columns(c, w[0], H, hlo, nh, R, KR);
+    load_columns(c + (size_t)nh * KR, w[8], H, hlo, nq, R, KR);
+    for (int g = 0; g < 3; ++g) load_columns(c + (size_t)(nh + nq + g * nr) * KR, w[26], G3, g * R + rlo, nr, R, KR);
+    for (int l = 1; l < 3; ++l) {
+      load_columns(ws[l], w[2 * l], H, hlo, nh, H, KH);
+      load_columns(ws[l] + (size_t)nh * KH, w[8 + 2 * l], H, hlo, nq, H, KH);
     }
+    load_columns(ws[3], w[6], 2 * Z, zlo, nz, H, KH);
+    load_columns(ws[3] + (size_t)nz * KH, w[6], 2 * Z, Z + zlo, nz, H, KH);
+    load_columns(ws[3] + (size_t)2 * nz * KH, w[14], 2 * Z, zlo, nzq, H, KH);
+    load_columns(ws[3] + (size_t)(2 * nz + nzq) * KH, w[14], 2 * Z, Z + zlo, nzq, H, KH);
+    for (int l = 0; l < 4; ++l) load_columns(ws[4 + l], w[16 + 2 * l], H, hlo, nh, l == 0 ? Z : H, l == 0 ? KZ : KH);
+    for (int g = 0; g < 3; ++g) load_columns(ws[8] + (size_t)g * nr * KH, w[24], G3, g * R + rlo, nr, H, KH);
+    // ... and the biases in the same order
+    auto bias = [&](float* dst, const float* b, int col0, int n) {
+      for (int j = tid; j < n; j += NT) dst[j] = __ldg(b + col0 + j);
+    };
+    bias(bs[0], w[1], hlo, nh);
+    bias(bs[0] + nh, w[9], hlo, nq);
+    for (int g = 0; g < 3; ++g) bias(bs[0] + nh + nq + g * nr, w[27], g * R + rlo, nr);
+    for (int l = 1; l < 3; ++l) {
+      bias(bs[l], w[2 * l + 1], hlo, nh);
+      bias(bs[l] + nh, w[9 + 2 * l], hlo, nq);
+    }
+    bias(bs[3], w[7], zlo, nz);
+    bias(bs[3] + nz, w[7], Z + zlo, nz);
+    bias(bs[3] + 2 * nz, w[15], zlo, nzq);
+    bias(bs[3] + 2 * nz + nzq, w[15], Z + zlo, nzq);
+    for (int l = 0; l < 4; ++l) bias(bs[4 + l], w[17 + 2 * l], hlo, nh);
+    for (int g = 0; g < 3; ++g) bias(bs[8] + g * nr, w[25], g * R + rlo, nr);
+  }
+  if (tid == 0) {  // the stages' groups: which columns read which input region
+    for (int s = 0; s < NSTAGES; ++s) {
+      Prod& P = prod[s];
+      P.K = Ks[s];
+      P.KP = pad4(Ks[s]);
+      P.ncols = ncols[s];
+      P.bias = bs[s];
+      const int first = s == 1 || s == 2 ? nh : s == 3 ? 2 * nz : ncols[s];  // region 0's columns
+      P.g[0] = Group{ws[s], first, 0, 0};
+      P.g[1] = Group{ws[s] + (size_t)first * P.KP, ncols[s] - first, 1, first};
+      P.ng = ncols[s] > first ? 2 : 1;
+    }
+    for (int i = 0; i < 2; ++i) {
+      Prod& P = split[i];
+      const int c0 = i == 0 ? 0 : nh + nq;
+      P = prod[0];
+      P.ncols = i == 0 ? nh + nq : 3 * nr;
+      P.bias = bs[0] + c0;
+      P.g[0] = Group{ws[0] + (size_t)c0 * KR, P.ncols, 0, 0};
+      P.ng = 1;
+    }
+  }
+
+  // the state entering step 0: this CTA's GRU units of h0 on chip and published, as if by stage 9 of step -1
+  const int64_t PW = hand_words(B, R, H, Z);
+  auto tag = [&](int t, int s) { return (uint32_t)((t + 1) * NSTAGES + s + 1); };
+  const int64_t oZ = (int64_t)6 * B * H, oF = oZ + (int64_t)B * Z, oH = oF + (int64_t)4 * B * H;
+  for (int i = tid; i < B * nr; i += NT) {
+    const int b = i / nr, u = rlo + i % nr;
+    const float v = __ldg(p.h0 + (int64_t)b * R + u);
+    h_own[i] = v;
+    decode::publish(p.hand + PW + oH + (int64_t)b * R + u, v, tag(-1, NSTAGES - 1));
   }
   __syncthreads();
 
-  const int64_t ars = p.act_rs;  // the activations' row stride
-  const int64_t raw_off = (int64_t)9 * H, gate_off = raw_off + 2 * Z;  // save mode: raw sd, then r, u, n, gh_n
-  unsigned int target = 0;
-  long long* const trace = cta == 0 && tid == 0 ? p.trace : nullptr;
-  const long long ns_begin = trace ? now_ns() : 0, cycles_begin = trace ? clock64() : 0;
+  const int64_t SW = (int64_t)9 * H + 2 * Z + 4 * R;  // the save buffer's row-step
+  const int64_t raw_off = (int64_t)9 * H, gate_off = raw_off + 2 * Z;
+  // the trace: sums in shared memory, added to the global ones once the loop is over
+  __shared__ long long sums[NSTAGES * NPHASES];
+  const bool trace = cta == 0 && tid == 0 && p.trace;
+  if (trace)
+    for (int i = 0; i < NSTAGES * NPHASES; ++i) sums[i] = 0;
+  int reloads = 0;  // the words this thread's gathers had to load again (the trace counts CTA 0's)
+  const long long ns_begin = trace ? decode::now_ns() : 0, cycles_begin = trace ? clock64() : 0;
   long long mark = cycles_begin;
   auto tick = [&](int stage, int phase) {  // after a CTA barrier: the phase's cycles as CTA 0 sees them
     if (trace) {
       const long long t_ = clock64();
-      trace[stage * NPHASES + phase] += t_ - mark;
+      sums[stage * NPHASES + phase] += t_ - mark;
       mark = t_;
     }
   };
 
+  // the finish's read-only inputs of stage s at step t for rows [b0, b0 + nb), by cp.async into buf
+  auto prefetch = [&](int s, int t, int b0, int nb, float* buf) {
+    if (s == 0) {
+      for (int i = tid; i < nb * nq; i += NT)
+        fetch(buf + i, p.xpost, ((int64_t)(b0 + i / nq) * T + t) * H + hlo + i % nq);
+    } else if (s == 3 && p.eps) {
+      for (int i = tid; i < nb * nz; i += NT) fetch(buf + i, p.eps, ((int64_t)(b0 + i / nz) * T + t) * Z + zlo + i % nz);
+    } else if (s == 8) {
+      for (int i = tid; i < nb * 3 * nr; i += NT) {
+        const int b = i / (3 * nr), g = i % 3, u = (i / 3) % nr;
+        fetch(buf + i, p.xg, ((int64_t)(b0 + b) * T + t) * G3 + g * R + rlo + u);
+      }
+    }
+  };
+  int seq = 0;  // the passes so far: the side buffers alternate pass by pass
   for (int t = 0; t < T; ++t) {
-    // activation buffers, each written in one stage and read in the next: step t's in save mode
-    float* const at = p.act + (int64_t)t * p.act_ts;
-    float* const a1p = at;
-    float* const a1q = at + H;
-    float* const pin[3] = {at, at + 2 * H, at + 4 * H};
-    float* const qin[3] = {at + H, at + 3 * H, at + 5 * H};
-    float* const fbuf[4] = {at + 6 * H, at + 7 * H, at + 8 * H, nullptr};
-    // h entering step t: h0, or the state after step t - 1
-    const float* h_in = t == 0 ? p.h0 : p.h_out + (int64_t)(t - 1) * R;
-    const int64_t h_stride = t == 0 ? R : (int64_t)T * R;
-
-    // stage 1: prior L1, posterior L1 (h part + xpost), gh
-    for (int b0 = 0; b0 < B; b0 += BC) {
-      float sv = 0.0f;  // xpost of one (row, posterior unit), issued first
-      if (tid < BC * nq && b0 + tid / nq < B)
-        sv = __ldg(p.xpost + ((int64_t)(b0 + tid / nq) * T + t) * H + hlo + tid % nq);
-      load_stage(act, h_in, nullptr, h_stride, R, b0, B);
-      if (tid < BC * nq) side[tid] = sv;
-      __syncthreads();
-      tick(0, 0);
-      stage_products(st[0], act, res);
-      __syncthreads();
-      tick(0, 1);
-      const Stage& s0 = st[0];
-      for (int idx = tid; idx < s0.ncols * BC; idx += NT) {
-        const int c = idx / BC, b = idx % BC, row = b0 + b;
-        if (row >= B) continue;
-        const float v = res[c * BC + b];
-        if (c < nh) {
-          __stcg(a1p + (int64_t)row * ars + hlo + c, relu(v + s0.bs[c]));
-        } else if (c < nh + nq) {
-          const int j = c - nh;
-          __stcg(a1q + (int64_t)row * ars + hlo + j, relu((v + side[b * nq + j]) + s0.bs[c]));
-        } else {
-          const int gj = c - nh - nq;  // gate g = gj / nr, unit rlo + gj % nr
-          gh[(size_t)row * 3 * nr + gj] = v + s0.bs[c];
-        }
+    unsigned long long* const cur = p.hand + (t & 1) * PW;  // this step's words
+    const unsigned long long* const prev = p.hand + ((t + 1) & 1) * PW;
+    float* const sv = p.save ? p.save + (int64_t)t * SW : nullptr;  // step t's fields of row 0
+    const int64_t srs = (int64_t)T * SW;
+#pragma unroll 1
+    for (int s = 0; s < NSTAGES; ++s) {
+      const Prod& P = prod[s];
+      if (P.ncols == 0) continue;  // no unit of this stage here (narrow layers)
+      Input in;
+      in.want = s == 0 ? tag(t - 1, NSTAGES - 1) : tag(t, s - 1);
+      in.nreg = 1;
+      in.ld = s == 0 ? R : s == 4 ? Z : H;
+      if (s == 0) {
+        in.src[0] = prev + oH;
+      } else if (s <= 3) {
+        in.src[0] = cur + (int64_t)2 * (s - 1) * B * H;
+        in.src[1] = in.src[0] + (int64_t)B * H;
+        in.nreg = p.inference ? 2 : 1;
+      } else if (s == 4) {
+        in.src[0] = cur + oZ;
+      } else {
+        in.src[0] = cur + oF + (int64_t)(s - 5) * B * H;
       }
-      __syncthreads();
-      tick(0, 2);
-    }
-    grid_sync(p.barrier, target);
-    tick(0, 3);
-
-    // stages 2-3: prior and posterior L2, L3
-    for (int l = 1; l < 3; ++l) {
-      const Stage& sl = st[l];
-      for (int b0 = 0; b0 < B; b0 += BC) {
-        load_stage(act, pin[l - 1], p.inference ? qin[l - 1] : nullptr, ars, H, b0, B);
-        __syncthreads();
-        tick(l, 0);
-        stage_products(sl, act, res);
-        __syncthreads();
-        tick(l, 1);
-        for (int idx = tid; idx < sl.ncols * BC; idx += NT) {
-          const int c = idx / BC, b = idx % BC, row = b0 + b;
-          if (row >= B) continue;
-          const float v = relu(res[c * BC + b] + sl.bs[c]);
-          if (c < nh)
-            __stcg(pin[l] + (int64_t)row * ars + hlo + c, v);
-          else
-            __stcg(qin[l] + (int64_t)row * ars + hlo + c - nh, v);
+      for (int b0 = 0; b0 < B; b0 += RB) {
+        const int nb = min(RB, B - b0);
+        float* const sd = side + (seq++ & 1) * side_n;
+        prefetch(s, t, b0, nb, sd);  // in flight during the gather
+        // the input rows, in chunks of K that fit the staging buffer, each chunk's products added up
+        const int rows = in.nreg * nb;
+        const int kmax = (p.act_floats / rows) & ~3, nch = (P.KP + kmax - 1) / kmax;
+        const int kc = min(P.KP, ((P.KP + nch - 1) / nch + 3) & ~3);  // equal chunks
+        // stage 1 in one chunk: its L1 columns first, published before h W_hh, which only stage 9 reads
+        const bool defer = s == 0 && kc == P.KP && split[0].ncols > 0 && split[1].ncols > 0;
+        const Prod& Q = defer ? split[0] : P;
+        const int KS = k_parts(Q, nb, kc);
+        for (int k0 = 0; k0 < P.KP; k0 += kc) {
+          const int kw = min(kc, P.KP - k0), kv = max(0, min(kw, P.K - k0));
+          bool ok = gather(in, nb, b0, k0, kv, act, kc, p.watch, reloads);
+          zero_pad(act, rows, kv, kw, kc);
+          cp_async_wait_all();
+          if (__syncthreads_or(!ok)) return;
+          tick(s, 0);
+          products(Q, act, kc, nb, k0, kw, KS, res, RB, k0 > 0);
+          __syncthreads();
+          tick(s, 1);
         }
-        __syncthreads();
-        tick(l, 2);
-      }
-      grid_sync(p.barrier, target);
-      tick(l, 3);
-    }
-
-    // stage 4: the heads, sd, z
-    {
-      const Stage& s3 = st[3];
-      for (int b0 = 0; b0 < B; b0 += BC) {
-        float sv = 0.0f;  // e of one (row, latent unit), issued first
-        if (p.eps && tid < BC * nz && b0 + tid / nz < B)
-          sv = __ldg(p.eps + ((int64_t)(b0 + tid / nz) * T + t) * Z + zlo + tid % nz);
-        load_stage(act, pin[2], p.inference ? qin[2] : nullptr, ars, H, b0, B);
-        if (tid < BC * nz) side[tid] = sv;
-        __syncthreads();
-        tick(3, 0);
-        stage_products(s3, act, res);
-        __syncthreads();
-        tick(3, 1);
-        for (int idx = tid; idx < nz * BC; idx += NT) {
-          const int j = idx / BC, b = idx % BC, row = b0 + b;
-          if (row >= B) continue;
-          const int64_t o = ((int64_t)row * T + t) * Z + zlo + j;
-          const float mu_p = res[j * BC + b] + s3.bs[j];
-          const float raw_p = res[(nz + j) * BC + b] + s3.bs[nz + j];
-          const float sd_p = softplus_sd(raw_p, p.sd_beta, p.sd_eps);
-          if (p.save) __stcg(at + (int64_t)row * ars + raw_off + zlo + j, raw_p);
-          float zv;
-          if (p.inference) {
-            float mu_q = res[(2 * nz + j) * BC + b] + s3.bs[2 * nz + j];
-            const float raw_q = res[(3 * nz + j) * BC + b] + s3.bs[3 * nz + j];
-            const float sd_q = softplus_sd(raw_q, p.sd_beta, p.sd_eps);
-            if (p.save) __stcg(at + (int64_t)row * ars + raw_off + Z + zlo + j, raw_q);
-            if (p.residual) mu_q = mu_q + mu_p;
-            zv = __fadd_rn(mu_q, __fmul_rn(sd_q, side[b * nz + j]));
-            __stcg(p.q_mu + o, mu_q);
-            __stcg(p.q_sd + o, sd_q);
-          } else {
-            zv = p.use_mode ? mu_p : __fadd_rn(mu_p, __fmul_rn(sd_p, side[b * nz + j]));
+        // the finish: each (unit, row) of the pass
+        const float* const bias = Q.bias;
+        if (s == 3) {  // the heads, sd, z
+          for (int idx = tid; idx < nz * nb; idx += NT) {
+            const int b = idx / nz, j = idx % nz, row = b0 + b;
+            const int64_t o = ((int64_t)row * T + t) * Z + zlo + j;
+            const float mu_p = sum_of(res, P.ncols, RB, KS, j, b) + bias[j];
+            const float raw_p = sum_of(res, P.ncols, RB, KS, nz + j, b) + bias[nz + j];
+            const float sd_p = softplus_sd(raw_p, p.sd_beta, p.sd_eps);
+            if (sv) __stcg(sv + row * srs + raw_off + zlo + j, raw_p);
+            float zv;
+            if (p.inference) {
+              float mu_q = sum_of(res, P.ncols, RB, KS, 2 * nz + j, b) + bias[2 * nz + j];
+              const float raw_q = sum_of(res, P.ncols, RB, KS, 3 * nz + j, b) + bias[3 * nz + j];
+              const float sd_q = softplus_sd(raw_q, p.sd_beta, p.sd_eps);
+              if (sv) __stcg(sv + row * srs + raw_off + Z + zlo + j, raw_q);
+              if (p.residual) mu_q = mu_q + mu_p;
+              zv = __fadd_rn(mu_q, __fmul_rn(sd_q, sd[b * nz + j]));
+              __stcg(p.q_mu + o, mu_q);
+              __stcg(p.q_sd + o, sd_q);
+            } else {
+              zv = p.use_mode ? mu_p : __fadd_rn(mu_p, __fmul_rn(sd_p, sd[b * nz + j]));
+            }
+            decode::publish(cur + oZ + (int64_t)row * Z + zlo + j, zv, tag(t, s));
+            __stcg(p.p_mu + o, mu_p);
+            __stcg(p.p_sd + o, sd_p);
+            __stcg(p.z + o, zv);
           }
-          __stcg(p.p_mu + o, mu_p);
-          __stcg(p.p_sd + o, sd_p);
-          __stcg(p.z + o, zv);
-        }
-        __syncthreads();
-        tick(3, 2);
-      }
-      grid_sync(p.barrier, target);
-      tick(3, 3);
-    }
-
-    // stages 5-8: phi L1-L4 (L4 is the phi output)
-    for (int l = 0; l < 4; ++l) {
-      const Stage& sl = st[4 + l];
-      const float* src = l == 0 ? p.z + (int64_t)t * Z : fbuf[l - 1];
-      const int64_t stride = l == 0 ? (int64_t)T * Z : ars;
-      float* dst = l == 3 ? p.phi + (int64_t)t * H : fbuf[l];
-      const int64_t dst_stride = l == 3 ? (int64_t)T * H : ars;
-      for (int b0 = 0; b0 < B; b0 += BC) {
-        load_stage(act, src, nullptr, stride, sl.K, b0, B);
-        __syncthreads();
-        tick(4 + l, 0);
-        stage_products(sl, act, res);
-        __syncthreads();
-        tick(4 + l, 1);
-        for (int idx = tid; idx < nh * BC; idx += NT) {
-          const int c = idx / BC, b = idx % BC, row = b0 + b;
-          if (row < B) __stcg(dst + (int64_t)row * dst_stride + hlo + c, relu(res[c * BC + b] + sl.bs[c]));
-        }
-        __syncthreads();
-        tick(4 + l, 2);
-      }
-      grid_sync(p.barrier, target);
-      tick(4 + l, 3);
-    }
-
-    // stage 9: gi = phi W_ih[X:] + xg + b_ih, the gates, h'
-    {
-      const Stage& s8 = st[8];
-      for (int b0 = 0; b0 < B; b0 += BC) {
-        float sv[2];  // xg of the r, z, n gates and h of (row, GRU unit) pairs, issued first
+        } else if (s == 8) {  // gi = phi W_ih[X:] + xg + b_ih, the gates, h'
+          for (int idx = tid; idx < nr * nb; idx += NT) {
+            const int b = idx / nr, u = idx % nr, row = b0 + b, unit = rlo + u;
+            const float* x = sd + (b * nr + u) * 3;  // xg of the r, z, n gates
+            float gi[3];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int q = tid + i * NT, g = q % 4, u = (q / 4) % max(nr, 1), row = b0 + q / (4 * max(nr, 1));
-          sv[i] = 0.0f;
-          if (q < BC * nr * 4 && row < B) {
-            if (g == 3)
-              sv[i] = __ldcg(h_in + (int64_t)row * h_stride + rlo + u);
-            else if (p.xg)
-              sv[i] = __ldg(p.xg + ((int64_t)row * T + t) * G + g * R + rlo + u);
+            for (int g = 0; g < 3; ++g) {
+              float v = sum_of(res, P.ncols, RB, KS, g * nr + u, b);
+              if (p.xg) v = v + x[g];
+              gi[g] = v + bias[g * nr + u];
+            }
+            const float* ghr = gh + (size_t)row * 3 * nr;
+            const float h = h_own[row * nr + u];
+            const float r = sigmoidf(gi[0] + ghr[u]);
+            const float zg = sigmoidf(gi[1] + ghr[nr + u]);
+            const float n = tanhf(__fadd_rn(gi[2], __fmul_rn(r, ghr[2 * nr + u])));
+            const float h_new = __fadd_rn(__fmul_rn(1.0f - zg, n), __fmul_rn(zg, h));
+            decode::publish(cur + oH + (int64_t)row * R + unit, h_new, tag(t, s));
+            h_own[row * nr + u] = h_new;
+            __stcg(p.h_out + ((int64_t)row * T + t) * R + unit, h_new);
+            if (sv) {
+              float* f = sv + row * srs + gate_off + unit;
+              __stcg(f, r);
+              __stcg(f + R, zg);
+              __stcg(f + 2 * R, n);
+              __stcg(f + 3 * R, ghr[2 * nr + u]);
+            }
+          }
+        } else {  // an MLP layer (stage 1 also gh): ReLU, publish, save
+          const int n_out = s == 0 ? nh + nq : Q.ncols;
+          for (int idx = tid; idx < Q.ncols * nb; idx += NT) {
+            const int b = idx / Q.ncols, c = idx % Q.ncols, row = b0 + b;
+            float v = sum_of(res, Q.ncols, RB, KS, c, b);
+            if (c >= n_out) {  // stage 1's h W_hh + b_hh, kept for stage 9
+              gh[(size_t)row * 3 * nr + c - n_out] = v + bias[c];
+              continue;
+            }
+            const bool q = c >= nh;  // a posterior unit
+            const int unit = hlo + (q ? c - nh : c);
+            if (s == 0 && q) v = v + sd[b * nq + c - nh];
+            v = relu(v + bias[c]);
+            int64_t buf, field;  // the tagged buffer and the save field of this stage's output
+            if (s <= 2) {
+              buf = (int64_t)(2 * s + (q ? 1 : 0)) * B * H;
+              field = (int64_t)(2 * s + (q ? 1 : 0)) * H;
+            } else {
+              buf = oF + (int64_t)(s - 4) * B * H;
+              field = (int64_t)(6 + s - 4) * H;
+            }
+            decode::publish(cur + buf + (int64_t)row * H + unit, v, tag(t, s));
+            if (s == 7)
+              __stcg(p.phi + ((int64_t)row * T + t) * H + unit, v);
+            else if (sv)
+              __stcg(sv + row * srs + field + unit, v);
+          }
+          if (defer) {  // h W_hh + b_hh from the rows still staged, while the L1 words travel
+            tick(s, 2);
+            __syncthreads();
+            const Prod& G = split[1];
+            const int KSg = k_parts(G, nb, kc);
+            products(G, act, kc, nb, 0, kc, KSg, res, RB, false);
+            __syncthreads();
+            tick(s, 1);
+            for (int idx = tid; idx < G.ncols * nb; idx += NT) {
+              const int b = idx / G.ncols, c = idx % G.ncols;
+              gh[(size_t)(b0 + b) * 3 * nr + c] = sum_of(res, G.ncols, RB, KSg, c, b) + G.bias[c];
+            }
           }
         }
-        load_stage(act, p.phi + (int64_t)t * H, nullptr, (int64_t)T * H, H, b0, B);
-        for (int i = 0; i < 2; ++i)
-          if (tid + i * NT < BC * nr * 4) side[tid + i * NT] = sv[i];
-        __syncthreads();
-        tick(8, 0);
-        stage_products(s8, act, res);
-        __syncthreads();
-        tick(8, 1);
-        for (int idx = tid; idx < nr * BC; idx += NT) {
-          const int u = idx / BC, b = idx % BC, row = b0 + b;
-          if (row >= B) continue;
-          const int unit = rlo + u;
-          const float* sd = side + (b * nr + u) * 4;  // xg of the r, z, n gates, h
-          float gi[3];
-#pragma unroll
-          for (int g = 0; g < 3; ++g) {
-            float v = res[(g * nr + u) * BC + b];
-            if (p.xg) v = v + sd[g];
-            gi[g] = v + s8.bs[g * nr + u];
-          }
-          const float* ghr = gh + (size_t)row * 3 * nr;
-          const float h = sd[3];
-          const float r = sigmoidf(gi[0] + ghr[u]);
-          const float zg = sigmoidf(gi[1] + ghr[nr + u]);
-          const float n = tanhf(__fadd_rn(gi[2], __fmul_rn(r, ghr[2 * nr + u])));
-          const float h_new = __fadd_rn(__fmul_rn(1.0f - zg, n), __fmul_rn(zg, h));
-          __stcg(p.h_out + ((int64_t)row * T + t) * R + unit, h_new);
-          if (p.save) {
-            float* sv = at + (int64_t)row * ars + gate_off + unit;
-            __stcg(sv, r);
-            __stcg(sv + R, zg);
-            __stcg(sv + 2 * R, n);
-            __stcg(sv + 3 * R, ghr[2 * nr + u]);
-          }
-        }
-        __syncthreads();
-        tick(8, 2);
+        tick(s, 2);
       }
-      grid_sync(p.barrier, target);
-      tick(8, 3);
     }
   }
+  if (cta == 0 && p.trace && reloads)
+    atomicAdd(reinterpret_cast<unsigned long long*>(p.trace + NSTAGES * NPHASES), (unsigned long long)reloads);
   if (trace) {
-    trace[NSTAGES * NPHASES] += clock64() - cycles_begin;
-    trace[NSTAGES * NPHASES + 1] += now_ns() - ns_begin;
+    for (int i = 0; i < NSTAGES * NPHASES; ++i) p.trace[i] += sums[i];
+    p.trace[NSTAGES * NPHASES + 1] += clock64() - cycles_begin;
+    p.trace[NSTAGES * NPHASES + 2] += decode::now_ns() - ns_begin;
   }
 }
 
-// shared memory of a CTA when each stage's units are cut into NB parts (the largest part)
-size_t smem_bytes(int NB, int B, int R, int H, int Z) {
+// The shared memory of a CTA whose units are the largest part of each stage's cut into NB parts, at RB rows a
+// pass, and the staging buffer's floats (all of a stage's K for its rows where it fits, else chunks of it)
+struct Smem {
+  size_t bytes;
+  int act_floats;
+};
+
+Smem smem_for(int NB, int B, int RB, int R, int H, int Z, size_t optin) {
   const int mh = (H + NB - 1) / NB, mz = (Z + NB - 1) / NB, mr = (R + NB - 1) / NB;
-  const size_t cols[NSTAGES] = {(size_t)2 * mh + 3 * mr, (size_t)2 * mh, (size_t)2 * mh, (size_t)4 * mz, (size_t)mh,
-                                (size_t)mh, (size_t)mh, (size_t)mh, (size_t)3 * mr};
+  const int cols[NSTAGES] = {2 * mh + 3 * mr, 2 * mh, 2 * mh, 4 * mz, mh, mh, mh, mh, 3 * mr};
   const int K[NSTAGES] = {R, H, H, H, Z, H, H, H, H};
-  size_t floats = 0, max_cols = 0;
+  size_t floats = 0;
+  int max_cols = 0, want = 0;
   for (int s = 0; s < NSTAGES; ++s) {
-    floats += cols[s] * K[s] + cols[s];
+    floats += (size_t)cols[s] * pad4(K[s]) + cols[s];
     max_cols = cols[s] > max_cols ? cols[s] : max_cols;
+    const int nreg = s >= 1 && s <= 3 ? 2 : 1;
+    const int need = nreg * RB * pad4(K[s]);
+    want = need > want ? need : want;
   }
-  const int side = 4 * mr > (mh > mz ? mh : mz) ? 4 * mr : (mh > mz ? mh : mz);
-  floats += (size_t)2 * BC * (R > H ? (R > Z ? R : Z) : (H > Z ? H : Z)) + max_cols * BC + (size_t)BC * side +
-            (size_t)B * 3 * mr;
-  return floats * sizeof(float);
+  floats = (floats + 3) & ~(size_t)3;
+  const int side = RB * (mh > mz ? (mh > 3 * mr ? mh : 3 * mr) : (mz > 3 * mr ? mz : 3 * mr));
+  const size_t fixed = floats + work_floats(0, max_cols, RB, side) + (size_t)B * 4 * mr;
+  // the staging buffer: what the widest stage wants, or what is left (at least a chunk of 128 words a row)
+  const long long left = (long long)((optin - STATIC_SMEM) / sizeof(float)) - (long long)fixed;
+  const int least = 2 * RB * 128;
+  const int act = (long long)want <= left ? want : (int)(left > least ? left & ~3ll : least);
+  return Smem{(fixed + act) * sizeof(float), act};
 }
 
-}  // namespace vrnn
+}  // namespace k8
 }  // namespace blvm
 
 // K8. weights: 28 device pointers in this order: the prior MLP's W0 (R, H), b0, W1 (H, H), b1, W2, b2 and
 // its head W (H, 2Z), b; the posterior's the same with W0 the h rows (R, H) of (R + X, H); phi's W0 (Z, H),
 // b0, W1, b1, W2, b2, W3, b3; the GRU's W_ih phi rows (H, 3R), b_ih, W_hh (R, 3R), b_hh. outputs: 7 device
 // pointers h (B, T, R), z, phi (B, T, H), q_mu, q_sd, p_mu, p_sd (B, T, Z); q_mu and q_sd null in prior
-// mode. act: 9 B H floats of scratch, or with `save` the (B, T, 9H + 2Z + 4R) buffer K8-bwd reads (see
-// Params::act); barrier: one uint32 (zeroed here); trace: null, or 38 int64 sums the kernel adds
-// to (the SM cycles of each stage's four phases as CTA 0 sees them, then the loop's cycles and nanoseconds).
-// The grid is one CTA an SM, or one a unit where a layer has fewer units than the card has SMs.
-// Returns a cudaError_t; cudaErrorInvalidValue for shapes it does not take (among them more than
-// NT / BC units of an MLP layer or of the latent, or 2 NT / (4 BC) GRU units, a CTA: each thread
-// fetches at most one or two of a stage's side inputs), cudaErrorCooperativeLaunchTooLarge when the
-// grid's weights cannot all be resident.
+// mode. save: null, or the (B, T, 9H + 2Z + 4R) buffer K8-bwd reads (see Params::save). hand: 2 B (10H + Z + R)
+// int64 of scratch (zeroed here). status: one int32 the kernel sets to 1 if a wait outlasts limit_ns nanoseconds
+// (then the launch ends early and its outputs are not valid), never clears, and copies after the launch into
+// host_status (page-locked host memory) for the wrapper to read where the host already waits for the card.
+// trace: null, or 30 int64 sums the kernel adds to (the SM cycles of each stage's three phases as CTA 0 sees
+// them, the tagged words it had to load again, then the loop's cycles and nanoseconds). The grid is one CTA an SM, or one a unit where every layer has
+// fewer units than the card has SMs. Returns a cudaError_t: cudaErrorInvalidValue for arguments it does not
+// take, cudaErrorCooperativeLaunchTooLarge when the grid's weights and carries cannot all be resident.
 extern "C" int blvm_vrnn_cell(const void* const* weights, const void* h0, const void* xpost, const void* xg,
-                              const void* eps, void* const* outputs, void* act, void* barrier, void* trace,
-                              int B, int T,
-                              int R, int H, int Z, int inference, int residual, int use_mode, int save, float sd_beta,
-                              float sd_eps, void* stream) {
-  using namespace blvm::vrnn;
+                              const void* eps, void* const* outputs, void* save, void* hand, void* status,
+                              void* host_status, void* trace, int B, int T, int R, int H, int Z, int inference,
+                              int residual, int use_mode, float sd_beta, float sd_eps, int64_t limit_ns,
+                              void* stream) {
+  using namespace blvm::k8;
   if (B < 1 || T < 1 || R < 1 || H < 1 || Z < 1 || (inference && (!xpost || !eps || !outputs[3] || !outputs[4])) ||
-      (!inference && !use_mode && !eps))
+      (!inference && !use_mode && !eps) || !hand || !status || !host_status || limit_ns <= 0 ||
+      (long long)(T + 1) * NSTAGES >= 0xffffffffll)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  static LaunchCache cache;
-  cudaError_t err = query_device(cache);
+  static blvm::chain::LaunchCache cache;
+  cudaError_t err = blvm::chain::query_device(cache);
   if (err != cudaSuccess) return (int)err;
   const int units = R > H ? (R > Z ? R : Z) : (H > Z ? H : Z);
   const int NB = cache.sms < units ? cache.sms : units;
-  if ((H + NB - 1) / NB > NT / BC || (Z + NB - 1) / NB > NT / BC || 4 * ((R + NB - 1) / NB) > 2 * NT / BC)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(NB, B, R, H, Z);
-  err = prepare_cooperative(cache, (const void*)vrnn_cell_kernel, smem, NB);
+  int RB = B < blvm::chain::RB_MAX ? B : blvm::chain::RB_MAX;
+  Smem sm = smem_for(NB, B, RB, R, H, Z, (size_t)cache.smem_optin);
+  while (sm.bytes > (size_t)cache.smem_optin - STATIC_SMEM && RB > 8) {  // fewer rows a pass where the carries leave no room
+    RB -= 8;
+    sm = smem_for(NB, B, RB, R, H, Z, (size_t)cache.smem_optin);
+  }
+  err = blvm::chain::prepare(cache, (const void*)vrnn_cell_kernel, sm.bytes, NB);
   if (err != cudaSuccess) return (int)err;
 
   Params p;
   const float* const* w = reinterpret_cast<const float* const*>(weights);
-  for (int i = 0; i < NWEIGHTS; ++i) p.w[i] = w[i];
+  for (int i = 0; i < blvm::vrnn::NWEIGHTS; ++i) p.w[i] = w[i];
   p.h0 = static_cast<const float*>(h0);
   p.xpost = static_cast<const float*>(xpost);
   p.xg = static_cast<const float*>(xg);
@@ -443,27 +471,29 @@ extern "C" int blvm_vrnn_cell(const void* const* weights, const void* h0, const 
   p.q_sd = o[4];
   p.p_mu = o[5];
   p.p_sd = o[6];
-  p.act = static_cast<float*>(act);
-  const int64_t save_width = (int64_t)9 * H + 2 * Z + 4 * R;
-  p.act_rs = save ? (int64_t)T * save_width : (int64_t)9 * H;
-  p.act_ts = save ? save_width : 0;
-  p.barrier = static_cast<unsigned int*>(barrier);
+  p.save = static_cast<float*>(save);
+  p.hand = static_cast<unsigned long long*>(hand);
+  p.watch = blvm::decode::Watch{static_cast<int*>(status), limit_ns};
   p.trace = static_cast<long long*>(trace);
   p.B = B;
   p.T = T;
   p.R = R;
   p.H = H;
   p.Z = Z;
+  p.RB = RB;
+  p.act_floats = sm.act_floats;
   p.inference = inference;
   p.residual = residual;
   p.use_mode = use_mode;
-  p.save = save;
   p.sd_beta = sd_beta;
   p.sd_eps = sd_eps;
-  err = cudaMemsetAsync(barrier, 0, sizeof(unsigned int), st);
+  err = cudaMemsetAsync(hand, 0, 2 * hand_words(B, R, H, Z) * sizeof(unsigned long long), st);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((const void*)vrnn_cell_kernel, dim3(NB), dim3(NT), args, smem, st);
+  err = cudaLaunchCooperativeKernel((const void*)vrnn_cell_kernel, dim3(NB), dim3(blvm::chain::NT), args, sm.bytes,
+                                    st);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemcpyAsync(host_status, status, sizeof(int), cudaMemcpyDeviceToHost, st);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

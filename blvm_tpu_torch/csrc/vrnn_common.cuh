@@ -1,7 +1,8 @@
-// What the chain kernels share: K8 (vrnn_cell.cu), K8-bwd (vrnn_cell_bwd.cu), K7 (gru.cu), K7-bwd
-// (gru_bwd.cu), K9 (srnn_chain.cu) and K9-bwd (srnn_chain_bwd.cu): the CTA's shape, a stage's weight
-// segments in shared memory, its staged input rows, its products, the grid barrier, the trace clock, the
-// backward's softplus slope and the cooperative launch's limits.
+// What the chain kernels with a grid barrier a stage share: K7 (gru.cu), K7-bwd (gru_bwd.cu), K9
+// (srnn_chain.cu), K9-bwd (srnn_chain_bwd.cu), K10 (rssm_cell.cu) and K10-bwd (rssm_cell_bwd.cu): the CTA's
+// shape, a stage's weight segments in shared memory, its staged input rows, its products, the grid barrier, the
+// trace clock, the backward's softplus slope and the cooperative launch's limits. Other kernels (K8 and K8-bwd
+// through tagged_chain.cuh, K12, P2/P3) take helpers from here.
 #pragma once
 
 #include "common.cuh"

@@ -24,6 +24,7 @@ import torch
 
 from blvm_tpu_torch.data.transforms import MuLawDecode, MuLawEncode, RandomSegment
 from blvm_tpu_torch.evaluation.tracker import Tracker
+from blvm_tpu_torch.ops import cuda
 from blvm_tpu_torch.training.eval_step import make_eval_step
 from blvm_tpu_torch.training.optim import EpochSchedule, get_lr_schedule, get_optimizer
 from blvm_tpu_torch.training.train_state import TrainState
@@ -174,6 +175,7 @@ class DeferredMetrics:
         host, ready, _ = self._pending.pop(0)
         if ready is not None and not ready.query():
             ready.synchronize()
+        cuda.raise_on_status()  # a kernel of this step or before it that gave up: the step's numbers are not valid
         self.consume({k: v.numpy() for k, v in host.items()})
 
 

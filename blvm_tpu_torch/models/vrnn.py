@@ -38,6 +38,7 @@ from blvm_tpu_torch.models.elbo import compute_sequence_elbo, masked_strided_sum
 from blvm_tpu_torch.modules.common import MLP, leaky_relu
 from blvm_tpu_torch.modules.distributions import DiagonalGaussianDense, DiscretizedLogisticMixtureDense
 from blvm_tpu_torch.modules.recurrent import GRUCell
+from blvm_tpu_torch.ops import cuda
 from blvm_tpu_torch.ops import vrnn as vrnn_ops
 from blvm_tpu_torch.ops.sequence import stack_tensor
 from blvm_tpu_torch.ops.variational import (
@@ -248,6 +249,9 @@ class VRNNAudio(BaseModel):
                 stacks.append(x)
         x_out = torch.cat(stacks, dim=1) if stacks else torch.zeros((B, 0, 1), device=device)
         x_sl = torch.full((B,), x_out.shape[1], dtype=torch.int32, device=device)
+        if x_out.is_cuda:  # one wait a generation, then any K8 launch that gave up raises
+            torch.cuda.current_stream(device).synchronize()
+            cuda.raise_on_status()
         return (x_out, x_sl), SimpleNamespace()
 
     def example_inputs(self):

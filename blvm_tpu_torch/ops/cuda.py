@@ -10,6 +10,13 @@ repository's ``.gitignore`` lists; a changed source gets a new directory.
 Every wrapper calls :func:`count_launch` right where it launches its kernel and
 nowhere else, so a run can show that its main path went through the kernels:
 ``reset_launch_counts()`` before the run, ``launch_counts()`` after it.
+
+Kernels whose waits are bounded but whose callers must not wait on the card after
+each launch (K8 and K8-bwd, launched inside train steps and once a generated stack)
+report a timeout through a :class:`StatusWord` a device: the kernel sets it, a copy
+behind each launch brings it to page-locked host memory, and :func:`raise_on_status`
+raises where the host has already waited for the card (the drivers' deferred metrics,
+the end of a generation, the next launch of such a kernel).
 """
 
 import ctypes
@@ -87,12 +94,12 @@ _SIGNATURES = {
     "blvm_ctc_loss": [_P] * 8 + [_I] * 5 + [_F, _P],
     # y, z_sl, y_sl, alpha, beta, g, d_lp; B, T, N, K, blank; stream
     "blvm_ctc_loss_bwd": [_P] * 7 + [_I] * 5 + [_P],
-    # weights[28], h0, xpost, xg, eps, outputs[7], act, barrier, trace; B, T, R, H, Z, inference, residual,
-    # use_mode, save; sd_beta, sd_eps; stream
-    "blvm_vrnn_cell": [_P] * 9 + [_I] * 9 + [_F] * 2 + [_P],
-    # weights[28], h0, eps, h, phi, save, grads[7], dpre, dh0, barrier, trace; B, T, R, H, Z, residual; sd_beta;
-    # stream
-    "blvm_vrnn_cell_bwd": [_P] * 11 + [_I] * 6 + [_F] + [_P],
+    # weights[28], h0, xpost, xg, eps, outputs[7], save, hand, status, host_status, trace; B, T, R, H, Z, inference,
+    # residual, use_mode; sd_beta, sd_eps; wait limit (ns); stream
+    "blvm_vrnn_cell": [_P] * 11 + [_I] * 8 + [_F] * 2 + [_L, _P],
+    # weights[28], h0, eps, h, phi, save, grads[7], dpre, dh0, hand, status, host_status, trace; B, T, R, H, Z,
+    # residual; sd_beta; wait limit (ns); stream
+    "blvm_vrnn_cell_bwd": [_P] * 13 + [_I] * 6 + [_F] + [_L, _P],
     # xw, w_hh, b_hh, mask, h0, out, h_n, save, state, barrier; B, T, H; stream
     "blvm_gru_recurrence": [_P] * 10 + [_I] * 3 + [_P],
     # w_hh, mask, save, d_out, d_hn, d_gi, d_gh, d_h0, barrier, trace; B, T, H; stream
@@ -132,6 +139,48 @@ def launch_counts() -> Dict[str, int]:
 
 def count_launch(name: str) -> None:
     _launches[name] += 1
+
+
+class StatusWord:
+    """The status word of the kernels that report a timeout without a wait on the host: ``device``
+    (one int32 on the card) is set by a kernel whose wait outlasted its limit and never cleared by
+    one, so every later launch gives up at once too; ``host`` (one int32, page-locked on the card's
+    machine) receives a copy of it behind each launch."""
+
+    def __init__(self, device_word: torch.Tensor, host_word: torch.Tensor):
+        self.device, self.host = device_word, host_word
+        self._view = host_word.numpy()
+
+    def raise_if_set(self) -> None:
+        """Raise if the copies that have run so far saw a timeout, after clearing both words so
+        the card is usable again. Reads host memory only: no wait on the card."""
+        code = int(self._view[0])
+        if code:
+            self.device.zero_()
+            self._view[0] = 0
+            raise RuntimeError(f"a CUDA kernel gave up: status {code} (a wait outlasted its limit); its outputs, "
+                               "and those of every launch after it, are not valid")
+
+
+_status_words: Dict[torch.device, StatusWord] = {}
+
+
+def status_word(device: torch.device) -> StatusWord:
+    """The status word of ``device``, made (zeroed) at first use."""
+    word = _status_words.get(device)
+    if word is None:
+        word = StatusWord(torch.zeros(1, dtype=torch.int32, device=device),
+                          torch.zeros(1, dtype=torch.int32, pin_memory=True))
+        _status_words[device] = word
+    return word
+
+
+def raise_on_status() -> None:
+    """Raise if a launch reporting through a :class:`StatusWord` gave up. Waits for nothing: it sees
+    the launches whose copies have run, so call it where the host has waited for the card (after a
+    synchronisation, or an event recorded behind the launches)."""
+    for word in _status_words.values():
+        word.raise_if_set()
 
 
 def _nvcc() -> str:

@@ -26,6 +26,10 @@ only) it runs :class:`VRNNCellFunction`: the forward saves what the backward nee
 (:func:`vrnn_cell_save`; K8's save mode on the card) and the backward is one
 :func:`vrnn_cell_backward` (one launch of ``csrc/vrnn_cell_bwd.cu``, K8-bwd, on the card)
 and the weight gradients as sums over the ``B T'`` rows (:func:`cell_weight_grads`).
+
+Both kernels bound every wait (:data:`WAIT_LIMIT_NS`) and report a timeout through the card's
+:class:`blvm_tpu_torch.ops.cuda.StatusWord` without a wait on the host: the next launch of either,
+the drivers' deferred metrics and the end of a generation raise on it (``cuda.raise_on_status``).
 """
 
 import ctypes
@@ -37,9 +41,13 @@ from blvm_tpu_torch.ops import cuda
 from blvm_tpu_torch.ops.likelihoods import softplus_beta
 
 N_WEIGHTS = 28
-# the traces' layouts, stages x 4 phases (inputs in, products, finish and store, barrier): K8's 9 stages
-# (csrc/vrnn_cell.cu), K8-bwd's 10 (csrc/vrnn_cell_bwd.cu: the GRU's elementwise stage, then 9 products)
-TRACE_STAGES, BWD_TRACE_STAGES, TRACE_PHASES = 9, 10, 4
+# the traces' layouts, stages x 3 phases (inputs in, waiting for them included; products; finish and publish):
+# K8's 9 stages (csrc/vrnn_cell.cu), K8-bwd's 10 (csrc/vrnn_cell_bwd.cu: the GRU's elementwise stage, then 9
+# products)
+TRACE_STAGES, BWD_TRACE_STAGES, TRACE_PHASES = 9, 10, 3
+# how long one of K8's or K8-bwd's waits for a tagged word may spin before the launch gives up (nanoseconds of
+# the card's global timer), read at each launch
+WAIT_LIMIT_NS = 1_000_000_000
 
 
 class VRNNCellOutputs(NamedTuple):
@@ -337,6 +345,7 @@ def vrnn_cell_backward(kernel_weights: Sequence[torch.Tensor], h0: torch.Tensor,
     if not h0.is_cuda:
         return vrnn_cell_backward_plain(kernel_weights, h0, eps, h, phi, saved, grads,
                                         residual_posterior=residual_posterior, sd_beta=sd_beta)
+    cuda.raise_on_status()
     _check_trace(trace, h0, bwd_trace_size())
     B, T, R = h.shape
     H, Z = phi.shape[-1], eps.shape[-1]
@@ -350,15 +359,17 @@ def vrnn_cell_backward(kernel_weights: Sequence[torch.Tensor], h0: torch.Tensor,
     dpre = torch.empty((B, T, sum(w for _, w in grad_fields(R, H, Z).values())), dtype=torch.float32,
                        device=h0.device)
     dh0 = torch.empty((B, R), dtype=torch.float32, device=h0.device)
-    barrier = torch.empty(1, dtype=torch.int32, device=h0.device)
+    hand = torch.empty(handoff_words(B, R, H, Z, backward=True), dtype=torch.int64, device=h0.device)
+    status = cuda.status_word(h0.device)
     w_ptrs = (ctypes.c_void_p * N_WEIGHTS)(*(w.data_ptr() for w in kernel_weights))
     g_ptrs = (ctypes.c_void_p * 7)(*(_ptr(g) for g in grads))
     lib = cuda.library()
     cuda.count_launch("vrnn_cell_bwd")
     err = lib.blvm_vrnn_cell_bwd(
         ctypes.addressof(w_ptrs), h0.data_ptr(), eps.data_ptr(), h.data_ptr(), phi.data_ptr(), saved.data_ptr(),
-        ctypes.addressof(g_ptrs), dpre.data_ptr(), dh0.data_ptr(), barrier.data_ptr(), _ptr(trace), B, T, R, H, Z,
-        int(residual_posterior), sd_beta, cuda.stream_handle(h0),
+        ctypes.addressof(g_ptrs), dpre.data_ptr(), dh0.data_ptr(), hand.data_ptr(), status.device.data_ptr(),
+        status.host.data_ptr(), _ptr(trace), B, T, R, H, Z, int(residual_posterior), sd_beta, WAIT_LIMIT_NS,
+        cuda.stream_handle(h0),
     )
     if err == 720:  # cudaErrorCooperativeLaunchTooLarge
         raise RuntimeError(f"K8-bwd (vrnn_cell_bwd): the weights of R={R}, H={H}, Z={Z} at B={B} do not fit the "
@@ -367,22 +378,38 @@ def vrnn_cell_backward(kernel_weights: Sequence[torch.Tensor], h0: torch.Tensor,
     return dpre, dh0
 
 
+def handoff_words(B: int, R: int, H: int, Z: int, backward: bool = False) -> int:
+    """The int64 words of the handoff scratch a launch of K8 (or K8-bwd) takes: two copies, by the
+    step's parity, of a tagged word for each value a stage hands to the next. K8's row-step: the six
+    MLP activations and phi L1-L3 (:func:`save_fields`' first 9H), phi, z and h. K8-bwd's: the gate
+    gradients d a_r, d a_u, d a_n and d a_n r (4R; :func:`grad_fields`' gi and gh, 6R, share two of
+    their three parts) and the rest of :func:`grad_fields` (phi L4-L1, the heads, the MLPs)."""
+    width = 4 * R + 10 * H + 4 * Z if backward else 10 * H + Z + R
+    return 2 * B * width
+
+
 def trace_size() -> int:
-    return TRACE_STAGES * TRACE_PHASES + 2
+    return TRACE_STAGES * TRACE_PHASES + 3
 
 
 def bwd_trace_size() -> int:
-    return BWD_TRACE_STAGES * TRACE_PHASES + 2
+    return BWD_TRACE_STAGES * TRACE_PHASES + 3
 
 
 def read_trace(trace: torch.Tensor) -> torch.Tensor:
-    """``(stages, 4)`` nanoseconds, summed over the launches that filled ``trace`` (K8's 9
-    stages or K8-bwd's 10): each stage's inputs in, products, finish and store, and barrier,
-    as the first CTA saw them (its SM cycles, converted at the rate its clock ran over the
-    whole loop)."""
+    """``(stages, 3)`` nanoseconds, summed over the launches that filled ``trace`` (K8's 9
+    stages or K8-bwd's 10): each stage's inputs in (waiting for the tagged words included),
+    products, and finish and publish, as the first CTA saw them (its SM cycles, converted at
+    the rate its clock ran over the whole loop)."""
     t = trace.detach().cpu().double()
-    cycles, total_cycles, total_ns = t[:-2], t[-2], t[-1]
+    cycles, total_cycles, total_ns = t[:-3], t[-2], t[-1]
     return (cycles * (total_ns / total_cycles)).reshape(-1, TRACE_PHASES)
+
+
+def trace_reloads(trace: torch.Tensor) -> int:
+    """The tagged words the first CTA had to load again because they were not there yet when first
+    loaded (each a wait past the first round trip), summed over the launches that filled ``trace``."""
+    return int(trace[-3].item())
 
 
 def _check_trace(trace, h0, size) -> None:
@@ -418,7 +445,9 @@ def _ptr(t: Optional[torch.Tensor]):
 def _launch(kernel_weights, xpost, xg, h0, eps, *, inference, residual_posterior, use_mode, sd_beta, sd_epsilon,
             trace, save=False):
     """One launch of K8 on the hoisted products: ``(VRNNCellOutputs, saved)``, ``saved`` the
-    ``(B, T', *)`` buffer of :func:`save_fields` with ``save``, else None."""
+    ``(B, T', *)`` buffer of :func:`save_fields` with ``save``, else None. First raises if an
+    earlier launch of K8 or K8-bwd gave up (:func:`blvm_tpu_torch.ops.cuda.raise_on_status`)."""
+    cuda.raise_on_status()
     kernel_weights = [w.contiguous() for w in kernel_weights]
     h0 = h0.contiguous()
     eps = eps.contiguous() if eps is not None and (inference or not use_mode) else None
@@ -432,20 +461,21 @@ def _launch(kernel_weights, xpost, xg, h0, eps, *, inference, residual_posterior
         return torch.empty((B, T, width), dtype=torch.float32, device=dev)
 
     outputs = [out(R), out(Z), out(H), out(Z) if inference else None, out(Z) if inference else None, out(Z), out(Z)]
-    act = (out(sum(w for _, w in save_fields(R, H, Z).values())) if save
-           else torch.empty(9 * B * H, dtype=torch.float32, device=dev))
-    barrier = torch.empty(1, dtype=torch.int32, device=dev)
+    saved = out(sum(w for _, w in save_fields(R, H, Z).values())) if save else None
+    hand = torch.empty(handoff_words(B, R, H, Z), dtype=torch.int64, device=dev)
+    status = cuda.status_word(dev)
     w_ptrs = (ctypes.c_void_p * N_WEIGHTS)(*(w.data_ptr() for w in kernel_weights))
     o_ptrs = (ctypes.c_void_p * len(outputs))(*(_ptr(o) for o in outputs))
     lib = cuda.library()
     cuda.count_launch("vrnn_cell")
     err = lib.blvm_vrnn_cell(
         ctypes.addressof(w_ptrs), h0.data_ptr(), _ptr(xpost), _ptr(xg), _ptr(eps), ctypes.addressof(o_ptrs),
-        act.data_ptr(), barrier.data_ptr(), _ptr(trace), B, T, R, H, Z, int(inference), int(residual_posterior),
-        int(use_mode), int(save), sd_beta, sd_epsilon, cuda.stream_handle(h0),
+        _ptr(saved), hand.data_ptr(), status.device.data_ptr(), status.host.data_ptr(), _ptr(trace), B, T, R, H, Z,
+        int(inference), int(residual_posterior), int(use_mode), sd_beta, sd_epsilon, WAIT_LIMIT_NS,
+        cuda.stream_handle(h0),
     )
     if err == 720:  # cudaErrorCooperativeLaunchTooLarge
         raise RuntimeError(f"K8 (vrnn_cell): the weights of R={R}, H={H}, Z={Z} at B={B} do not fit the shared "
                            "memory of a grid of one CTA an SM that is all resident")
     cuda.check(err, "vrnn_cell")
-    return VRNNCellOutputs(*outputs), act if save else None
+    return VRNNCellOutputs(*outputs), saved

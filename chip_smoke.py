@@ -77,7 +77,7 @@ PyTorch twins:
      train step, the test pass and a generation, a torch.profiler breakdown
  25. K8 vrnn_cell vs its twin in inference mode: the spec width at B=6 utterances of
      24k-72k samples (up to 1125 stacks); H=32 with a given h0. Teacher-forced (a twin
-     step from the kernel's state at every t) and free-running
+     step from the kernel's state at every t) and free-running; two launches bitwise equal
  26. K8 in prior mode (generation) vs its twin: T'=1 sampled and at the mode, T'=64;
      a VRNN forward and backward on the card launch K8 (save mode) and K8-bwd once each
  27. the VRNN test pass: flags of benchmarks.txt:17 -> driver -> model -> weights
@@ -95,7 +95,8 @@ PyTorch twins:
  30. K8-bwd vrnn_cell_bwd (through VRNNCellFunction) and autograd of the f32 twin, both
      held to autograd of the f64 twin over every gradient (xpost, xg, h0, 28 weights):
      the train shape (19 utterances, ~1000 stacks, ragged, orthogonal w_hh), H=32 with a
-     given h0, h not conditioned on x; K8-bwd alone against its f64 twin
+     given h0, h not conditioned on x; K8-bwd alone against its f64 twin, K8's save mode and
+     K8-bwd each bitwise equal across two launches
  31. the VRNN train slice: flags of benchmarks.txt:17 -> driver -> model -> weights
      bridge -> vrnn_audio.train with its annealers, 3 Adam steps on 19 utterances of
      40k-64k samples; 1 K8, 1 K8-bwd, 1 K2, 1 K2-bwd, 1 K3 a step, none on the plain
@@ -366,6 +367,46 @@ def roofline(bytes_, flops, peak):
     """``bound_ms`` and ``bound_by`` of work that must move ``bytes_`` and do ``flops``."""
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def vrnn_weights(R, H, Z):
+    """``(kernel elements, bias elements)`` of K8's 28 weights with the two hoisted kernels cut to the rows the
+    chain keeps (W_q0's h rows, W_ih's phi rows)."""
+    kernels = 2 * (R * H + 2 * H * H + 2 * H * Z) + Z * H + 3 * H * H + 3 * H * R + 3 * R * R
+    return kernels, 10 * H + 4 * Z + 6 * R
+
+
+def vrnn_work(B, T, R, H, Z, X=None, save=False):
+    """``roofline`` keywords of one K8 call over B rows of T steps: the weights read once, each row-step's inputs
+    read once and its outputs written once (h, z, phi, both heads' mu and sd), the chain's multiply-adds. With X
+    (``vrnn_cell`` as the test pass calls it) the two hoisted GEMMs too: x read, their weights and products;
+    without (the kernel on the hoisted products, ``vrnn_cell_save``) xpost and xg read. ``save``: the saved fields
+    (9H + 2Z + 4R a row-step) written."""
+    kernels, biases = vrnn_weights(R, H, Z)
+    rows = B * T
+    macs, weights, inputs = kernels, kernels + biases, Z
+    if X:
+        macs, weights, inputs = macs + X * (H + 3 * R), weights + X * (H + 3 * R), inputs + X
+    else:
+        inputs += H + 3 * R
+    outputs = R + H + 5 * Z + (9 * H + 2 * Z + 4 * R if save else 0)
+    return dict(bytes_=4 * (weights + B * R + rows * (inputs + outputs)), flops=2 * rows * macs)
+
+
+def vrnn_bwd_work(B, T, R, H, Z, weight_grads=True):
+    """``roofline`` keywords of K8-bwd over B rows of T steps: each row-step's saved fields, h, phi, e and the seven
+    output gradients read, h0 read and dh0 written, the chain's multiply-adds. With ``weight_grads`` (the cell's
+    backward: K8-bwd, the 14 weight-gradient GEMMs and the bias product) the weights read and their gradients
+    written, z read, d xpost and d xg written, and the GEMMs' multiply-adds (the pre-activation gradients stay
+    inside); alone, the kernel weights read and every pre-activation gradient (6R + 10H + 4Z) written."""
+    kernels, biases = vrnn_weights(R, H, Z)
+    rows = B * T
+    saved, dpre, grads_in = 9 * H + 2 * Z + 4 * R, 6 * R + 10 * H + 4 * Z, R + H + 5 * Z
+    if weight_grads:
+        return dict(bytes_=4 * (2 * (kernels + biases) + rows * (saved + R + H + 2 * Z + grads_in + H + 3 * R)
+                                + 2 * B * R), flops=2 * rows * 2 * kernels + rows * dpre)
+    return dict(bytes_=4 * (kernels + rows * (saved + R + H + Z + grads_in + dpre) + 2 * B * R),
+                flops=2 * rows * kernels)
 
 
 def residual_glu_work(B, T_in, C, half, S, dilation, skip_size, elem=4):
@@ -2399,17 +2440,20 @@ def vrnn_phases(record, smi, dev):
             got = vrnn_ops.vrnn_cell(w, x, h0, eps, inference=True, **kw)
             torch.cuda.synchronize()
             launches = cuda.launch_counts()["vrnn_cell"]
+            again = vrnn_ops.vrnn_cell(w, x, h0, eps, inference=True, **kw)  # a second launch: the same bits
             free = vrnn_ops.vrnn_cell_plain(w, x, h0, eps, inference=True, **kw)
             forced = teacher_forced(w, x, h0, eps, got, inference=True, **kw)
         e_free, e_forced = errors(got, free), errors(got, forced)
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
         expect(launches == 1 and all(bool(torch.isfinite(t).all()) for t in got), f"K8 {name}: launches/finite")
+        expect(bitwise, f"K8 {name}: two launches on the same inputs differ")
         expect(within(got, forced, 1e-5, 1e-5), f"K8 {name}: teacher-forced {e_forced}")
         expect(within(got, free, 1e-4, 1e-5), f"K8 {name}: free-running {e_free}")
         if name == "spec_B6_T1125":
             k8_err = max(e_free.values())
         phase("K8", mode="inference", case=name, shape=tuple(x.shape), launches=launches,
               free_max_abs_err=f"{max(e_free.values()):.3g}", teacher_forced_max_abs_err=f"{max(e_forced.values()):.3g}",
-              worst=max(e_free, key=e_free.get))
+              worst=max(e_free, key=e_free.get), relaunch_bitwise=bitwise)
     record["vrnn_cell"]["max_abs_err"] = k8_err
 
     # 26. prior mode (generation): T' = 1 a launch, with noise and at the mode, and T' = 64 steps
@@ -2543,14 +2587,8 @@ def vrnn_phases(record, smi, dev):
 
     t8 = alternate(k8_plain, k8, eps_t, warmup=1)
     H_ = args.hidden_size
-    X_ = enc.shape[-1]
-    macs = (R * H_ + 2 * H_ * H_ + H_ * 2 * Z) + ((R + X_) * H_ + 2 * H_ * H_ + H_ * 2 * Z) + (Z * H_ + 3 * H_ * H_) \
-        + (X_ + H_) * 3 * R + R * 3 * R  # a row-step, the hoisted products included
-    n_weights = sum(t.numel() for t in w)
-    rows = VRNN_B * VRNN_T
     record["vrnn_cell"].update(ms=t8["kernel"], plain_ms=t8["plain"], **roofline(
-        bytes_=4 * (n_weights + rows * (X_ + Z) + VRNN_B * R + rows * (R + H_ + 5 * Z)), flops=2 * rows * macs,
-        peak=F32_PEAK))
+        **vrnn_work(VRNN_B, VRNN_T, R, H_, Z, X=enc.shape[-1]), peak=F32_PEAK))
     x1 = enc[:GEN_B, :1]
     eps1 = [torch.randn(GEN_B, 1, Z, generator=gen, device=dev) for _ in range(20)]
 
@@ -2590,7 +2628,8 @@ def vrnn_phases(record, smi, dev):
           T1_plain_host_us=f"{split_p[0]:.2f}", T1_plain_device_us=f"{split_p[1]:.2f}")
 
     # where a step's time goes inside K8: the kernel's own trace (SM cycles of each stage's phases as its
-    # first CTA sees them, converted at the loop's clock rate), over 3 launches at the spec shape and 20 at T' = 1
+    # first CTA sees them, converted at the loop's clock rate: inputs in, the wait for the tagged words included,
+    # products, finish and publish), over 3 launches at the spec shape and 20 at T' = 1
     stage_names = ("L1+gh", "L2", "L3", "heads+z", "phi1", "phi2", "phi3", "phi4", "gru")
     for label, (x_, h_, eps_list, kw) in {
             "K8-trace": (enc, torch.zeros(VRNN_B, R, device=dev), eps_t, dict(inference=True)),
@@ -2600,10 +2639,12 @@ def vrnn_phases(record, smi, dev):
             for e_ in eps_list:
                 vrnn_ops.vrnn_cell(w, x_, h_, e_, trace=trace, **kw, **cell_kw)
         torch.cuda.synchronize()
-        per_step = vrnn_ops.read_trace(trace) / (len(eps_list) * x_.shape[1]) / 1e3  # us a step
-        phase(label, card=card, steps=len(eps_list) * x_.shape[1], us_per_step=f"{per_step.sum().item():.3f}",
+        steps = len(eps_list) * x_.shape[1]
+        per_step = vrnn_ops.read_trace(trace) / steps / 1e3  # us a step
+        phase(label, card=card, steps=steps, us_per_step=f"{per_step.sum().item():.3f}",
               inputs_us=f"{per_step[:, 0].sum().item():.3f}", products_us=f"{per_step[:, 1].sum().item():.3f}",
-              finish_us=f"{per_step[:, 2].sum().item():.3f}", barrier_us=f"{per_step[:, 3].sum().item():.3f}",
+              finish_us=f"{per_step[:, 2].sum().item():.3f}",
+              reloaded_words_per_step=f"{vrnn_ops.trace_reloads(trace) / steps:.1f}",
               by_stage={n_: f"{v_:.2f}" for n_, v_ in zip(stage_names, per_step.sum(1).tolist())})
 
     test_s = {False: [], True: []}
@@ -2769,6 +2810,12 @@ def vrnn_train_phases(record, smi, dev):
                                                       sd_epsilon=eps_sd)
                 dpre, dh0 = vrnn_ops.vrnn_cell_backward(kw, h0, eps, outs.h, outs.phi_z, saved, g_out,
                                                         residual_posterior=res_, sd_beta=beta_sd)
+                _, saved2 = vrnn_ops.vrnn_cell_save(kw, xpost, xg, h0, eps, residual_posterior=res_, sd_beta=beta_sd,
+                                                    sd_epsilon=eps_sd)
+                dpre2, dh02 = vrnn_ops.vrnn_cell_backward(kw, h0, eps, outs.h, outs.phi_z, saved2, g_out,
+                                                          residual_posterior=res_, sd_beta=beta_sd)
+                bitwise = torch.equal(saved, saved2) and torch.equal(dpre, dpre2) and torch.equal(dh0, dh02)
+                del saved2, dpre2, dh02
                 d64 = [t.double() for t in (h0, eps, outs.h, outs.phi_z, saved)]
                 dpre_r, dh0_r = vrnn_ops.vrnn_cell_backward_plain([t.double() for t in kw], *d64,
                                                                   [g.double() for g in g_out], residual_posterior=res_,
@@ -2776,8 +2823,10 @@ def vrnn_train_phases(record, smi, dev):
             kernel_err = max((dpre.double() - dpre_r).abs().max().item(), (dh0.double() - dh0_r).abs().max().item())
             scale = max(dpre_r.abs().max().item(), dh0_r.abs().max().item())
             expect(kernel_err <= 1e-4 * scale, f"K8-bwd alone vs its f64 twin: {kernel_err} (largest {scale})")
+            expect(bitwise, "K8 in save mode or K8-bwd: two launches on the same inputs differ")
             record["vrnn_cell_bwd"]["max_abs_err"] = kernel_err
             phase("K8-bwd-alone", case=name, max_abs_err_vs_f64=f"{kernel_err:.3g}", largest=f"{scale:.3g}",
+                  relaunch_bitwise=bitwise,
                   saved_MB=f"{saved.numel() * 4 / 2**20:.1f}", dpre_MB=f"{dpre.numel() * 4 / 2**20:.1f}")
             del outs, saved, dpre, dh0, d64, dpre_r, dh0_r
         del got, twin, ref
@@ -2874,18 +2923,22 @@ def vrnn_train_phases(record, smi, dev):
             vrnn_ops.vrnn_cell_save(kw, xpost, xg, zeros_h, e_, **save_kw)
 
     t_save = alternate(k8_no_save, k8_save, eps_t)
+    save_bound = roofline(**vrnn_work(VRNN_TRAIN_B, T0, R, H, Z, save=True), peak=F32_PEAK)
     phase("time-K8-save", card=card, shape=f"({VRNN_TRAIN_B},{T0})", dtype="f32", save_ms=f"{t_save['kernel']:.4f}",
           no_save_ms=f"{t_save['plain']:.4f}", us_per_step_save=f"{t_save['kernel'] * 1e3 / T0:.3f}",
-          us_per_step_no_save=f"{t_save['plain'] * 1e3 / T0:.3f}", ratio=f"{t_save['kernel'] / t_save['plain']:.4f}")
+          us_per_step_no_save=f"{t_save['plain'] * 1e3 / T0:.3f}", ratio=f"{t_save['kernel'] / t_save['plain']:.4f}",
+          save_bound_ms=f"{save_bound['bound_ms']:.4f}", save_bound_by=save_bound["bound_by"])
 
     def print_trace(label, trace, steps, stage_names):
         per_step = vrnn_ops.read_trace(trace) / steps / 1e3  # us a step
         phase(label, card=card, steps=steps, us_per_step=f"{per_step.sum().item():.3f}",
               inputs_us=f"{per_step[:, 0].sum().item():.3f}", products_us=f"{per_step[:, 1].sum().item():.3f}",
-              finish_us=f"{per_step[:, 2].sum().item():.3f}", barrier_us=f"{per_step[:, 3].sum().item():.3f}",
-              by_stage={n_: f"{v_:.2f}" for n_, v_ in zip(stage_names, per_step.sum(1).tolist())})
+              finish_us=f"{per_step[:, 2].sum().item():.3f}",
+              reloaded_words_per_step=f"{vrnn_ops.trace_reloads(trace) / steps:.1f}",
+              by_stage={n_: f"{v_:.2f}" for n_, v_ in zip(stage_names, per_step.sum(1).tolist())},
+              by_stage_inputs={n_: f"{v_:.2f}" for n_, v_ in zip(stage_names, per_step[:, 0].tolist())})
 
-    # K8's own trace at B = 19: three passes of 8 rows a stage where the test pass's B = 6 needs one
+    # K8's own trace at B = 19: all 19 rows in one pass of each stage, as the test pass's 6
     trace = torch.zeros(vrnn_ops.trace_size(), dtype=torch.int64, device=dev)
     with torch.no_grad():
         for e_ in eps_t:
@@ -2931,17 +2984,11 @@ def vrnn_train_phases(record, smi, dev):
     pair = [(graph(False, e0, g0), graph(True, e0, g0))]
     t_bwd = alternate(lambda g_: backward_only(g_[0]), lambda g_: backward_only(g_[1]), pair)
     del pair
-    rows = VRNN_TRAIN_B * T0
-    n_kernel = sum(t.numel() for t in kw[0::2])  # the kernels' elements: one multiply-add a row-step each in the
-    dw = sum(w_ for _, w_ in vrnn_ops.grad_fields(R, H, Z).values())  # chain and in the weight gradients
-    sw = sum(w_ for _, w_ in vrnn_ops.save_fields(R, H, Z).values())
-    # bytes: the kernel weights read and their gradients written; a row-step's saved values, h, phi, z, eps
-    # and the outputs' gradients (R + H + 5Z) read, d xpost (H) and d xg (3R) written; h0 and dh0
     record["vrnn_cell_bwd"].update(ms=t_bwd["kernel"], plain_ms=t_bwd["plain"], **roofline(
-        bytes_=4 * (2 * sum(t.numel() for t in kw) + rows * (sw + R + H + 2 * Z + (R + H + 5 * Z) + H + 3 * R)
-                    + 2 * VRNN_TRAIN_B * R),
-        flops=2 * rows * 2 * n_kernel + rows * dw, peak=F32_PEAK))
+        **vrnn_bwd_work(VRNN_TRAIN_B, T0, R, H, Z), peak=F32_PEAK))
+    alone_bound = roofline(**vrnn_bwd_work(VRNN_TRAIN_B, T0, R, H, Z, weight_grads=False), peak=F32_PEAK)
     phase("time-K8-bwd", card=card, shape=f"({VRNN_TRAIN_B},{T0})", dtype="f32", kernel_alone_ms=f"{kernel_only:.4f}",
+          kernel_alone_bound_ms=f"{alone_bound['bound_ms']:.4f}", kernel_alone_bound_by=alone_bound["bound_by"],
           cell_backward_ms=f"{fn_bwd:.4f}", cell_backward_in_turns_ms=f"{t_bwd['kernel']:.4f}",
           twin_autograd_ms=f"{t_bwd['plain']:.4f}", us_per_step=f"{kernel_only * 1e3 / T0:.3f}",
           bound_ms=f"{record['vrnn_cell_bwd']['bound_ms']:.4f}", bound_by=record["vrnn_cell_bwd"]["bound_by"],

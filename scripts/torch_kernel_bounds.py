@@ -4,8 +4,9 @@ of K6 and K6-bwd (the CTC probe's bi-LSTM layer) and K13 and K13-bwd (its CTC lo
 train batch, of K7, K9, K7-bwd and K9-bwd (each kernel apart from the cuBLAS weight-gradient GEMMs around it)
 at the SRNN's test pass and train step shapes, of a K4 frame at the flagship width (bf16 and f32), of K12, K1 and
 K1-bwd at STCN's width, of K10
-and K11 (apart from their GEMMs) at the CW-VAE's test pass, and of K10 in save mode, K10-bwd and
-K11-bwd at the CW-VAE's train step, which ``chip_smoke.py`` also computes from its run.
+and K11 (apart from their GEMMs) at the CW-VAE's test pass, of K10 in save mode, K10-bwd and
+K11-bwd at the CW-VAE's train step, and of K8 (the VRNN's test pass and, in save mode, its train
+step) and K8-bwd (alone and with its weight GEMMs), which ``chip_smoke.py`` also computes from its run.
 
     python scripts/torch_kernel_bounds.py
 
@@ -39,6 +40,8 @@ from chip_smoke import (  # noqa: E402
     rssm_bwd_work,
     rssm_work,
     stcn_frame_work,
+    vrnn_bwd_work,
+    vrnn_work,
     wavenet_frame_work,
     wavenet_stack_work,
 )
@@ -196,6 +199,15 @@ def main():
     bounds["K1-bwd STCN skip with GEMMs"] = dict(**residual_glu_bwd_work(5, seg - 15, 256, 256, 256, 16, 1001),
                                                  peak=F32_PEAK)
     bounds["K1-bwd STCN skip-free with GEMMs"] = dict(**residual_glu_bwd_work(5, seg, 256, 256, 0, 1, 0), peak=F32_PEAK)
+    # K8 and K8-bwd at the VRNN spec (benchmarks.txt:17, s=64, z=256: R = 512, H = Z = 256, x features 256, f32):
+    # K8 as the test pass calls it (vrnn_cell with its two hoisted GEMMs) over 6 utterances of up to 1125 stacks;
+    # K8 in save mode and K8-bwd over the train step's first batch in chip_smoke.py phases 30-32, 19 utterances of
+    # 993 stacks: the kernel on the hoisted products, K8-bwd alone and with its 14 weight-gradient GEMMs and bias
+    # product (every row-step counted: the chain runs the padded steps too)
+    bounds["K8 test pass"] = dict(**vrnn_work(6, 1125, 512, 256, 256, X=256), peak=F32_PEAK)
+    bounds["K8 save mode train step"] = dict(**vrnn_work(19, 993, 512, 256, 256, save=True), peak=F32_PEAK)
+    bounds["K8-bwd train step"] = dict(**vrnn_bwd_work(19, 993, 512, 256, 256, weight_grads=False), peak=F32_PEAK)
+    bounds["K8-bwd with GEMMs train step"] = dict(**vrnn_bwd_work(19, 993, 512, 256, 256), peak=F32_PEAK)
     # each bound beside its two terms: the bytes over the HBM rate and the operations over the peak of their type
     print(json.dumps({name: {**roofline(**b), "bytes_ms": b["bytes_"] / HBM_BYTES_PER_S * 1e3,
                              "operations_ms": b["flops"] / b["peak"] * 1e3} for name, b in bounds.items()}, indent=1))

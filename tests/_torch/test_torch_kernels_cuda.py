@@ -979,12 +979,16 @@ def test_lstm_audio_on_the_card_launches_k5(cuda_device):
 # (B, T', X, H, Z, R, inference, residual_posterior, condition_h_on_x, use_mode)
 K8_CASES = [
     (3, 20, 256, 256, 256, 512, True, True, True, False),  # the s=64 spec's width
-    (11, 9, 16, 16, 4, 32, True, False, True, False),  # more rows than a stage's pass of 8
+    (6, 24, 256, 256, 256, 512, True, True, True, False),  # the test pass's rows
+    (19, 12, 256, 256, 256, 512, True, True, True, False),  # the train step's rows: one pass of a stage
+    (11, 9, 16, 16, 4, 32, True, False, True, False),  # rows that are no multiple of a work item's 8
     (2, 16, 32, 32, 8, 64, True, True, False, False),  # GRUCell(phi) alone
     (2, 1, 256, 256, 256, 512, False, True, True, False),  # a generation step, sampled
     (2, 1, 256, 256, 256, 512, False, True, True, True),  # a generation step at the mode
     # widths that no grid divides evenly: 1-2 MLP units, 2-3 GRU units and 0-1 latent units a CTA
     (4, 12, 64, 200, 16, 300, True, True, True, False),
+    (1, 7, 64, 200, 16, 300, True, True, True, False),  # one row
+    (40, 6, 64, 200, 16, 300, True, True, True, False),  # more rows than a pass of 32: two passes a stage
 ]
 
 
@@ -1071,8 +1075,8 @@ def test_vrnn_cell_kernel_trace_accounts_for_the_loop(cuda_device):
         traced = vrnn_ops.vrnn_cell(w, x, h0, eps, trace=trace, **kwargs)
     assert all(torch.equal(a, b) for a, b in zip(plain, traced))
     cycles = trace.cpu()
-    assert (cycles >= 0).all() and 0.95 * cycles[-2] <= cycles[:-2].sum() <= cycles[-2] and cycles[-1] > 0
-    assert vrnn_ops.read_trace(trace).shape == (9, 4)
+    assert (cycles >= 0).all() and 0.95 * cycles[-2] <= cycles[:-3].sum() <= cycles[-2] and cycles[-1] > 0
+    assert vrnn_ops.read_trace(trace).shape == (9, 3)
 
 
 @pytest.mark.cuda
@@ -1093,8 +1097,8 @@ def test_vrnn_cell_kernel_refuses_what_it_does_not_take(cuda_device):
             vrnn_ops.vrnn_cell(w, x.double(), h0, eps, **kwargs)
         with pytest.raises(ValueError, match="eps"):
             vrnn_ops.vrnn_cell(w, x, h0, eps[:, :2], **kwargs)
-        # at the spec's width each CTA keeps B x 12 floats of h W_hh in shared memory beside its ~70 KB
-        # of weights and 32 KB of staged inputs: 4096 rows (192 KB more) overflow the 227 KB a CTA can have
+        # at the spec's width each CTA keeps B x 16 floats (h W_hh and its GRU units' h) in shared memory
+        # beside its ~68 KB of weights: 4096 rows (256 KB more) overflow the 227 KB a CTA can have
         w, x, h0, eps = _k8_inputs(4096, 1, 256, 256, 256, 512, True, cuda_device)
         with pytest.raises(RuntimeError, match="do not fit"):
             vrnn_ops.vrnn_cell(w, x, h0, eps, **kwargs)
@@ -1173,7 +1177,8 @@ def _fill(grads, leaves):
 
 
 # (B, T', residual_posterior, condition_h_on_x) at uneven widths (X = 64, H = 200, R = 300, Z = 16)
-K8_BWD_CASES = [(1, 24, True, True), (8, 24, True, True), (19, 24, True, True), (8, 16, False, False)]
+K8_BWD_CASES = [(1, 24, True, True), (6, 24, True, True), (8, 24, True, True), (19, 24, True, True),
+                (8, 16, False, False), (40, 8, True, True)]
 
 
 @pytest.mark.cuda
@@ -1201,6 +1206,69 @@ def test_vrnn_cell_bwd_kernel_matches_f64_twin(cuda_device, B, T, residual, cond
         scale = r.abs().max().clamp_min(1e-30)
         err_k, err_t = ((a.double() - r).abs().max() / scale).item(), ((b.double() - r).abs().max() / scale).item()
         assert torch.isfinite(a).all() and err_k <= 2 * err_t + 1e-6, (i, err_k, err_t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,X,H,Z,R", [(19, 256, 256, 256, 512), (40, 64, 200, 16, 300)])
+def test_vrnn_cell_and_its_backward_are_bitwise_equal_across_launches(cuda_device, B, X, H, Z, R):
+    """Two launches of K8 (plain and in save mode) and of K8-bwd on the same inputs give the same
+    bits: the products' k-parts and the chunks of K are summed in a fixed order."""
+    T = 10
+    w, x, h0, eps = _k8_inputs(B, T, X, H, Z, R, True, cuda_device, orthogonal=True)
+    kwargs = dict(inference=True, residual_posterior=True, condition_h_on_x=True, sd_beta=0.6931478,
+                  sd_epsilon=1e-6)
+    with torch.no_grad():
+        a, b = (vrnn_ops.vrnn_cell(w, x, h0, eps, **kwargs) for _ in range(2))
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+        xpost, xg, kw = vrnn_ops.hoist(w, x, True, True)
+        save_kw = dict(residual_posterior=True, sd_beta=0.6931478, sd_epsilon=1e-6)
+        (outs, saved), (outs2, saved2) = (vrnn_ops.vrnn_cell_save(kw, xpost, xg, h0, eps, **save_kw) for _ in range(2))
+        assert torch.equal(saved, saved2) and all(torch.equal(u, v) for u, v in zip(outs, a))
+        g = torch.Generator(device=cuda_device).manual_seed(B)
+        g_out = [torch.randn(B, T, n, generator=g, device=cuda_device) for n in (R, Z, H, Z, Z, Z, Z)]
+        (d1, h1), (d2, h2) = (vrnn_ops.vrnn_cell_backward(kw, h0, eps, outs.h, outs.phi_z, saved, g_out,
+                                                          residual_posterior=True, sd_beta=0.6931478)
+                              for _ in range(2))
+        torch.cuda.synchronize()
+    assert torch.equal(d1, d2) and torch.equal(h1, h2)
+
+
+@pytest.mark.cuda
+def test_vrnn_cell_kernels_raise_on_a_timeout_and_leave_the_card_usable(cuda_device, monkeypatch):
+    """A 1 ns wait limit: the first wait that must spin gives up, the status word is set, and
+    ``cuda.raise_on_status`` raises once the host has waited for the card (the next launch would
+    too); the words are cleared, so the next launches agree with the twins."""
+    B, T, X, H, Z, R = 19, 30, 256, 256, 256, 512
+    w, x, h0, eps = _k8_inputs(B, T, X, H, Z, R, True, cuda_device, orthogonal=True)
+    kwargs = dict(inference=True, residual_posterior=True, condition_h_on_x=True, sd_beta=0.6931478,
+                  sd_epsilon=1e-6)
+    xpost, xg, kw = vrnn_ops.hoist(w, x, True, True)
+    save_kw = dict(residual_posterior=True, sd_beta=0.6931478, sd_epsilon=1e-6)
+    g_out = [torch.randn(B, T, n, device=cuda_device) for n in (R, Z, H, Z, Z, Z, Z)]
+    with torch.no_grad():
+        outs, saved = vrnn_ops.vrnn_cell_save(kw, xpost, xg, h0, eps, **save_kw)
+        for launch in (lambda: vrnn_ops.vrnn_cell(w, x, h0, eps, **kwargs),
+                       lambda: vrnn_ops.vrnn_cell_backward(kw, h0, eps, outs.h, outs.phi_z, saved, g_out,
+                                                           residual_posterior=True, sd_beta=0.6931478)):
+            with monkeypatch.context() as patch:
+                patch.setattr(vrnn_ops, "WAIT_LIMIT_NS", 1)
+                launch()
+            torch.cuda.synchronize()
+            with pytest.raises(RuntimeError, match="gave up"):
+                cuda.raise_on_status()
+            cuda.raise_on_status()  # cleared
+        got = vrnn_ops.vrnn_cell(w, x, h0, eps, **kwargs)
+        ref = vrnn_ops.vrnn_cell_plain(w, x, h0, eps, **kwargs)
+        dpre, dh0 = vrnn_ops.vrnn_cell_backward(kw, h0, eps, outs.h, outs.phi_z, saved, g_out,
+                                                residual_posterior=True, sd_beta=0.6931478)
+        dpre_r, dh0_r = vrnn_ops.vrnn_cell_backward_plain(kw, h0, eps, outs.h, outs.phi_z, saved, g_out,
+                                                          residual_posterior=True, sd_beta=0.6931478)
+        torch.cuda.synchronize()
+    cuda.raise_on_status()
+    for name, a, b in zip(got._fields, got, ref):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5, msg=name)
+    for a, b in ((dpre, dpre_r), (dh0, dh0_r)):  # as phase 30 holds K8-bwd alone: 1e-4 of the largest value
+        assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-4
 
 
 @pytest.mark.cuda
